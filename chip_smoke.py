@@ -13,12 +13,25 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      1..2048, inactive slots), bf16 and f32; kernel / plain / SDPA times
   4. K2 chunked-prefill flash attention the same way (T 512 lanes at
      cached prefixes 0 and 1024, plus a pad lane, in one launch)
-  5. serve: AsyncTorchEngine on Llama-3-8B geometry (32 layers, bf16,
+  5. K5 MLA latent decode against its plain version (B 16, H 16, latent
+     576, d_c 512, ps 16, ragged contexts 1..2048, inactive slots, a row at
+     position -1), f32 queries over f32 and over bf16 pages; kernel / plain /
+     SDPA times and the SDPA backends that take the inputs
+  6. K6 MLA latent prefill the same way (512-row chunks at cached prefixes 0
+     and 1536)
+  7. serve: AsyncTorchEngine on Llama-3-8B geometry (32 layers, bf16,
      seeded random weights), 16 concurrent greedy requests of 64-2048
      prompt tokens and 64 output tokens; every stream must finish with
-     exactly 64 tokens and both kernels must have launched
-  6. the same geometry at 2 layers in f32: the engine's greedy tokens must
+     exactly 64 tokens and K1 and K2 must have launched
+  8. MLA serve: the same requests on DeepSeek-V2-Lite geometry (27 layers,
+     MLA + 64-expert MoE, bf16, seeded random weights); K5 and K6 must have
+     launched
+  9. the Llama geometry at 2 layers in f32: the engine's greedy tokens must
      equal a dense no-paging forward's (attention_with_positions)
+ 10. the V2-Lite geometry at 2 layers (1 dense + 1 MoE) in f32 with
+     capacity factor 11 (nothing drops): the engine's greedy tokens must
+     equal a dense non-absorbed forward's (per-head K/V materialized from
+     the latents, each expert run on the tokens that chose it)
 
 Then a {"kernels": [...]} summary line, and as the last line
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -73,14 +86,14 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def held_to_plain(what: str, dtype: str, got, ref) -> float:
-    """Raise unless ``got`` is finite and within ``TOL[dtype]`` of ``ref``
-    elementwise; returns the max abs error."""
+def held_to_plain(what: str, dtype: str, got, ref, tol: str | None = None) -> float:
+    """Raise unless ``got`` is finite and within ``TOL[tol or dtype]`` of
+    ``ref`` elementwise; returns the max abs error."""
     import torch
 
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{what} {dtype}: non-finite output")
-    atol, rtol = TOL[dtype]
+    atol, rtol = TOL[tol or dtype]
     diff = (got.float() - ref.float()).abs()
     share = (diff / (atol + rtol * ref.float().abs())).max().item()
     err = diff.max().item()
@@ -97,6 +110,28 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sdpa_backends(fn) -> list[str]:
+    """The SDPA backends that accept the call ``fn`` makes (PyTorch's
+    default call takes the first of them in its priority order)."""
+    import warnings
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    took = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                fn()
+            torch.cuda.synchronize()
+            took.append(backend.name)
+        except RuntimeError:
+            continue
+    return took
+
+
 # ---------------------------------------------------------------- K1
 
 
@@ -108,7 +143,9 @@ def check_decode(torch, dev, rng) -> dict:
     lengths = rng.integers(1, max_pages * ps + 1, B)
     lengths[:2] = (1, max_pages * ps)
     inactive = np.zeros(B, bool)
-    inactive[rng.choice(np.arange(2, B), 6, replace=False)] = True
+    picked = rng.choice(np.arange(2, B), 7, replace=False)
+    inactive[picked[:6]] = True
+    negative = int(picked[6])  # a row at position -1: attends index 0 only
     pages_needed = [-(-int(n) // ps) for n in lengths]
     P = 1 + sum(pages_needed)
     perm = 1 + rng.permutation(P - 1)
@@ -120,7 +157,9 @@ def check_decode(torch, dev, rng) -> dict:
     pos = (lengths - 1).astype(np.int32)
     pt[inactive] = 0  # inactive slots: trash-page tables, position 0
     pos[inactive] = 0
+    pos[negative] = -1
     live_len = np.where(inactive, 1, lengths)
+    live_len[negative] = 1
     pt_t = torch.from_numpy(pt).to(dev)
     pos_t = torch.from_numpy(pos).to(dev)
     k32 = torch.randn((P, ps, Hkv, D), device=dev)
@@ -138,7 +177,7 @@ def check_decode(torch, dev, rng) -> dict:
         S = max_pages * ps
         kc = plain.gather_pages(k, pt_t).permute(0, 2, 1, 3).contiguous()  # [B, Hkv, S, D]
         vc = plain.gather_pages(v, pt_t).permute(0, 2, 1, 3).contiguous()
-        mask = (torch.arange(S, device=dev)[None, :] <= pos_t[:, None].long())[:, None, None, :]
+        mask = (torch.arange(S, device=dev)[None, :] <= pos_t[:, None].long().clamp(min=0))[:, None, None, :]
         qs = q[:, :, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_ms = cuda_ms(lambda: sdpa(qs, kc, vc, attn_mask=mask, enable_gqa=True), 20)
@@ -207,6 +246,127 @@ def check_prefill(torch, dev, rng) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- K5 / K6
+
+# DeepSeek-V2-Lite's attention geometry: 16 heads, latent rows of d_c 512 +
+# d_r 64. K5/K6 take f32 queries and return f32 in both page dtypes; both
+# sides read the same page values, so both mixes are held to TOL["f32"]. The
+# bound counts f32 FMA work at the f32 peak (the queries are f32).
+MLA_H, MLA_LATENT, MLA_DC = 16, 576, 512
+MLA_MIXES = (("f32", "float32"), ("bf16", "bfloat16"))
+
+
+def mla_tables(rng, lengths, ps, max_pages):
+    """Distinct pages per sequence (page 0 stays the trash page)."""
+    need = [-(-int(n) // ps) for n in lengths]
+    P = 1 + sum(need)
+    perm = 1 + rng.permutation(P - 1)
+    pt = np.zeros((len(lengths), max_pages), np.int32)
+    off = 0
+    for b, n in enumerate(need):
+        pt[b, :n] = perm[off : off + n]
+        off += n
+    return pt, P
+
+
+def check_mla_decode(torch, dev, rng) -> dict:
+    from dynamo_tpu_torch.ops import attention as plain
+    from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_decode_attention_kernel as k5
+
+    B, H, L, dc, ps, max_pages = 16, MLA_H, MLA_LATENT, MLA_DC, 16, 128
+    lengths = rng.integers(1, max_pages * ps + 1, B)
+    lengths[:2] = (1, max_pages * ps)
+    pt, P = mla_tables(rng, lengths, ps, max_pages)
+    pos = (lengths - 1).astype(np.int32)
+    picked = rng.choice(np.arange(2, B), 4, replace=False)
+    pt[picked[:3]] = 0  # inactive slots: trash-page tables, position 0
+    pos[picked[:3]] = 0
+    pos[picked[3]] = -1  # attends row 0 only
+    live = np.where(pos <= 0, 1, lengths)
+    pt_t = torch.from_numpy(pt).to(dev)
+    pos_t = torch.from_numpy(pos).to(dev)
+    q = torch.randn((B, H, L), device=dev) / L**0.5
+    pages32 = torch.randn((P, ps, L), device=dev)
+    res = {}
+    for name, dt in MLA_MIXES:
+        pages = pages32.to(getattr(torch, dt))
+        got = k5(q, pages, pt_t, pos_t, dc)
+        ref = plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc)
+        err = held_to_plain("K5 MLA decode", f"f32 q / {name} pages", got, ref, tol="f32")
+        ms = cuda_ms(lambda: k5(q, pages, pt_t, pos_t, dc), 50)
+        plain_ms = cuda_ms(lambda: plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc), 5)
+        # yardstick only: one SDPA call on the gathered latent context (keys
+        # the 576-wide rows, values their first 512 columns, one kv head)
+        S = max_pages * ps
+        ctx = plain.gather_pages(pages, pt_t)[:, None]  # [B, 1, S, L]
+        vc = ctx[..., :dc].contiguous()
+        qs = q.to(pages.dtype)[:, :, None, :]
+        mask = (torch.arange(S, device=dev)[None, :] <= pos_t[:, None].long().clamp(min=0))[:, None, None, :]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, ctx, vc, attn_mask=mask, scale=1.0, enable_gqa=True)
+
+        backends = sdpa_backends(sdpa)
+        lib_ms = cuda_ms(sdpa, 10)
+        nbytes = int(live.sum()) * L * pages.element_size() + q.numel() * 4 + B * H * dc * 4 + pt.nbytes + pos.nbytes
+        flops = 2 * H * (L + dc) * int(live.sum())
+        b_ms, b_by = bound(nbytes, flops, "f32")
+        log(f"K5 MLA decode f32 q / {name} pages: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms (backends taking it: {backends}), bound {b_ms:.4f} ms ({b_by}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    return res
+
+
+def check_mla_prefill(torch, dev, rng) -> dict:
+    from dynamo_tpu_torch.ops import attention as plain
+    from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_prefill_attention_kernel as k6
+
+    T, H, L, dc, ps, max_pages = 512, MLA_H, MLA_LATENT, MLA_DC, 16, 128
+    starts = (0, 1536)  # one sequence's chunks: from 0, and after a 1536-row prefix
+    pt_np, P = mla_tables(rng, [max_pages * ps], ps, max_pages)
+    pt = torch.from_numpy(pt_np[0]).to(dev)
+    pos = [torch.arange(s, s + T, dtype=torch.int32, device=dev) for s in starts]
+    qs = [torch.randn((T, H, L), device=dev) / L**0.5 for _ in starts]
+    pages32 = torch.randn((P, ps, L), device=dev)
+    res = {}
+    for name, dt in MLA_MIXES:
+        pages = pages32.to(getattr(torch, dt))
+        errs = []
+        for c, s in enumerate(starts):
+            got = k6(qs[c], pages, pt, pos[c], dc)
+            ref = plain.paged_mla_prefill_attention(qs[c], pages, pt, pos[c], dc)
+            errs.append(held_to_plain(f"K6 MLA prefill (prefix {s})", f"f32 q / {name} pages", got, ref, tol="f32"))
+        ms = cuda_ms(lambda: [k6(qs[c], pages, pt, pos[c], dc) for c in range(2)], 20)
+        plain_ms = cuda_ms(lambda: [plain.paged_mla_prefill_attention(qs[c], pages, pt, pos[c], dc)
+                                    for c in range(2)], 3)
+        S = max_pages * ps
+        ctx = plain.gather_pages(pages, pt)[None, None]  # [1, 1, S, L]
+        vc = ctx[..., :dc].contiguous()
+        q4 = [q.to(pages.dtype).permute(1, 0, 2)[None] for q in qs]  # [1, H, T, L]
+        masks = [(torch.arange(S, device=dev)[None, :] <= p[:, None].long())[None, None] for p in pos]
+
+        def sdpa():
+            return [torch.nn.functional.scaled_dot_product_attention(
+                q4[c], ctx, vc, attn_mask=masks[c], scale=1.0, enable_gqa=True) for c in range(2)]
+
+        backends = sdpa_backends(sdpa)
+        lib_ms = cuda_ms(sdpa, 5)
+        rows = sum(s + T for s in starts)  # context rows each chunk reads
+        pairs = sum(int((p.long() + 1).sum()) for p in pos)
+        nbytes = rows * L * pages.element_size() + 2 * T * H * (L + dc) * 4 + 2 * (pt_np[0].nbytes + T * 4)
+        flops = 2 * H * (L + dc) * pairs
+        b_ms, b_by = bound(nbytes, flops, "f32")
+        log(f"K6 MLA prefill f32 q / {name} pages (both chunks): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (backends taking it: {backends}), bound "
+            f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP)")
+        res[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    return res
+
+
 # ---------------------------------------------------------------- engine
 
 
@@ -238,34 +398,33 @@ async def serve(config, requests, model=None):
     return results, wall, engine
 
 
-def phase_serve(torch, gpu_name: str) -> dict:
-    from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_kernel as k1
-    from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_kernel as k2
+def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict) -> dict:
+    """Serve ``requests`` on ``config``; every stream must end with exactly
+    MAX_TOKENS tokens and each of ``kernels`` ({name: launcher}) must have
+    launched. Returns {name: launches in this run}."""
     from dynamo_tpu_torch.tools.workload import MAX_TOKENS as max_tokens
-    from dynamo_tpu_torch.tools.workload import serve_config, serve_requests
 
-    config = serve_config()
-    requests = serve_requests()
     lens = np.array([len(r.token_ids) for r in requests])
-    k1.launches = 0
-    k2.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     results, wall, _ = asyncio.run(serve(config, requests))
-    launches = {"k1": k1.launches, "k2": k2.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     for rid, (toks, reason, _) in results.items():
         if len(toks) != max_tokens or reason != "length":
-            raise AssertionError(f"{rid}: {len(toks)} tokens, finish {reason!r} (want {max_tokens}, 'length')")
-    if launches["k1"] <= 0 or launches["k2"] <= 0:
-        raise AssertionError(f"main path skipped a kernel: launches {launches}")
+            raise AssertionError(f"{what} {rid}: {len(toks)} tokens, finish {reason!r} (want {max_tokens}, 'length')")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{what}: main path skipped a kernel: launches {launches}")
     n_out = sum(len(t) for t, _, _ in results.values())
     ttfts = sorted(t for _, _, t in results.values())
-    log(f"serve: {len(results)}/{len(requests)} streams finished with {max_tokens} tokens; prompts {int(lens.min())}-"
-        f"{int(lens.max())} (sum {int(lens.sum())}); launches K1 {launches['k1']} K2 {launches['k2']}")
-    log(f"serve [{gpu_name}]: {n_out / wall:.1f} output tok/s, "
+    log(f"{what}: {len(results)}/{len(requests)} streams finished with {max_tokens} tokens; prompts "
+        f"{int(lens.min())}-{int(lens.max())} (sum {int(lens.sum())}); launches "
+        + " ".join(f"{k} {v}" for k, v in launches.items()))
+    log(f"{what} [{gpu_name}]: {n_out / wall:.1f} output tok/s, "
         f"{(n_out + int(lens.sum())) / wall:.1f} total tok/s, wall {wall:.2f} s, "
         f"TTFT p50 {np.median(ttfts) * 1e3:.1f} ms, max {ttfts[-1] * 1e3:.1f} ms")
     # after the last first token only decode windows run: the decode rate
     n_after = n_out - len(results)
-    log(f"serve decode phase [{gpu_name}]: {n_after / (wall - ttfts[-1]):.1f} tok/s over "
+    log(f"{what} decode phase [{gpu_name}]: {n_after / (wall - ttfts[-1]):.1f} tok/s over "
         f"{wall - ttfts[-1]:.3f} s ({n_after} tokens, batch {len(results)})")
     torch.cuda.empty_cache()
     return launches
@@ -331,6 +490,99 @@ def phase_engine_vs_naive(torch, rng) -> None:
     torch.cuda.empty_cache()
 
 
+def mla_naive_logits(torch, model, toks: list[int]):
+    """Last-row logits of a dense NON-absorbed MLA forward on the model's own
+    weights (tests/test_deepseek_mla.py's naive_forward in torch): per-head
+    K = [W_kb c ; k_rope] and V = W_vb c materialized from the latents,
+    standard causal attention, and each routed expert run on the tokens
+    whose top-k chose it (no capacity, no dispatch slots)."""
+    from dynamo_tpu_torch.ops.norms import rms_norm
+    from dynamo_tpu_torch.ops.rotary import apply_rope
+
+    c = model.config
+    T, H = len(toks), c.num_heads
+    dn, dr, dc = c.qk_nope_head_dim, c.qk_rope_head_dim, c.kv_lora_rank
+    dev = model.device
+    pos = torch.arange(T, device=dev, dtype=torch.int32)
+    silu = torch.nn.functional.silu
+    h = model.embed[torch.tensor(toks, device=dev)]
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
+    for lp in model.layers():
+        x = rms_norm(h, lp.input_norm, c.rms_norm_eps)
+        if c.q_lora_rank:
+            x_q = rms_norm(x @ lp.w_dq, lp.q_norm, c.rms_norm_eps) @ lp.w_uq
+        else:
+            x_q = x @ lp.w_q
+        q = x_q.reshape(T, H, dn + dr)
+        q = torch.cat([q[..., :dn], apply_rope(q[..., dn:], pos, c.rope_theta)], dim=-1)
+        ckv = x @ lp.w_dkv
+        latent = rms_norm(ckv[:, :dc], lp.kv_norm, c.rms_norm_eps)
+        k_rope = apply_rope(ckv[:, None, dc:], pos, c.rope_theta)
+        k = torch.cat([torch.einsum("sc,chn->shn", latent, lp.w_kb), k_rope.expand(T, H, dr)], dim=-1)
+        v = torch.einsum("sc,chv->shv", latent, lp.w_vb)
+        s = torch.einsum("thd,shd->hts", q.float(), k.float()) / (dn + dr) ** 0.5
+        s = torch.where(causal[None], s, -1e30)
+        a = torch.einsum("hts,shv->thv", torch.softmax(s, -1), v.float()).to(c.dtype)
+        h = h + a.reshape(T, -1) @ lp.wo
+        x = rms_norm(h, lp.post_norm, c.rms_norm_eps)
+        if lp.moe:
+            probs = torch.softmax(x.float() @ lp.router.float(), dim=-1)
+            top_w, top_i = torch.topk(probs, c.num_experts_per_tok, dim=-1)
+            if c.norm_topk_prob:
+                top_w = top_w / top_w.sum(-1, keepdim=True)
+            routed = torch.zeros_like(h, dtype=torch.float32)
+            for e in range(c.n_routed_experts):
+                chose = top_i == e  # [T, K]
+                rows = chose.any(-1).nonzero()[:, 0]
+                if rows.numel():
+                    xe = x[rows]
+                    y = (silu(xe @ lp.w_gate[e]) * (xe @ lp.w_up[e])) @ lp.w_down[e]
+                    routed[rows] += (top_w * chose).sum(-1)[rows, None] * y.float()
+            shared = (silu(x @ lp.shared_gate) * (x @ lp.shared_up)) @ lp.shared_down
+            h = h + shared + c.routed_scaling_factor * routed.to(c.dtype)
+        else:
+            h = h + (silu(x @ lp.gate) * (x @ lp.up)) @ lp.down
+    return model._unembed(h[-1:])[0]
+
+
+def phase_mla_vs_naive(torch, rng) -> None:
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest
+    from dynamo_tpu_torch.models.registry import load_model
+    from dynamo_tpu_torch.tools.workload import DEEPSEEK_V2_LITE
+
+    steps = 16
+    # capacity factor 11 >= E/K = 64/6: every expert holds every token, so
+    # nothing drops whatever the batch, and the capacity dispatch equals the
+    # plain top-k mixture
+    cfg = dict(DEEPSEEK_V2_LITE, num_layers=2, dtype="f32", moe_capacity_factor=11.0)
+    config = EngineConfig(
+        model_id="tiny-mla:" + json.dumps(cfg), device="cuda",
+        page_size=16, num_pages=256, max_seqs=4, max_model_len=1024, decode_steps=4,
+    )
+    model = load_model(config.model_id, device="cuda")
+    prompts = [rng.integers(0, cfg["vocab_size"], n).tolist() for n in (100, 37, 600)]
+    requests = [
+        EngineRequest(f"mla-naive-{i}", p, SamplingParams(temperature=0.0, max_tokens=steps))
+        for i, p in enumerate(prompts)
+    ]
+    results, _, _ = asyncio.run(serve(config, requests, model=model))
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            got = results[f"mla-naive-{i}"][0]
+            want, toks = [], list(p)
+            for _ in range(steps):
+                want.append(int(mla_naive_logits(torch, model, toks).argmax()))
+                toks.append(want[-1])
+            if got != want:
+                raise AssertionError(f"MLA request {i}: engine {got} != naive {want}")
+    log(f"MLA engine vs naive non-absorbed forward (2 layers, f32, capacity factor 11): "
+        f"{len(prompts)} requests x {steps} greedy tokens identical")
+    del model
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -359,30 +611,40 @@ def main() -> int:
 
     from dynamo_tpu_torch.ops.kernels import _build
 
+    from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_decode_attention_kernel as k5
+    from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_prefill_attention_kernel as k6
+    from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_kernel as k1
+    from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_kernel as k2
+    from dynamo_tpu_torch.tools.workload import DEEPSEEK_V2_LITE, mla_serve_config, serve_config, serve_requests
+
     t0 = time.monotonic()
-    _build.build(["paged_attention", "prefill_attention"])
-    log(f"build: both kernels in {time.monotonic() - t0:.1f} s")
+    _build.build(["paged_attention", "prefill_attention", "mla_attention"])
+    log(f"build: three kernel sources in {time.monotonic() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
-    k1 = check_decode(torch, dev, rng)
-    k2 = check_prefill(torch, dev, rng)
-    launches = phase_serve(torch, smi)
+    r1 = check_decode(torch, dev, rng)
+    r2 = check_prefill(torch, dev, rng)
+    r5 = check_mla_decode(torch, dev, rng)
+    r6 = check_mla_prefill(torch, dev, rng)
+    launches = phase_serve(torch, smi, "serve", serve_config(), serve_requests(), {"K1": k1, "K2": k2})
+    launches |= phase_serve(
+        torch, smi, "MLA serve", mla_serve_config(),
+        serve_requests(DEEPSEEK_V2_LITE["vocab_size"]), {"K5": k5, "K6": k6},
+    )
     phase_engine_vs_naive(torch, rng)
+    phase_mla_vs_naive(torch, rng)
 
+    csrc = "dynamo_tpu_torch/ops/kernels/csrc/"
     kernels = [
-        dict(
-            name="paged_decode_attention", route="cuda",
-            source="dynamo_tpu_torch/ops/kernels/csrc/paged_attention.cu",
-            replaces="dynamo_tpu/ops/pallas/paged_attention.py:536",
-            launches=launches["k1"], **k1["bf16"],
-        ),
-        dict(
-            name="paged_prefill_attention", route="cuda",
-            source="dynamo_tpu_torch/ops/kernels/csrc/prefill_attention.cu",
-            replaces="dynamo_tpu/ops/pallas/prefill_attention.py:686",
-            launches=launches["k2"], **k2["bf16"],
-        ),
+        dict(name="paged_decode_attention", route="cuda", source=csrc + "paged_attention.cu",
+             replaces="dynamo_tpu/ops/pallas/paged_attention.py:536", launches=launches["K1"], **r1["bf16"]),
+        dict(name="paged_prefill_attention", route="cuda", source=csrc + "prefill_attention.cu",
+             replaces="dynamo_tpu/ops/pallas/prefill_attention.py:686", launches=launches["K2"], **r2["bf16"]),
+        dict(name="paged_mla_decode_attention", route="cuda", source=csrc + "mla_attention.cu",
+             replaces="dynamo_tpu/ops/pallas/mla_attention.py:221", launches=launches["K5"], **r5["bf16"]),
+        dict(name="paged_mla_prefill_attention", route="cuda", source=csrc + "mla_attention.cu",
+             replaces="dynamo_tpu/ops/pallas/mla_attention.py:396", launches=launches["K6"], **r6["bf16"]),
     ]
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -45,9 +45,10 @@ def resolve_device(name: str) -> torch.device:
 class AsyncTorchEngine:
     """Tokens-in/tokens-out streaming engine (the ExecutionContext contract).
 
-    ``model`` optionally supplies an already built ``LlamaModel`` on the
-    engine's device (tests load converted reference weights this way);
-    otherwise ``config.model_id`` is built by the registry."""
+    ``model`` optionally supplies an already built model (``LlamaModel`` or
+    ``DeepseekModel``) on the engine's device (tests load converted
+    reference weights this way); otherwise ``config.model_id`` is built by
+    the registry."""
 
     def __init__(self, config: EngineConfig, model=None):
         self.config = config

@@ -15,9 +15,14 @@ steps (port of ``dynamo_tpu/engine/model_runner.py``).
     (:class:`HostResult`), which the scheduler polls instead of blocking
   - nothing inside a window reads the device from the host
 
+Models with ``prefill_packed`` (Llama) take the packed path when
+``prefill_lanes > 1``; the others (DeepSeek), and every model at
+``prefill_lanes == 1``, take the reference's per-request path
+(``prefill_chunk``: one sequence's chunk per call).
+
 PyTorch runs eagerly: the reference's jitted step functions are plain
-methods here. CUDA graphs, the per-request prefill path (``prefill_chunk``),
-penalties, logprobs, LoRA, spec and the KV page export/import wait.
+methods here. CUDA graphs, penalties, logprobs, LoRA, spec, sp and the KV
+page export/import wait.
 """
 
 from __future__ import annotations
@@ -92,11 +97,13 @@ class ModelRunner:
 
     # ---------------- step bodies (device work only) ----------------
 
-    def _prefill_packed_impl(self, ints, flts, bucket: int, mp: int, noise, need_filter: bool):
+    def _prefill_impl(self, ints, flts, bucket: int, mp: int, noise, need_filter: bool):
         """ints [N, bucket + mp + 4] = token buf, page table, (start_pos,
         n_real, top_k, slot); flts [3, N] = (temperature, top_p, min_p).
         Every lane's last-row logits are sampled; the token lands in
-        ``slot_state["tokens"][slot]`` (slot max_seqs = dropped)."""
+        ``slot_state["tokens"][slot]`` (slot max_seqs = dropped). On the
+        packed path the lanes take ``model.prefill_packed``; off it N is 1
+        and the lane takes ``model.prefill``."""
         tokens = ints[:, :bucket]
         page_tables = ints[:, bucket : bucket + mp]
         start_pos = ints[:, bucket + mp]
@@ -106,9 +113,16 @@ class ModelRunner:
         ar = torch.arange(bucket, dtype=torch.int32, device=ints.device)
         positions = (start_pos[:, None] + ar[None, :]).contiguous()
         valid = ar[None, :] < n[:, None]
-        logits, _ = self.model.prefill_packed(
-            self.kv_cache, tokens, positions, page_tables.contiguous(), valid, (n - 1).clamp(min=0)
-        )
+        last = (n - 1).clamp(min=0)
+        if self.packed_prefill_mode:
+            logits, _ = self.model.prefill_packed(
+                self.kv_cache, tokens, positions, page_tables.contiguous(), valid, last
+            )
+        else:
+            logits, _ = self.model.prefill(
+                self.kv_cache, tokens[0], positions[0], page_tables[0].contiguous(), valid[0], last[0]
+            )
+            logits = logits[None]
         toks = sample_tokens(
             logits, flts[0], top_ks, flts[1], min_p=flts[2],
             uniform=None if noise is None else noise[0], need_filter=need_filter,
@@ -153,10 +167,10 @@ class ModelRunner:
 
     @property
     def packed_prefill_mode(self) -> bool:
-        """Always True: the port schedules every prefill chunk through the
-        packed path (a lone chunk rides it at N=1); the reference's
-        per-request path is not ported."""
-        return True
+        """True when the scheduler packs prefill chunks of several sequences
+        into one call (the reference's gate, without its pp/sp terms, which
+        the port does not run)."""
+        return self.config.prefill_lanes > 1 and hasattr(self.model, "prefill_packed")
 
     def pack_prefill_lanes(self, lanes: list, N: int):
         """Build the packed int/float control arrays on the host.
@@ -202,10 +216,26 @@ class ModelRunner:
         noise = (
             self._noise(N, seeds if seeds.any() else None, sample_pos, 1) if sampled else None
         )
-        toks = self._prefill_packed_impl(
+        toks = self._prefill_impl(
             self._to_device(ints), self._to_device(flts), bucket, mp, noise, need_filter
         )
         return HostResult(toks)
+
+    def prefill_chunk(
+        self,
+        tokens: np.ndarray,  # [n] real tokens for this chunk
+        start_pos: int,
+        page_table: np.ndarray,  # [ladder width]
+        sample: bool,  # the sequence's final chunk: sample its first token
+        sampling,  # SamplingParams
+        slot: int = -1,  # decode slot to seed with the sampled token (device side)
+    ) -> HostResult:
+        """The per-request path: dispatch ONE prefill chunk of one sequence
+        (``model.prefill``). On the final chunk the sampled token also lands
+        in ``slot_state["tokens"][slot]`` on the device. Returns the [1]
+        sampled token on its way to the host (read it only when
+        ``sample``)."""
+        return self.prefill_chunk_batch([(tokens, start_pos, page_table, slot, sampling, sample)], N=1)
 
     @torch.no_grad()
     def dispatch_decode_window(

@@ -4,8 +4,10 @@ dispatch-ahead decode windows (port of ``dynamo_tpu/engine/scheduler.py``).
   - admit waiting requests whenever a decode slot and enough pages exist
     (the watermark keeps headroom for decode growth)
   - prefill chunks of distinct sequences pack into shared prefill calls
-    (one weight pass each), dispatched ahead up to
-    ``prefill_pipeline_depth``
+    (one weight pass each) when ``runner.packed_prefill_mode``; otherwise
+    each call carries one sequence's chunk (the reference's per-request
+    ``run_prefill_chunks`` through ``runner.prefill_chunk``). Either way
+    calls dispatch ahead up to ``prefill_pipeline_depth``
   - decode runs as fused K-step windows dispatched ahead of result
     materialization (``pipeline_depth`` windows in flight): the sampled-token
     feedback lives on the device, so the host never waits between windows.
@@ -261,12 +263,13 @@ class Scheduler:
         )
         self._admit_counter += 1
 
-    # ---------------- packed prefill ----------------
+    # ---------------- prefill (packed or per request) ----------------
 
     def _dispatch_prefill_batches(self, outputs: list[StepOutput]) -> int:
         """Pack pending prefill chunks of distinct sequences into shared
-        prefill calls (one weight pass per call). Each sequence contributes
-        at most one chunk per call (chunk i+1 reads the pages chunk i wrote).
+        prefill calls (one weight pass per call), or, off the packed path,
+        one sequence's chunk per call. Each sequence contributes at most one
+        chunk per call (chunk i+1 reads the pages chunk i wrote).
 
         At most ``prefill_batches_per_step`` calls per invocation while
         decode work is running, and at most ``prefill_pipeline_depth``
@@ -277,6 +280,7 @@ class Scheduler:
         decode_running = any(
             s is not None and not s.finished and s.prefill_pos is None for s in self.slots
         )
+        packed = self.runner.packed_prefill_mode
         while True:
             if cap and decode_running and count >= cap:
                 return count
@@ -301,7 +305,7 @@ class Scheduler:
             for s in pending:
                 end = min(s.prefill_pos + limit, s.prompt_len)
                 cand = self.config.bucket_for(max(bucket, end - s.prefill_pos))
-                if chunks and len(chunks) + 1 > self.config.lanes_for(cand):
+                if chunks and (not packed or len(chunks) + 1 > self.config.lanes_for(cand)):
                     break
                 chunks.append((s, s.prefill_pos, end))
                 bucket = cand
@@ -318,13 +322,19 @@ class Scheduler:
                 ))
                 if is_final:
                     finals.append((seq, j, seq.cached_len))
-            # N rounds up to a power of two (at most log2(lanes) shapes per bucket)
-            N = min(self.config.lanes_for(bucket), 1 << (len(chunks) - 1).bit_length())
             try:
-                result = self.runner.prefill_chunk_batch(lanes, N=N)
+                if packed:
+                    # N rounds up to a power of two (at most log2(lanes) shapes per bucket)
+                    N = min(self.config.lanes_for(bucket), 1 << (len(chunks) - 1).bit_length())
+                    result = self.runner.prefill_chunk_batch(lanes, N=N)
+                else:
+                    tokens, start, table, slot, sampling, is_final = lanes[0]
+                    result = self.runner.prefill_chunk(
+                        tokens, start, table, sample=is_final, sampling=sampling, slot=slot
+                    )
             except Exception:
                 log.exception(
-                    "packed prefill failed for %s", [seq.req.request_id for seq, _, _ in chunks]
+                    "prefill failed for %s", [seq.req.request_id for seq, _, _ in chunks]
                 )
                 for seq, _, _ in chunks:
                     outputs.extend(self._finish(seq, "error"))

@@ -10,6 +10,13 @@ module needs no JAX.
   - :func:`kv_from_jax`: a reference pool ``[L*P, ps, Hkv*D]`` (folded, the
     JAX layout when head_dim % 128 != 0; row-major fold) or ``[L*P, ps, Hkv,
     D]`` -> the port's unfolded ``[L*P, ps, Hkv, D]``.
+  - :func:`deepseek_params_from_jax`: the reference DeepSeek tree ``{"embed",
+    "dense_layers": {name: [Ld, ...]}, "moe_layers": {name: [Lm, ...]},
+    "final_norm", "lm_head"}`` -> a state dict for :class:`DeepseekModel`
+    (either query path: ``w_q``, or ``w_dq``/``q_norm``/``w_uq``).
+  - :func:`ckv_from_jax`: the reference latent pool ``[L*P, ps,
+    latent_dim_padded]`` -> the port's ``[L*P, ps, latent_dim]`` (the TPU
+    lane pad columns dropped).
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.models.deepseek import DeepseekConfig, DeepseekModel
 from dynamo_tpu_torch.models.llama import LlamaConfig
 
 _LAYER_LEAVES = ("input_norm", "wq", "wk", "wv", "wo", "post_norm", "gate", "up", "down")
@@ -53,3 +61,41 @@ def kv_from_jax(np_pool, config: LlamaConfig) -> torch.Tensor:
     elif pool.ndim != 4 or pool.shape[2:] != (Hkv, D):
         raise ValueError(f"unexpected pool shape {pool.shape}")
     return torch.from_numpy(np.ascontiguousarray(pool)).to(config.dtype)
+
+
+def deepseek_params_from_jax(np_tree: dict, config: DeepseekConfig) -> dict[str, torch.Tensor]:
+    """JAX DeepSeek params (numpy leaves) -> ``DeepseekModel.load_state_dict``
+    input. Raises ValueError when a group's leaves, layer counts or shapes do
+    not match ``config``."""
+    # the port's own parameter names, shapes and dtypes, without allocating
+    want = DeepseekModel(config, device="meta").state_dict()
+    sd = {name: np.asarray(np_tree[name]) for name in ("embed", "final_norm", "lm_head")}
+    Ld = config.first_k_dense_replace
+    for group, n_layers in (("dense_layers", Ld), ("moe_layers", config.num_layers - Ld)):
+        leaves = np_tree.get(group, {}) if n_layers else {}
+        names = {k.split(".", 2)[2] for k in want if k.startswith(group + ".")}
+        if set(leaves) != names:
+            raise ValueError(f"{group} has leaves {sorted(leaves)}, config wants {sorted(names)}")
+        for name in names:
+            stacked = np.asarray(leaves[name])
+            if stacked.shape[0] != n_layers:
+                raise ValueError(f"{group}.{name} has {stacked.shape[0]} layers, config {n_layers}")
+            for i in range(n_layers):
+                sd[f"{group}.{i}.{name}"] = stacked[i]
+    out = {}
+    for key, ref in want.items():
+        arr = sd[key]
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{key} has shape {tuple(arr.shape)}, config wants {tuple(ref.shape)}")
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(ref.dtype)
+    return out
+
+
+def ckv_from_jax(np_pool, config: DeepseekConfig) -> torch.Tensor:
+    """The reference latent pool ``kv["ckv"]`` -> the port's unpadded pool."""
+    pool = np.asarray(np_pool, dtype=np.float32)
+    latent = config.latent_dim
+    padded = -(-latent // 128) * 128  # the reference's latent_dim_padded
+    if pool.ndim != 3 or pool.shape[2] not in (latent, padded):
+        raise ValueError(f"latent pool {pool.shape}: want [L*P, ps, {latent} or {padded}]")
+    return torch.from_numpy(np.ascontiguousarray(pool[:, :, :latent])).to(config.dtype)

@@ -216,13 +216,13 @@ class LlamaModel(nn.Module):
         positions: torch.Tensor,  # [T] int32 absolute positions
         page_table: torch.Tensor,  # [max_pages] int32 logical (per-layer) page ids
         valid: torch.Tensor,  # [T] bool
-        last_idx: int,  # index of the final real token in chunk
+        last_idx,  # index of the final real token in chunk (int or 0-d tensor)
     ) -> tuple[torch.Tensor, dict]:
         """One (possibly chunked) prefill pass for a single sequence.
         Returns (logits[V] at last_idx, kv_cache)."""
         logits, kv_cache = self.prefill_packed(
             kv_cache, tokens[None], positions[None], page_table[None], valid[None],
-            torch.as_tensor([last_idx], device=tokens.device),
+            torch.as_tensor(last_idx, device=tokens.device).reshape(1),
         )
         return logits[0], kv_cache
 

@@ -1,10 +1,13 @@
 """Model registry: model_id -> model (port of ``dynamo_tpu/models/registry.py``,
-the ``tiny`` / ``tiny:<json-overrides>`` path).
+the ``tiny`` / ``tiny:<json-overrides>`` and ``tiny-mla`` /
+``tiny-mla:<json-overrides>`` paths).
 
-A ``tiny:{json}`` id builds a Llama model with random weights from a seeded
+A ``tiny:{json}`` id builds a Llama model, a ``tiny-mla:{json}`` id a
+DeepSeek (MLA + MoE) model, with random weights from a seeded
 ``torch.Generator`` on the target device, at the reference's per-tensor
-scales (``LlamaModel._init_raw_params``): normal(0, 1) / sqrt(fan) with the
-same fan axis, norms at 1. The numbers differ from JAX's (another random
+scales (``LlamaModel._init_raw_params``, ``DeepseekModel._attn_params`` /
+``_init_raw_params``): normal(0, 1) / sqrt(fan) with the same fan axis,
+norms at 1, the DeepSeek router in f32. The numbers differ from JAX's (another random
 stream); tests that compare the two packages copy JAX's weights across with
 ``models/convert.py`` instead. Checkpoint directories are not ported yet.
 """
@@ -15,38 +18,60 @@ import json
 
 import torch
 
+from dynamo_tpu_torch.models.deepseek import DeepseekConfig, DeepseekModel
 from dynamo_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from dynamo_tpu_torch.utils import get_logger
 
 log = get_logger("models.registry")
 
 
-def is_tiny_family(model_id) -> bool:
+_FAMILIES = ("tiny", "tiny-mla")
+
+
+def _family(model_id) -> str | None:
     if model_id is None:
-        return True
+        return "tiny"
     s = str(model_id)
-    return s == "tiny" or s.startswith("tiny:")
+    for fam in _FAMILIES:
+        if s == fam or s.startswith(fam + ":"):
+            return fam
+    return None
 
 
-def config_for(model_id) -> LlamaConfig:
+def is_tiny_family(model_id) -> bool:
+    return _family(model_id) is not None
+
+
+def config_for(model_id) -> LlamaConfig | DeepseekConfig:
     overrides = {}
     if model_id and ":" in str(model_id):
         overrides = json.loads(str(model_id).split(":", 1)[1])
+    if _family(model_id) == "tiny-mla":
+        return DeepseekConfig.tiny_mla(**overrides)
     return LlamaConfig.tiny(**overrides)
 
 
-@torch.no_grad()
-def init_random_(model: LlamaModel, seed: int = 0) -> LlamaModel:
-    """Fill ``model``'s weights in place from a seeded generator on the
-    model's device, one tensor at a time (no f32 copy of the whole model)."""
-    c = model.config
-    gen = torch.Generator(device=model.device)
-    gen.manual_seed(seed)
+def _dense_init(gen: torch.Generator):
+    """``dense_(w, fan)``: w <- normal(0, 1) / sqrt(fan), drawn in f32 one
+    tensor at a time (no f32 copy of the whole model)."""
 
     def dense_(w: torch.Tensor, fan: int) -> None:
         noise = torch.randn(w.shape, generator=gen, dtype=torch.float32, device=w.device)
         w.copy_(noise.mul_(1.0 / (fan**0.5)))
 
+    return dense_
+
+
+@torch.no_grad()
+def init_random_(model, seed: int = 0):
+    """Fill ``model``'s weights in place from a seeded generator on the
+    model's device."""
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    if isinstance(model, DeepseekModel):
+        return _init_deepseek_(model, _dense_init(gen))
+    c = model.config
+    dense_ = _dense_init(gen)
     D, F, L = c.hidden_size, c.intermediate_size, c.num_layers
     dense_(model.embed, D)
     for lp in model.layers:
@@ -70,13 +95,53 @@ def init_random_(model: LlamaModel, seed: int = 0) -> LlamaModel:
     return model
 
 
-def load_model(model_id: str, seed: int = 0, device="cuda") -> LlamaModel:
+def _init_deepseek_(model: DeepseekModel, dense_) -> DeepseekModel:
+    """The reference's DeepSeek scales: each weight over the fan of its
+    reference scale axis (for [E, in, out] expert banks, ``in``)."""
+    c = model.config
+    D, F, H = c.hidden_size, c.intermediate_size, c.num_heads
+    dc, dv = c.kv_lora_rank, c.v_head_dim
+    Fm, Fs = c.moe_intermediate_size, c.n_shared_experts * c.moe_intermediate_size
+    dense_(model.embed, D)
+    for lp in model.layers():
+        for norm in ("input_norm", "kv_norm", "post_norm", "q_norm"):
+            if hasattr(lp, norm):
+                getattr(lp, norm).fill_(1.0)
+        dense_(lp.w_dkv, D)
+        dense_(lp.w_kb, dc)
+        dense_(lp.w_vb, dc)
+        dense_(lp.wo, H * dv)
+        if c.q_lora_rank:
+            dense_(lp.w_dq, D)
+            dense_(lp.w_uq, c.q_lora_rank)
+        else:
+            dense_(lp.w_q, D)
+        if lp.moe:
+            dense_(lp.router, D)
+            dense_(lp.w_gate, D)
+            dense_(lp.w_up, D)
+            dense_(lp.w_down, Fm)
+            dense_(lp.shared_gate, D)
+            dense_(lp.shared_up, D)
+            dense_(lp.shared_down, Fs)
+        else:
+            dense_(lp.gate, D)
+            dense_(lp.up, D)
+            dense_(lp.down, F)
+    model.final_norm.fill_(1.0)
+    dense_(model.lm_head, D)
+    return model
+
+
+def load_model(model_id: str, seed: int = 0, device="cuda") -> LlamaModel | DeepseekModel:
     """Build the model for ``model_id`` on ``device`` with seeded random
-    weights. Raises for ids other than the tiny family."""
+    weights. Raises for ids other than the tiny families."""
     if not is_tiny_family(model_id):
-        raise ValueError(f"unknown model id {model_id!r} (only 'tiny' / 'tiny:{{json}}' are ported)")
+        raise ValueError(f"unknown model id {model_id!r} (only 'tiny[:{{json}}]' and "
+                         "'tiny-mla[:{{json}}]' are ported)")
     cfg = config_for(model_id)
-    model = LlamaModel(cfg, device=torch.device(device))
+    model_cls = DeepseekModel if isinstance(cfg, DeepseekConfig) else LlamaModel
+    model = model_cls(cfg, device=torch.device(device))
     init_random_(model, seed)
     log.info("built %s on %s (%d layers, seed %d)", model_id, device, cfg.num_layers, seed)
     return model

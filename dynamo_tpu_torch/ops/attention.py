@@ -13,16 +13,32 @@ padded page-table entries and masked-out scatter rows all target it, so no
 valid data is ever clobbered. The port's pool is always unfolded
 (``[.., Hkv, D]`` for every head_dim).
 
+The MLA (latent) pool of the DeepSeek family is one flat
+``[num_layers * num_pages, page_size, latent]`` pool of rows
+``[norm(latent) ; rope(k_rope)]``, ``latent = d_c + d_r`` wide (the logical
+width: the reference pads rows to a multiple of 128, a TPU lane rule the
+port does not carry). All heads of a token share its row, so latent
+attention is MQA with ``latent``-wide keys and ``d_c``-wide values.
+
 ``dispatch_paged_decode_attention`` / ``dispatch_paged_prefill_attention``
-launch the hand-written CUDA kernels (``ops/kernels/``) for CUDA tensors and
-use the plain versions below for CPU tensors. The int8 pools and the
-tensor-parallel paths of the reference are not ported yet.
+(K1, K2) and ``dispatch_paged_mla_decode_attention`` /
+``dispatch_paged_mla_prefill_attention`` (K5, K6) launch the hand-written
+CUDA kernels (``ops/kernels/``) for CUDA tensors and use the plain versions
+below for CPU tensors. A decode position below 0 attends context index 0
+only, in the plain versions as in the kernels (the reference's plain
+version spreads a uniform softmax there; the engine never feeds one). The
+int8 pools and the tensor-parallel paths of the reference are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dynamo_tpu_torch.ops.kernels.mla_attention import (
+    paged_mla_decode_attention_kernel,
+    paged_mla_prefill_attention_kernel,
+)
 from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_kernel
 from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_kernel
 
@@ -135,7 +151,8 @@ def paged_decode_attention(
     positions: torch.Tensor,  # [B] the query token's absolute position
 ) -> torch.Tensor:
     """Single-token-per-sequence attention for the decode batch (the
-    reference's vmap written out as a batch dimension)."""
+    reference's vmap written out as a batch dimension). A position below 0
+    attends index 0 only, K1's rule."""
     B, Hq, D = q.shape
     k_ctx = gather_pages(k_pages, page_tables).float()  # [B, S, Hkv, D]
     v_ctx = gather_pages(v_pages, page_tables).float()
@@ -145,7 +162,7 @@ def paged_decode_attention(
     qg = q.float().reshape(B, Hkv, G, D)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, k_ctx) * scale
     ctx_idx = torch.arange(S, device=q.device)
-    mask = ctx_idx[None, :] <= positions.long()[:, None]  # [B, S]
+    mask = ctx_idx[None, :] <= positions.long().clamp(min=0)[:, None]  # [B, S]
     scores = torch.where(mask[:, None, None, :], scores, torch.tensor(_NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_ctx)
@@ -173,3 +190,62 @@ def dispatch_paged_prefill_attention(q, k_pages, v_pages, page_tables, positions
             return paged_prefill_attention(q, k_pages, v_pages, page_tables, positions)
         return paged_prefill_attention_lanes(q, k_pages, v_pages, page_tables, positions)
     return paged_prefill_attention_kernel(q, k_pages, v_pages, page_tables, positions)
+
+
+def paged_mla_decode_attention(
+    q_cat: torch.Tensor,  # [B, H, latent] f32, pre-scaled by 1/sqrt(d_n + d_r)
+    pages: torch.Tensor,  # [P, ps, latent] flat latent pool
+    page_tables: torch.Tensor,  # [B, max_pages] (layer offset added)
+    positions: torch.Tensor,  # [B] the query token's absolute position
+    d_c: int,
+) -> torch.Tensor:
+    """Latent-space decode attention (K5's function): score = q_cat . row,
+    output = the softmax-weighted sum of the rows' first d_c columns,
+    a_lat [B, H, d_c] in q_cat's dtype. A position below 0 attends index 0
+    only."""
+    ctx = gather_pages(pages, page_tables).float()  # [B, S, latent]
+    S = ctx.shape[1]
+    scores = torch.einsum("bhl,bsl->bhs", q_cat.float(), ctx)
+    ctx_idx = torch.arange(S, device=q_cat.device)
+    mask = ctx_idx[None, :] <= positions.long().clamp(min=0)[:, None]  # [B, S]
+    scores = torch.where(mask[:, None, :], scores, torch.tensor(_NEG_INF, device=q_cat.device))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bsc->bhc", probs, ctx[..., :d_c]).to(q_cat.dtype)
+
+
+def paged_mla_prefill_attention(
+    q_cat: torch.Tensor,  # [T, H, latent] f32, pre-scaled
+    pages: torch.Tensor,  # [P, ps, latent]
+    page_table: torch.Tensor,  # [max_pages] (layer offset added)
+    positions: torch.Tensor,  # [T] absolute positions
+    d_c: int,
+) -> torch.Tensor:
+    """Latent-space chunked-prefill attention (K6's function) over all
+    cached context + the chunk itself (already scattered into the pool):
+    row t attends context j <= positions[t]. Returns a_lat [T, H, d_c]."""
+    ctx = gather_pages(pages, page_table).float()  # [S, latent]
+    S = ctx.shape[0]
+    scores = torch.einsum("thl,sl->hts", q_cat.float(), ctx)
+    ctx_idx = torch.arange(S, device=q_cat.device)
+    mask = ctx_idx[None, :] <= positions.long()[:, None]  # [T, S]
+    scores = torch.where(mask[None], scores, torch.tensor(_NEG_INF, device=q_cat.device))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("hts,sc->thc", probs, ctx[:, :d_c]).to(q_cat.dtype)
+
+
+def dispatch_paged_mla_decode_attention(q_cat, pages, page_tables, positions, d_c):
+    """Kernel K5 (``ops/kernels/mla_attention.py``, which launches or
+    raises) for CUDA tensors; the plain version above for CPU tensors."""
+    if q_cat.device.type == "cpu":
+        return paged_mla_decode_attention(q_cat, pages, page_tables, positions, d_c)
+    return paged_mla_decode_attention_kernel(q_cat, pages, page_tables, positions, d_c)
+
+
+def dispatch_paged_mla_prefill_attention(q_cat, pages, page_table, positions, d_c):
+    """Kernel K6 (``ops/kernels/mla_attention.py``, which launches or
+    raises) for CUDA tensors; the plain version above for CPU tensors.
+    Positions must be unit-stride (the kernel's precondition, as on the
+    TPU)."""
+    if q_cat.device.type == "cpu":
+        return paged_mla_prefill_attention(q_cat, pages, page_table, positions, d_c)
+    return paged_mla_prefill_attention_kernel(q_cat, pages, page_table, positions, d_c)

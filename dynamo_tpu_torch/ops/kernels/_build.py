@@ -118,6 +118,13 @@ def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
+def aligned16(x):
+    """``x`` contiguous with a 16-byte aligned data pointer (the kernels load
+    rows as 16-byte vectors), copied only when it is not already."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaGetLastError()`` code returned by a launch."""
     if err != 0:

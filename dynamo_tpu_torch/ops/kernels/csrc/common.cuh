@@ -1,10 +1,13 @@
 // Shared helpers for the port's hand-written Hopper kernels: 16-byte vector
-// loads of bf16 / f32 rows converted to f32 registers, and stores back.
+// loads of bf16 / f32 rows converted to f32 registers, stores back, and the
+// one-time raise of a kernel's dynamic shared-memory limit.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace dtt {
 
@@ -63,5 +66,21 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* f) {
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+constexpr int kMaxDevices = 64;
+
+// A kernel whose dynamic shared memory exceeds the 48 KiB default needs its
+// limit raised before its first launch on each device; done[dev] (one flag
+// array per kernel) records that it was, so later launches skip the call.
+template <typename Kernel>
+cudaError_t raise_smem_limit_once(Kernel kernel, std::atomic<bool>* done, size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
+  return err;
+}
 
 }  // namespace dtt

@@ -28,8 +28,6 @@
 // 4x2 score and 4x(D/16) output micro-tiles with f32 FMA. Tensor cores
 // (wgmma), a TMA/cp.async pipeline and split-K are later work.
 
-#include <atomic>
-
 #include "common.cuh"
 
 namespace {
@@ -226,31 +224,16 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-// The kernel's dynamic shared memory exceeds the 48 KiB default at D=128, so its
-// limit is raised once per (instantiation, device), on that device's first
-// launch, not on every launch.
-template <typename T, int D>
-cudaError_t raise_smem_limit_once(size_t smem) {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<bool> done[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(paged_prefill_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
-  return err;
-}
-
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, const int* pt, const int* pos,
              void* out, int N, int T_len, int Hq, int Hkv, int ps, int max_pages,
              cudaStream_t stream) {
+  // the dynamic shared memory exceeds the 48 KiB default at D=128
+  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
   const int G = Hq / Hkv;
   const int BQ = kRows / G;
   const size_t smem = (size_t)smem_floats<D>() * sizeof(float);
-  const cudaError_t err = raise_smem_limit_once<T, D>(smem);
+  const cudaError_t err = dtt::raise_smem_limit_once(paged_prefill_kernel<T, D>, smem_raised, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T_len + BQ - 1) / BQ, Hkv, N);
   paged_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(

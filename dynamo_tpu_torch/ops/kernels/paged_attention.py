@@ -33,11 +33,6 @@ _I = ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def check_decode_args(q, k_pages, v_pages, page_tables, positions) -> None:
     """Raise on inputs the kernel does not take."""
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
@@ -78,7 +73,7 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, page_tables, positions) -
     if q.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors; got {q.device}")
     check_decode_args(q, k_pages, v_pages, page_tables, positions)
-    q = _aligned(q)
+    q = _build.aligned16(q)
     page_tables = page_tables.contiguous()
     positions = positions.contiguous()
     B, Hq, D = q.shape

@@ -32,11 +32,6 @@ _I = ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def _as_lanes(q, page_tables, positions):
     """Normalize the one-chunk form ([max_pages], [T]) to N=1 lanes."""
     if page_tables.dim() == 1:
@@ -89,7 +84,7 @@ def paged_prefill_attention_kernel(q, k_pages, v_pages, page_tables, positions) 
         raise ValueError(f"K2 runs on CUDA tensors; got {q.device}")
     page_tables, positions = _as_lanes(q, page_tables, positions)
     check_prefill_args(q, k_pages, v_pages, page_tables, positions)
-    q = _aligned(q)
+    q = _build.aligned16(q)
     page_tables = page_tables.contiguous()
     positions = positions.contiguous()
     N, T = positions.shape

@@ -1,16 +1,17 @@
 """Where the serving time goes on the card: torch.profiler over the serve
-workload of ``chip_smoke.py`` (``tools/workload.py``: Llama-3-8B geometry,
-bf16, seeded random weights; 16 concurrent greedy requests), split at the
-last K2 launch into a prefill window and a decode window.
+workloads of ``chip_smoke.py`` (``tools/workload.py``: 16 concurrent greedy
+requests on Llama-3-8B geometry, then on DeepSeek-V2-Lite geometry; bf16,
+seeded random weights), each split at its last prefill-attention launch (K2
+or K6) into a prefill window and a decode window.
 
     python -m dynamo_tpu_torch.tools.profile_serve [--out profile_serve.json]
 
-For each window it reports the wall time, the device's busy and idle share
-(union of kernel intervals), device time by kernel class (K1, K2, GEMM,
-other) and the top kernels; for the decode window also the time per decode
-step. Needs one CUDA device. The profiler adds host overhead, so walls here
-run longer than chip_smoke.py's unprofiled serve numbers; shares and device
-times are the point.
+For each workload and window it reports the wall time, the device's busy
+and idle share (union of kernel intervals), device time by kernel class
+(K1, K2, K5, K6, GEMM, other) and the top kernels; for the decode window
+also the time per decode step. Needs one CUDA device. The profiler adds
+host overhead, so walls here run longer than chip_smoke.py's unprofiled
+serve numbers; shares and device times are the point.
 """
 
 from __future__ import annotations
@@ -28,17 +29,34 @@ import torch
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
 from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.scheduler import EngineRequest
-from dynamo_tpu_torch.tools.workload import LLAMA3_8B, serve_config, serve_requests
+from dynamo_tpu_torch.tools.workload import (
+    DEEPSEEK_V2_LITE,
+    LLAMA3_8B,
+    mla_serve_config,
+    serve_config,
+    serve_requests,
+)
 
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 GEMM_MARKS = ("gemm", "GEMM", "nvjet", "cutlass", "xmma", "sm90_")
+# the workloads profiled, in order: (engine config, requests, layers)
+WORKLOADS = {
+    "llama": (serve_config, serve_requests, LLAMA3_8B["num_layers"]),
+    "mla": (mla_serve_config, lambda: serve_requests(DEEPSEEK_V2_LITE["vocab_size"]),
+            DEEPSEEK_V2_LITE["num_layers"]),
+}
+# kernel class by a mark in its name; K5 counts both of its launches
+KERNEL_MARKS = (
+    ("K1", "paged_decode_kernel"), ("K2", "paged_prefill_kernel"),
+    ("K5", "mla_decode_"), ("K6", "mla_prefill"),
+)
+DECODE_STEP_KERNEL = {"K1": "paged_decode_kernel", "K5": "mla_decode_partial"}
 
 
 def kernel_class(name: str) -> str:
-    if "paged_decode_kernel" in name:
-        return "K1"
-    if "paged_prefill_kernel" in name:
-        return "K2"
+    for cls, mark in KERNEL_MARKS:
+        if mark in name:
+            return cls
     if any(m in name for m in GEMM_MARKS):
         return "gemm"
     return "other"
@@ -77,10 +95,10 @@ def window_stats(kernels: list, lo: float, hi: float, top: int = 8) -> dict:
     }
 
 
-async def profiled_serve(requests: list, trace_path: Path) -> tuple[float, int]:
+async def profiled_serve(config, requests: list, trace_path: Path) -> tuple[float, int]:
     """Serve ``requests`` under the profiler; returns (wall seconds, bytes of
     weights a decode step reads: every parameter but the embedding table)."""
-    engine = AsyncTorchEngine(serve_config())
+    engine = AsyncTorchEngine(config)
     await engine.start()
     step_bytes = sum(
         t.numel() * t.element_size() for n, t in engine.model.named_parameters() if n != "embed"
@@ -109,9 +127,56 @@ async def profiled_serve(requests: list, trace_path: Path) -> tuple[float, int]:
     return wall, step_bytes
 
 
+def profile_workload(name: str, smi: str) -> dict:
+    """Profile one of ``WORKLOADS`` and print its windows; returns the summary."""
+    make_config, make_requests, layers = WORKLOADS[name]
+    requests = make_requests()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        wall, step_bytes = asyncio.run(profiled_serve(make_config(), requests, trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    del events
+    if not kernels:
+        raise SystemExit("the profiler recorded no device kernels")
+    start = min(k["ts"] for k in kernels)
+    end = max(k["ts"] + k["dur"] for k in kernels)
+    split = max((k["ts"] + k["dur"] for k in kernels if kernel_class(k["name"]) in ("K2", "K6")),
+                default=start)
+    prefill = window_stats(kernels, start, split)
+    decode = window_stats(kernels, split, end + 1)
+    marks = tuple(DECODE_STEP_KERNEL.values())
+    step_launches = sum(1 for k in kernels if k["ts"] >= split and any(m in k["name"] for m in marks))
+    steps = step_launches / layers
+    if steps:
+        decode["steps"] = steps
+        decode["ms_per_step"] = decode["wall_ms"] / steps
+        decode["device_ms_per_step"] = decode["device_busy_ms"] / steps
+    summary = {
+        "device": smi, "workload": name, "layers": layers, "requests": len(requests),
+        "prompt_tokens": sum(len(r.token_ids) for r in requests),
+        "profiled_wall_s": wall, "prefill_window": prefill, "decode_window": decode,
+        # the decode step's floor: its weight bytes read once at the H100 SXM rate
+        "decode_weight_bytes": step_bytes, "decode_floor_ms": step_bytes / HBM_BYTES_S * 1e3,
+    }
+    print(f"profile_serve {name} [{smi}]: {len(requests)} requests, {summary['prompt_tokens']} "
+          f"prompt tokens, profiled wall {wall:.3f} s", flush=True)
+    for window, w in (("prefill", prefill), ("decode", decode)):
+        print(f"  {window} window: {w['wall_ms']:.1f} ms, device busy {w['device_busy_ms']:.1f} ms "
+              f"(idle share {w['idle_share']:.3f}), by class {json.dumps(w['device_ms_by_class'])}",
+              flush=True)
+    if steps:
+        print(f"  decode: {steps:.0f} steps, {decode['ms_per_step']:.2f} ms/step wall, "
+              f"{decode['device_ms_per_step']:.2f} ms/step device busy; floor "
+              f"{summary['decode_floor_ms']:.2f} ms ({step_bytes / 1e9:.2f} GB of weights)", flush=True)
+    print(json.dumps(summary), flush=True)
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--out", default="", help="write the summary JSON here too")
+    p.add_argument("--out", default="", help="write the summaries' JSON here too")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -120,47 +185,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "trace.json"
-        requests = serve_requests()
-        wall, step_bytes = asyncio.run(profiled_serve(requests, trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    if not kernels:
-        raise SystemExit("the profiler recorded no device kernels")
-    start = min(k["ts"] for k in kernels)
-    end = max(k["ts"] + k["dur"] for k in kernels)
-    k2_end = max((k["ts"] + k["dur"] for k in kernels if kernel_class(k["name"]) == "K2"), default=start)
-    prefill = window_stats(kernels, start, k2_end)
-    decode = window_stats(kernels, k2_end, end + 1)
-    k1_in_decode = sum(1 for k in kernels if k["ts"] >= k2_end and kernel_class(k["name"]) == "K1")
-    layers = LLAMA3_8B["num_layers"]
-    steps = k1_in_decode / layers
-    if steps:
-        decode["steps"] = steps
-        decode["ms_per_step"] = decode["wall_ms"] / steps
-        decode["device_ms_per_step"] = decode["device_busy_ms"] / steps
-    summary = {
-        "device": smi, "layers": layers, "requests": len(requests),
-        "prompt_tokens": sum(len(r.token_ids) for r in requests),
-        "profiled_wall_s": wall, "prefill_window": prefill, "decode_window": decode,
-        # the decode step's floor: its weight bytes read once at the H100 SXM rate
-        "decode_weight_bytes": step_bytes, "decode_floor_ms": step_bytes / HBM_BYTES_S * 1e3,
-    }
-    print(f"profile_serve [{smi}]: {len(requests)} requests, {summary['prompt_tokens']} prompt "
-          f"tokens, profiled wall {wall:.3f} s", flush=True)
-    for name, w in (("prefill", prefill), ("decode", decode)):
-        print(f"  {name} window: {w['wall_ms']:.1f} ms, device busy {w['device_busy_ms']:.1f} ms "
-              f"(idle share {w['idle_share']:.3f}), by class {json.dumps(w['device_ms_by_class'])}",
-              flush=True)
-    if steps:
-        print(f"  decode: {steps:.0f} steps, {decode['ms_per_step']:.2f} ms/step wall, "
-              f"{decode['device_ms_per_step']:.2f} ms/step device busy; floor "
-              f"{summary['decode_floor_ms']:.2f} ms ({step_bytes / 1e9:.2f} GB of weights)", flush=True)
-    print(json.dumps(summary), flush=True)
+    summaries = {name: profile_workload(name, smi) for name in WORKLOADS}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(summary, indent=1))
+        Path(args.out).write_text(json.dumps(summaries, indent=1))
     return 0
 
 

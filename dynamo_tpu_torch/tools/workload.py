@@ -1,7 +1,14 @@
-"""The serve workload that ``chip_smoke.py`` drives and
-``tools/profile_serve.py`` profiles: Llama-3-8B geometry at full width and
-depth with seeded random weights, and 16 concurrent greedy requests with
-seeded random prompts of 64..2048 tokens and 64 output tokens each.
+"""The serve workloads that ``chip_smoke.py`` drives and
+``tools/profile_serve.py`` profiles: 16 concurrent greedy requests with
+seeded random prompts of 64..2048 tokens and 64 output tokens each, on one
+of two geometries at full width and depth with seeded random weights:
+
+  - ``llama``: Llama-3-8B (``serve_config``), packed prefill;
+  - ``mla``: DeepSeek-V2-Lite (``mla_serve_config``): MLA + MoE, the
+    per-request prefill path, kernels K5/K6.
+
+Both draw the same prompt lengths from ``SEED``; token ids fall below each
+geometry's vocabulary.
 """
 
 from __future__ import annotations
@@ -20,6 +27,17 @@ LLAMA3_8B = dict(
     num_kv_heads=8, head_dim=128, rope_theta=500000.0, rms_norm_eps=1e-5,
     tie_word_embeddings=False, dtype="bf16",
 )
+# DeepSeek-V2-Lite config.json values (deepseek-ai/DeepSeek-V2-Lite), bf16.
+# Its yarn rope_scaling is not modelled (the reference raises on it): plain
+# RoPE at rope_theta. moe_capacity_factor is the reference's from_hf_config
+# value (GShard capacity dispatch: every expert runs on every step).
+DEEPSEEK_V2_LITE = dict(
+    vocab_size=102400, hidden_size=2048, intermediate_size=10944, num_layers=27, num_heads=16,
+    q_lora_rank=None, kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    n_routed_experts=64, num_experts_per_tok=6, n_shared_experts=2, moe_intermediate_size=1408,
+    first_k_dense_replace=1, moe_capacity_factor=2.0, routed_scaling_factor=1.0,
+    norm_topk_prob=False, rope_theta=10000.0, rms_norm_eps=1e-6, dtype="bf16",
+)
 NUM_REQUESTS = 16
 MIN_PROMPT, MAX_PROMPT = 64, 2048
 MAX_TOKENS = 64
@@ -35,13 +53,22 @@ def serve_config() -> EngineConfig:
     )
 
 
-def serve_requests() -> list[EngineRequest]:
+def mla_serve_config() -> EngineConfig:
+    """The MLA workload's engine: as ``serve_config`` on V2-Lite geometry
+    (a latent pool of 27 x 4096 x 16 x 576 bf16, 2.0 GB)."""
+    return EngineConfig(
+        model_id="tiny-mla:" + json.dumps(DEEPSEEK_V2_LITE), device="cuda", page_size=16,
+        num_pages=4096, max_seqs=NUM_REQUESTS, max_model_len=MAX_PROMPT + MAX_TOKENS,
+    )
+
+
+def serve_requests(vocab_size: int = LLAMA3_8B["vocab_size"]) -> list[EngineRequest]:
     """The workload's greedy requests, prompts drawn from ``SEED``."""
     rng = np.random.default_rng(SEED)
     lens = rng.integers(MIN_PROMPT, MAX_PROMPT + 1, NUM_REQUESTS)
     return [
         EngineRequest(
-            f"serve-{i}", rng.integers(0, LLAMA3_8B["vocab_size"], int(length)).tolist(),
+            f"serve-{i}", rng.integers(0, vocab_size, int(length)).tolist(),
             SamplingParams(temperature=0.0, max_tokens=MAX_TOKENS),
         )
         for i, length in enumerate(lens)

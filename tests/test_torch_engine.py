@@ -63,26 +63,34 @@ def port_model(params) -> LlamaModel:
     return model
 
 
-def run_port(params, requests, **over):
+def run_port_engine(params, requests, **over):
+    """(outputs per request, the engine that served them)."""
+
     async def run():
         engine = AsyncTorchEngine(EngineConfig(device="cpu", **dict(ENGINE, **over)), model=port_model(params))
         await engine.start()
         try:
-            return await asyncio.gather(*(collect(engine, r) for r in requests))
+            return await asyncio.gather(*(collect(engine, r) for r in requests)), engine
         finally:
             await engine.shutdown()
 
     return asyncio.run(run())
 
 
+def run_port(params, requests, **over):
+    return run_port_engine(params, requests, **over)[0]
+
+
 @pytest.mark.parametrize("decode_steps,prefill_lanes", [(8, 4), (1, 1)], ids=["window8-packed", "window1-lanes1"])
 def test_greedy_tokens_equal_jax_engine(reference, decode_steps, prefill_lanes):
     ref_outs, params = reference
-    outs = run_port(
+    outs, engine = run_port_engine(
         params,
         [EngineRequest(f"t{i}", p, SamplingParams(max_tokens=10)) for i, p in enumerate(PROMPTS)],
         decode_steps=decode_steps, prefill_lanes=prefill_lanes,
     )
+    # one prefill lane takes the per-request path (runner.prefill_chunk)
+    assert engine.runner.packed_prefill_mode == (prefill_lanes > 1)
     for (toks, reason), (ref_toks, ref_reason) in zip(outs, ref_outs):
         assert reason == ref_reason == "length"
         assert toks == ref_toks and len(toks) == 10

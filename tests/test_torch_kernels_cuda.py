@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (paged decode) and K2 (chunked-prefill flash) against
-their plain PyTorch versions on the card. Marked ``cuda``: every test skips
+"""The CUDA kernels K1 (paged decode), K2 (chunked-prefill flash), K5 (MLA
+latent decode) and K6 (MLA latent prefill) against their plain PyTorch
+versions on the card. Marked ``cuda``: every test skips
 where no CUDA device is visible (a CUDA kernel has no CPU mode). On a
 machine with an H100 and nvcc (``--noconftest``: tests/conftest.py imports
 jax, which the port does not need):
@@ -10,7 +11,9 @@ Tolerances, elementwise |got - ref| <= atol + rtol * |ref|: f32 atol 1e-4
 (the same f32 algebra, summed in another order); bf16 the same atol plus
 rtol 2^-6, two bf16 steps (both sides compute in f32 and round the output
 once to bf16; two roundings of nearly equal values differ by at most one
-step, <= 2^-7 |value|).
+step, <= 2^-7 |value|). K5 and K6 return f32 in both dtype mixes (f32
+queries over f32 or bf16 pages; both sides read the same page values), so
+both mixes are held to the f32 tolerance.
 """
 
 import numpy as np
@@ -18,6 +21,10 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.ops import attention as tatt
+from dynamo_tpu_torch.ops.kernels.mla_attention import (
+    paged_mla_decode_attention_kernel,
+    paged_mla_prefill_attention_kernel,
+)
 from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_kernel
 from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_kernel
 
@@ -100,3 +107,67 @@ def test_prefill_kernel_matches_plain_per_lane(cuda, dtype, D, ps, Hq, Hkv):
             got[j * T : (j + 1) * T].float(), ref.float(), **TOL[dtype],
             msg=lambda m, j=j: f"lane {j}: {m}",
         )
+
+
+MLA_H, MLA_LATENT, MLA_DC = 16, 576, 512  # DeepSeek-V2(-Lite) geometry
+
+
+def _mla_inputs(rng, n_q, P, ps, dtype, device):
+    q = rng.standard_normal((n_q, MLA_H, MLA_LATENT)) / np.sqrt(MLA_LATENT)
+    pages = rng.standard_normal((P, ps, MLA_LATENT))
+    return (torch.from_numpy(q.astype(np.float32)).to(device),
+            torch.from_numpy(pages.astype(np.float32)).to(device, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32-pages", "bf16-pages"])
+@pytest.mark.parametrize("ps", [16, 128])
+def test_mla_decode_kernel_matches_plain(cuda, dtype, ps):
+    """Ragged contexts over several 128-row splits, an inactive slot (trash
+    table, position 0) and a row at position -1 (attends row 0 only)."""
+    rng = np.random.default_rng(ps + (dtype == torch.bfloat16))
+    B, max_pages = 10, max(2, 1024 // ps)
+    P = B * max_pages + 1
+    q, pages = _mla_inputs(rng, B, P, ps, dtype, cuda)
+    lengths = rng.integers(1, max_pages * ps + 1, B)
+    lengths[:3] = (1, max_pages * ps, 129)
+    pt = np.zeros((B, max_pages), np.int32)
+    perm = rng.permutation(np.arange(1, P))
+    for b in range(B):
+        used = -(-lengths[b] // ps)
+        pt[b, :used] = perm[b * max_pages : b * max_pages + used]
+    pos = (lengths - 1).astype(np.int32)
+    pt[-2], pos[-2] = 0, 0  # inactive slot
+    pos[-1] = -1
+    pt_t = torch.from_numpy(pt).to(cuda)
+    pos_t = torch.from_numpy(pos).to(cuda)
+    before = paged_mla_decode_attention_kernel.launches
+    got = paged_mla_decode_attention_kernel(q, pages, pt_t, pos_t, MLA_DC)
+    torch.cuda.synchronize()
+    assert paged_mla_decode_attention_kernel.launches == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    ref = tatt.paged_mla_decode_attention(q, pages, pt_t, pos_t, MLA_DC)
+    torch.testing.assert_close(got, ref, **TOL[torch.float32])
+    row0 = pages[pt[-1, 0], 0, :MLA_DC].float()
+    torch.testing.assert_close(got[-1], row0.expand(MLA_H, -1), **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32-pages", "bf16-pages"])
+@pytest.mark.parametrize("ps", [16, 128])
+def test_mla_prefill_kernel_matches_plain(cuda, dtype, ps):
+    """Chunks from position 0 and after a cached prefix, one of odd length
+    (a block with one query position)."""
+    rng = np.random.default_rng(ps + 2 + (dtype == torch.bfloat16))
+    max_pages = max(2, 1024 // ps)
+    P = max_pages + 1
+    _, pages = _mla_inputs(rng, 1, P, ps, dtype, cuda)
+    pt_t = torch.from_numpy(rng.permutation(np.arange(1, P))[:max_pages].astype(np.int32)).to(cuda)
+    for T, start in ((256, 0), (255, 700), (64, 37)):
+        q, _ = _mla_inputs(rng, T, 1, ps, dtype, cuda)
+        pos_t = torch.arange(start, start + T, dtype=torch.int32, device=cuda)
+        before = paged_mla_prefill_attention_kernel.launches
+        got = paged_mla_prefill_attention_kernel(q, pages, pt_t, pos_t, MLA_DC)
+        torch.cuda.synchronize()
+        assert paged_mla_prefill_attention_kernel.launches == before + 1
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        ref = tatt.paged_mla_prefill_attention(q, pages, pt_t, pos_t, MLA_DC)
+        torch.testing.assert_close(got, ref, **TOL[torch.float32], msg=lambda m: f"T {T} from {start}: {m}")

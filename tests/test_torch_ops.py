@@ -74,6 +74,21 @@ def test_decode_plain_matches_reference_and_pallas(Hq, Hkv, D):
     np.testing.assert_array_equal(dispatched, got)
 
 
+def test_decode_plain_negative_position_attends_index_zero():
+    """K1's rule in the plain version: a position below 0 attends context
+    index 0 only, exactly the position-0 result (the reference's plain
+    version spreads a uniform softmax over the table instead)."""
+    q, k, v, pt, pos = decode_case(seed=7)
+    at = {}
+    for p in (-1, 0):
+        pos_p = pos.copy()
+        pos_p[1] = p
+        at[p] = tatt.paged_decode_attention(_t(q), _t(k), _t(v), _t(pt), _t(pos_p)).numpy()
+    np.testing.assert_array_equal(at[-1], at[0])
+    kvh = np.repeat(np.arange(k.shape[2]), q.shape[1] // k.shape[2])
+    np.testing.assert_array_equal(at[-1][1], v[pt[1, 0], 0][kvh])
+
+
 def prefill_case(T=128, Hq=4, Hkv=2, D=16, P=64, ps=4, max_pages=48, start=0, n_valid=None, seed=0):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((T, Hq, D)).astype(np.float32)

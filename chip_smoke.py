@@ -7,31 +7,35 @@ Run from the root of a checkout; needs one CUDA device and nvcc (CUDA_HOME
 or PATH). Phases, each of which raises on failure (exit code != 0):
 
   1. device: the card's name and power limit as nvidia-smi reports them
-  2. build both kernels from csrc/ (one nvcc per source, started together)
-  3. K1 paged decode attention against its plain PyTorch version at the
-     serving shapes (B 64, Hq 32, Hkv 8, D 128, ps 16, ragged contexts
-     1..2048, inactive slots), bf16 and f32; kernel / plain / SDPA times
-  4. K2 chunked-prefill flash attention the same way (T 512 lanes at
-     cached prefixes 0 and 1024, plus a pad lane, in one launch)
+  2. build the three kernel sources (one nvcc per source, started together)
+  3. K1 paged decode and K3a, its folded variant, against their plain
+     PyTorch versions (B 64, ps 16, ragged contexts 1..2048, inactive slots,
+     a row at position -1; K1 at Hq 32 / Hkv 8 / D 128, K3a at TinyLlama's
+     Hq 32 / Hkv 4 / D 64) in three mixes: f32, bf16, and bf16 queries over
+     the int8 cache; kernel / plain / SDPA times and the bound
+  4. K2 chunked-prefill flash and K3b the same way (512-row lanes at cached
+     prefixes 0 and 1024, plus a pad lane, in one launch)
   5. K5 MLA latent decode against its plain version (B 16, H 16, latent
      576, d_c 512, ps 16, ragged contexts 1..2048, inactive slots, a row at
      position -1), f32 queries over f32 and over bf16 pages; kernel / plain /
      SDPA times and the SDPA backends that take the inputs
   6. K6 MLA latent prefill the same way (512-row chunks at cached prefixes 0
      and 1536)
-  7. serve: AsyncTorchEngine on Llama-3-8B geometry (32 layers, bf16,
-     seeded random weights), 16 concurrent greedy requests of 64-2048
-     prompt tokens and 64 output tokens; every stream must finish with
-     exactly 64 tokens and K1 and K2 must have launched
-  8. MLA serve: the same requests on DeepSeek-V2-Lite geometry (27 layers,
-     MLA + 64-expert MoE, bf16, seeded random weights); K5 and K6 must have
-     launched
-  9. the Llama geometry at 2 layers in f32: the engine's greedy tokens must
-     equal a dense no-paging forward's (attention_with_positions)
- 10. the V2-Lite geometry at 2 layers (1 dense + 1 MoE) in f32 with
-     capacity factor 11 (nothing drops): the engine's greedy tokens must
-     equal a dense non-absorbed forward's (per-head K/V materialized from
-     the latents, each expert run on the tokens that chose it)
+  7. serve paths (tools/workload.py: 16 concurrent greedy requests of
+     64-2048 prompt tokens and 64 output tokens, bf16, seeded random
+     weights, full width and depth); every stream must finish with exactly
+     64 tokens, the path's kernels must launch and the others' must not:
+       serve / int8 serve: Llama-3-8B geometry, bf16 / int8 KV cache, K1 K2;
+       MLA serve: DeepSeek-V2-Lite geometry (MLA + 64-expert MoE), K5 K6;
+       folded serve / folded int8 serve: TinyLlama-1.1B geometry (head_dim
+       64, prompts clipped to 1984), bf16 / int8 KV cache, K3a K3b
+  8. refusals: an int8 cache on tiny-mla, and K3 launches at a head dim or
+     dtype they do not take, raise on the card
+  9. 2-layer f32 greedy parity: the engine's tokens must equal a dense
+     no-paging forward's on Llama-3-8B geometry, on TinyLlama geometry with
+     an f32 and with an int8 KV cache (the dense forward quantizes and
+     dequantizes each K/V row), and on V2-Lite geometry (capacity factor 11,
+     nothing drops) against a dense non-absorbed forward
 
 Then a {"kernels": [...]} summary line, and as the last line
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -132,14 +136,46 @@ def sdpa_backends(fn) -> list[str]:
     return took
 
 
-# ---------------------------------------------------------------- K1
+# ---------------------------------------------------------------- K1 / K3a, K2 / K3b
+
+# (Hq, Hkv, D) of each paged kernel's check: K1/K2 at Llama-3-8B's attention
+# geometry, K3a/K3b at TinyLlama-1.1B's (head_dim 64, the folded kernels)
+GEOMETRY = {"K1": (32, 8, 128), "K2": (32, 8, 128), "K3a": (32, 4, 64), "K3b": (32, 4, 64)}
+# (name, query dtype, pool kind): plain pools of the query's dtype, and bf16
+# queries over the int8 cache. The int8 mix is held to the bf16 limit (bf16
+# output; both sides read the same codes and scales) and bounded at the bf16
+# peak (its products take bf16 queries).
+MIXES = (("f32", "float32", "plain"), ("bf16", "bfloat16", "plain"), ("int8", "bfloat16", "int8"))
 
 
-def check_decode(torch, dev, rng) -> dict:
+def mix_pools(torch, k32, v32, qdt, kind):
+    """(k, v, k_dense, v_dense, bytes a K/V element, bytes a row of scales):
+    the pools a mix runs on, and plain pools of the same values for the SDPA
+    yardstick (int8: dequantized to bf16, outside any timing)."""
+    from dynamo_tpu_torch.quant.kv import QuantizedPages, dequantize_rows, quantize_kv_rows
+
+    if kind == "plain":
+        k, v = k32.to(qdt), v32.to(qdt)
+        return k, v, k, v, k.element_size(), 0
+    pools = []
+    for x in (k32, v32):
+        P, ps = x.shape[:2]
+        q, s = quantize_kv_rows(x.reshape(P * ps, *x.shape[2:]))
+        pools.append(QuantizedPages(q.reshape(x.shape), s.reshape(P, ps)))
+    k, v = pools
+    dense = [dequantize_rows(p.q, p.s, torch.bfloat16) for p in pools]
+    return k, v, dense[0], dense[1], 1, 4
+
+
+def check_decode(torch, dev, rng, which: str) -> dict:
+    """K1 or K3a against the plain version at B 64, ps 16, ragged contexts
+    1..2048, inactive slots and a row at position -1, in every mix."""
     from dynamo_tpu_torch.ops import attention as plain
-    from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_kernel as k1
+    from dynamo_tpu_torch.ops.kernels import paged_attention as pa
 
-    B, Hq, Hkv, D, ps, max_pages = 64, 32, 8, 128, 16, 128
+    kernel = {"K1": pa.paged_decode_attention_kernel, "K3a": pa.paged_decode_attention_folded_kernel}[which]
+    Hq, Hkv, D = GEOMETRY[which]
+    B, ps, max_pages = 64, 16, 128
     lengths = rng.integers(1, max_pages * ps + 1, B)
     lengths[:2] = (1, max_pages * ps)
     inactive = np.zeros(B, bool)
@@ -165,42 +201,53 @@ def check_decode(torch, dev, rng) -> dict:
     k32 = torch.randn((P, ps, Hkv, D), device=dev)
     v32 = torch.randn((P, ps, Hkv, D), device=dev)
     q32 = torch.randn((B, Hq, D), device=dev)
+    S = max_pages * ps
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (torch.arange(S, device=dev)[None, :] <= pos_t[:, None].long().clamp(min=0))[:, None, None, :]
+    ctx_tokens = sum(-(-int(n) // ps) * ps for n in live_len)
+    extra = ""
+    if which == "K3a":
+        blocks = sum(-(-int(n) // pa.SPLIT_ROWS) for n in live_len)
+        extra = f"; {blocks} split blocks of {pa.FOLDED_THREADS} threads + {B * Hq} merge blocks"
     res = {}
-    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
-        got = k1(q, k, v, pt_t, pos_t)
+    for name, qdt_name, kind in MIXES:
+        qdt = getattr(torch, qdt_name)
+        q = q32.to(qdt)
+        k, v, kd, vd, kv_bytes, scale_bytes = mix_pools(torch, k32, v32, qdt, kind)
+        got = kernel(q, k, v, pt_t, pos_t)
         ref = plain.paged_decode_attention(q, k, v, pt_t, pos_t)
-        err = held_to_plain("K1 paged decode", name, got, ref)
-        ms = cuda_ms(lambda: k1(q, k, v, pt_t, pos_t), 50)
+        tol = "f32" if qdt == torch.float32 else "bf16"
+        err = held_to_plain(f"{which} paged decode", name, got, ref, tol)
+        ms = cuda_ms(lambda: kernel(q, k, v, pt_t, pos_t), 50)
         plain_ms = cuda_ms(lambda: plain.paged_decode_attention(q, k, v, pt_t, pos_t), 5)
         # yardstick only: one SDPA call on the gathered, masked context
-        S = max_pages * ps
-        kc = plain.gather_pages(k, pt_t).permute(0, 2, 1, 3).contiguous()  # [B, Hkv, S, D]
-        vc = plain.gather_pages(v, pt_t).permute(0, 2, 1, 3).contiguous()
-        mask = (torch.arange(S, device=dev)[None, :] <= pos_t[:, None].long().clamp(min=0))[:, None, None, :]
-        qs = q[:, :, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+        kc = plain.gather_pages(kd, pt_t).permute(0, 2, 1, 3).contiguous()  # [B, Hkv, S, D]
+        vc = plain.gather_pages(vd, pt_t).permute(0, 2, 1, 3).contiguous()
+        qs = q.to(kc.dtype)[:, :, None, :]
         lib_ms = cuda_ms(lambda: sdpa(qs, kc, vc, attn_mask=mask, enable_gqa=True), 20)
         itemsize = q.element_size()
-        ctx_tokens = sum(-(-int(n) // ps) * ps for n in live_len)
-        nbytes = ctx_tokens * Hkv * D * 2 * itemsize + 2 * q.numel() * itemsize + pt.nbytes + pos.nbytes
+        nbytes = (ctx_tokens * (Hkv * D * kv_bytes + scale_bytes) * 2 + 2 * q.numel() * itemsize
+                  + pt.nbytes + pos.nbytes)
         flops = 4 * Hq * D * int(live_len.sum())
-        b_ms, b_by = bound(nbytes, flops, name)
-        log(f"K1 paged decode {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB)")
+        b_ms, b_by = bound(nbytes, flops, tol)
+        note = " (SDPA over the dequantized bf16 context, dequantization untimed)" if kind == "int8" else ""
+        log(f"{which} paged decode {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms{note}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB){extra}")
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by)
     return res
 
 
-# ---------------------------------------------------------------- K2
-
-
-def check_prefill(torch, dev, rng) -> dict:
+def check_prefill(torch, dev, rng, which: str) -> dict:
+    """K2 or K3b against the plain version: three 512-row lanes in one launch
+    (cached prefixes 0 and 1024, and a pad lane: n=0, all-zero table), in
+    every mix."""
     from dynamo_tpu_torch.ops import attention as plain
-    from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_kernel as k2
+    from dynamo_tpu_torch.ops.kernels import prefill_attention as pf
 
-    T, Hq, Hkv, D, ps, max_pages = 512, 32, 8, 128, 16, 128
+    kernel = {"K2": pf.paged_prefill_attention_kernel, "K3b": pf.paged_prefill_attention_folded_kernel}[which]
+    Hq, Hkv, D = GEOMETRY[which]
+    T, ps, max_pages = 512, 16, 128
     starts = [0, 1024, 0]  # lane 2 is a pad lane: n=0, all-zero table
     P = 1 + (512 + 1536) // ps
     perm = 1 + rng.permutation(P - 1)
@@ -213,34 +260,39 @@ def check_prefill(torch, dev, rng) -> dict:
     k32 = torch.randn((P, ps, Hkv, D), device=dev)
     v32 = torch.randn((P, ps, Hkv, D), device=dev)
     q32 = torch.randn((3 * T, Hq, D), device=dev)
+    S = max_pages * ps
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (torch.arange(S, device=dev)[None, None, :] <= pos_t[:, :, None].long())[:, None]
+    # the bound counts the useful work, the two real lanes; the pad lane's
+    # output is discarded (its causal pairs are reported apart)
+    real = pos[:2]
+    ctx_tokens = sum(int(p[-1]) + 1 for p in real)
+    pairs = sum(int((p + 1).sum()) for p in real)
+    pad_pairs = int((pos[2] + 1).sum())
     res = {}
-    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
-        got = k2(q, k, v, pt_t, pos_t)
+    for name, qdt_name, kind in MIXES:
+        qdt = getattr(torch, qdt_name)
+        q = q32.to(qdt)
+        k, v, kd, vd, kv_bytes, scale_bytes = mix_pools(torch, k32, v32, qdt, kind)
+        got = kernel(q, k, v, pt_t, pos_t)
         ref = plain.paged_prefill_attention_lanes(q, k, v, pt_t, pos_t)
-        err = held_to_plain("K2 prefill flash", name, got, ref)
-        ms = cuda_ms(lambda: k2(q, k, v, pt_t, pos_t), 20)
+        tol = "f32" if qdt == torch.float32 else "bf16"
+        err = held_to_plain(f"{which} prefill flash", name, got, ref, tol)
+        ms = cuda_ms(lambda: kernel(q, k, v, pt_t, pos_t), 20)
         plain_ms = cuda_ms(lambda: plain.paged_prefill_attention_lanes(q, k, v, pt_t, pos_t), 3)
-        S = max_pages * ps
-        kc = plain.gather_pages(k, pt_t).permute(0, 2, 1, 3).contiguous()  # [3, Hkv, S, D]
-        vc = plain.gather_pages(v, pt_t).permute(0, 2, 1, 3).contiguous()
-        mask = (torch.arange(S, device=dev)[None, None, :] <= pos_t[:, :, None].long())[:, None]
-        qs = q.reshape(3, T, Hq, D).permute(0, 2, 1, 3)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+        kc = plain.gather_pages(kd, pt_t).permute(0, 2, 1, 3).contiguous()  # [3, Hkv, S, D]
+        vc = plain.gather_pages(vd, pt_t).permute(0, 2, 1, 3).contiguous()
+        qs = q.to(kc.dtype).reshape(3, T, Hq, D).permute(0, 2, 1, 3)
         lib_ms = cuda_ms(lambda: sdpa(qs, kc, vc, attn_mask=mask, enable_gqa=True), 10)
-        # the bound counts the useful work, the two real lanes; the pad
-        # lane's output is discarded (its causal pairs are reported apart)
         itemsize = q.element_size()
-        real = pos[:2]
-        ctx_tokens = sum(int(p[-1]) + 1 for p in real)
-        pairs = sum(int((p + 1).sum()) for p in real)
-        pad_pairs = int((pos[2] + 1).sum())
-        nbytes = (ctx_tokens * Hkv * D * 2 + 2 * real.size * Hq * D) * itemsize + pt.nbytes + pos.nbytes
+        nbytes = (ctx_tokens * (Hkv * D * kv_bytes + scale_bytes) * 2 + 2 * real.size * Hq * D * itemsize
+                  + pt.nbytes + pos.nbytes)
         flops = 4 * Hq * D * pairs
-        b_ms, b_by = bound(nbytes, flops, name)
-        log(f"K2 prefill flash {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP in the real "
-            f"lanes, pad lane {4 * Hq * D * pad_pairs / 1e9:.2f} GFLOP more)")
+        b_ms, b_by = bound(nbytes, flops, tol)
+        note = " (SDPA over the dequantized bf16 context, dequantization untimed)" if kind == "int8" else ""
+        log(f"{which} prefill flash {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms{note}, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP in the "
+            f"real lanes, pad lane {4 * Hq * D * pad_pairs / 1e9:.2f} GFLOP more)")
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by)
     return res
@@ -367,6 +419,32 @@ def check_mla_prefill(torch, dev, rng) -> dict:
     return res
 
 
+def phase_refusals(torch, dev) -> None:
+    """What the port does not take raises on the card and falls back to
+    nothing: an int8 cache on the MLA family, and K3a/K3b launches on a head
+    dim or query dtype they do not take."""
+    from dynamo_tpu_torch.models.registry import load_model
+    from dynamo_tpu_torch.ops import attention as att
+
+    pt = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    cases = {
+        "tiny-mla with an int8 KV cache": lambda: load_model("tiny-mla", device="cuda", kv_cache_dtype="int8"),
+        "K3a at head_dim 96": lambda: att.dispatch_paged_decode_attention(
+            torch.zeros((2, 8, 96), device=dev), *[torch.zeros((5, 16, 2, 96), device=dev)] * 2, pt, pos),
+        "K3b over float16": lambda: att.dispatch_paged_prefill_attention(
+            torch.zeros((16, 32, 64), device=dev, dtype=torch.float16),
+            *[torch.zeros((5, 16, 4, 64), device=dev, dtype=torch.float16)] * 2, pt[0], pos.repeat(8)),
+    }
+    for what, call in cases.items():
+        try:
+            call()
+        except ValueError as e:
+            log(f"refused on the card: {what} ({e})")
+            continue
+        raise AssertionError(f"{what} did not raise")
+
+
 # ---------------------------------------------------------------- engine
 
 
@@ -398,27 +476,38 @@ async def serve(config, requests, model=None):
     return results, wall, engine
 
 
-def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict) -> dict:
+def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict,
+                forbidden: dict | None = None) -> dict:
     """Serve ``requests`` on ``config``; every stream must end with exactly
-    MAX_TOKENS tokens and each of ``kernels`` ({name: launcher}) must have
-    launched. Returns {name: launches in this run}."""
+    MAX_TOKENS tokens, each of ``kernels`` ({name: launcher}) must have
+    launched and none of ``forbidden``; an int8 config must have served from
+    int8 pools. Returns {name: launches in this run}."""
+    from dynamo_tpu_torch.quant.kv import QuantizedPages
     from dynamo_tpu_torch.tools.workload import MAX_TOKENS as max_tokens
 
+    forbidden = forbidden or {}
     lens = np.array([len(r.token_ids) for r in requests])
-    for fn in kernels.values():
+    for fn in (*kernels.values(), *forbidden.values()):
         fn.launches = 0
-    results, wall, _ = asyncio.run(serve(config, requests))
+    results, wall, engine = asyncio.run(serve(config, requests))
     launches = {name: fn.launches for name, fn in kernels.items()}
+    stray = {name: fn.launches for name, fn in forbidden.items() if fn.launches}
     for rid, (toks, reason, _) in results.items():
         if len(toks) != max_tokens or reason != "length":
             raise AssertionError(f"{what} {rid}: {len(toks)} tokens, finish {reason!r} (want {max_tokens}, 'length')")
     if min(launches.values()) <= 0:
         raise AssertionError(f"{what}: main path skipped a kernel: launches {launches}")
+    if stray:
+        raise AssertionError(f"{what}: kernels off this path launched: {stray}")
+    quantized = any(isinstance(pool, QuantizedPages) for pool in engine.runner.kv_cache.values())
+    if quantized != (config.kv_cache_dtype == "int8"):
+        raise AssertionError(f"{what}: kv_cache_dtype {config.kv_cache_dtype!r} but int8 pools: {quantized}")
     n_out = sum(len(t) for t, _, _ in results.values())
     ttfts = sorted(t for _, _, t in results.values())
     log(f"{what}: {len(results)}/{len(requests)} streams finished with {max_tokens} tokens; prompts "
-        f"{int(lens.min())}-{int(lens.max())} (sum {int(lens.sum())}); launches "
-        + " ".join(f"{k} {v}" for k, v in launches.items()))
+        f"{int(lens.min())}-{int(lens.max())} (sum {int(lens.sum())}); KV cache "
+        f"{'int8' if quantized else 'bf16'}; launches " + " ".join(f"{k} {v}" for k, v in launches.items())
+        + (" (none of " + ", ".join(forbidden) + ")" if forbidden else ""))
     log(f"{what} [{gpu_name}]: {n_out / wall:.1f} output tok/s, "
         f"{(n_out + int(lens.sum())) / wall:.1f} total tok/s, wall {wall:.2f} s, "
         f"TTFT p50 {np.median(ttfts) * 1e3:.1f} ms, max {ttfts[-1] * 1e3:.1f} ms")
@@ -426,16 +515,20 @@ def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict
     n_after = n_out - len(results)
     log(f"{what} decode phase [{gpu_name}]: {n_after / (wall - ttfts[-1]):.1f} tok/s over "
         f"{wall - ttfts[-1]:.3f} s ({n_after} tokens, batch {len(results)})")
+    del engine
     torch.cuda.empty_cache()
     return launches
 
 
 def naive_greedy(torch, model, prompt: list[int], steps: int) -> list[int]:
     """Dense no-paging forward (attention_with_positions on the whole
-    sequence, recomputed every step) on the model's own weights."""
+    sequence, recomputed every step) on the model's own weights. With an int8
+    KV cache in the model's config, every K/V row goes through the port's
+    quantize_kv_rows and back before it is attended, as the pool stores it."""
     from dynamo_tpu_torch.ops.attention import attention_with_positions
     from dynamo_tpu_torch.ops.norms import rms_norm
     from dynamo_tpu_torch.ops.rotary import apply_rope
+    from dynamo_tpu_torch.quant.kv import dequantize_rows, quantize_kv_rows
 
     c = model.config
     toks = list(prompt)
@@ -450,6 +543,9 @@ def naive_greedy(torch, model, prompt: list[int], steps: int) -> list[int]:
                 q = apply_rope((x @ lp.wq).reshape(len(toks), -1, c.head_dim), pos, c.rope_theta)
                 k = apply_rope((x @ lp.wk).reshape(len(toks), -1, c.head_dim), pos, c.rope_theta)
                 v = (x @ lp.wv).reshape(len(toks), -1, c.head_dim)
+                if c.kv_quantized:
+                    k = dequantize_rows(*quantize_kv_rows(k))
+                    v = dequantize_rows(*quantize_kv_rows(v))
                 h = h + attention_with_positions(q, k, v, pos).reshape(len(toks), -1) @ lp.wo
                 x = rms_norm(h, lp.post_norm, c.rms_norm_eps)
                 h = h + (torch.nn.functional.silu(x @ lp.gate) * (x @ lp.up)) @ lp.down
@@ -459,20 +555,21 @@ def naive_greedy(torch, model, prompt: list[int], steps: int) -> list[int]:
     return out
 
 
-def phase_engine_vs_naive(torch, rng) -> None:
+def phase_engine_vs_naive(torch, rng, what: str, geometry: dict, kv_cache_dtype: str | None = None) -> None:
+    """``geometry`` at 2 layers in f32: the engine's greedy tokens (3
+    requests x 16) must equal naive_greedy's."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.sampling import SamplingParams
     from dynamo_tpu_torch.engine.scheduler import EngineRequest
     from dynamo_tpu_torch.models.registry import load_model
-    from dynamo_tpu_torch.tools.workload import LLAMA3_8B
 
     steps = 16
-    cfg = dict(LLAMA3_8B, num_layers=2, dtype="f32")
+    cfg = dict(geometry, num_layers=2, dtype="f32")
     config = EngineConfig(
-        model_id="tiny:" + json.dumps(cfg), device="cuda",
-        page_size=16, num_pages=256, max_seqs=4, max_model_len=1024, decode_steps=4,
+        model_id="tiny:" + json.dumps(cfg), device="cuda", page_size=16, num_pages=256,
+        max_seqs=4, max_model_len=1024, decode_steps=4, kv_cache_dtype=kv_cache_dtype,
     )
-    model = load_model(config.model_id, device="cuda")
+    model = load_model(config.model_id, device="cuda", kv_cache_dtype=kv_cache_dtype)
     prompts = [rng.integers(0, cfg["vocab_size"], n).tolist() for n in (100, 37, 600)]
     requests = [
         EngineRequest(f"naive-{i}", p, SamplingParams(temperature=0.0, max_tokens=steps))
@@ -483,9 +580,9 @@ def phase_engine_vs_naive(torch, rng) -> None:
         got = results[f"naive-{i}"][0]
         want = naive_greedy(torch, model, p, steps)
         if got != want:
-            raise AssertionError(f"request {i}: engine {got} != naive {want}")
-    log(f"engine vs naive forward (2 layers, f32): {len(prompts)} requests x {steps} greedy "
-        "tokens identical")
+            raise AssertionError(f"{what} request {i}: engine {got} != naive {want}")
+    log(f"{what} engine vs naive forward (2 layers, f32, {kv_cache_dtype or 'f32'} KV): "
+        f"{len(prompts)} requests x {steps} greedy tokens identical")
     del model
     torch.cuda.empty_cache()
 
@@ -610,12 +707,22 @@ def main() -> int:
     gpu_name = torch.cuda.get_device_name(0)
 
     from dynamo_tpu_torch.ops.kernels import _build
-
     from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_decode_attention_kernel as k5
     from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_prefill_attention_kernel as k6
+    from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_folded_kernel as k3a
     from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_kernel as k1
+    from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_folded_kernel as k3b
     from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_kernel as k2
-    from dynamo_tpu_torch.tools.workload import DEEPSEEK_V2_LITE, mla_serve_config, serve_config, serve_requests
+    from dynamo_tpu_torch.tools.workload import (
+        DEEPSEEK_V2_LITE,
+        LLAMA3_8B,
+        TINYLLAMA_1_1B,
+        folded_serve_config,
+        folded_serve_requests,
+        mla_serve_config,
+        serve_config,
+        serve_requests,
+    )
 
     t0 = time.monotonic()
     _build.build(["paged_attention", "prefill_attention", "mla_attention"])
@@ -623,29 +730,52 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
-    r1 = check_decode(torch, dev, rng)
-    r2 = check_prefill(torch, dev, rng)
-    r5 = check_mla_decode(torch, dev, rng)
-    r6 = check_mla_prefill(torch, dev, rng)
-    launches = phase_serve(torch, smi, "serve", serve_config(), serve_requests(), {"K1": k1, "K2": k2})
-    launches |= phase_serve(
-        torch, smi, "MLA serve", mla_serve_config(),
-        serve_requests(DEEPSEEK_V2_LITE["vocab_size"]), {"K5": k5, "K6": k6},
-    )
-    phase_engine_vs_naive(torch, rng)
+    checks = {name: check_decode(torch, dev, rng, name) for name in ("K1", "K3a")}
+    checks |= {name: check_prefill(torch, dev, rng, name) for name in ("K2", "K3b")}
+    checks["K5"] = check_mla_decode(torch, dev, rng)
+    checks["K6"] = check_mla_prefill(torch, dev, rng)
+    # each serve path runs with the counts set to 0 just before it and read
+    # just after it: {path: {kernel: launches}}
+    paged, folded = {"K1": k1, "K2": k2}, {"K3a": k3a, "K3b": k3b}
+    runs = {
+        "serve": phase_serve(torch, smi, "serve", serve_config(), serve_requests(), paged, folded),
+        "int8 serve": phase_serve(torch, smi, "int8 serve", serve_config("int8"), serve_requests(), paged,
+                                  folded),
+        "MLA serve": phase_serve(torch, smi, "MLA serve", mla_serve_config(),
+                                 serve_requests(DEEPSEEK_V2_LITE["vocab_size"]), {"K5": k5, "K6": k6}),
+        "folded serve": phase_serve(torch, smi, "folded serve", folded_serve_config(), folded_serve_requests(),
+                                    folded, paged),
+        "folded int8 serve": phase_serve(torch, smi, "folded int8 serve", folded_serve_config("int8"),
+                                         folded_serve_requests(), folded, paged),
+    }
+    phase_refusals(torch, dev)
+    phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B)
+    phase_engine_vs_naive(torch, rng, "TinyLlama geometry", TINYLLAMA_1_1B)
+    phase_engine_vs_naive(torch, rng, "TinyLlama geometry", TINYLLAMA_1_1B, kv_cache_dtype="int8")
     phase_mla_vs_naive(torch, rng)
 
     csrc = "dynamo_tpu_torch/ops/kernels/csrc/"
-    kernels = [
-        dict(name="paged_decode_attention", route="cuda", source=csrc + "paged_attention.cu",
-             replaces="dynamo_tpu/ops/pallas/paged_attention.py:536", launches=launches["K1"], **r1["bf16"]),
-        dict(name="paged_prefill_attention", route="cuda", source=csrc + "prefill_attention.cu",
-             replaces="dynamo_tpu/ops/pallas/prefill_attention.py:686", launches=launches["K2"], **r2["bf16"]),
-        dict(name="paged_mla_decode_attention", route="cuda", source=csrc + "mla_attention.cu",
-             replaces="dynamo_tpu/ops/pallas/mla_attention.py:221", launches=launches["K5"], **r5["bf16"]),
-        dict(name="paged_mla_prefill_attention", route="cuda", source=csrc + "mla_attention.cu",
-             replaces="dynamo_tpu/ops/pallas/mla_attention.py:396", launches=launches["K6"], **r6["bf16"]),
-    ]
+    pallas = "dynamo_tpu/ops/pallas/"
+    # name, check, source, the TPU kernel, the serve path of its bf16 numbers,
+    # the serve path of its int8 numbers (None: the kernel takes no int8)
+    table = (
+        ("paged_decode_attention", "K1", "paged_attention.cu", "paged_attention.py:536", "serve", "int8 serve"),
+        ("paged_prefill_attention", "K2", "prefill_attention.cu", "prefill_attention.py:686", "serve",
+         "int8 serve"),
+        ("paged_decode_attention_folded", "K3a", "paged_attention.cu", "paged_attention.py:741",
+         "folded serve", "folded int8 serve"),
+        ("paged_prefill_attention_folded", "K3b", "prefill_attention.cu", "prefill_attention.py:615",
+         "folded serve", "folded int8 serve"),
+        ("paged_mla_decode_attention", "K5", "mla_attention.cu", "mla_attention.py:221", "MLA serve", None),
+        ("paged_mla_prefill_attention", "K6", "mla_attention.cu", "mla_attention.py:396", "MLA serve", None),
+    )
+    kernels = []
+    for name, key, src, tpu, path, int8_path in table:
+        entry = dict(name=name, route="cuda", source=csrc + src, replaces=pallas + tpu,
+                     launches=runs[path][key], **checks[key]["bf16"])
+        if int8_path:
+            entry["int8"] = dict(launches=runs[int8_path][key], **checks[key]["int8"])
+        kernels.append(entry)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

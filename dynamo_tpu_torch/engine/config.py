@@ -1,9 +1,11 @@
 """Engine configuration (port of ``dynamo_tpu/engine/config.py``): the fields
-this slice reads, plus ``device``."""
+the port reads, plus ``device``."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from dynamo_tpu_torch.quant.kv import KV_CACHE_DTYPES
 
 
 @dataclass
@@ -38,6 +40,11 @@ class EngineConfig:
     # fraction of pages that must stay free for decode growth before
     # admitting a new sequence
     watermark: float = 0.05
+    # KV cache storage: None / "bf16" (the model dtype) or "int8" (int8 pages
+    # with one f32 scale per (page, token row), quant/kv.py): about half the
+    # attention bytes and twice the pages at the same memory. Llama pools
+    # only (the MLA latent cache raises)
+    kv_cache_dtype: str | None = None
 
     def __post_init__(self) -> None:
         if self.device not in ("cuda", "cpu") and not str(self.device).startswith("cuda:"):
@@ -45,6 +52,10 @@ class EngineConfig:
         if self.prefill_pipeline_depth < 1:
             raise ValueError(
                 f"prefill_pipeline_depth must be >= 1; got {self.prefill_pipeline_depth}"
+            )
+        if self.kv_cache_dtype is not None and self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(
+                f"kv_cache_dtype must be None or one of {KV_CACHE_DTYPES}; got {self.kv_cache_dtype!r}"
             )
         if any(b <= 0 for b in self.page_table_buckets):
             raise ValueError(f"page_table_buckets must be positive; got {self.page_table_buckets}")

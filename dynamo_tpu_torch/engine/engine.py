@@ -46,9 +46,9 @@ class AsyncTorchEngine:
     """Tokens-in/tokens-out streaming engine (the ExecutionContext contract).
 
     ``model`` optionally supplies an already built model (``LlamaModel`` or
-    ``DeepseekModel``) on the engine's device (tests load converted
-    reference weights this way); otherwise ``config.model_id`` is built by
-    the registry."""
+    ``DeepseekModel``) on the engine's device, with the engine's
+    ``kv_cache_dtype`` in its config (tests load converted reference weights
+    this way); otherwise ``config.model_id`` is built by the registry."""
 
     def __init__(self, config: EngineConfig, model=None):
         self.config = config
@@ -87,8 +87,14 @@ class AsyncTorchEngine:
             self.model = self._given_model
             if self.model.device != self.device:
                 raise ValueError(f"model is on {self.model.device}, engine on {self.device}")
+            want = None if self.config.kv_cache_dtype == "bf16" else self.config.kv_cache_dtype
+            have = getattr(self.model.config, "kv_cache_dtype", None)
+            if have != want:
+                raise ValueError(f"model's kv_cache_dtype is {have!r}, the engine's {want!r}")
         else:
-            self.model = load_model(self.config.model_id, device=self.device)
+            self.model = load_model(
+                self.config.model_id, device=self.device, kv_cache_dtype=self.config.kv_cache_dtype
+            )
         self.runner = ModelRunner(self.config, self.model)
         self.allocator = PageAllocator(self.config.num_pages, self.config.page_size)
         self.scheduler = Scheduler(self.config, self.runner, self.allocator)

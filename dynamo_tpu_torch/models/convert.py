@@ -9,7 +9,9 @@ module needs no JAX.
     layout, so leaves are split per layer and copied, never transposed.
   - :func:`kv_from_jax`: a reference pool ``[L*P, ps, Hkv*D]`` (folded, the
     JAX layout when head_dim % 128 != 0; row-major fold) or ``[L*P, ps, Hkv,
-    D]`` -> the port's unfolded ``[L*P, ps, Hkv, D]``.
+    D]`` -> the port's unfolded ``[L*P, ps, Hkv, D]``; a reference int8
+    ``QuantizedPages`` (numpy ``q`` / ``s`` leaves) -> the port's
+    ``QuantizedPages``, codes and scales copied bit for bit.
   - :func:`deepseek_params_from_jax`: the reference DeepSeek tree ``{"embed",
     "dense_layers": {name: [Ld, ...]}, "moe_layers": {name: [Lm, ...]},
     "final_norm", "lm_head"}`` -> a state dict for :class:`DeepseekModel`
@@ -26,6 +28,7 @@ import torch
 
 from dynamo_tpu_torch.models.deepseek import DeepseekConfig, DeepseekModel
 from dynamo_tpu_torch.models.llama import LlamaConfig
+from dynamo_tpu_torch.quant.kv import QuantizedPages
 
 _LAYER_LEAVES = ("input_norm", "wq", "wk", "wv", "wo", "post_norm", "gate", "up", "down")
 _BIAS_LEAVES = ("bq", "bk", "bv")
@@ -50,17 +53,30 @@ def params_from_jax(np_tree: dict, config: LlamaConfig) -> dict[str, torch.Tenso
     return sd
 
 
-def kv_from_jax(np_pool, config: LlamaConfig) -> torch.Tensor:
-    """One reference flat pool (``kv["k"]`` or ``kv["v"]``) -> unfolded."""
-    pool = np.array(np_pool, dtype=np.float32)  # a writable copy
+def _unfold(pool: np.ndarray, config: LlamaConfig) -> np.ndarray:
     Hkv, D = config.num_kv_heads, config.head_dim
     if pool.ndim == 3:
         if pool.shape[2] != Hkv * D:
             raise ValueError(f"folded pool lane dim {pool.shape[2]} != Hkv*D {Hkv * D}")
-        pool = pool.reshape(pool.shape[0], pool.shape[1], Hkv, D)
-    elif pool.ndim != 4 or pool.shape[2:] != (Hkv, D):
+        return pool.reshape(pool.shape[0], pool.shape[1], Hkv, D)
+    if pool.ndim != 4 or pool.shape[2:] != (Hkv, D):
         raise ValueError(f"unexpected pool shape {pool.shape}")
-    return torch.from_numpy(np.ascontiguousarray(pool)).to(config.dtype)
+    return pool
+
+
+def kv_from_jax(np_pool, config: LlamaConfig):
+    """One reference flat pool (``kv["k"]`` or ``kv["v"]``) -> unfolded, in
+    ``config.dtype``; a reference ``QuantizedPages`` (anything with ``q`` and
+    ``s`` leaves) -> the port's, int8 codes and f32 scales unchanged."""
+    if hasattr(np_pool, "q") and hasattr(np_pool, "s"):
+        q = np.array(np_pool.q)
+        s = np.array(np_pool.s, dtype=np.float32)
+        if q.dtype != np.int8 or s.shape != q.shape[:2]:
+            raise ValueError(f"expected int8 q and f32 s [P, ps]; got {q.dtype} {q.shape}, {s.shape}")
+        q = np.ascontiguousarray(_unfold(q, config))
+        return QuantizedPages(torch.from_numpy(q), torch.from_numpy(np.ascontiguousarray(s)))
+    pool = np.array(np_pool, dtype=np.float32)  # a writable copy
+    return torch.from_numpy(np.ascontiguousarray(_unfold(pool, config))).to(config.dtype)
 
 
 def deepseek_params_from_jax(np_tree: dict, config: DeepseekConfig) -> dict[str, torch.Tensor]:

@@ -8,10 +8,14 @@
   - The KV cache is the reference's flat page pool ``{"k", "v"}``, each
     ``[num_layers * num_pages, page_size, Hkv, D]`` (layer l's page p at
     flat index ``l * num_pages + p``; page 0 of each layer is its trash page),
-    always unfolded. New rows are scattered in place before attention reads
-    the pool (``ops/attention.py scatter_kv``).
-  - Attention runs through ``ops/attention.py``'s dispatchers: the CUDA
-    kernels K1/K2 on the card, their plain versions on the CPU.
+    always unfolded. With ``kv_cache_dtype="int8"`` each pool is a
+    ``QuantizedPages`` (``quant/kv.py``: int8 rows, one f32 scale a token
+    row). New rows are scattered in place before attention reads the pool
+    (``ops/attention.py scatter_kv``).
+  - Attention runs through ``ops/attention.py``'s dispatchers: on the card
+    the CUDA kernels K1/K2, or K3a/K3b when ``kv_folded`` (head_dim not a
+    multiple of 128, as the reference routes); their plain versions on the
+    CPU.
 
 Not ported yet: int8 weights (``qlinear``), LoRA, M-RoPE, sp/pp/tp, ``verify``.
 """
@@ -27,10 +31,13 @@ from torch import nn
 from dynamo_tpu_torch.ops.attention import (
     dispatch_paged_decode_attention,
     dispatch_paged_prefill_attention,
+    kv_folded,
     scatter_kv,
 )
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.rotary import apply_rope
+from dynamo_tpu_torch.quant.kv import init_quantized_pages
+from dynamo_tpu_torch.quant.kv import kv_page_bytes as _kv_page_bytes
 
 _DTYPES = {
     "bf16": torch.bfloat16,
@@ -60,7 +67,22 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
     attention_bias: bool = False  # Qwen2-style qkv biases
+    # KV cache storage dtype: None / "bf16" (the model dtype) or "int8":
+    # int8 pages with one f32 scale per (page, token row) (quant/kv.py)
+    kv_cache_dtype: Any = None
     dtype: Any = torch.bfloat16
+
+    @property
+    def kv_quantized(self) -> bool:
+        return self.kv_cache_dtype == "int8"
+
+    @property
+    def kv_folded(self) -> bool:
+        """True when head_dim is not a multiple of 128 (TinyLlama's 64): the
+        reference folds such pools to ``[ps, Hkv*D]`` rows and routes their
+        attention to its folded kernels; the port keeps the pool unfolded
+        (the same memory) and routes to K3a/K3b on the card."""
+        return kv_folded(self.head_dim)
 
     @classmethod
     def from_hf_config(cls, d: dict) -> "LlamaConfig":
@@ -149,12 +171,29 @@ class LlamaModel(nn.Module):
         c = self.config
         return (c.num_layers * num_pages, page_size, c.num_kv_heads, c.head_dim)
 
+    #: Llama pools take the int8 KV cache (the MLA latent cache does not)
+    SUPPORTS_KV_INT8 = True
+
     def init_kv_cache(self, num_pages: int, page_size: int) -> dict:
         shape = self.kv_cache_shape(num_pages, page_size)
+        if self.config.kv_quantized:
+            return {
+                "k": init_quantized_pages(shape, self.device),
+                "v": init_quantized_pages(shape, self.device),
+            }
         return {
             "k": torch.zeros(shape, dtype=self.config.dtype, device=self.device),
             "v": torch.zeros(shape, dtype=self.config.dtype, device=self.device),
         }
+
+    def kv_page_bytes(self, page_size: int) -> int:
+        """Device bytes one allocator page costs across all layers (K and V
+        and, for int8, the scale planes)."""
+        c = self.config
+        return _kv_page_bytes(
+            page_size, c.num_kv_heads, c.head_dim, c.num_layers,
+            "int8" if c.kv_quantized else None, itemsize=c.dtype.itemsize,
+        )
 
     # ---------------- forward ----------------
 
@@ -174,8 +213,8 @@ class LlamaModel(nn.Module):
         self,
         lp: LlamaLayer,
         hidden: torch.Tensor,  # [T, D]
-        k_pool: torch.Tensor,  # [LP, ps, Hkv, D] full flat pool
-        v_pool: torch.Tensor,
+        k_pool,  # [LP, ps, Hkv, D] full flat pool (plain or QuantizedPages)
+        v_pool,
         positions: torch.Tensor,  # [T] sequential positions (rope)
         flat_phys: torch.Tensor,  # [T] flat page per token (layer trash for invalid)
         offsets: torch.Tensor,  # [T]

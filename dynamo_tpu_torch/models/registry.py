@@ -9,11 +9,15 @@ scales (``LlamaModel._init_raw_params``, ``DeepseekModel._attn_params`` /
 ``_init_raw_params``): normal(0, 1) / sqrt(fan) with the same fan axis,
 norms at 1, the DeepSeek router in f32. The numbers differ from JAX's (another random
 stream); tests that compare the two packages copy JAX's weights across with
-``models/convert.py`` instead. Checkpoint directories are not ported yet.
+``models/convert.py`` instead. ``kv_cache_dtype="int8"`` sets a Llama
+config's KV cache to int8 pages (``quant/kv.py``); the DeepSeek latent cache
+takes none and raises, as in the reference. Checkpoint directories are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import torch
@@ -133,14 +137,26 @@ def _init_deepseek_(model: DeepseekModel, dense_) -> DeepseekModel:
     return model
 
 
-def load_model(model_id: str, seed: int = 0, device="cuda") -> LlamaModel | DeepseekModel:
+def load_model(model_id: str, seed: int = 0, device="cuda",
+               kv_cache_dtype: str | None = None) -> LlamaModel | DeepseekModel:
     """Build the model for ``model_id`` on ``device`` with seeded random
-    weights. Raises for ids other than the tiny families."""
+    weights. ``kv_cache_dtype`` ("int8"; "bf16" means None, the model dtype)
+    sets the KV cache storage on a Llama config and raises ValueError for a
+    config without one (DeepSeek's latent cache). Raises for ids other than
+    the tiny families."""
     if not is_tiny_family(model_id):
         raise ValueError(f"unknown model id {model_id!r} (only 'tiny[:{{json}}]' and "
                          "'tiny-mla[:{{json}}]' are ported)")
+    if kv_cache_dtype == "bf16":
+        kv_cache_dtype = None  # the default storage dtype, spelled out
     cfg = config_for(model_id)
     model_cls = DeepseekModel if isinstance(cfg, DeepseekConfig) else LlamaModel
+    if kv_cache_dtype:
+        if not getattr(model_cls, "SUPPORTS_KV_INT8", False):
+            raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r} is not supported by "
+                             f"{model_cls.__name__} (the MLA latent cache is its own "
+                             "compression; int8 KV covers the k/v page-pool families)")
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
     model = model_cls(cfg, device=torch.device(device))
     init_random_(model, seed)
     log.info("built %s on %s (%d layers, seed %d)", model_id, device, cfg.num_layers, seed)

@@ -20,15 +20,25 @@ width: the reference pads rows to a multiple of 128, a TPU lane rule the
 port does not carry). All heads of a token share its row, so latent
 attention is MQA with ``latent``-wide keys and ``d_c``-wide values.
 
+Int8 KV cache (``EngineConfig.kv_cache_dtype="int8"``): the pools arrive as
+``QuantizedPages`` (``quant/kv.py``), an int8 pool and a per-(page, token row)
+f32 scale plane. ``scatter_kv`` quantizes fresh rows on the way in and
+``gather_pages`` dequantizes the gathered context on the way out, so every
+plain version below takes both pool kinds; the kernels instead read the int8
+rows and scale score and probability columns, the same algebra.
+
 ``dispatch_paged_decode_attention`` / ``dispatch_paged_prefill_attention``
-(K1, K2) and ``dispatch_paged_mla_decode_attention`` /
-``dispatch_paged_mla_prefill_attention`` (K5, K6) launch the hand-written
-CUDA kernels (``ops/kernels/``) for CUDA tensors and use the plain versions
-below for CPU tensors. A decode position below 0 attends context index 0
-only, in the plain versions as in the kernels (the reference's plain
-version spreads a uniform softmax there; the engine never feeds one). The
-int8 pools and the tensor-parallel paths of the reference are not ported
-yet.
+launch the hand-written CUDA kernels (``ops/kernels/``) for CUDA tensors and
+use the plain versions below for CPU tensors. The kernel follows the
+reference's routing (``dynamo_tpu/ops/attention.py``): a head_dim that is not
+a multiple of 128 (:func:`kv_folded`, TinyLlama's 64) takes the folded
+kernels K3a / K3b, every other head_dim K1 / K2. The folded kernels read the
+port's unfolded pool, whose memory is the folded ``[P, ps, Hkv*D]`` layout.
+``dispatch_paged_mla_decode_attention`` / ``dispatch_paged_mla_prefill_attention``
+launch K5 / K6. A decode position below 0 attends context index 0 only, in
+the plain versions as in the kernels (the reference's plain version spreads a
+uniform softmax there; the engine never feeds one). The tensor-parallel paths
+of the reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,35 +49,52 @@ from dynamo_tpu_torch.ops.kernels.mla_attention import (
     paged_mla_decode_attention_kernel,
     paged_mla_prefill_attention_kernel,
 )
-from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_kernel
-from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_kernel
+from dynamo_tpu_torch.ops.kernels.paged_attention import (
+    paged_decode_attention_folded_kernel,
+    paged_decode_attention_kernel,
+)
+from dynamo_tpu_torch.ops.kernels.prefill_attention import (
+    paged_prefill_attention_folded_kernel,
+    paged_prefill_attention_kernel,
+)
+from dynamo_tpu_torch.quant.kv import QuantizedPages, quantize_kv_rows
 
 _NEG_INF = -1e30
 
 
 def scatter_kv(
-    k_pages: torch.Tensor,  # [LP, ps, Hkv, D] flat pool
-    v_pages: torch.Tensor,
+    k_pages,  # [LP, ps, Hkv, D] flat pool (plain or QuantizedPages)
+    v_pages,
     k_new: torch.Tensor,  # [T, Hkv, D]
     v_new: torch.Tensor,
     phys_pages: torch.Tensor,  # [T] int flat page per row (trash page for dropped rows)
     offsets: torch.Tensor,  # [T] int offset within page
-) -> tuple[torch.Tensor, torch.Tensor]:
+):
     """Scatter new K/V rows into their physical pages.
 
     Unlike the reference, which returns new arrays and relies on XLA buffer
     donation to make the scatter in place, this writes the pools IN PLACE and
     returns them. Invalid rows are routed to a trash page by the caller, so no
-    old-value select is needed."""
+    old-value select is needed. Int8 pools quantize each fresh row (one
+    absmax over its head values) and write the int8 row and its scale."""
     idx = (phys_pages.long(), offsets.long())
+    if isinstance(k_pages, QuantizedPages):
+        # K and V rows quantize in one batch: per-row math, half the launches
+        T = k_new.shape[0]
+        q, s = quantize_kv_rows(torch.cat([k_new, v_new]))
+        k_pages.q.index_put_(idx, q[:T])
+        k_pages.s.index_put_(idx, s[:T])
+        v_pages.q.index_put_(idx, q[T:])
+        v_pages.s.index_put_(idx, s[T:])
+        return k_pages, v_pages
     k_pages.index_put_(idx, k_new.to(k_pages.dtype))
     v_pages.index_put_(idx, v_new.to(v_pages.dtype))
     return k_pages, v_pages
 
 
 def write_kv_pages(
-    k_pages: torch.Tensor,
-    v_pages: torch.Tensor,
+    k_pages,  # [LP, ps, Hkv, D] plain or QuantizedPages
+    v_pages,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
     positions: torch.Tensor,  # [T] absolute positions
@@ -83,9 +110,16 @@ def write_kv_pages(
     return scatter_kv(k_pages, v_pages, k_new, v_new, phys, offsets)
 
 
-def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
-    """[P, ps, Hkv, D] gathered by [..., max_pages] -> [..., max_pages * ps, Hkv, D]."""
-    g = pages[page_table.long()]  # [..., max_pages, ps, Hkv, D]
+def gather_pages(pages, page_table: torch.Tensor) -> torch.Tensor:
+    """[P, ps, Hkv, D] gathered by [..., max_pages] -> [..., max_pages * ps, Hkv, D].
+    Int8 pools dequantize the gathered context (f32) with their row scales."""
+    pt = page_table.long()
+    if isinstance(pages, QuantizedPages):
+        g = pages.q[pt].float()  # [..., max_pages, ps, Hkv, D]
+        s = pages.s[pt]  # [..., max_pages, ps]
+        g = g * s.reshape(*s.shape, *(1,) * (g.ndim - s.ndim))
+    else:
+        g = pages[pt]
     return g.reshape(*page_table.shape[:-1], -1, *pages.shape[2:])
 
 
@@ -114,8 +148,8 @@ def attention_with_positions(
 
 def paged_prefill_attention(
     q: torch.Tensor,  # [T, Hq, D] (padded chunk)
-    k_pages: torch.Tensor,
-    v_pages: torch.Tensor,
+    k_pages,  # [LP, ps, Hkv, D] plain or QuantizedPages
+    v_pages,
     page_table: torch.Tensor,  # [max_pages]
     q_positions: torch.Tensor,  # [T] absolute positions
 ) -> torch.Tensor:
@@ -127,8 +161,8 @@ def paged_prefill_attention(
 
 def paged_prefill_attention_lanes(
     q: torch.Tensor,  # [N*T, Hq, D]
-    k_pages: torch.Tensor,
-    v_pages: torch.Tensor,
+    k_pages,  # [LP, ps, Hkv, D] plain or QuantizedPages
+    v_pages,
     page_tables: torch.Tensor,  # [N, max_pages]
     positions: torch.Tensor,  # [N, T]
 ) -> torch.Tensor:
@@ -145,8 +179,8 @@ def paged_prefill_attention_lanes(
 
 def paged_decode_attention(
     q: torch.Tensor,  # [B, Hq, D]
-    k_pages: torch.Tensor,
-    v_pages: torch.Tensor,
+    k_pages,  # [LP, ps, Hkv, D] plain or QuantizedPages
+    v_pages,
     page_tables: torch.Tensor,  # [B, max_pages]
     positions: torch.Tensor,  # [B] the query token's absolute position
 ) -> torch.Tensor:
@@ -169,27 +203,43 @@ def paged_decode_attention(
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
+def kv_folded(head_dim: int) -> bool:
+    """The reference's routing rule (``LlamaConfig.kv_folded``): a head_dim
+    that is not a multiple of 128 takes the folded kernels."""
+    return head_dim % 128 != 0
+
+
+def decode_kernel(head_dim: int):
+    """The launcher a CUDA decode call takes: K3a for folded head dims, else K1."""
+    return paged_decode_attention_folded_kernel if kv_folded(head_dim) else paged_decode_attention_kernel
+
+
+def prefill_kernel(head_dim: int):
+    """The launcher a CUDA prefill call takes: K3b for folded head dims, else K2."""
+    return paged_prefill_attention_folded_kernel if kv_folded(head_dim) else paged_prefill_attention_kernel
+
+
 def dispatch_paged_decode_attention(q, k_pages, v_pages, page_tables, positions):
-    """Kernel K1 (``ops/kernels/paged_attention.py``, which launches or
+    """Kernel K1 or K3a (:func:`decode_kernel`; the launcher launches or
     raises) for CUDA tensors; the plain version above for CPU tensors. Same
-    contract either way."""
+    contract either way, plain or int8 pools."""
     if q.device.type == "cpu":
         return paged_decode_attention(q, k_pages, v_pages, page_tables, positions)
-    return paged_decode_attention_kernel(q, k_pages, v_pages, page_tables, positions)
+    return decode_kernel(q.shape[-1])(q, k_pages, v_pages, page_tables, positions)
 
 
 def dispatch_paged_prefill_attention(q, k_pages, v_pages, page_tables, positions):
-    """Kernel K2 (``ops/kernels/prefill_attention.py``, which launches or
+    """Kernel K2 or K3b (:func:`prefill_kernel`; the launcher launches or
     raises) for CUDA tensors; the plain versions above for CPU tensors.
     ``page_tables`` [max_pages] with ``positions`` [T] is one chunk;
     [N, max_pages] with [N, T] is N packed lanes over ``q`` [N*T, Hq, D] in
-    one launch. Positions must be unit-stride within a lane (the kernel's
+    one launch. Positions must be unit-stride within a lane (the kernels'
     precondition, as on the TPU)."""
     if q.device.type == "cpu":
         if page_tables.dim() == 1:
             return paged_prefill_attention(q, k_pages, v_pages, page_tables, positions)
         return paged_prefill_attention_lanes(q, k_pages, v_pages, page_tables, positions)
-    return paged_prefill_attention_kernel(q, k_pages, v_pages, page_tables, positions)
+    return prefill_kernel(q.shape[-1])(q, k_pages, v_pages, page_tables, positions)
 
 
 def paged_mla_decode_attention(

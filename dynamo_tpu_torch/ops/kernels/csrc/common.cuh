@@ -1,5 +1,5 @@
-// Shared helpers for the port's hand-written Hopper kernels: 16-byte vector
-// loads of bf16 / f32 rows converted to f32 registers, stores back, and the
+// Shared helpers for the port's hand-written Hopper kernels: vector loads of
+// f32 / bf16 / int8 rows converted to f32 registers, stores back, and the
 // one-time raise of a kernel's dynamic shared-memory limit.
 #pragma once
 
@@ -23,6 +23,27 @@ template <> struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
   using Raw = uint4;
 };
+template <> struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  using Raw = int4;
+};
+
+// One lane's slice of a K/V row in the register-resident decode kernels: 16
+// bytes of f32 or bf16, 8 bytes (8 values) of int8, so an int8 lane holds as
+// many values, and as many query and accumulator registers, as a bf16 lane.
+template <typename T> struct RowVec;
+template <> struct RowVec<float> {
+  static constexpr int N = 4;
+  using Raw = float4;
+};
+template <> struct RowVec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using Raw = uint4;
+};
+template <> struct RowVec<int8_t> {
+  static constexpr int N = 8;
+  using Raw = int2;
+};
 
 __device__ __forceinline__ void to_float(const float4& r, float* f) {
   f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
@@ -38,6 +59,43 @@ __device__ __forceinline__ void to_float(const uint4& r, float* f) {
   }
 }
 
+__device__ __forceinline__ void to_float(const int4& r, float* f) {
+  const char4* c = reinterpret_cast<const char4*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[4 * i] = c[i].x;
+    f[4 * i + 1] = c[i].y;
+    f[4 * i + 2] = c[i].z;
+    f[4 * i + 3] = c[i].w;
+  }
+}
+
+__device__ __forceinline__ void to_float(const int2& r, float* f) {
+  const char4* c = reinterpret_cast<const char4*>(&r);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    f[4 * i] = c[i].x;
+    f[4 * i + 1] = c[i].y;
+    f[4 * i + 2] = c[i].z;
+    f[4 * i + 3] = c[i].w;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ typename RowVec<T>::Raw load_row(const T* p) {
+  return *reinterpret_cast<const typename RowVec<T>::Raw*>(p);
+}
+
+// N elements of T starting at p (16-byte aligned, N * sizeof(T) a multiple
+// of 16) as floats.
+template <typename T, int N>
+__device__ __forceinline__ void load_floats(const T* p, float* f) {
+  constexpr int V = Vec16<T>::N;
+  static_assert(N % V == 0, "load_floats reads whole 16-byte vectors");
+#pragma unroll
+  for (int i = 0; i < N; i += V) to_float(*reinterpret_cast<const typename Vec16<T>::Raw*>(p + i), f + i);
+}
+
 template <typename T>
 __device__ __forceinline__ typename Vec16<T>::Raw load16(const T* p) {
   return *reinterpret_cast<const typename Vec16<T>::Raw*>(p);
@@ -46,6 +104,13 @@ __device__ __forceinline__ typename Vec16<T>::Raw load16(const T* p) {
 template <typename T>
 __device__ __forceinline__ typename Vec16<T>::Raw zero16() {
   typename Vec16<T>::Raw r;
+  memset(&r, 0, sizeof(r));
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ typename RowVec<T>::Raw zero_row() {
+  typename RowVec<T>::Raw r;
   memset(&r, 0, sizeof(r));
   return r;
 }

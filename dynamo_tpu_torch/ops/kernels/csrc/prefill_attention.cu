@@ -1,48 +1,81 @@
-// K2: chunked-prefill flash attention over the paged KV pool, for Hopper
-// (sm_90a).
+// K2 and K3b: chunked-prefill flash attention over the paged KV pool, for
+// Hopper (sm_90a).
 //
-// Replaces the TPU kernel dynamo_tpu/ops/pallas/prefill_attention.py
+// K2 replaces the TPU kernel dynamo_tpu/ops/pallas/prefill_attention.py
 // paged_prefill_attention_pallas (_kernel_lookahead / _kernel, math in
-// _flash_merge). The TPU variants differ only in DMA scheduling across the
-// serial TPU grid; nothing carries between CUDA blocks, so neither schedule
-// is copied.
+// _flash_merge). K3b replaces paged_prefill_attention_pallas_folded
+// (_kernel_folded), the same function for head dims that are not a multiple
+// of 128 (TinyLlama's 64), which the TPU reads from pools with the kv heads
+// folded into the lane dim through zero-placed folded queries (a Mosaic lane
+// workaround, not carried over). The TPU variants differ only in DMA
+// scheduling across the serial TPU grid; nothing carries between CUDA
+// blocks, so neither schedule is copied.
 //
 // Contract (per lane n of N packed lanes; N = 1 is the single-chunk call):
-// q [N*T, Hq, D]; k/v pools [P, ps, Hkv, D]; page_tables [N, max_pages] int32
-// (layer offset already added); positions [N, T] int32, UNIT-STRIDE within a
-// lane (row i sits at positions[n, 0] + i). Query block b reads context up to
-// its last row's position, never past max_pages * ps; a row at position p
-// attends context j <= p. f32 scores and online softmax, scale 1/sqrt(D),
-// output divided by max(l, 1e-20), written in q's dtype. The chunk's own K/V
-// rows are already in the pool (the model scatters before attending).
+// q [N*T, Hq, D] f32 or bf16; k/v pools [P, ps, Hkv, D] (the folded [P, ps,
+// Hkv*D] is the same memory) of q's dtype, or int8 with f32 scale planes [P,
+// ps], one scale a token row; page_tables [N, max_pages] int32 (layer offset
+// already added); positions [N, T] int32, UNIT-STRIDE within a lane (row i
+// sits at positions[n, 0] + i). A query block reads context up to its last
+// row's position, never past max_pages * ps; a row at position p attends
+// context j <= p. f32 scores and online softmax, scale 1/sqrt(D), output
+// divided by max(l, 1e-20), written in q's dtype. Int8 pools: each score is
+// multiplied by its key row's K scale and each probability, after the
+// running sum took it, by the row's V scale (the reference's per-column
+// algebra). The chunk's own K/V rows are already in the pool (the model
+// scatters before attending).
 //
-// What bounds it on an H100: at prefill sizes, arithmetic (4 * Hq * D FLOP
-// per causal (row, key) pair) rather than the context bytes. Design, right
-// before fast: one block per (64 (query, head) rows, kv head, lane): the
-// block covers 64/G query positions of all G = Hq/Hkv q heads of one kv
-// head, so every K/V tile it stages is shared by the GQA group. K/V tiles of
-// 32 keys go page by page from HBM into shared memory as f32 (16-byte
-// loads; keys past the block's context bound are not read, so pad rows and
-// pad lanes, whose page tables point at trash page 0, stay in bounds), the
-// Q tile stays in shared memory for the whole loop, and 256 threads compute
-// 4x2 score and 4x(D/16) output micro-tiles with f32 FMA. Tensor cores
-// (wgmma), a TMA/cp.async pipeline and split-K are later work.
+// What bounds both on an H100: at prefill sizes, arithmetic (4 * Hq * D FLOP
+// per causal (row, key) pair) rather than the context bytes. Both stage K/V
+// tiles of 32 keys page by page from HBM into shared memory as f32 (16-byte
+// loads: 4 f32, 8 bf16 or 16 int8 values; keys past the block's context
+// bound are not read, so pad rows and pad lanes, whose page tables point at
+// trash page 0, stay in bounds), keep their Q tile in shared memory for the
+// whole loop, and run 256 threads (16 x 16) of f32 FMA micro-tiles. Tensor
+// cores (wgmma), a TMA/cp.async pipeline and split-K are later work.
+//
+// K2 design: one block per (64 (query, head) rows, kv head, lane): the block
+// covers 64/G query positions of the G = Hq/Hkv q heads of one kv head, so
+// every K/V tile it stages (D columns) is shared by the GQA group; threads
+// compute 4x2 score and 4x(D/16) output micro-tiles.
+//
+// K3b design: one block per (BQ query positions, lane) covering ALL Hq heads
+// (Hq = 16 HJ, HJ in {1, 2, 4}; BQ = 16 / HJ), 256 (query, head) rows, so
+// every staged tile of F = Hkv * D columns serves every head and no kv head's
+// tile is staged twice. Thread (ty, tx) owns the 16 rows of heads ty + 16 j
+// (j < HJ) at the BQ query positions and keys tx, tx + 16; its f32 output
+// accumulators, 16 rows x D/16 columns (64 at D = 64), stay in registers:
+// that register budget is what sizes the query tile. Shared memory holds the
+// Q tile (256 x D f32), the K/V tiles (32 x F each) and the probabilities;
+// at D = 64 that is 161 KB for F = 256 and 225 KB for F = 512, the most a
+// block can have, so F is capped at 512.
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;     // (query, head) rows per block
+constexpr int kRows = 64;     // K2: (query, head) rows per block
 constexpr int kKeys = 32;     // keys per context tile
-constexpr int kThreads = 256; // 16 x 16: ty owns rows ty + 16i, tx keys tx + 16j
+constexpr int kThreads = 256; // 16 x 16: ty owns rows, tx keys tx and tx + 16
 constexpr int kPStride = kKeys + 16;
+constexpr int kFRows = 256;   // K3b: (query, head) rows per block
+constexpr int kFRPT = 16;     // K3b: rows per thread
+constexpr int kFPStride = kFRows + 4;
+constexpr int kMaxFoldedWidth = 512;  // K3b: F = Hkv * D at most
 
 template <int D>
 constexpr int smem_floats() {
-  return kRows * (D + 4) + kKeys * (D + 4) + kKeys * D + kRows * kPStride;
+  return kRows * (D + 4) + kKeys * (D + 4) + kKeys * D + kRows * kPStride + 2 * kKeys;
 }
 
-template <typename T, int D>
+constexpr size_t folded_smem_bytes(int D, int F) {
+  return ((size_t)kFRows * D + (size_t)kKeys * (F + 4) + (size_t)kKeys * F +
+          (size_t)kKeys * kFPStride + 2 * kKeys) * sizeof(float);
+}
+
+template <typename T>
 __device__ __forceinline__ void load_row_f32(float* dst_row, const T* src_row, bool ok, int c) {
   using V16 = dtt::Vec16<T>;
   float f[V16::N];
@@ -56,14 +89,96 @@ __device__ __forceinline__ void load_row_f32(float* dst_row, const T* src_row, b
   for (int i = 0; i < V16::N; i += 4) dtt::store4(dst_row + c + i, f + i);
 }
 
-template <typename T, int D>
+// Stage context keys [kt0, kt0 + kKeys) of one lane, F columns a row, into
+// sK (row stride KS) and sV (row stride F) as f32, and for int8 the rows'
+// scales into sKs / sVs; keys at or past n_ctx are zero and are not read.
+template <typename TK>
+__device__ __forceinline__ void stage_kv(float* sK, float* sV, float* sKs, float* sVs,
+                                         const TK* __restrict__ k_pool,
+                                         const TK* __restrict__ v_pool,
+                                         const float* __restrict__ k_scale,
+                                         const float* __restrict__ v_scale,
+                                         const int* __restrict__ pt, int kt0, int n_ctx,
+                                         int page_size, int F, int KS, size_t token_stride,
+                                         int col0) {
+  constexpr int VEC = dtt::Vec16<TK>::N;
+  const int vpr = F / VEC;
+  for (int idx = threadIdx.x; idx < kKeys * vpr; idx += kThreads) {
+    const int kk = idx / vpr;
+    const int c = (idx - kk * vpr) * VEC;
+    const int j = kt0 + kk;
+    const bool ok = j < n_ctx;
+    size_t base = 0;
+    if (ok) base = ((size_t)pt[j / page_size] * page_size + (j % page_size)) * token_stride + col0;
+    load_row_f32<TK>(sK + kk * KS, k_pool + base, ok, c);
+    load_row_f32<TK>(sV + kk * F, v_pool + base, ok, c);
+  }
+  if constexpr (std::is_same<TK, int8_t>::value) {
+    if (threadIdx.x < kKeys) {
+      const int j = kt0 + threadIdx.x;
+      float ks = 0.f, vs = 0.f;
+      if (j < n_ctx) {
+        const size_t tok = (size_t)pt[j / page_size] * page_size + (j % page_size);
+        ks = k_scale[tok];
+        vs = v_scale[tok];
+      }
+      sKs[threadIdx.x] = ks;
+      sVs[threadIdx.x] = vs;
+    }
+  }
+}
+
+// The online-softmax step of one row for keys tx and tx + 16: masks, scales
+// (int8: by the key's K scale), reduces over the 16 tx lanes of the row's
+// half-warp, writes the probabilities (int8: times the V scale) to sP_row
+// and rescales the row's accumulators. Every thread runs it.
+template <bool kQuant, int C>
+__device__ __forceinline__ void softmax_step(float (&s)[2], int kt0, int qpos, int n_ctx,
+                                             float scale, const float* sKs, const float* sVs,
+                                             float* sP_row0, float* sP_row1, float& m, float& l,
+                                             float (&o)[C]) {
+  const int tx = threadIdx.x % 16;
+  float rmax = dtt::kNegInf;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int j = kt0 + tx + 16 * jj;
+    float v = s[jj] * scale;
+    if constexpr (kQuant) v *= sKs[tx + 16 * jj];
+    s[jj] = (j <= qpos && j < n_ctx) ? v : dtt::kNegInf;
+    rmax = fmaxf(rmax, s[jj]);
+  }
+  // the 16 tx lanes of a row sit in one half-warp
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+  const float new_m = fmaxf(m, rmax);
+  const float corr = expf(m - new_m);
+  float rsum = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const float p = expf(s[jj] - new_m);
+    rsum += p;
+    const float pv = kQuant ? p * sVs[tx + 16 * jj] : p;
+    *(jj == 0 ? sP_row0 : sP_row1) = pv;
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+  l = l * corr + rsum;
+  m = new_m;
+#pragma unroll
+  for (int c = 0; c < C; ++c) o[c] *= corr;
+}
+
+// ---------------------------------------------------------------- K2
+
+template <typename TQ, typename TK, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                     const T* __restrict__ v_pool, const int* __restrict__ page_tables,
-                     const int* __restrict__ positions, T* __restrict__ out, int T_len, int Hq,
+paged_prefill_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
+                     const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale, const int* __restrict__ page_tables,
+                     const int* __restrict__ positions, TQ* __restrict__ out, int T_len, int Hq,
                      int Hkv, int page_size, int max_pages, float scale) {
-  using V16 = dtt::Vec16<T>;
-  constexpr int VEC = V16::N;
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  constexpr int VECQ = dtt::Vec16<TQ>::N;
   constexpr int QS = D + 4;  // padded f32 row stride of the Q and K tiles
   constexpr int OC = D / 64; // float4 output column groups per thread
   static_assert(D % 64 == 0, "unsupported head_dim");
@@ -73,6 +188,8 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   float* sK = sQ + kRows * QS;                     // [kKeys][QS]
   float* sV = sK + kKeys * QS;                     // [kKeys][D]
   float* sP = sV + kKeys * D;                      // [kRows][kPStride]
+  float* sKs = sP + kRows * kPStride;              // [kKeys]
+  float* sVs = sKs + kKeys;                        // [kKeys]
 
   const int G = Hq / Hkv;
   const int BQ = kRows / G;  // query positions per block
@@ -85,25 +202,23 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int* pt = page_tables + (size_t)n * max_pages;
   const int pos0 = pos[q_start];
   const int last_pos = pos[q_start + n_q - 1];
-  const int ctx_cap = max_pages * page_size;
-  const int n_ctx = min(last_pos + 1, ctx_cap);
+  const int n_ctx = min(last_pos + 1, max_pages * page_size);
 
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const size_t token_stride = (size_t)Hkv * D;
 
   // Q tile: row r = (head g = r / BQ, query qi = r % BQ)
-  for (int idx = tid; idx < kRows * (D / VEC); idx += kThreads) {
-    const int r = idx / (D / VEC);
-    const int c = (idx % (D / VEC)) * VEC;
+  for (int idx = tid; idx < kRows * (D / VECQ); idx += kThreads) {
+    const int r = idx / (D / VECQ);
+    const int c = (idx % (D / VECQ)) * VECQ;
     const int g = r / BQ;
     const int qi = r % BQ;
-    const T* src = q + (((size_t)n * T_len + q_start + qi) * Hq + (size_t)kvh * G + g) * D;
-    load_row_f32<T, D>(sQ + r * QS, src, qi < n_q, c);
+    const TQ* src = q + (((size_t)n * T_len + q_start + qi) * Hq + (size_t)kvh * G + g) * D;
+    load_row_f32<TQ>(sQ + r * QS, src, qi < n_q, c);
   }
 
-  float m[4], l[4], o[4][OC][4];
+  float m[4], l[4], o[4][OC * 4];
   int qpos[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -111,26 +226,13 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     l[i] = 0.f;
     qpos[i] = pos0 + (ty + 16 * i) % BQ;
 #pragma unroll
-    for (int c = 0; c < OC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[i][c][e] = 0.f;
+    for (int c = 0; c < OC * 4; ++c) o[i][c] = 0.f;
   }
 
   for (int kt0 = 0; kt0 < n_ctx; kt0 += kKeys) {
     __syncthreads();  // previous tile's readers are done with sK / sV / sP
-    for (int idx = tid; idx < kKeys * (D / VEC); idx += kThreads) {
-      const int kk = idx / (D / VEC);
-      const int c = (idx % (D / VEC)) * VEC;
-      const int j = kt0 + kk;
-      const bool ok = j < n_ctx;
-      size_t base = 0;
-      if (ok) {
-        base = ((size_t)pt[j / page_size] * page_size + (j % page_size)) * token_stride +
-               (size_t)kvh * D;
-      }
-      load_row_f32<T, D>(sK + kk * QS, k_pool + base, ok, c);
-      load_row_f32<T, D>(sV + kk * D, v_pool + base, ok, c);
-    }
+    stage_kv<TK>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, n_ctx, page_size, D,
+                 QS, (size_t)Hkv * D, kvh * D);
     __syncthreads();
 
     float s[4][2];
@@ -156,34 +258,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float rmax = dtt::kNegInf;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = kt0 + tx + 16 * jj;
-        const bool ok = (j <= qpos[i]) && (j < ctx_cap);
-        s[i][jj] = ok ? s[i][jj] * scale : dtt::kNegInf;
-        rmax = fmaxf(rmax, s[i][jj]);
-      }
-      // the 16 tx lanes of a row sit in one half-warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float new_m = fmaxf(m[i], rmax);
-      const float corr = expf(m[i] - new_m);
-      float rsum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const float p = expf(s[i][jj] - new_m);
-        rsum += p;
-        sP[(ty + 16 * i) * kPStride + tx + 16 * jj] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * corr + rsum;
-      m[i] = new_m;
-#pragma unroll
-      for (int c = 0; c < OC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][c][e] *= corr;
+      float* row = sP + (ty + 16 * i) * kPStride + tx;
+      softmax_step<kQuant, OC * 4>(s[i], kt0, qpos[i], n_ctx, scale, sKs, sVs, row, row + 16, m[i],
+                                   l[i], o[i]);
     }
     __syncthreads();
 
@@ -197,10 +274,10 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         const float4 vv = *reinterpret_cast<const float4*>(sV + kk * D + tx * 4 + 64 * c);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          o[i][c][0] = fmaf(p[i], vv.x, o[i][c][0]);
-          o[i][c][1] = fmaf(p[i], vv.y, o[i][c][1]);
-          o[i][c][2] = fmaf(p[i], vv.z, o[i][c][2]);
-          o[i][c][3] = fmaf(p[i], vv.w, o[i][c][3]);
+          o[i][4 * c] = fmaf(p[i], vv.x, o[i][4 * c]);
+          o[i][4 * c + 1] = fmaf(p[i], vv.y, o[i][4 * c + 1]);
+          o[i][4 * c + 2] = fmaf(p[i], vv.z, o[i][4 * c + 2]);
+          o[i][4 * c + 3] = fmaf(p[i], vv.w, o[i][4 * c + 3]);
         }
       }
     }
@@ -213,68 +290,276 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int qi = r % BQ;
     if (qi >= n_q) continue;
     const float denom = fmaxf(l[i], 1e-20f);
-    T* dst = out + (((size_t)n * T_len + q_start + qi) * Hq + (size_t)kvh * G + g) * D;
+    TQ* dst = out + (((size_t)n * T_len + q_start + qi) * Hq + (size_t)kvh * G + g) * D;
 #pragma unroll
     for (int c = 0; c < OC; ++c) {
       float f[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) f[e] = o[i][c][e] / denom;
+      for (int e = 0; e < 4; ++e) f[e] = o[i][4 * c + e] / denom;
       dtt::store4(dst + tx * 4 + 64 * c, f);
     }
   }
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, const int* pt, const int* pos,
-             void* out, int N, int T_len, int Hq, int Hkv, int ps, int max_pages,
-             cudaStream_t stream) {
+// ---------------------------------------------------------------- K3b
+
+// Block (query tile, lane): BQ = kFRPT / HJ query positions x Hq = 16 HJ
+// heads. Thread (ty, tx) owns rows i < kFRPT: head ty + 16 (i / BQ) at query
+// qi = i % BQ, stored at sQ row ty * kFRPT + i; keys tx and tx + 16 of each
+// tile; output columns tx * CW .. + CW of its rows.
+template <typename TQ, typename TK, int D, int HJ>
+__global__ void __launch_bounds__(kThreads)
+folded_prefill_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
+                      const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale, const int* __restrict__ page_tables,
+                      const int* __restrict__ positions, TQ* __restrict__ out, int T_len, int Hkv,
+                      int page_size, int max_pages, float scale) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  constexpr int BQ = kFRPT / HJ;  // query positions per block
+  constexpr int CW = D / 16;      // output columns per thread
+  constexpr int VECQ = dtt::Vec16<TQ>::N;
+  static_assert(kFRPT % HJ == 0 && D % 16 == 0 && D % VECQ == 0, "unsupported shape");
+  const int Hq = 16 * HJ;
+  const int G = Hq / Hkv;
+  const int F = Hkv * D;
+  const int KS = F + 4;  // padded f32 row stride of the K tile
+
+  extern __shared__ float4 smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // [kFRows][D]
+  float* sK = sQ + kFRows * D;                     // [kKeys][KS]
+  float* sV = sK + kKeys * KS;                     // [kKeys][F]
+  float* sP = sV + kKeys * F;                      // [kKeys][kFPStride]
+  float* sKs = sP + kKeys * kFPStride;             // [kKeys]
+  float* sVs = sKs + kKeys;                        // [kKeys]
+
+  const int qb = blockIdx.x;
+  const int n = blockIdx.y;
+  const int q_start = qb * BQ;
+  const int n_q = min(BQ, T_len - q_start);
+  const int* pos = positions + (size_t)n * T_len;
+  const int* pt = page_tables + (size_t)n * max_pages;
+  const int pos0 = pos[q_start];
+  const int last_pos = pos[q_start + n_q - 1];
+  const int n_ctx = min(last_pos + 1, max_pages * page_size);
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+
+  for (int idx = tid; idx < kFRows * (D / VECQ); idx += kThreads) {
+    const int r = idx / (D / VECQ);
+    const int c = (idx % (D / VECQ)) * VECQ;
+    const int i = r % kFRPT;
+    const int h = r / kFRPT + 16 * (i / BQ);
+    const int qi = i % BQ;
+    const TQ* src = q + (((size_t)n * T_len + q_start + qi) * Hq + h) * D;
+    load_row_f32<TQ>(sQ + r * D, src, qi < n_q, c);
+  }
+
+  int kcol[HJ];  // column of the kv head of head ty + 16 j in a K/V row
+#pragma unroll
+  for (int j = 0; j < HJ; ++j) kcol[j] = ((ty + 16 * j) / G) * D;
+
+  float m[kFRPT], l[kFRPT], o[kFRPT][CW];
+#pragma unroll
+  for (int i = 0; i < kFRPT; ++i) {
+    m[i] = dtt::kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) o[i][c] = 0.f;
+  }
+  const float* sQt = sQ + ty * kFRPT * D;
+
+  for (int kt0 = 0; kt0 < n_ctx; kt0 += kKeys) {
+    __syncthreads();  // previous tile's readers are done with sK / sV / sP
+    stage_kv<TK>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, n_ctx, page_size, F,
+                 KS, (size_t)F, 0);
+    __syncthreads();
+
+    float s[kFRPT][2];
+#pragma unroll
+    for (int i = 0; i < kFRPT; ++i) s[i][0] = s[i][1] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 kv[HJ][2];
+#pragma unroll
+      for (int j = 0; j < HJ; ++j)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          kv[j][jj] = *reinterpret_cast<const float4*>(sK + (tx + 16 * jj) * KS + kcol[j] + d);
+#pragma unroll
+      for (int i = 0; i < kFRPT; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(sQt + i * D + d);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float4 k = kv[i / BQ][jj];
+          s[i][jj] = fmaf(qv.x, k.x, s[i][jj]);
+          s[i][jj] = fmaf(qv.y, k.y, s[i][jj]);
+          s[i][jj] = fmaf(qv.z, k.z, s[i][jj]);
+          s[i][jj] = fmaf(qv.w, k.w, s[i][jj]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kFRPT; ++i) {
+      float* p0 = sP + tx * kFPStride + ty * kFRPT + i;
+      softmax_step<kQuant, CW>(s[i], kt0, pos0 + i % BQ, n_ctx, scale, sKs, sVs, p0,
+                               p0 + 16 * kFPStride, m[i], l[i], o[i]);
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int kk = 0; kk < kKeys; ++kk) {
+      float p[kFRPT];
+#pragma unroll
+      for (int i = 0; i < kFRPT; i += 4) {
+        const float4 pv = *reinterpret_cast<const float4*>(sP + kk * kFPStride + ty * kFRPT + i);
+        p[i] = pv.x;
+        p[i + 1] = pv.y;
+        p[i + 2] = pv.z;
+        p[i + 3] = pv.w;
+      }
+      float vv[HJ][CW];
+#pragma unroll
+      for (int j = 0; j < HJ; ++j)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) vv[j][c] = sV[kk * F + kcol[j] + tx * CW + c];
+#pragma unroll
+      for (int i = 0; i < kFRPT; ++i)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) o[i][c] = fmaf(p[i], vv[i / BQ][c], o[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kFRPT; ++i) {
+    const int qi = i % BQ;
+    if (qi >= n_q) continue;
+    const int h = ty + 16 * (i / BQ);
+    const float denom = fmaxf(l[i], 1e-20f);
+    TQ* dst = out + (((size_t)n * T_len + q_start + qi) * Hq + h) * D + tx * CW;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) dtt::store1(dst + c, o[i][c] / denom);
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+struct PrefillArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* pt;
+  const int* pos;
+  void* out;
+  int N, T_len, Hq, Hkv, D, ps, max_pages;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TK, int D>
+int launch_k2(const PrefillArgs& a) {
   // the dynamic shared memory exceeds the 48 KiB default at D=128
   static std::atomic<bool> smem_raised[dtt::kMaxDevices];
-  const int G = Hq / Hkv;
-  const int BQ = kRows / G;
   const size_t smem = (size_t)smem_floats<D>() * sizeof(float);
-  const cudaError_t err = dtt::raise_smem_limit_once(paged_prefill_kernel<T, D>, smem_raised, smem);
+  const cudaError_t err =
+      dtt::raise_smem_limit_once(paged_prefill_kernel<TQ, TK, D>, smem_raised, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T_len + BQ - 1) / BQ, Hkv, N);
-  paged_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pt, pos,
-      static_cast<T*>(out), T_len, Hq, Hkv, ps, max_pages, 1.0f / sqrtf((float)D));
+  const int BQ = kRows / (a.Hq / a.Hkv);
+  const dim3 grid((a.T_len + BQ - 1) / BQ, a.Hkv, a.N);
+  paged_prefill_kernel<TQ, TK, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks,
+      a.vs, a.pt, a.pos, static_cast<TQ*>(a.out), a.T_len, a.Hq, a.Hkv, a.ps, a.max_pages,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_t(const void* q, const void* k, const void* v, const int* pt, const int* pos,
-             void* out, int N, int T_len, int Hq, int Hkv, int D, int ps, int max_pages,
-             cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch_d<T, 64>(q, k, v, pt, pos, out, N, T_len, Hq, Hkv, ps, max_pages, stream);
-    case 128:
-      return launch_d<T, 128>(q, k, v, pt, pos, out, N, T_len, Hq, Hkv, ps, max_pages, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+template <typename TQ, typename TK, int D, int HJ>
+int launch_k3b(const PrefillArgs& a) {
+  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
+  const cudaError_t err = dtt::raise_smem_limit_once(
+      folded_prefill_kernel<TQ, TK, D, HJ>, smem_raised, folded_smem_bytes(D, kMaxFoldedWidth));
+  if (err != cudaSuccess) return (int)err;
+  constexpr int BQ = kFRPT / HJ;
+  const dim3 grid((a.T_len + BQ - 1) / BQ, a.N);
+  folded_prefill_kernel<TQ, TK, D, HJ><<<grid, kThreads, folded_smem_bytes(D, a.Hkv * D), a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks,
+      a.vs, a.pt, a.pos, static_cast<TQ*>(a.out), a.T_len, a.Hkv, a.ps, a.max_pages,
+      1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+template <typename TQ, typename TK>
+struct K2Types {
+  static int run(const PrefillArgs& a) {
+    if (kRows % (a.Hq / a.Hkv)) return (int)cudaErrorInvalidValue;
+    switch (a.D) {
+      case 64: return launch_k2<TQ, TK, 64>(a);
+      case 128: return launch_k2<TQ, TK, 128>(a);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+};
+
+template <typename TQ, typename TK, int D>
+int k3b_heads(const PrefillArgs& a) {
+  switch (a.Hq) {
+    case 16: return launch_k3b<TQ, TK, D, 1>(a);
+    case 32: return launch_k3b<TQ, TK, D, 2>(a);
+    case 64: return launch_k3b<TQ, TK, D, 4>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TQ, typename TK>
+struct K3bTypes {
+  static int run(const PrefillArgs& a) {
+    if (a.Hkv * a.D > kMaxFoldedWidth || (a.Hkv * a.D) % 16) return (int)cudaErrorInvalidValue;
+    switch (a.D) {
+      case 16: return k3b_heads<TQ, TK, 16>(a);
+      case 32: return k3b_heads<TQ, TK, 32>(a);
+      case 64: return k3b_heads<TQ, TK, 64>(a);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+};
+
+// q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32, 1 = bfloat16
+// (both the same as q_dtype), 2 = int8 with scale planes.
+template <template <typename, typename> class Call>
+int with_types(int q_dtype, int kv_dtype, const PrefillArgs& a) {
+  if (q_dtype == 0 && kv_dtype == 0) return Call<float, float>::run(a);
+  if (q_dtype == 1 && kv_dtype == 1) return Call<__nv_bfloat16, __nv_bfloat16>::run(a);
+  if (q_dtype == 0 && kv_dtype == 2) return Call<float, int8_t>::run(a);
+  if (q_dtype == 1 && kv_dtype == 2) return Call<__nv_bfloat16, int8_t>::run(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+bool prefill_shapes_ok(const PrefillArgs& a, int kv_dtype) {
+  return a.Hkv > 0 && a.Hq % a.Hkv == 0 && a.ps > 0 && a.max_pages > 0 &&
+         (kv_dtype != 2 || (a.ks != nullptr && a.vs != nullptr));
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
+// K2 and K3b share one signature. Returns cudaGetLastError() after the
 // launch (0 = launched); shapes the kernel does not take return
 // cudaErrorInvalidValue without launching.
-extern "C" int paged_prefill_attention(const void* q, const void* k_pool, const void* v_pool,
-                                       const void* page_tables, const void* positions, void* out,
-                                       int N, int T_len, int Hq, int Hkv, int D, int page_size,
-                                       int max_pages, int dtype, void* stream) {
-  if (N <= 0 || T_len <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || kRows % (Hq / Hkv) != 0 || page_size <= 0 || max_pages <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int* pt = static_cast<const int*>(page_tables);
-  const int* pos = static_cast<const int*>(positions);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_t<float>(q, k_pool, v_pool, pt, pos, out, N, T_len, Hq, Hkv, D, page_size, max_pages, s);
-  if (dtype == 1)
-    return launch_t<__nv_bfloat16>(q, k_pool, v_pool, pt, pos, out, N, T_len, Hq, Hkv, D, page_size,
-                                   max_pages, s);
-  return (int)cudaErrorInvalidValue;
-}
+#define PREFILL_ENTRY(name, Call)                                                               \
+  extern "C" int name(const void* q, const void* k_pool, const void* v_pool, const void* k_scale, \
+                      const void* v_scale, const void* page_tables, const void* positions,      \
+                      void* out, int N, int T_len, int Hq, int Hkv, int D, int page_size,       \
+                      int max_pages, int q_dtype, int kv_dtype, void* stream) {                 \
+    const PrefillArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),                  \
+                        static_cast<const float*>(v_scale), static_cast<const int*>(page_tables), \
+                        static_cast<const int*>(positions), out, N, T_len, Hq, Hkv, D,          \
+                        page_size, max_pages, static_cast<cudaStream_t>(stream)};               \
+    if (N <= 0 || T_len <= 0) return 0;                                                         \
+    if (!prefill_shapes_ok(a, kv_dtype)) return (int)cudaErrorInvalidValue;                     \
+    return with_types<Call>(q_dtype, kv_dtype, a);                                              \
+  }
+
+PREFILL_ENTRY(paged_prefill_attention, K2Types)
+PREFILL_ENTRY(paged_prefill_attention_folded, K3bTypes)

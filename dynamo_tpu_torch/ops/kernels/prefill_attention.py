@@ -1,18 +1,26 @@
-"""Kernel K2: chunked-prefill flash attention over the paged pool (CUDA C++,
-``csrc/prefill_attention.cu``).
+"""Kernels K2 (chunked-prefill flash attention over the paged pool) and K3b
+(its folded variant for head dims that are not a multiple of 128), CUDA C++ in
+``csrc/prefill_attention.cu``.
 
-Replaces ``dynamo_tpu/ops/pallas/prefill_attention.py``
+K2 replaces ``dynamo_tpu/ops/pallas/prefill_attention.py``
 ``paged_prefill_attention_pallas`` (``_kernel_lookahead`` / ``_kernel``,
-math in ``_flash_merge``). One launch takes all N packed lanes of a prefill
-call; the TPU path launches once per lane.
+math in ``_flash_merge``); K3b replaces
+``paged_prefill_attention_pallas_folded`` (``_kernel_folded``), the same
+function at head_dim 16, 32 or 64 (TinyLlama). One launch takes all N packed
+lanes of a prefill call; the TPU path launches once per lane. Both take f32
+or bf16 queries over pools of the query's dtype or over an int8 cache
+(``quant/kv.py QuantizedPages``, scales applied to score and probability
+columns).
 
 Bound on an H100: arithmetic at prefill sizes (4·Hq·D FLOP per causal
-(row, key) pair against context bytes read once). The kernel stages K/V
-tiles of 32 keys from the pages into shared memory, shares each tile across
-the G query heads of a kv head, and runs an f32 online softmax with FMA
-micro-tiles (see the source note). Plain version: ``ops/attention.py
+(row, key) pair against context bytes read once). Both stage K/V tiles of 32
+keys from the pages into shared memory and run an f32 online softmax with
+FMA micro-tiles: K2 shares each tile across the G query heads of one kv head,
+K3b stages whole rows of all kv heads and shares them across all Hq heads of
+its query tile (see the source note). Plain version: ``ops/attention.py
 paged_prefill_attention`` (per lane); the dispatcher there picks the plain
-version for CPU tensors and this launcher for CUDA tensors.
+version for CPU tensors and, for CUDA tensors, K3b when ``head_dim % 128 !=
+0``, else K2.
 """
 
 from __future__ import annotations
@@ -22,14 +30,21 @@ import ctypes
 import torch
 
 from dynamo_tpu_torch.ops.kernels import _build
+from dynamo_tpu_torch.ops.kernels.paged_attention import (
+    FOLDED_HEAD_DIMS,
+    Q_DTYPES,
+    folded_geometry,
+    unpack_pools,
+)
 
-HEAD_DIMS = (64, 128)
-ROWS_PER_BLOCK = 64  # (query, head) rows per block: Hq/Hkv must divide it
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)  # K2
+ROWS_PER_BLOCK = 64  # K2: (query, head) rows per block: Hq/Hkv must divide it
+FOLDED_HEADS = (16, 32, 64)  # K3b: Hq (16 heads a thread row, 1-4 of them)
+MAX_FOLDED_WIDTH = 512  # K3b: Hkv * D at most (the block's shared memory)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
+_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
 
 
 def _as_lanes(q, page_tables, positions):
@@ -46,36 +61,80 @@ def _as_lanes(q, page_tables, positions):
     return page_tables, positions
 
 
-def check_prefill_args(q, k_pages, v_pages, page_tables, positions) -> None:
-    """Raise on inputs the kernel does not take (lanes form)."""
-    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
-        raise ValueError(f"expected pools [P, ps, Hkv, D]; got {tuple(k_pages.shape)}, "
-                         f"{tuple(v_pages.shape)}")
-    _, Hq, D = q.shape
-    _, ps, Hkv, Dk = k_pages.shape
-    if q.dtype not in DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError(f"K2 takes float32 or bfloat16 q and pools of the same dtype; got "
-                         f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    if Dk != D or D not in HEAD_DIMS:
-        raise ValueError(f"K2 takes head_dim in {HEAD_DIMS}; got q D={D}, pool D={Dk}")
-    if Hq % Hkv or ROWS_PER_BLOCK % (Hq // Hkv):
-        raise ValueError(f"K2 needs Hq/Hkv dividing {ROWS_PER_BLOCK}; got Hq={Hq}, Hkv={Hkv}")
+def _check_common(q, k, v, page_tables, positions, name: str) -> None:
     if page_tables.dtype != torch.int32 or positions.dtype != torch.int32:
         raise ValueError("page_tables and positions must be int32")
-    if page_tables.shape[1] * ps >= 2**31:
+    if page_tables.shape[1] * k.shape[1] >= 2**31:
         raise ValueError("context capacity exceeds int32")
-    if not k_pages.is_contiguous() or not v_pages.is_contiguous():
-        raise ValueError("K2 needs contiguous pools")
-    for t in (k_pages, v_pages, page_tables, positions):
+    if not k.is_contiguous() or not v.is_contiguous():
+        raise ValueError(f"{name} needs contiguous pools")
+    for t in (k, v, page_tables, positions):
         if t.device != q.device:
             raise ValueError(f"all inputs must be on {q.device}; got {t.device}")
 
 
+def check_prefill_args(q, k_pages, v_pages, page_tables, positions):
+    """Raise on inputs K2 does not take (lanes form); returns
+    ``unpack_pools``' tuple."""
+    if k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"expected pools [P, ps, Hkv, D]; got {tuple(k_pages.shape)}, "
+                         f"{tuple(v_pages.shape)}")
+    pools = unpack_pools(q, k_pages, v_pages, "K2")
+    k, v = pools[:2]
+    _, Hq, D = q.shape
+    _, ps, Hkv, Dk = k.shape
+    if Dk != D or D not in HEAD_DIMS:
+        raise ValueError(f"K2 takes head_dim in {HEAD_DIMS}; got q D={D}, pool D={Dk}")
+    if Hq % Hkv or ROWS_PER_BLOCK % (Hq // Hkv):
+        raise ValueError(f"K2 needs Hq/Hkv dividing {ROWS_PER_BLOCK}; got Hq={Hq}, Hkv={Hkv}")
+    _check_common(q, k, v, page_tables, positions, "K2")
+    return pools
+
+
+def check_folded_prefill_args(q, k_pages, v_pages, page_tables, positions):
+    """Raise on inputs K3b does not take (lanes form); returns
+    ``unpack_pools``' tuple."""
+    if k_pages.shape != v_pages.shape:
+        raise ValueError(f"expected K and V pools of one shape; got {tuple(k_pages.shape)}, "
+                         f"{tuple(v_pages.shape)}")
+    pools = unpack_pools(q, k_pages, v_pages, "K3b")
+    k, v = pools[:2]
+    _, Hq, D = q.shape
+    if D not in FOLDED_HEAD_DIMS:
+        raise ValueError(f"K3b takes head_dim in {FOLDED_HEAD_DIMS}; got {D}")
+    Hkv, F = folded_geometry(q, k)
+    if Hq not in FOLDED_HEADS or Hq % Hkv:
+        raise ValueError(f"K3b takes Hq in {FOLDED_HEADS}, a multiple of Hkv; got Hq={Hq}, Hkv={Hkv}")
+    if F > MAX_FOLDED_WIDTH:
+        raise ValueError(f"K3b takes Hkv*D <= {MAX_FOLDED_WIDTH}; got {F}")
+    _check_common(q, k, v, page_tables, positions, "K3b")
+    return pools
+
+
+def _launch(symbol: str, q, pools, page_tables, positions) -> torch.Tensor:
+    k, v, ks, vs, code = pools
+    q = _build.aligned16(q)
+    page_tables = page_tables.contiguous()
+    positions = positions.contiguous()
+    N, T = positions.shape
+    _, Hq, D = q.shape
+    Hkv, _ = folded_geometry(q, k)
+    out = torch.empty_like(q)
+    err = _build.entry("prefill_attention", symbol, _ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), page_tables.data_ptr(), positions.data_ptr(),
+        out.data_ptr(), N, T, Hq, Hkv, D, k.shape[1], page_tables.shape[1], Q_DTYPES[q.dtype], code,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, symbol)
+    return out
+
+
 def paged_prefill_attention_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """q [N*T, Hq, D], pools [P, ps, Hkv, D], page_tables [N, max_pages] int32
-    (layer offset added), positions [N, T] int32 unit-stride per lane ->
-    [N*T, Hq, D] in q's dtype. ``page_tables`` [max_pages] with ``positions``
-    [T] is the one-chunk form.
+    """q [N*T, Hq, D], pools [P, ps, Hkv, D] of q's dtype or int8
+    QuantizedPages, page_tables [N, max_pages] int32 (layer offset added),
+    positions [N, T] int32 unit-stride per lane -> [N*T, Hq, D] in q's dtype.
+    ``page_tables`` [max_pages] with ``positions`` [T] is the one-chunk form.
 
     Launches K2 or raises: CUDA tensors only (``ops/attention.py
     dispatch_paged_prefill_attention`` sends CPU tensors to the plain
@@ -83,22 +142,25 @@ def paged_prefill_attention_kernel(q, k_pages, v_pages, page_tables, positions) 
     if q.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA tensors; got {q.device}")
     page_tables, positions = _as_lanes(q, page_tables, positions)
-    check_prefill_args(q, k_pages, v_pages, page_tables, positions)
-    q = _build.aligned16(q)
-    page_tables = page_tables.contiguous()
-    positions = positions.contiguous()
-    N, T = positions.shape
-    _, Hq, D = q.shape
-    _, ps, Hkv, _ = k_pages.shape
-    out = torch.empty_like(q)
-    err = _build.entry("prefill_attention", "paged_prefill_attention", _ARGTYPES)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_tables.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), N, T, Hq, Hkv, D, ps, page_tables.shape[1],
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "paged_prefill_attention")
+    pools = check_prefill_args(q, k_pages, v_pages, page_tables, positions)
+    out = _launch("paged_prefill_attention", q, pools, page_tables, positions)
     paged_prefill_attention_kernel.launches += 1
     return out
 
 
+def paged_prefill_attention_folded_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
+    """K3b: K2's contract at head_dim 16, 32 or 64 with Hq in 16, 32 or 64;
+    the pools may also be given folded, [P, ps, Hkv*D] (the same memory).
+
+    Launches K3b or raises: CUDA tensors only."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K3b runs on CUDA tensors; got {q.device}")
+    page_tables, positions = _as_lanes(q, page_tables, positions)
+    pools = check_folded_prefill_args(q, k_pages, v_pages, page_tables, positions)
+    out = _launch("paged_prefill_attention_folded", q, pools, page_tables, positions)
+    paged_prefill_attention_folded_kernel.launches += 1
+    return out
+
+
 paged_prefill_attention_kernel.launches = 0
+paged_prefill_attention_folded_kernel.launches = 0

@@ -1,14 +1,15 @@
 """Where the serving time goes on the card: torch.profiler over the serve
 workloads of ``chip_smoke.py`` (``tools/workload.py``: 16 concurrent greedy
-requests on Llama-3-8B geometry, then on DeepSeek-V2-Lite geometry; bf16,
-seeded random weights), each split at its last prefill-attention launch (K2
-or K6) into a prefill window and a decode window.
+requests on Llama-3-8B geometry, on DeepSeek-V2-Lite geometry, and on
+TinyLlama-1.1B geometry with the int8 KV cache; bf16 weights, seeded random),
+each split at its last prefill-attention launch (K2, K6 or K3b) into a
+prefill window and a decode window.
 
     python -m dynamo_tpu_torch.tools.profile_serve [--out profile_serve.json]
 
 For each workload and window it reports the wall time, the device's busy
 and idle share (union of kernel intervals), device time by kernel class
-(K1, K2, K5, K6, GEMM, other) and the top kernels; for the decode window
+(K1, K2, K3a, K3b, K5, K6, GEMM, other) and the top kernels; for the decode window
 also the time per decode step. Needs one CUDA device. The profiler adds
 host overhead, so walls here run longer than chip_smoke.py's unprofiled
 serve numbers; shares and device times are the point.
@@ -32,6 +33,9 @@ from dynamo_tpu_torch.engine.scheduler import EngineRequest
 from dynamo_tpu_torch.tools.workload import (
     DEEPSEEK_V2_LITE,
     LLAMA3_8B,
+    TINYLLAMA_1_1B,
+    folded_serve_config,
+    folded_serve_requests,
     mla_serve_config,
     serve_config,
     serve_requests,
@@ -44,13 +48,17 @@ WORKLOADS = {
     "llama": (serve_config, serve_requests, LLAMA3_8B["num_layers"]),
     "mla": (mla_serve_config, lambda: serve_requests(DEEPSEEK_V2_LITE["vocab_size"]),
             DEEPSEEK_V2_LITE["num_layers"]),
+    "folded_int8": (lambda: folded_serve_config("int8"), folded_serve_requests,
+                    TINYLLAMA_1_1B["num_layers"]),
 }
-# kernel class by a mark in its name; K5 counts both of its launches
+# kernel class by a mark in its name; K3a and K5 count both of their launches
 KERNEL_MARKS = (
     ("K1", "paged_decode_kernel"), ("K2", "paged_prefill_kernel"),
+    ("K3a", "folded_decode_"), ("K3b", "folded_prefill_kernel"),
     ("K5", "mla_decode_"), ("K6", "mla_prefill"),
 )
-DECODE_STEP_KERNEL = {"K1": "paged_decode_kernel", "K5": "mla_decode_partial"}
+PREFILL_CLASSES = ("K2", "K3b", "K6")
+DECODE_STEP_KERNEL = {"K1": "paged_decode_kernel", "K3a": "folded_decode_partial", "K5": "mla_decode_partial"}
 
 
 def kernel_class(name: str) -> str:
@@ -141,7 +149,7 @@ def profile_workload(name: str, smi: str) -> dict:
         raise SystemExit("the profiler recorded no device kernels")
     start = min(k["ts"] for k in kernels)
     end = max(k["ts"] + k["dur"] for k in kernels)
-    split = max((k["ts"] + k["dur"] for k in kernels if kernel_class(k["name"]) in ("K2", "K6")),
+    split = max((k["ts"] + k["dur"] for k in kernels if kernel_class(k["name"]) in PREFILL_CLASSES),
                 default=start)
     prefill = window_stats(kernels, start, split)
     decode = window_stats(kernels, split, end + 1)

@@ -1,13 +1,17 @@
 """The serve workloads that ``chip_smoke.py`` drives and
 ``tools/profile_serve.py`` profiles: 16 concurrent greedy requests with
 seeded random prompts of 64..2048 tokens and 64 output tokens each, on one
-of two geometries at full width and depth with seeded random weights:
+of three geometries at full width and depth with seeded random weights:
 
-  - ``llama``: Llama-3-8B (``serve_config``), packed prefill;
+  - ``llama``: Llama-3-8B (``serve_config``), packed prefill, kernels K1/K2;
+    with ``kv_cache_dtype="int8"`` the same over an int8 KV cache;
   - ``mla``: DeepSeek-V2-Lite (``mla_serve_config``): MLA + MoE, the
-    per-request prefill path, kernels K5/K6.
+    per-request prefill path, kernels K5/K6;
+  - ``folded``: TinyLlama-1.1B (``folded_serve_config``), head_dim 64, so
+    kernels K3a/K3b; bf16 or int8 KV. Its positions stop at 2048, so its
+    prompts are clipped to ``FOLDED_MAX_PROMPT`` = 2048 - 64 tokens.
 
-Both draw the same prompt lengths from ``SEED``; token ids fall below each
+All draw the same prompt lengths from ``SEED``; token ids fall below each
 geometry's vocabulary.
 """
 
@@ -38,18 +42,37 @@ DEEPSEEK_V2_LITE = dict(
     first_k_dense_replace=1, moe_capacity_factor=2.0, routed_scaling_factor=1.0,
     norm_topk_prob=False, rope_theta=10000.0, rms_norm_eps=1e-6, dtype="bf16",
 )
+# TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T config.json values
+# (the geometry of the reference's tools/make_hf_checkpoint.py), bf16;
+# max_position_embeddings 2048
+TINYLLAMA_1_1B = dict(
+    vocab_size=32000, hidden_size=2048, intermediate_size=5632, num_layers=22, num_heads=32,
+    num_kv_heads=4, head_dim=64, rope_theta=10000.0, rms_norm_eps=1e-5,
+    tie_word_embeddings=False, dtype="bf16",
+)
+TINYLLAMA_MAX_POSITIONS = 2048
 NUM_REQUESTS = 16
 MIN_PROMPT, MAX_PROMPT = 64, 2048
 MAX_TOKENS = 64
 SEED = 0
+FOLDED_MAX_PROMPT = TINYLLAMA_MAX_POSITIONS - MAX_TOKENS
 
 
-def serve_config() -> EngineConfig:
+def serve_config(kv_cache_dtype: str | None = None) -> EngineConfig:
     """The engine the workload runs on: one card, page size 16, 4096 pages,
-    a slot for every request."""
+    a slot for every request; ``kv_cache_dtype="int8"`` for the int8 cache."""
     return EngineConfig(
         model_id="tiny:" + json.dumps(LLAMA3_8B), device="cuda", page_size=16, num_pages=4096,
-        max_seqs=NUM_REQUESTS, max_model_len=MAX_PROMPT + MAX_TOKENS,
+        max_seqs=NUM_REQUESTS, max_model_len=MAX_PROMPT + MAX_TOKENS, kv_cache_dtype=kv_cache_dtype,
+    )
+
+
+def folded_serve_config(kv_cache_dtype: str | None = None) -> EngineConfig:
+    """The TinyLlama workload's engine: as ``serve_config`` on TinyLlama-1.1B
+    geometry, at its 2048 positions."""
+    return EngineConfig(
+        model_id="tiny:" + json.dumps(TINYLLAMA_1_1B), device="cuda", page_size=16, num_pages=4096,
+        max_seqs=NUM_REQUESTS, max_model_len=TINYLLAMA_MAX_POSITIONS, kv_cache_dtype=kv_cache_dtype,
     )
 
 
@@ -62,14 +85,21 @@ def mla_serve_config() -> EngineConfig:
     )
 
 
-def serve_requests(vocab_size: int = LLAMA3_8B["vocab_size"]) -> list[EngineRequest]:
-    """The workload's greedy requests, prompts drawn from ``SEED``."""
+def serve_requests(vocab_size: int = LLAMA3_8B["vocab_size"], max_prompt: int = MAX_PROMPT) -> list[EngineRequest]:
+    """The workload's greedy requests, prompts drawn from ``SEED`` and cut
+    to their first ``max_prompt`` tokens."""
     rng = np.random.default_rng(SEED)
     lens = rng.integers(MIN_PROMPT, MAX_PROMPT + 1, NUM_REQUESTS)
     return [
         EngineRequest(
-            f"serve-{i}", rng.integers(0, vocab_size, int(length)).tolist(),
+            f"serve-{i}", rng.integers(0, vocab_size, int(length)).tolist()[:max_prompt],
             SamplingParams(temperature=0.0, max_tokens=MAX_TOKENS),
         )
         for i, length in enumerate(lens)
     ]
+
+
+def folded_serve_requests() -> list[EngineRequest]:
+    """The TinyLlama workload's requests: the same 16, clipped so prompt +
+    output fits its 2048 positions (only the 1990-token prompt is cut)."""
+    return serve_requests(TINYLLAMA_1_1B["vocab_size"], FOLDED_MAX_PROMPT)

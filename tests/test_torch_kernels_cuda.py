@@ -1,6 +1,7 @@
-"""The CUDA kernels K1 (paged decode), K2 (chunked-prefill flash), K5 (MLA
-latent decode) and K6 (MLA latent prefill) against their plain PyTorch
-versions on the card. Marked ``cuda``: every test skips
+"""The CUDA kernels K1 (paged decode), K2 (chunked-prefill flash), K3a / K3b
+(their folded variants for head_dim 16, 32, 64), K5 (MLA latent decode) and
+K6 (MLA latent prefill) against their plain PyTorch versions on the card,
+K1-K3 also over int8 pools (``QuantizedPages``). Marked ``cuda``: every test skips
 where no CUDA device is visible (a CUDA kernel has no CPU mode). On a
 machine with an H100 and nvcc (``--noconftest``: tests/conftest.py imports
 jax, which the port does not need):
@@ -11,7 +12,9 @@ Tolerances, elementwise |got - ref| <= atol + rtol * |ref|: f32 atol 1e-4
 (the same f32 algebra, summed in another order); bf16 the same atol plus
 rtol 2^-6, two bf16 steps (both sides compute in f32 and round the output
 once to bf16; two roundings of nearly equal values differ by at most one
-step, <= 2^-7 |value|). K5 and K6 return f32 in both dtype mixes (f32
+step, <= 2^-7 |value|). Over int8 pools both sides read the same codes and
+scales (the plain version dequantizes, the kernel scales score and
+probability columns), so the limit is that of the query's dtype. K5 and K6 return f32 in both dtype mixes (f32
 queries over f32 or bf16 pages; both sides read the same page values), so
 both mixes are held to the f32 tolerance.
 """
@@ -25,8 +28,15 @@ from dynamo_tpu_torch.ops.kernels.mla_attention import (
     paged_mla_decode_attention_kernel,
     paged_mla_prefill_attention_kernel,
 )
-from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_kernel
-from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_kernel
+from dynamo_tpu_torch.ops.kernels.paged_attention import (
+    paged_decode_attention_folded_kernel,
+    paged_decode_attention_kernel,
+)
+from dynamo_tpu_torch.ops.kernels.prefill_attention import (
+    paged_prefill_attention_folded_kernel,
+    paged_prefill_attention_kernel,
+)
+from dynamo_tpu_torch.quant.kv import QuantizedPages, quantize_kv_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -43,9 +53,41 @@ def cuda():
 
 
 def _pools(rng, P, ps, Hkv, D, dtype, device):
-    k = torch.from_numpy(rng.standard_normal((P, ps, Hkv, D)).astype(np.float32))
-    v = torch.from_numpy(rng.standard_normal((P, ps, Hkv, D)).astype(np.float32))
-    return k.to(device, dtype), v.to(device, dtype)
+    """K and V pools [P, ps, Hkv, D] of ``dtype``; for torch.int8, int8
+    QuantizedPages of the same random rows."""
+    out = []
+    for _ in range(2):
+        x = torch.from_numpy(rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)).to(device)
+        if dtype == torch.int8:
+            q, s = quantize_kv_rows(x.reshape(P * ps, Hkv, D))
+            out.append(QuantizedPages(q.reshape(P, ps, Hkv, D), s.reshape(P, ps)))
+        else:
+            out.append(x.to(dtype))
+    return out
+
+
+# (query dtype, pool dtype) mixes: plain pools of the query's dtype, and
+# int8 pools under either query dtype
+MIXES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.float32, torch.int8), (torch.bfloat16, torch.int8)]
+MIX_IDS = ["f32", "bf16", "f32-int8", "bf16-int8"]
+
+
+def _decode_tables(rng, B, P, ps, max_pages, device):
+    """Ragged positions (one-token context, the full table, random), distinct
+    pages per sequence, an inactive slot (trash table, position 0) and a row
+    at position -1 (attends context index 0 only)."""
+    lengths = rng.integers(1, max_pages * ps + 1, B)
+    lengths[:2] = (1, max_pages * ps)
+    pt = np.zeros((B, max_pages), np.int32)
+    perm = rng.permutation(np.arange(1, P))
+    for b in range(B):
+        used = -(-lengths[b] // ps)
+        pt[b, :used] = perm[b * max_pages : b * max_pages + used]
+    pos = (lengths - 1).astype(np.int32)
+    pt[-1], pos[-1] = 0, 0
+    pos[-2] = -1
+    return torch.from_numpy(pt).to(device), torch.from_numpy(pos).to(device)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -107,6 +149,119 @@ def test_prefill_kernel_matches_plain_per_lane(cuda, dtype, D, ps, Hq, Hkv):
             got[j * T : (j + 1) * T].float(), ref.float(), **TOL[dtype],
             msg=lambda m, j=j: f"lane {j}: {m}",
         )
+
+
+@pytest.mark.parametrize("qdt,kvdt", MIXES[2:], ids=MIX_IDS[2:])
+@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8)])
+def test_decode_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
+    rng = np.random.default_rng(D + ps + 7)
+    B, max_pages = 12, 8
+    P = B * max_pages + 1
+    k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D)).astype(np.float32)).to(cuda, qdt)
+    pt_t, pos_t = _decode_tables(rng, B, P, ps, max_pages, cuda)
+    before = paged_decode_attention_kernel.launches
+    got = paged_decode_attention_kernel(q, k, v, pt_t, pos_t)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_kernel.launches == before + 1 and got.dtype == qdt
+    torch.testing.assert_close(got.float(), tatt.paged_decode_attention(q, k, v, pt_t, pos_t).float(), **TOL[qdt])
+
+
+@pytest.mark.parametrize("qdt,kvdt", MIXES[2:], ids=MIX_IDS[2:])
+@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 16, 8, 2)])
+def test_prefill_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
+    rng = np.random.default_rng(D + ps + 8)
+    T, max_pages = 96, 16
+    P = 2 * max_pages + 1
+    k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
+    q = torch.from_numpy(rng.standard_normal((2 * T, Hq, D)).astype(np.float32)).to(cuda, qdt)
+    pt = torch.from_numpy(rng.permutation(np.arange(1, P))[: 2 * max_pages].reshape(2, max_pages).astype(np.int32)).to(cuda)
+    pos = torch.stack([torch.arange(s, s + T, dtype=torch.int32) for s in (0, 130)]).to(cuda)
+    got = paged_prefill_attention_kernel(q, k, v, pt, pos)
+    torch.cuda.synchronize()
+    for j in range(2):
+        ref = tatt.paged_prefill_attention(q[j * T : (j + 1) * T], k, v, pt[j], pos[j])
+        torch.testing.assert_close(got[j * T : (j + 1) * T].float(), ref.float(), **TOL[qdt])
+
+
+FOLDED = [(16, 8, 16), (32, 4, 32), (64, 4, 32), (64, 2, 16)]  # (D, Hkv, Hq)
+
+
+@pytest.mark.parametrize("qdt,kvdt", MIXES, ids=MIX_IDS)
+@pytest.mark.parametrize("D,Hkv,Hq", FOLDED)
+def test_folded_decode_kernel_matches_plain(cuda, qdt, kvdt, D, Hkv, Hq):
+    """K3a over ragged contexts spanning several 128-row splits, an inactive
+    slot and a row at position -1, unfolded and folded pool views."""
+    rng = np.random.default_rng(D + Hq + 9)
+    B, ps, max_pages = 10, 16, 40
+    P = B * max_pages + 1
+    k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D)).astype(np.float32)).to(cuda, qdt)
+    pt_t, pos_t = _decode_tables(rng, B, P, ps, max_pages, cuda)
+    before = paged_decode_attention_folded_kernel.launches
+    got = paged_decode_attention_folded_kernel(q, k, v, pt_t, pos_t)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_folded_kernel.launches == before + 1 and got.dtype == qdt
+    ref = tatt.paged_decode_attention(q, k, v, pt_t, pos_t)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[qdt])
+    if kvdt != torch.int8:
+        folded = paged_decode_attention_folded_kernel(
+            q, k.reshape(P, ps, Hkv * D), v.reshape(P, ps, Hkv * D), pt_t, pos_t)
+        torch.testing.assert_close(folded, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("qdt,kvdt", MIXES, ids=MIX_IDS)
+@pytest.mark.parametrize("D,Hkv,Hq", FOLDED)
+def test_folded_prefill_kernel_matches_plain(cuda, qdt, kvdt, D, Hkv, Hq):
+    """K3b: three lanes in one launch (from position 0 with an odd length,
+    after a cached prefix, and a pad lane with an all-zero table)."""
+    rng = np.random.default_rng(D + Hq + 10)
+    T, ps, max_pages = 75, 16, 24
+    P = 2 * max_pages + 1
+    k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
+    q = torch.from_numpy(rng.standard_normal((3 * T, Hq, D)).astype(np.float32)).to(cuda, qdt)
+    pt_np = np.zeros((3, max_pages), np.int32)
+    pt_np[:2] = rng.permutation(np.arange(1, P))[: 2 * max_pages].reshape(2, max_pages)
+    pt = torch.from_numpy(pt_np).to(cuda)
+    pos = torch.stack([torch.arange(s, s + T, dtype=torch.int32) for s in (0, 250, 0)]).to(cuda)
+    before = paged_prefill_attention_folded_kernel.launches
+    got = paged_prefill_attention_folded_kernel(q, k, v, pt, pos)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention_folded_kernel.launches == before + 1 and got.dtype == qdt
+    assert torch.isfinite(got.float()).all()
+    for j in range(3):
+        ref = tatt.paged_prefill_attention(q[j * T : (j + 1) * T], k, v, pt[j], pos[j])
+        torch.testing.assert_close(got[j * T : (j + 1) * T].float(), ref.float(), **TOL[qdt],
+                                   msg=lambda m, j=j: f"lane {j}: {m}")
+
+
+def test_launchers_raise_on_what_the_kernels_do_not_take(cuda):
+    """Unsupported head dims, dtypes and pool mixes raise on CUDA tensors;
+    nothing falls back to a plain version."""
+    rng = np.random.default_rng(11)
+    pt = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    q96 = torch.zeros((2, 8, 96), device=cuda)
+    k96, v96 = _pools(rng, 5, 16, 2, 96, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention_folded_kernel(q96, k96, v96, pt, pos)
+    with pytest.raises(ValueError, match="head_dim"):
+        tatt.dispatch_paged_decode_attention(q96, k96, v96, pt, pos)
+    q = torch.zeros((2, 8, 64), device=cuda, dtype=torch.float16)
+    k, v = _pools(rng, 5, 16, 2, 64, torch.float16, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        paged_decode_attention_folded_kernel(q, k, v, pt, pos)
+    q = torch.zeros((2, 8, 64), device=cuda)
+    k8, _ = _pools(rng, 5, 16, 2, 64, torch.int8, cuda)
+    kf, vf = _pools(rng, 5, 16, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="QuantizedPages"):
+        paged_decode_attention_folded_kernel(q, k8, vf, pt, pos)
+    with pytest.raises(ValueError, match="dtype"):
+        paged_decode_attention_kernel(q.repeat(1, 1, 2), kf.bfloat16().repeat(1, 1, 1, 2),
+                                      vf.bfloat16().repeat(1, 1, 1, 2), pt, pos)
+    qp = torch.zeros((64, 24, 64), device=cuda)
+    with pytest.raises(ValueError, match="Hq"):
+        paged_prefill_attention_folded_kernel(qp, kf, vf, pt[0], torch.arange(64, dtype=torch.int32, device=cuda))
 
 
 MLA_H, MLA_LATENT, MLA_DC = 16, 576, 512  # DeepSeek-V2(-Lite) geometry

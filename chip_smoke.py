@@ -7,7 +7,7 @@ Run from the root of a checkout; needs one CUDA device and nvcc (CUDA_HOME
 or PATH). Phases, each of which raises on failure (exit code != 0):
 
   1. device: the card's name and power limit as nvidia-smi reports them
-  2. build the three kernel sources (one nvcc per source, started together)
+  2. build the four kernel sources (one nvcc per source, started together)
   3. K1 paged decode and K3a, its folded variant, against their plain
      PyTorch versions (B 64, ps 16, ragged contexts 1..2048, inactive slots,
      a row at position -1; K1 at Hq 32 / Hkv 8 / D 128, K3a at TinyLlama's
@@ -21,21 +21,42 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      SDPA times and the SDPA backends that take the inputs
   6. K6 MLA latent prefill the same way (512-row chunks at cached prefixes 0
      and 1536)
-  7. serve paths (tools/workload.py: 16 concurrent greedy requests of
+  7. the decode variants at K1's shapes and again at the profilers' (Hq 16
+     / Hkv 8 / D 128, ps 128: the reference bench's 1.3B shape), f32 and
+     bf16: K4a (chunked), K4b (grouped) and K7c without cast_f32 against
+     their plain versions, K7c with cast_f32 against K1's; the load-only
+     twins K7b (at both) and K7a (at K2's shapes and at profile_prefill's
+     512-row chunk after a 2560-row prefix, also over int8) against the
+     checksums of their plain versions, exactly (pools of multiples of 1/8,
+     whose f32 sums are exact in any order); kernel / plain / SDPA times and
+     the bound over the rows each sequence reads
+  8. serve paths (tools/workload.py: 16 concurrent greedy requests of
      64-2048 prompt tokens and 64 output tokens, bf16, seeded random
      weights, full width and depth); every stream must finish with exactly
      64 tokens, the path's kernels must launch and the others' must not:
        serve / int8 serve: Llama-3-8B geometry, bf16 / int8 KV cache, K1 K2;
        MLA serve: DeepSeek-V2-Lite geometry (MLA + 64-expert MoE), K5 K6;
        folded serve / folded int8 serve: TinyLlama-1.1B geometry (head_dim
-       64, prompts clipped to 1984), bf16 / int8 KV cache, K3a K3b
-  8. refusals: an int8 cache on tiny-mla, and K3 launches at a head dim or
-     dtype they do not take, raise on the card
-  9. 2-layer f32 greedy parity: the engine's tokens must equal a dense
+       64, prompts clipped to 1984), bf16 / int8 KV cache, K3a K3b;
+       chunked serve / grouped serve: Llama-3-8B geometry, bf16 KV, with
+       DYNTPU_DECODE_KERNEL=chunked / grouped: K4a / K4b decode (as many
+       launches as K1 in serve) and K2; no K1, K3 or other K4 launch
+  9. refusals: an int8 cache on tiny-mla, K3 launches at a head dim or
+     dtype they do not take, and K4 launches over an int8 cache or at a
+     folded head dim raise on the card
+ 10. 2-layer f32 greedy parity: the engine's tokens must equal a dense
      no-paging forward's on Llama-3-8B geometry, on TinyLlama geometry with
      an f32 and with an int8 KV cache (the dense forward quantizes and
      dequantizes each K/V row), and on V2-Lite geometry (capacity factor 11,
-     nothing drops) against a dense non-absorbed forward
+     nothing drops) against a dense non-absorbed forward; and on Llama-3-8B
+     geometry with DYNTPU_DECODE_KERNEL=chunked and =grouped (the rounding is
+     the identity at f32)
+ 11. instruments: tools/profile_attn.py (K1, K7b, K7c, K4a, K4b at the
+     reference bench's headline geometry, gated against perseq and each
+     held to its plain version on the profiler's own inputs, K7b exactly
+     over exact pools) and tools/profile_prefill.py (the 1.3B bench engine's
+     prefill split, K2 held to its plain version and K7a to its checksum,
+     then timed against each other); every variant must pass
 
 Then a {"kernels": [...]} summary line, and as the last line
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -44,8 +65,9 @@ Then a {"kernels": [...]} summary line, and as the last line
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
-import subprocess
+import os
 import sys
 import time
 from pathlib import Path
@@ -58,14 +80,6 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
-# Kernel vs plain, elementwise |got - ref| <= atol + rtol * |ref|. Both sides
-# compute in f32 from the same inputs and differ there only in summation order
-# (max 1e-6 for K1, 6e-6 for K2 at f32 on an H100); a bf16 output is rounded
-# once at the end, and two roundings of nearly equal values differ by at most
-# one bf16 step, <= 2^-7 |value|. So bf16 gets rtol 2^-6 (two steps) on top of
-# the f32 atol: at the ~0.03 outputs of 2048-key rows the limit is ~6e-4, below
-# the ~1e-3 that one dropped page of keys moves them.
-TOL = {"f32": (1e-4, 0.0), "bf16": (1e-4, 2.0**-6)}
 
 
 def log(msg: str) -> None:
@@ -90,22 +104,34 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def held_to_plain(what: str, dtype: str, got, ref, tol: str | None = None) -> float:
-    """Raise unless ``got`` is finite and within ``TOL[tol or dtype]`` of
-    ``ref`` elementwise; returns the max abs error."""
-    import torch
+def held_to_plain(what: str, dtype: str, got, ref, tol: str | None = None) -> dict:
+    """Raise unless ``got`` is finite and within the elementwise limit
+    ``TOL[tol or dtype]`` of ``ref`` (``tools/checks.py``, which says why);
+    returns {max_abs_err, tol_share}: the max abs error and the largest
+    share of the limit used."""
+    from dynamo_tpu_torch.tools.checks import TOL, tol_share
 
-    if not torch.isfinite(got.float()).all():
-        raise AssertionError(f"{what} {dtype}: non-finite output")
     atol, rtol = TOL[tol or dtype]
-    diff = (got.float() - ref.float()).abs()
-    share = (diff / (atol + rtol * ref.float().abs())).max().item()
-    err = diff.max().item()
+    err, share = tol_share(got, ref, tol or dtype)
     log(f"{what} {dtype}: max_abs_err {err:.3e}; max |got-ref| / (atol + rtol*|ref|) = "
         f"{share:.3f} (must be <= 1; atol {atol:g}, rtol {rtol:g})")
-    if share > 1.0:
-        raise AssertionError(f"{what} {dtype}: error {share:.3f}x its tolerance")
-    return err
+    if not share <= 1.0:
+        raise AssertionError(f"{what} {dtype}: error {share:.3f}x its tolerance (inf: non-finite output)")
+    return dict(max_abs_err=err, tol_share=share)
+
+
+def held_exactly(what: str, dtype: str, got, ref) -> dict:
+    """Raise unless ``got`` equals ``ref`` (the K7 checksums over exact
+    data); the same keys as held_to_plain, the limit 0."""
+    import torch
+
+    if got.dtype != torch.float32 or not torch.isfinite(got).all():
+        raise AssertionError(f"{what} {dtype}: want finite float32 checksums, got {got.dtype}")
+    err = (got - ref).abs().max().item()
+    log(f"{what} {dtype}: max_abs_err {err:.3e} (exact sums: must be 0)")
+    if err != 0.0:
+        raise AssertionError(f"{what} {dtype}: checksum differs from its plain version by {err}")
+    return dict(max_abs_err=err, tol_share=0.0)
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -167,15 +193,12 @@ def mix_pools(torch, k32, v32, qdt, kind):
     return k, v, dense[0], dense[1], 1, 4
 
 
-def check_decode(torch, dev, rng, which: str) -> dict:
-    """K1 or K3a against the plain version at B 64, ps 16, ragged contexts
-    1..2048, inactive slots and a row at position -1, in every mix."""
-    from dynamo_tpu_torch.ops import attention as plain
-    from dynamo_tpu_torch.ops.kernels import paged_attention as pa
-
-    kernel = {"K1": pa.paged_decode_attention_kernel, "K3a": pa.paged_decode_attention_folded_kernel}[which]
-    Hq, Hkv, D = GEOMETRY[which]
-    B, ps, max_pages = 64, 16, 128
+def decode_case(torch, dev, rng, Hq: int, Hkv: int, D: int, ps: int = 16) -> dict:
+    """K1's check inputs: B 64, page size ``ps``, ragged contexts 1..2048 in
+    distinct pages, 6 inactive slots (trash tables, position 0) and a row at
+    position -1; f32 pools, queries, the SDPA mask, and the rows each
+    sequence reads (``live_len``)."""
+    B, max_pages = 64, 2048 // ps
     lengths = rng.integers(1, max_pages * ps + 1, B)
     lengths[:2] = (1, max_pages * ps)
     inactive = np.zeros(B, bool)
@@ -198,13 +221,47 @@ def check_decode(torch, dev, rng, which: str) -> dict:
     live_len[negative] = 1
     pt_t = torch.from_numpy(pt).to(dev)
     pos_t = torch.from_numpy(pos).to(dev)
-    k32 = torch.randn((P, ps, Hkv, D), device=dev)
-    v32 = torch.randn((P, ps, Hkv, D), device=dev)
-    q32 = torch.randn((B, Hq, D), device=dev)
     S = max_pages * ps
+    return dict(
+        B=B, P=P, ps=ps, pt=pt, pos=pos, pt_t=pt_t, pos_t=pos_t, live_len=live_len,
+        k32=torch.randn((P, ps, Hkv, D), device=dev), v32=torch.randn((P, ps, Hkv, D), device=dev),
+        q32=torch.randn((B, Hq, D), device=dev),
+        mask=(torch.arange(S, device=dev)[None, :] <= pos_t[:, None].long().clamp(min=0))[:, None, None, :],
+    )
+
+
+def sdpa_decode_ms(torch, plain, case, q, kd, vd) -> float:
+    """Yardstick only: one SDPA call over the gathered, masked context."""
+    kc = plain.gather_pages(kd, case["pt_t"]).permute(0, 2, 1, 3).contiguous()  # [B, Hkv, S, D]
+    vc = plain.gather_pages(vd, case["pt_t"]).permute(0, 2, 1, 3).contiguous()
+    qs = q.to(kc.dtype)[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    mask = (torch.arange(S, device=dev)[None, :] <= pos_t[:, None].long().clamp(min=0))[:, None, None, :]
-    ctx_tokens = sum(-(-int(n) // ps) * ps for n in live_len)
+    return cuda_ms(lambda: sdpa(qs, kc, vc, attn_mask=case["mask"], enable_gqa=True), 20)
+
+
+def decode_bound(case, q, Hkv: int, kv_bytes: int, scale_bytes: int, tol: str) -> tuple[float, str, float]:
+    """K1's bound: each sequence's live rows of K and V (and int8 scales)
+    read once, q read and the output written once; 4 FLOP a (head, row,
+    column). Returns (ms, what bounds it, bytes)."""
+    Hq, D = q.shape[1], q.shape[2]
+    live = int(case["live_len"].sum())
+    nbytes = (live * (Hkv * D * kv_bytes + scale_bytes) * 2 + 2 * q.numel() * q.element_size()
+              + case["pt"].nbytes + case["pos"].nbytes)
+    b_ms, b_by = bound(nbytes, 4 * Hq * D * live, tol)
+    return b_ms, b_by, nbytes
+
+
+def check_decode(torch, dev, rng, which: str) -> dict:
+    """K1 or K3a against the plain version at B 64, ps 16, ragged contexts
+    1..2048, inactive slots and a row at position -1, in every mix."""
+    from dynamo_tpu_torch.ops import attention as plain
+    from dynamo_tpu_torch.ops.kernels import paged_attention as pa
+
+    kernel = {"K1": pa.paged_decode_attention_kernel, "K3a": pa.paged_decode_attention_folded_kernel}[which]
+    Hq, Hkv, D = GEOMETRY[which]
+    case = decode_case(torch, dev, rng, Hq, Hkv, D)
+    B, pt_t, pos_t, live_len = case["B"], case["pt_t"], case["pos_t"], case["live_len"]
+    k32, v32, q32 = case["k32"], case["v32"], case["q32"]
     extra = ""
     if which == "K3a":
         blocks = sum(-(-int(n) // pa.SPLIT_ROWS) for n in live_len)
@@ -217,24 +274,15 @@ def check_decode(torch, dev, rng, which: str) -> dict:
         got = kernel(q, k, v, pt_t, pos_t)
         ref = plain.paged_decode_attention(q, k, v, pt_t, pos_t)
         tol = "f32" if qdt == torch.float32 else "bf16"
-        err = held_to_plain(f"{which} paged decode", name, got, ref, tol)
+        held = held_to_plain(f"{which} paged decode", name, got, ref, tol)
         ms = cuda_ms(lambda: kernel(q, k, v, pt_t, pos_t), 50)
         plain_ms = cuda_ms(lambda: plain.paged_decode_attention(q, k, v, pt_t, pos_t), 5)
-        # yardstick only: one SDPA call on the gathered, masked context
-        kc = plain.gather_pages(kd, pt_t).permute(0, 2, 1, 3).contiguous()  # [B, Hkv, S, D]
-        vc = plain.gather_pages(vd, pt_t).permute(0, 2, 1, 3).contiguous()
-        qs = q.to(kc.dtype)[:, :, None, :]
-        lib_ms = cuda_ms(lambda: sdpa(qs, kc, vc, attn_mask=mask, enable_gqa=True), 20)
-        itemsize = q.element_size()
-        nbytes = (ctx_tokens * (Hkv * D * kv_bytes + scale_bytes) * 2 + 2 * q.numel() * itemsize
-                  + pt.nbytes + pos.nbytes)
-        flops = 4 * Hq * D * int(live_len.sum())
-        b_ms, b_by = bound(nbytes, flops, tol)
+        lib_ms = sdpa_decode_ms(torch, plain, case, q, kd, vd)
+        b_ms, b_by, nbytes = decode_bound(case, q, Hkv, kv_bytes, scale_bytes, tol)
         note = " (SDPA over the dequantized bf16 context, dequantization untimed)" if kind == "int8" else ""
         log(f"{which} paged decode {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms{note}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB){extra}")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+        res[name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     return res
 
 
@@ -277,7 +325,7 @@ def check_prefill(torch, dev, rng, which: str) -> dict:
         got = kernel(q, k, v, pt_t, pos_t)
         ref = plain.paged_prefill_attention_lanes(q, k, v, pt_t, pos_t)
         tol = "f32" if qdt == torch.float32 else "bf16"
-        err = held_to_plain(f"{which} prefill flash", name, got, ref, tol)
+        held = held_to_plain(f"{which} prefill flash", name, got, ref, tol)
         ms = cuda_ms(lambda: kernel(q, k, v, pt_t, pos_t), 20)
         plain_ms = cuda_ms(lambda: plain.paged_prefill_attention_lanes(q, k, v, pt_t, pos_t), 3)
         kc = plain.gather_pages(kd, pt_t).permute(0, 2, 1, 3).contiguous()  # [3, Hkv, S, D]
@@ -293,8 +341,123 @@ def check_prefill(torch, dev, rng, which: str) -> dict:
         log(f"{which} prefill flash {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms{note}, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP in the "
             f"real lanes, pad lane {4 * Hq * D * pad_pairs / 1e9:.2f} GFLOP more)")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+        res[name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    return res
+
+
+# ---------------------------------------------------------------- K4a, K4b, K7a-c
+
+# (Hq, Hkv, D, page size) of the decode variants' checks: K1's (the chunked /
+# grouped serve paths run Llama-3-8B at page size 16) and the profilers'
+# (tools/profile_attn.py: the reference bench's 1.3B shape, G 2, page size
+# 128), where K7b and K7c run on their main path
+VARIANT_GEOMETRY = {"K1": (32, 8, 128, 16), "bench": (16, 8, 128, 128)}
+# (Hq, Hkv, D, page size, lane starts, table width) of K7a's checks: K2's
+# three 512-row lanes (cached prefixes 0 and 1024, and a pad lane: n=0,
+# all-zero table) and tools/profile_prefill.py's (the last 512-row chunk of a
+# 3072-row prompt, 24 pages of 128, beside a first chunk and a pad lane)
+TWIN_GEOMETRY = {"K2": (32, 8, 128, 16, (0, 1024, 0), 128), "bench": (16, 8, 128, 128, (0, 2560, 0), 24)}
+
+
+def check_decode_variants(torch, dev, rng, geometry: str) -> dict:
+    """K4a, K4b and K7c at K1's check inputs (B 64, ragged contexts 1..2048,
+    inactive slots, a row at -1) at ``VARIANT_GEOMETRY[geometry]``, in f32
+    and bf16 (K7c without cast_f32 against its plain version, with it
+    against K1's), with K1's bound and SDPA yardstick; K7b's checksum on the
+    same tables over exact pools, exactly. Returns {kernel: {mix: numbers}},
+    K7c's cast_f32 runs under "K7c cast_f32"."""
+    import functools
+
+    from dynamo_tpu_torch.ops import attention as plain
+    from dynamo_tpu_torch.ops.kernels import paged_attention as pa
+    from dynamo_tpu_torch.tools.checks import exact_pools
+
+    Hq, Hkv, D, ps = VARIANT_GEOMETRY[geometry]
+    case = decode_case(torch, dev, rng, Hq, Hkv, D, ps)
+    pt_t, pos_t = case["pt_t"], case["pos_t"]
+    at = f"(G {Hq // Hkv}, ps {ps})"
+    kernels = {
+        "K4a": (pa.paged_decode_attention_chunked_kernel, plain.paged_decode_attention_chunked),
+        "K4b": (pa.paged_decode_attention_grouped_kernel, plain.paged_decode_attention_grouped),
+        "K7c": (functools.partial(pa.paged_decode_perseq_variant_kernel, cast_f32=False),
+                plain.paged_decode_attention_grouped),
+        "K7c cast_f32": (functools.partial(pa.paged_decode_perseq_variant_kernel, cast_f32=True),
+                         plain.paged_decode_attention),
+    }
+    res = {name: {} for name in (*kernels, "K7b")}
+    for name, qdt_name, _ in MIXES[:2]:
+        qdt = getattr(torch, qdt_name)
+        q, k, v = case["q32"].to(qdt), case["k32"].to(qdt), case["v32"].to(qdt)
+        lib_ms = sdpa_decode_ms(torch, plain, case, q, k, v)
+        b_ms, b_by, nbytes = decode_bound(case, q, Hkv, k.element_size(), 0, name)
+        for which, (kernel, ref_fn) in kernels.items():
+            held = held_to_plain(f"{which} {at}", name, kernel(q, k, v, pt_t, pos_t), ref_fn(q, k, v, pt_t, pos_t),
+                                 name)
+            ms = cuda_ms(lambda: kernel(q, k, v, pt_t, pos_t), 50)
+            plain_ms = cuda_ms(lambda: ref_fn(q, k, v, pt_t, pos_t), 3)
+            log(f"{which} decode {at} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB)")
+            res[which][name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                    bound_by=b_by)
+        # K7b over exact pools of the same shape and tables
+        ke, ve = exact_pools(tuple(case["k32"].shape), qdt_name, dev)
+        twin = pa.paged_decode_dmaonly_kernel
+        held = held_exactly(f"K7b decode twin {at}", name, twin(q, ke, ve, pt_t, pos_t),
+                            plain.paged_decode_dmaonly(q, ke, ve, pt_t, pos_t))
+        ms = cuda_ms(lambda: twin(q, ke, ve, pt_t, pos_t), 50)
+        plain_ms = cuda_ms(lambda: plain.paged_decode_dmaonly(q, ke, ve, pt_t, pos_t), 5)
+        live = int(case["live_len"].sum())
+        tw_bytes = live * Hkv * D * ke.element_size() * 2 + q.numel() * 4 + case["pt"].nbytes + case["pos"].nbytes
+        tb_ms, tb_by = bound(tw_bytes, 2 * Hkv * D * live, "f32")  # K + V, then the running sum
+        log(f"K7b decode twin {at} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {tb_ms:.4f} ms "
+            f"({tb_by}; {tw_bytes / 1e6:.1f} MB); K1's load stream without its math")
+        res["K7b"][name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=tb_ms, bound_by=tb_by)
+    return res
+
+
+def check_prefill_twin(torch, dev, rng, geometry: str) -> dict:
+    """K7a at ``TWIN_GEOMETRY[geometry]`` (three 512-row lanes in one
+    launch, the last a pad lane) in every mix, over exact pools, against its
+    plain version's checksums exactly."""
+    from dynamo_tpu_torch.ops import attention as plain
+    from dynamo_tpu_torch.ops.kernels import prefill_attention as pf
+    from dynamo_tpu_torch.tools.checks import exact_pools
+
+    twin = pf.paged_prefill_dmaonly_kernel
+    Hq, Hkv, D, ps, starts, max_pages = TWIN_GEOMETRY[geometry]
+    T = 512
+    need = [(s + T) // ps if j < 2 else 0 for j, s in enumerate(starts)]  # the pad lane reads no page
+    P = 1 + sum(need)
+    perm = 1 + rng.permutation(P - 1)
+    pt = np.zeros((3, max_pages), np.int32)
+    pt[0, : need[0]] = perm[: need[0]]
+    pt[1, : need[1]] = perm[need[0] : need[0] + need[1]]
+    pos = np.stack([s + np.arange(T) for s in starts]).astype(np.int32)
+    pt_t = torch.from_numpy(pt).to(dev)
+    pos_t = torch.from_numpy(pos).to(dev)
+    # K2's blocks: BQ = 64 // G query positions, each reading context up to
+    # its last row; counted over the two real lanes
+    BQ = pf.ROWS_PER_BLOCK // (Hq // Hkv)
+    real = pos[:2]
+    block_ctx = sum(int(p[b + BQ - 1]) + 1 for p in real for b in range(0, T, BQ))
+    ctx_tokens = sum(int(p[-1]) + 1 for p in real)
+    at = f"(G {Hq // Hkv}, ps {ps}, prefixes {starts[0]} and {starts[1]})"
+    res = {}
+    for name, qdt_name, kind in MIXES:
+        qdt = getattr(torch, qdt_name)
+        q = torch.zeros((3 * T, Hq, D), device=dev, dtype=qdt)
+        k, v = exact_pools((P, ps, Hkv, D), qdt_name if kind == "plain" else "int8", dev)
+        held = held_exactly(f"K7a prefill twin {at}", name, twin(q, k, v, pt_t, pos_t),
+                            plain.paged_prefill_dmaonly(q, k, v, pt_t, pos_t))
+        ms = cuda_ms(lambda: twin(q, k, v, pt_t, pos_t), 20)
+        plain_ms = cuda_ms(lambda: plain.paged_prefill_dmaonly(q, k, v, pt_t, pos_t), 3)
+        kv_bytes, scale_bytes = (1, 4) if kind == "int8" else (q.element_size(), 0)
+        nbytes = ctx_tokens * (Hkv * D * kv_bytes + scale_bytes) * 2 + real.size * Hq * D * 4 + pt.nbytes + pos.nbytes
+        ops = block_ctx * Hkv * D * (4 if kind == "int8" else 2)  # (dequantize,) add, accumulate
+        b_ms, b_by = bound(nbytes, ops, "f32")
+        log(f"K7a prefill twin {at} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {nbytes / 1e6:.1f} MB); K2's load stream without its math")
+        res[name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
     return res
 
 
@@ -344,7 +507,7 @@ def check_mla_decode(torch, dev, rng) -> dict:
         pages = pages32.to(getattr(torch, dt))
         got = k5(q, pages, pt_t, pos_t, dc)
         ref = plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc)
-        err = held_to_plain("K5 MLA decode", f"f32 q / {name} pages", got, ref, tol="f32")
+        held = held_to_plain("K5 MLA decode", f"f32 q / {name} pages", got, ref, tol="f32")
         ms = cuda_ms(lambda: k5(q, pages, pt_t, pos_t, dc), 50)
         plain_ms = cuda_ms(lambda: plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc), 5)
         # yardstick only: one SDPA call on the gathered latent context (keys
@@ -367,8 +530,7 @@ def check_mla_decode(torch, dev, rng) -> dict:
         log(f"K5 MLA decode f32 q / {name} pages: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms (backends taking it: {backends}), bound {b_ms:.4f} ms ({b_by}; "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+        res[name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     return res
 
 
@@ -386,11 +548,12 @@ def check_mla_prefill(torch, dev, rng) -> dict:
     res = {}
     for name, dt in MLA_MIXES:
         pages = pages32.to(getattr(torch, dt))
-        errs = []
+        helds = []
         for c, s in enumerate(starts):
             got = k6(qs[c], pages, pt, pos[c], dc)
             ref = plain.paged_mla_prefill_attention(qs[c], pages, pt, pos[c], dc)
-            errs.append(held_to_plain(f"K6 MLA prefill (prefix {s})", f"f32 q / {name} pages", got, ref, tol="f32"))
+            helds.append(held_to_plain(f"K6 MLA prefill (prefix {s})", f"f32 q / {name} pages", got, ref,
+                                       tol="f32"))
         ms = cuda_ms(lambda: [k6(qs[c], pages, pt, pos[c], dc) for c in range(2)], 20)
         plain_ms = cuda_ms(lambda: [plain.paged_mla_prefill_attention(qs[c], pages, pt, pos[c], dc)
                                     for c in range(2)], 3)
@@ -414,8 +577,9 @@ def check_mla_prefill(torch, dev, rng) -> dict:
         log(f"K6 MLA prefill f32 q / {name} pages (both chunks): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (backends taking it: {backends}), bound "
             f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP)")
-        res[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+        res[name] = dict(max_abs_err=max(h["max_abs_err"] for h in helds),
+                         tol_share=max(h["tol_share"] for h in helds), ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     return res
 
 
@@ -436,6 +600,17 @@ def phase_refusals(torch, dev) -> None:
             torch.zeros((16, 32, 64), device=dev, dtype=torch.float16),
             *[torch.zeros((5, 16, 4, 64), device=dev, dtype=torch.float16)] * 2, pt[0], pos.repeat(8)),
     }
+    from dynamo_tpu_torch.ops.kernels import paged_attention as pa
+    from dynamo_tpu_torch.quant.kv import QuantizedPages
+
+    q8 = torch.zeros((2, 8, 128), device=dev, dtype=torch.bfloat16)
+    int8_pool = QuantizedPages(torch.zeros((5, 16, 2, 128), device=dev, dtype=torch.int8),
+                               torch.ones((5, 16), device=dev))
+    cases |= {
+        "K4a over an int8 cache": lambda: pa.paged_decode_attention_chunked_kernel(q8, int8_pool, int8_pool, pt, pos),
+        "K4b at head_dim 32": lambda: pa.paged_decode_attention_grouped_kernel(
+            torch.zeros((2, 8, 32), device=dev), *[torch.zeros((5, 16, 2, 32), device=dev)] * 2, pt, pos),
+    }
     for what, call in cases.items():
         try:
             call()
@@ -446,6 +621,23 @@ def phase_refusals(torch, dev) -> None:
 
 
 # ---------------------------------------------------------------- engine
+
+
+@contextlib.contextmanager
+def decode_kernel_env(choice: str | None):
+    """DYNTPU_DECODE_KERNEL set to ``choice`` (None: unset) inside, restored
+    after."""
+    from dynamo_tpu_torch.ops.attention import DECODE_KERNEL_ENV
+
+    old = os.environ.pop(DECODE_KERNEL_ENV, None)
+    if choice is not None:
+        os.environ[DECODE_KERNEL_ENV] = choice
+    try:
+        yield
+    finally:
+        os.environ.pop(DECODE_KERNEL_ENV, None)
+        if old is not None:
+            os.environ[DECODE_KERNEL_ENV] = old
 
 
 async def serve(config, requests, model=None):
@@ -555,9 +747,11 @@ def naive_greedy(torch, model, prompt: list[int], steps: int) -> list[int]:
     return out
 
 
-def phase_engine_vs_naive(torch, rng, what: str, geometry: dict, kv_cache_dtype: str | None = None) -> None:
+def phase_engine_vs_naive(torch, rng, what: str, geometry: dict, kv_cache_dtype: str | None = None,
+                          decode_kernel: str | None = None, launcher=None) -> None:
     """``geometry`` at 2 layers in f32: the engine's greedy tokens (3
-    requests x 16) must equal naive_greedy's."""
+    requests x 16) must equal naive_greedy's. ``decode_kernel``: the run's
+    DYNTPU_DECODE_KERNEL, and ``launcher`` must then have launched."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.sampling import SamplingParams
     from dynamo_tpu_torch.engine.scheduler import EngineRequest
@@ -575,14 +769,20 @@ def phase_engine_vs_naive(torch, rng, what: str, geometry: dict, kv_cache_dtype:
         EngineRequest(f"naive-{i}", p, SamplingParams(temperature=0.0, max_tokens=steps))
         for i, p in enumerate(prompts)
     ]
-    results, _, _ = asyncio.run(serve(config, requests, model=model))
+    if launcher is not None:
+        launcher.launches = 0
+    with decode_kernel_env(decode_kernel):
+        results, _, _ = asyncio.run(serve(config, requests, model=model))
+    if launcher is not None and launcher.launches <= 0:
+        raise AssertionError(f"{what} with {decode_kernel}: the decode kernel never launched")
     for i, p in enumerate(prompts):
         got = results[f"naive-{i}"][0]
         want = naive_greedy(torch, model, p, steps)
         if got != want:
             raise AssertionError(f"{what} request {i}: engine {got} != naive {want}")
-    log(f"{what} engine vs naive forward (2 layers, f32, {kv_cache_dtype or 'f32'} KV): "
-        f"{len(prompts)} requests x {steps} greedy tokens identical")
+    log(f"{what} engine vs naive forward (2 layers, f32, {kv_cache_dtype or 'f32'} KV"
+        + (f", DYNTPU_DECODE_KERNEL={decode_kernel}, {launcher.launches} launches" if decode_kernel else "")
+        + f"): {len(prompts)} requests x {steps} greedy tokens identical")
     del model
     torch.cuda.empty_cache()
 
@@ -680,6 +880,34 @@ def phase_mla_vs_naive(torch, rng) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_instruments(torch, twins: dict) -> dict:
+    """Both profilers' ``main`` at their defaults (tools/profile_attn.py,
+    tools/profile_prefill.py): every profile_attn variant must pass its
+    numerics gate and its check against its plain version, and be timed;
+    profile_prefill's K2 and K7a must pass theirs. ``twins`` ({name: launcher}) are counted over
+    the phase and must each have launched. Returns {"launches", "attn",
+    "prefill"}."""
+    from dynamo_tpu_torch.tools import profile_attn, profile_prefill
+
+    for fn in twins.values():
+        fn.launches = 0
+    attn = profile_attn.main([])
+    if attn["failed"] or set(attn["us_per_call"]) != set(profile_attn.VARIANTS):
+        raise AssertionError(f"profile_attn: failed {attn['failed']}, timed {sorted(attn['us_per_call'])}")
+    pre = profile_prefill.main([])
+    if pre["failed"]:
+        raise AssertionError(f"profile_prefill: failed {pre['failed']}")
+    launches = {name: fn.launches for name, fn in twins.items()}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"instruments: a twin never launched: {launches}")
+    log("instruments: profile_attn variants " + ", ".join(f"{k} {v:.1f} us" for k, v in attn["us_per_call"].items())
+        + f"; profile_prefill K2 {pre['attn_kernel_ab']['attn_us_per_layer']:.1f} us, K7a "
+        f"{pre['attn_kernel_ab']['dma_floor_us_per_layer']:.1f} us; launches "
+        + " ".join(f"{k} {v}" for k, v in launches.items()))
+    torch.cuda.empty_cache()
+    return dict(launches=launches, attn=attn, prefill=pre)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -699,20 +927,24 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.monotonic()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    from dynamo_tpu_torch.tools.timing import card
+
+    smi = card()
     print(smi, flush=True)
     gpu_name = torch.cuda.get_device_name(0)
 
     from dynamo_tpu_torch.ops.kernels import _build
     from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_decode_attention_kernel as k5
     from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_prefill_attention_kernel as k6
+    from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_chunked_kernel as k4a
     from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_folded_kernel as k3a
+    from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_grouped_kernel as k4b
     from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_kernel as k1
+    from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_dmaonly_kernel as k7b
+    from dynamo_tpu_torch.ops.kernels.paged_attention import paged_decode_perseq_variant_kernel as k7c
     from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_folded_kernel as k3b
     from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_kernel as k2
+    from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_dmaonly_kernel as k7a
     from dynamo_tpu_torch.tools.workload import (
         DEEPSEEK_V2_LITE,
         LLAMA3_8B,
@@ -725,8 +957,8 @@ def main() -> int:
     )
 
     t0 = time.monotonic()
-    _build.build(["paged_attention", "prefill_attention", "mla_attention"])
-    log(f"build: three kernel sources in {time.monotonic() - t0:.1f} s")
+    _build.build(["paged_attention", "prefill_attention", "mla_attention", "decode_variants"])
+    log(f"build: four kernel sources in {time.monotonic() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
@@ -734,6 +966,11 @@ def main() -> int:
     checks |= {name: check_prefill(torch, dev, rng, name) for name in ("K2", "K3b")}
     checks["K5"] = check_mla_decode(torch, dev, rng)
     checks["K6"] = check_mla_prefill(torch, dev, rng)
+    checks |= check_decode_variants(torch, dev, rng, "K1")
+    checks["K7a"] = check_prefill_twin(torch, dev, rng, "K2")
+    # the variants again at the profilers' shapes (G 2, page size 128)
+    bench = check_decode_variants(torch, dev, rng, "bench")
+    bench["K7a"] = check_prefill_twin(torch, dev, rng, "bench")
     # each serve path runs with the counts set to 0 just before it and read
     # just after it: {path: {kernel: launches}}
     paged, folded = {"K1": k1, "K2": k2}, {"K3a": k3a, "K3b": k3b}
@@ -748,16 +985,28 @@ def main() -> int:
         "folded int8 serve": phase_serve(torch, smi, "folded int8 serve", folded_serve_config("int8"),
                                          folded_serve_requests(), folded, paged),
     }
+    # the decode-kernel switch: K4a / K4b take every decode step of the
+    # Llama workload (as many launches as K1 had in serve), K2 its prefill
+    for what, choice, k4, other in (("chunked serve", "chunked", k4a, k4b), ("grouped serve", "grouped", k4b, k4a)):
+        name = "K4a" if k4 is k4a else "K4b"
+        with decode_kernel_env(choice):
+            runs[what] = phase_serve(torch, smi, what, serve_config(), serve_requests(), {name: k4, "K2": k2},
+                                     {"K1": k1, "K3a": k3a, "K3b": k3b, "K4a" if name == "K4b" else "K4b": other})
+        if runs[what][name] != runs["serve"]["K1"]:
+            raise AssertionError(f"{what}: {name} launched {runs[what][name]} times, K1 {runs['serve']['K1']} in serve")
     phase_refusals(torch, dev)
     phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B)
     phase_engine_vs_naive(torch, rng, "TinyLlama geometry", TINYLLAMA_1_1B)
     phase_engine_vs_naive(torch, rng, "TinyLlama geometry", TINYLLAMA_1_1B, kv_cache_dtype="int8")
     phase_mla_vs_naive(torch, rng)
+    phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B, decode_kernel="chunked", launcher=k4a)
+    phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B, decode_kernel="grouped", launcher=k4b)
+    runs["instruments"] = phase_instruments(torch, {"K7a": k7a, "K7b": k7b, "K7c": k7c})["launches"]
 
     csrc = "dynamo_tpu_torch/ops/kernels/csrc/"
     pallas = "dynamo_tpu/ops/pallas/"
-    # name, check, source, the TPU kernel, the serve path of its bf16 numbers,
-    # the serve path of its int8 numbers (None: the kernel takes no int8)
+    # name, check, source, the TPU kernel, the path of its launches (bf16
+    # numbers), the path of its int8 numbers (None: the kernel takes no int8)
     table = (
         ("paged_decode_attention", "K1", "paged_attention.cu", "paged_attention.py:536", "serve", "int8 serve"),
         ("paged_prefill_attention", "K2", "prefill_attention.cu", "prefill_attention.py:686", "serve",
@@ -768,13 +1017,36 @@ def main() -> int:
          "folded serve", "folded int8 serve"),
         ("paged_mla_decode_attention", "K5", "mla_attention.cu", "mla_attention.py:221", "MLA serve", None),
         ("paged_mla_prefill_attention", "K6", "mla_attention.cu", "mla_attention.py:396", "MLA serve", None),
+        ("paged_decode_attention_chunked", "K4a", "decode_variants.cu", "paged_attention.py:911", "chunked serve",
+         None),
+        ("paged_decode_attention_grouped", "K4b", "decode_variants.cu", "paged_attention.py:322", "grouped serve",
+         None),
+        ("paged_prefill_dmaonly", "K7a", "prefill_attention.cu", "prefill_attention.py:797", "instruments", None),
+        ("paged_decode_dmaonly", "K7b", "decode_variants.cu", "tools/profile_attn.py:112", "instruments", None),
+        ("paged_decode_perseq_variant", "K7c", "decode_variants.cu", "tools/profile_attn.py:232", "instruments",
+         None),
     )
+    # K7a-c run on the instruments path at the profilers' shapes: their rows
+    # take those numbers, their K1 / K2 check shapes go under "check_shapes";
+    # K4a and K4b run on the serve path at K1's, their profiler-shape numbers
+    # go under "bench_shapes"
+    on_bench = ("K7a", "K7b", "K7c")
     kernels = []
     for name, key, src, tpu, path, int8_path in table:
-        entry = dict(name=name, route="cuda", source=csrc + src, replaces=pallas + tpu,
-                     launches=runs[path][key], **checks[key]["bf16"])
+        row, other = (bench, checks) if key in on_bench else (checks, bench)
+        entry = dict(name=name, route="cuda", source=csrc + src,
+                     replaces=tpu if tpu.startswith("tools/") else pallas + tpu,
+                     launches=runs[path][key], **row[key]["bf16"])
         if int8_path:
             entry["int8"] = dict(launches=runs[int8_path][key], **checks[key]["int8"])
+        if key in bench:
+            entry["check_shapes" if key in on_bench else "bench_shapes"] = other[key]
+        # checked here, not on a path: K7a over the int8 cache (the profiler
+        # runs bf16 pools) and K7c's cast_f32 instance (K1's function)
+        if key == "K7a":
+            entry["int8"] = dict(bench["K7a"]["int8"])
+        if key == "K7c":
+            entry["cast_f32"] = dict(bench["K7c cast_f32"]["bf16"])
         kernels.append(entry)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

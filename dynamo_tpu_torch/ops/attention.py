@@ -29,11 +29,24 @@ rows and scale score and probability columns, the same algebra.
 
 ``dispatch_paged_decode_attention`` / ``dispatch_paged_prefill_attention``
 launch the hand-written CUDA kernels (``ops/kernels/``) for CUDA tensors and
-use the plain versions below for CPU tensors. The kernel follows the
-reference's routing (``dynamo_tpu/ops/attention.py``): a head_dim that is not
-a multiple of 128 (:func:`kv_folded`, TinyLlama's 64) takes the folded
-kernels K3a / K3b, every other head_dim K1 / K2. The folded kernels read the
-port's unfolded pool, whose memory is the folded ``[P, ps, Hkv*D]`` layout.
+use the chosen kernel's plain version below for CPU tensors. The kernel
+follows the reference's routing (``dynamo_tpu/ops/attention.py``): a head_dim
+that is not a multiple of 128 (:func:`kv_folded`, TinyLlama's 64) takes the
+folded kernels K3a / K3b, every other head_dim K1 / K2. The folded kernels
+read the port's unfolded pool, whose memory is the folded ``[P, ps, Hkv*D]``
+layout. Decode reads ``DYNTPU_DECODE_KERNEL`` on every call, as the
+reference does (:func:`decode_kernel`): ``chunked`` takes K4a and ``grouped``
+K4b, whose plain versions round each chunk's (page's) probabilities to the
+pool dtype before P.V as those TPU kernels do; ``lookahead`` (the default),
+``perseq`` and any other value take K1, the kernel that stands for both TPU
+kernels of those names; an int8 cache always takes K1 (the reference's rule:
+its K4 kernels have no int8 branch) and a folded head_dim K3a.
+
+The plain versions of the instruments K7a and K7b (``paged_prefill_dmaonly``,
+``paged_decode_dmaonly``) compute the checksums those twins write: the
+reference's twins write garbage by design, and a twin whose loads feed no
+output would lose them to nvcc.
+
 ``dispatch_paged_mla_decode_attention`` / ``dispatch_paged_mla_prefill_attention``
 launch K5 / K6. A decode position below 0 attends context index 0 only, in
 the plain versions as in the kernels (the reference's plain version spreads a
@@ -43,6 +56,8 @@ of the reference are not ported yet.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from dynamo_tpu_torch.ops.kernels.mla_attention import (
@@ -50,16 +65,21 @@ from dynamo_tpu_torch.ops.kernels.mla_attention import (
     paged_mla_prefill_attention_kernel,
 )
 from dynamo_tpu_torch.ops.kernels.paged_attention import (
+    chunk_pages,
+    paged_decode_attention_chunked_kernel,
     paged_decode_attention_folded_kernel,
+    paged_decode_attention_grouped_kernel,
     paged_decode_attention_kernel,
 )
 from dynamo_tpu_torch.ops.kernels.prefill_attention import (
+    ROWS_PER_BLOCK,
     paged_prefill_attention_folded_kernel,
     paged_prefill_attention_kernel,
 )
 from dynamo_tpu_torch.quant.kv import QuantizedPages, quantize_kv_rows
 
 _NEG_INF = -1e30
+DECODE_KERNEL_ENV = "DYNTPU_DECODE_KERNEL"  # the reference's decode-kernel switch
 
 
 def scatter_kv(
@@ -203,15 +223,130 @@ def paged_decode_attention(
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
+def _decode_lengths(positions: torch.Tensor, S: int) -> torch.Tensor:
+    """K1's context length per sequence: min(max(pos + 1, 1), S)."""
+    return (positions.long() + 1).clamp(1, S)
+
+
+def paged_decode_attention_rounded(q, k_pages, v_pages, page_tables, positions, chunk_rows: int):
+    """K1's function with the reference's rounded chunks: the context is
+    walked in chunks of ``chunk_rows`` rows from index 0; each chunk takes one
+    running max over its rows, its probabilities exp(s - m) enter the running
+    sum in f32 and P.V rounded to the pool dtype (V rows past the length
+    zeroed). The plain version of K4a (``chunk_rows`` = C * ps), K4b and K7c
+    without ``cast_f32`` (``chunk_rows`` = ps); at f32 it is K1's function.
+    Plain pools only: the reference's variants take no int8 cache."""
+    B, Hq, D = q.shape
+    k_ctx = gather_pages(k_pages, page_tables).float()  # [B, S, Hkv, D]
+    v_ctx = gather_pages(v_pages, page_tables).float()
+    S, Hkv = k_ctx.shape[1], k_ctx.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / (D**0.5)
+    valid = torch.arange(S, device=q.device)[None, :] < _decode_lengths(positions, S)[:, None]  # [B, S]
+    scores = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(B, Hkv, G, D), k_ctx) * scale
+    scores = torch.where(valid[:, None, None, :], scores, torch.tensor(_NEG_INF, device=q.device))
+    v_ctx = torch.where(valid[:, :, None, None], v_ctx, 0.0)
+    m = torch.full((B, Hkv, G), _NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, G), device=q.device)
+    acc = torch.zeros((B, Hkv, G, D), device=q.device)
+    for c0 in range(0, S, chunk_rows):
+        s = scores[..., c0 : c0 + chunk_rows]
+        new_m = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - new_m)
+        p = torch.exp(s - new_m[..., None])
+        l = l * corr + p.sum(-1)
+        p = p.to(k_pages.dtype).float()
+        acc = acc * corr[..., None] + torch.einsum("bkgs,bskd->bkgd", p, v_ctx[:, c0 : c0 + chunk_rows])
+        m = new_m
+    out = acc / l.clamp(min=1e-20)[..., None]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_decode_attention_chunked(q, k_pages, v_pages, page_tables, positions):
+    """K4a's plain version: chunks of ``chunk_pages(ps, max_pages)`` pages."""
+    ps = k_pages.shape[1]
+    rows = chunk_pages(ps, page_tables.shape[1]) * ps
+    return paged_decode_attention_rounded(q, k_pages, v_pages, page_tables, positions, rows)
+
+
+def paged_decode_attention_grouped(q, k_pages, v_pages, page_tables, positions):
+    """K4b's plain version: one page a chunk (the group of sequences a block
+    changes the kernel's schedule, not its function)."""
+    return paged_decode_attention_rounded(q, k_pages, v_pages, page_tables, positions, k_pages.shape[1])
+
+
+def paged_decode_perseq_variant(q, k_pages, v_pages, page_tables, positions, cast_f32: bool = False):
+    """K7c's plain version: one page a chunk, rounded unless ``cast_f32``
+    (then K1's function, :func:`paged_decode_attention`)."""
+    if cast_f32:
+        return paged_decode_attention(q, k_pages, v_pages, page_tables, positions)
+    return paged_decode_attention_grouped(q, k_pages, v_pages, page_tables, positions)
+
+
+def paged_decode_dmaonly(q, k_pages, v_pages, page_tables, positions):
+    """K7b's checksum: f32 [B, Hq, D], out[b, h] = the sum over context rows
+    j < len (K1's length rule) of (K + V)[j, kv(h)]; q gives the shape."""
+    B, Hq, D = q.shape
+    ctx = gather_pages(k_pages, page_tables).float() + gather_pages(v_pages, page_tables).float()
+    S, Hkv = ctx.shape[1], ctx.shape[2]
+    valid = torch.arange(S, device=q.device)[None, :] < _decode_lengths(positions, S)[:, None]
+    sums = torch.where(valid[:, :, None, None], ctx, 0.0).sum(1)  # [B, Hkv, D]
+    return sums.repeat_interleave(Hq // Hkv, dim=1)
+
+
+def paged_prefill_dmaonly(q, k_pages, v_pages, page_tables, positions):
+    """K7a's checksum in K2's block partition: the rows of a lane fall in
+    blocks of ``ROWS_PER_BLOCK // G`` query positions, and every row gets the
+    f32 column sums of (K + V) of its kv head over its block's context, rows
+    j < min(block's last position + 1, max_pages * ps) (int8 rows
+    dequantized). f32 [N*T, Hq, D]; ``page_tables`` [max_pages] with
+    ``positions`` [T] is the one-chunk form."""
+    if page_tables.dim() == 1:
+        page_tables, positions = page_tables[None], positions[None]
+    N, T = positions.shape
+    Hq = q.shape[1]
+    outs = []
+    for n in range(N):
+        ctx = gather_pages(k_pages, page_tables[n]).float() + gather_pages(v_pages, page_tables[n]).float()
+        S, Hkv, _ = ctx.shape
+        G = Hq // Hkv
+        BQ = ROWS_PER_BLOCK // G
+        block_last = torch.clamp(torch.arange(T, device=q.device) // BQ * BQ + BQ - 1, max=T - 1)
+        n_ctx = (positions[n, block_last].long() + 1).clamp(0, S)  # [T]
+        csum = torch.cumsum(ctx, 0)  # [S, Hkv, D]
+        sums = torch.where((n_ctx > 0)[:, None, None], csum[(n_ctx - 1).clamp(min=0)], 0.0)
+        outs.append(sums.repeat_interleave(G, dim=1))
+    return torch.cat(outs)
+
+
 def kv_folded(head_dim: int) -> bool:
     """The reference's routing rule (``LlamaConfig.kv_folded``): a head_dim
     that is not a multiple of 128 takes the folded kernels."""
     return head_dim % 128 != 0
 
 
-def decode_kernel(head_dim: int):
-    """The launcher a CUDA decode call takes: K3a for folded head dims, else K1."""
-    return paged_decode_attention_folded_kernel if kv_folded(head_dim) else paged_decode_attention_kernel
+def decode_kernel(head_dim: int, quantized: bool = False, choice: str = "lookahead"):
+    """The launcher a decode call takes (the reference's routing,
+    ``dynamo_tpu/ops/attention.py``): K3a for a folded head_dim, K1 for an
+    int8 cache, K4a for ``choice`` "chunked", K4b for "grouped", and K1 for
+    every other choice ("lookahead", "perseq", ...)."""
+    if kv_folded(head_dim):
+        return paged_decode_attention_folded_kernel
+    if quantized:
+        return paged_decode_attention_kernel
+    return {
+        "chunked": paged_decode_attention_chunked_kernel,
+        "grouped": paged_decode_attention_grouped_kernel,
+    }.get(choice, paged_decode_attention_kernel)
+
+
+# the plain version of each decode launcher, for CPU tensors
+PLAIN_DECODE = {
+    paged_decode_attention_kernel: paged_decode_attention,
+    paged_decode_attention_folded_kernel: paged_decode_attention,
+    paged_decode_attention_chunked_kernel: paged_decode_attention_chunked,
+    paged_decode_attention_grouped_kernel: paged_decode_attention_grouped,
+}
 
 
 def prefill_kernel(head_dim: int):
@@ -220,12 +355,15 @@ def prefill_kernel(head_dim: int):
 
 
 def dispatch_paged_decode_attention(q, k_pages, v_pages, page_tables, positions):
-    """Kernel K1 or K3a (:func:`decode_kernel`; the launcher launches or
-    raises) for CUDA tensors; the plain version above for CPU tensors. Same
-    contract either way, plain or int8 pools."""
+    """The kernel :func:`decode_kernel` picks for this call's head_dim, pool
+    kind and ``DYNTPU_DECODE_KERNEL`` (the launcher launches or raises) for
+    CUDA tensors; that kernel's plain version for CPU tensors. Same contract
+    either way, plain or int8 pools."""
+    kernel = decode_kernel(q.shape[-1], isinstance(k_pages, QuantizedPages),
+                           os.environ.get(DECODE_KERNEL_ENV, "lookahead"))
     if q.device.type == "cpu":
-        return paged_decode_attention(q, k_pages, v_pages, page_tables, positions)
-    return decode_kernel(q.shape[-1])(q, k_pages, v_pages, page_tables, positions)
+        return PLAIN_DECODE[kernel](q, k_pages, v_pages, page_tables, positions)
+    return kernel(q, k_pages, v_pages, page_tables, positions)
 
 
 def dispatch_paged_prefill_attention(q, k_pages, v_pages, page_tables, positions):

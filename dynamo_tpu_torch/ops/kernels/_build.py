@@ -32,6 +32,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
+CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -125,7 +127,12 @@ def aligned16(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def check(err: int, what: str) -> None:
-    """Raise on a nonzero ``cudaGetLastError()`` code returned by a launch."""
+def check(err: int, what: str, refused: str | None = None) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` code returned by a launch.
+    An entry point that refuses its shapes returns ``cudaErrorInvalidValue``
+    without launching; with ``refused`` (why it would), that code raises
+    ValueError with that reason."""
+    if err == CUDA_ERROR_INVALID_VALUE and refused:
+        raise ValueError(f"{what}: {refused}")
     if err != 0:
         raise KernelLaunchError(f"{what}: CUDA error {err} at launch")

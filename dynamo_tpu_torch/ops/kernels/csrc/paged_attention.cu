@@ -54,9 +54,14 @@
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "decode_rows.cuh"
 
 namespace {
+
+using dtt::consume_rows;
+using dtt::decode_ctx;
+using dtt::load_rows;
+using dtt::RowLoads;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -64,89 +69,6 @@ constexpr int kUnroll = 4;
 constexpr int kFoldThreads = 128;
 constexpr int kFoldUnroll = 2;
 constexpr int kMergeThreads = 64;  // K3a merge: one thread a column, D <= 64
-
-// One token row slice: kr / vr raw loads, ks / vs the int8 row scales.
-template <typename TK, int U>
-struct RowLoads {
-  typename dtt::RowVec<TK>::Raw kr[U], vr[U];
-  float ks[U], vs[U];
-  bool valid[U];
-};
-
-// Load the U rows t0 + row + u * stride (valid iff < end) of one sequence:
-// the VEC values at column `col` of each row, and the row's scales for int8.
-template <typename TK, int U>
-__device__ __forceinline__ void load_rows(RowLoads<TK, U>& r, const TK* __restrict__ k_pool,
-                                          const TK* __restrict__ v_pool,
-                                          const float* __restrict__ k_scale,
-                                          const float* __restrict__ v_scale,
-                                          const int* __restrict__ pt, int t0, int row, int stride,
-                                          int end, int page_size, size_t token_stride, int col) {
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int t = t0 + row + u * stride;
-    r.valid[u] = t < end;
-    r.ks[u] = r.vs[u] = 0.f;
-    if (r.valid[u]) {
-      const size_t tok = (size_t)pt[t / page_size] * page_size + (t % page_size);
-      r.kr[u] = dtt::load_row(k_pool + tok * token_stride + col);
-      r.vr[u] = dtt::load_row(v_pool + tok * token_stride + col);
-      if constexpr (std::is_same<TK, int8_t>::value) {
-        r.ks[u] = k_scale[tok];
-        r.vs[u] = v_scale[tok];
-      }
-    } else {
-      r.kr[u] = dtt::zero_row<TK>();
-      r.vr[u] = dtt::zero_row<TK>();
-    }
-  }
-}
-
-// Online-softmax update of G heads' states with the U loaded rows. The
-// score's partial dot is reduced over the LPH lanes of one head slice; every
-// lane runs the shuffles, valid row or not.
-template <typename TK, int U, int G, int LPH>
-__device__ __forceinline__ void consume_rows(const RowLoads<TK, U>& r, const float (&qf)[G][dtt::RowVec<TK>::N],
-                                             float scale, float (&m)[G], float (&l)[G],
-                                             float (&acc)[G][dtt::RowVec<TK>::N]) {
-  constexpr int VEC = dtt::RowVec<TK>::N;
-  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    float kf[VEC];
-    dtt::to_float(r.kr[u], kf);
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) part = fmaf(qf[g][i], kf[i], part);
-#pragma unroll
-      for (int o = LPH / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-      s[g] = part * scale;
-      if constexpr (kQuant) s[g] *= r.ks[u];
-    }
-    if (r.valid[u]) {
-      float vf[VEC];
-      dtt::to_float(r.vr[u], vf);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float new_m = fmaxf(m[g], s[g]);
-        const float corr = expf(m[g] - new_m);
-        const float p = expf(s[g] - new_m);
-        l[g] = l[g] * corr + p;
-        const float pv = kQuant ? p * r.vs[u] : p;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(pv, vf[i], acc[g][i] * corr);
-        m[g] = new_m;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ int decode_ctx(const int* positions, int b, int cap) {
-  return min(max(positions[b] + 1, 1), cap);
-}
 
 // ---------------------------------------------------------------- K1
 

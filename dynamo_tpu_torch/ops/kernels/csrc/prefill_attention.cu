@@ -1,5 +1,5 @@
-// K2 and K3b: chunked-prefill flash attention over the paged KV pool, for
-// Hopper (sm_90a).
+// K2 and K3b: chunked-prefill flash attention over the paged KV pool, and
+// K7a, K2's load-only twin, for Hopper (sm_90a).
 //
 // K2 replaces the TPU kernel dynamo_tpu/ops/pallas/prefill_attention.py
 // paged_prefill_attention_pallas (_kernel_lookahead / _kernel, math in
@@ -49,6 +49,18 @@
 // Q tile (256 x D f32), the K/V tiles (32 x F each) and the probabilities;
 // at D = 64 that is 161 KB for F = 256 and 225 KB for F = 512, the most a
 // block can have, so F is capped at 512.
+//
+// K7a replaces dynamo_tpu/ops/pallas/prefill_attention.py
+// paged_prefill_dmaonly (_kernel_dmaonly), the null-hypothesis instrument of
+// tools/profile_prefill.py: K2's grid (one block per (64 (query, head) rows,
+// kv head, lane)), its causal tile bound and its tile staging (32-key tiles
+// into shared memory, the same 16-byte loads and f32 conversion, int8 scales
+// included) with no math. The reference's twin writes 1e-6 x one row of the
+// last tile, garbage by design; a load that nothing reads is deleted by nvcc,
+// so every row the block owns gets instead the f32 column sums over the
+// block's context j < min(last row's position + 1, max_pages * ps) of (K +
+// V)[j, kv head, :], int8 rows dequantized (code x row scale). Its time
+// against K2's is the share of K2 that its load stream explains.
 
 #include <type_traits>
 
@@ -444,6 +456,75 @@ folded_prefill_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
   }
 }
 
+// ---------------------------------------------------------------- K7a
+
+template <int D>
+constexpr int twin_smem_floats() {
+  return kKeys * (D + 4) + kKeys * D + 2 * kKeys + kThreads;  // + [kThreads / D][D] sums
+}
+
+template <typename TK, int D>
+__global__ void __launch_bounds__(kThreads)
+prefill_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
+                  const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                  const int* __restrict__ page_tables, const int* __restrict__ positions,
+                  float* __restrict__ out, int T_len, int Hq, int Hkv, int page_size,
+                  int max_pages) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  constexpr int KS = D + 4;            // K2's padded K-tile row stride
+  constexpr int PARTS = kThreads / D;  // threads summing one column
+  static_assert(kThreads % D == 0, "unsupported head_dim");
+
+  extern __shared__ float4 smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);  // [kKeys][KS]
+  float* sV = sK + kKeys * KS;                     // [kKeys][D]
+  float* sKs = sV + kKeys * D;                     // [kKeys]
+  float* sVs = sKs + kKeys;                        // [kKeys]
+  float* red = sVs + kKeys;                        // [PARTS][D]
+
+  // K2's block partition
+  const int G = Hq / Hkv;
+  const int BQ = kRows / G;
+  const int q_start = blockIdx.x * BQ;
+  const int kvh = blockIdx.y;
+  const int n = blockIdx.z;
+  const int n_q = min(BQ, T_len - q_start);
+  const int* pos = positions + (size_t)n * T_len;
+  const int* pt = page_tables + (size_t)n * max_pages;
+  const int n_ctx = min(pos[q_start + n_q - 1] + 1, max_pages * page_size);
+
+  const int c = threadIdx.x % D;
+  const int part = threadIdx.x / D;
+  float sum = 0.f;
+  for (int kt0 = 0; kt0 < n_ctx; kt0 += kKeys) {
+    __syncthreads();  // the previous tile's readers are done
+    stage_kv<TK>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, n_ctx, page_size, D,
+                 KS, (size_t)Hkv * D, kvh * D);
+    __syncthreads();
+    // keys at or past n_ctx were staged as zeros (int8: zero scales too)
+    for (int kk = part; kk < kKeys; kk += PARTS) {
+      if constexpr (kQuant) {
+        sum += sK[kk * KS + c] * sKs[kk] + sV[kk * D + c] * sVs[kk];
+      } else {
+        sum += sK[kk * KS + c] + sV[kk * D + c];
+      }
+    }
+  }
+  red[part * D + c] = sum;
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx % D;
+    const int g = r / BQ;
+    const int qi = r % BQ;
+    if (qi >= n_q) continue;
+    float a = 0.f;
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p) a += red[p * D + d];
+    out[(((size_t)n * T_len + q_start + qi) * Hq + (size_t)kvh * G + g) * D + d] = a;
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 struct PrefillArgs {
@@ -476,6 +557,18 @@ int launch_k2(const PrefillArgs& a) {
   return (int)cudaGetLastError();
 }
 
+template <typename TK, int D>
+int launch_k7a(const PrefillArgs& a) {
+  // within the default 48 KB of dynamic shared memory (34.5 KB at D = 128)
+  const size_t smem = (size_t)twin_smem_floats<D>() * sizeof(float);
+  const int BQ = kRows / (a.Hq / a.Hkv);
+  const dim3 grid((a.T_len + BQ - 1) / BQ, a.Hkv, a.N);
+  prefill_load_twin<TK, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs, a.pt, a.pos,
+      static_cast<float*>(a.out), a.T_len, a.Hq, a.Hkv, a.ps, a.max_pages);
+  return (int)cudaGetLastError();
+}
+
 template <typename TQ, typename TK, int D, int HJ>
 int launch_k3b(const PrefillArgs& a) {
   static std::atomic<bool> smem_raised[dtt::kMaxDevices];
@@ -498,6 +591,19 @@ struct K2Types {
     switch (a.D) {
       case 64: return launch_k2<TQ, TK, 64>(a);
       case 128: return launch_k2<TQ, TK, 128>(a);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+};
+
+// K7a reads no queries: TQ only selects the pool mix, as for K2
+template <typename TQ, typename TK>
+struct K7aTypes {
+  static int run(const PrefillArgs& a) {
+    if (kRows % (a.Hq / a.Hkv)) return (int)cudaErrorInvalidValue;
+    switch (a.D) {
+      case 64: return launch_k7a<TK, 64>(a);
+      case 128: return launch_k7a<TK, 128>(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -544,7 +650,8 @@ bool prefill_shapes_ok(const PrefillArgs& a, int kv_dtype) {
 
 }  // namespace
 
-// K2 and K3b share one signature. Returns cudaGetLastError() after the
+// K2, K3b and K7a share one signature (K7a reads no q and writes float32
+// checksums to out). Returns cudaGetLastError() after the
 // launch (0 = launched); shapes the kernel does not take return
 // cudaErrorInvalidValue without launching.
 #define PREFILL_ENTRY(name, Call)                                                               \
@@ -563,3 +670,4 @@ bool prefill_shapes_ok(const PrefillArgs& a, int kv_dtype) {
 
 PREFILL_ENTRY(paged_prefill_attention, K2Types)
 PREFILL_ENTRY(paged_prefill_attention_folded, K3bTypes)
+PREFILL_ENTRY(paged_prefill_dmaonly, K7aTypes)

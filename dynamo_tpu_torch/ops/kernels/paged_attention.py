@@ -19,7 +19,30 @@ token's whole row of all kv heads once for all query heads, splits each
 sequence's context over blocks of ``SPLIT_ROWS`` rows and merges them in a
 second launch (see the source note). Plain version: ``ops/attention.py
 paged_decode_attention``; the dispatcher there picks the plain version for
-CPU tensors and, for CUDA tensors, K3a when ``head_dim % 128 != 0``, else K1.
+CPU tensors and, for CUDA tensors, K3a when ``head_dim % 128 != 0``, else K1
+(or K4a / K4b, below, as ``DYNTPU_DECODE_KERNEL`` asks).
+
+The decode variants, CUDA C++ in ``csrc/decode_variants.cu`` (f32 and bf16
+pools of q's dtype, head_dim 64 or 128; no int8 cache, as on the TPU):
+
+- K4a (:func:`paged_decode_attention_chunked_kernel`) replaces
+  ``paged_decode_attention_pallas_chunked``: K1's function walked in chunks
+  of :func:`chunk_pages` pages, each chunk's probabilities rounded to the pool
+  dtype before P.V (``ops/attention.py paged_decode_attention_chunked``).
+- K4b (:func:`paged_decode_attention_grouped_kernel`) replaces
+  ``paged_decode_attention_pallas_grouped``: :func:`decode_group` sequences a
+  block, one page an iteration, rounded the same way
+  (``paged_decode_attention_grouped``).
+- K7c (:func:`paged_decode_perseq_variant_kernel`) replaces
+  ``tools/profile_attn.py make_perseq_variant``: one page an iteration, with
+  the probabilities rounded unless ``cast_f32`` (then K1's function).
+- K7b (:func:`paged_decode_dmaonly_kernel`) replaces ``tools/profile_attn.py
+  paged_decode_dmaonly``: K1's grid and loads with no math, an instrument.
+  The reference's twin writes garbage by design; a load nothing reads is
+  deleted by nvcc, so this one writes an f32 checksum of every value it
+  loads (``ops/attention.py paged_decode_dmaonly``).
+
+All four are bound by the bytes of the pages they read, as K1.
 """
 
 from __future__ import annotations
@@ -47,6 +70,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 _FOLDED_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]
+CHUNK_ROWS = 256  # K4a: context rows a chunk, at least (the reference's target)
+GROUP_CANDIDATES = (8, 4, 2)  # K4b: sequences a block, the reference's order
+SMEM_BUDGET = 48 * 1024  # K4b's group choice: the C launchers' shared-memory budget of a block
+_CHUNK_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
+_GROUPED_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
+_DMAONLY_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
 
 
 def unpack_pools(q, k_pages, v_pages, name: str):
@@ -93,23 +122,24 @@ def _check_pools(q, k, v, page_tables, positions, name: str) -> None:
             raise ValueError(f"all inputs must be on {q.device}; got {t.device}")
 
 
-def check_decode_args(q, k_pages, v_pages, page_tables, positions):
-    """Raise on inputs K1 does not take; returns ``unpack_pools``' tuple."""
+def check_decode_args(q, k_pages, v_pages, page_tables, positions, name: str = "K1"):
+    """Raise on inputs K1 (or a decode variant ``name``) does not take;
+    returns ``unpack_pools``' tuple."""
     if q.dim() != 3 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(
             f"expected q [B, Hq, D] and pools [P, ps, Hkv, D]; got {tuple(q.shape)}, "
             f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}"
         )
-    pools = unpack_pools(q, k_pages, v_pages, "K1")
+    pools = unpack_pools(q, k_pages, v_pages, name)
     k, v = pools[:2]
     B, Hq, D = q.shape
     _, ps, Hkv, Dk = k.shape
     if Dk != D or D not in HEAD_DIMS:
-        raise ValueError(f"K1 takes head_dim in {HEAD_DIMS}; got q D={D}, pool D={Dk}")
+        raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}; got q D={D}, pool D={Dk}")
     if Hq % Hkv or Hq // Hkv not in GROUP_SIZES:
-        raise ValueError(f"K1 takes Hq/Hkv in {GROUP_SIZES}; got Hq={Hq}, Hkv={Hkv}")
+        raise ValueError(f"{name} takes Hq/Hkv in {GROUP_SIZES}; got Hq={Hq}, Hkv={Hkv}")
     _check_tables(B, ps, page_tables, positions)
-    _check_pools(q, k, v, page_tables, positions, "K1")
+    _check_pools(q, k, v, page_tables, positions, name)
     return pools
 
 
@@ -213,5 +243,133 @@ def paged_decode_attention_folded_kernel(q, k_pages, v_pages, page_tables, posit
     return out
 
 
+def chunk_pages(page_size: int, max_pages: int) -> int:
+    """K4a's pages a chunk, the reference's C = max(1, min(max_pages,
+    ceil(256 / page_size)))."""
+    return max(1, min(max_pages, -(-CHUNK_ROWS // page_size)))
+
+
+def decode_group(B: int, G: int, page_size: int) -> int:
+    """K4b's sequences a block: the first of 8, 4, 2 that divides B and whose
+    score slices (G x page_size f32 a sequence) fit ``SMEM_BUDGET``, else 1
+    (the reference's choice, its VMEM page budget become the budget of what
+    K4b stages)."""
+    for cand in GROUP_CANDIDATES:
+        if B % cand == 0 and cand * G * page_size * 4 <= SMEM_BUDGET:
+            return cand
+    return 1
+
+
+def check_variant_args(q, k_pages, v_pages, page_tables, positions, name: str) -> None:
+    """Raise on inputs the decode variants K4a, K4b, K7b and K7c do not take:
+    K1's, but plain f32 or bf16 pools of q's dtype only (an int8 cache
+    raises)."""
+    if isinstance(k_pages, QuantizedPages) or isinstance(v_pages, QuantizedPages):
+        raise ValueError(f"{name} takes f32 or bf16 pools, not an int8 cache (K1 serves int8)")
+    check_decode_args(q, k_pages, v_pages, page_tables, positions, name)
+
+
+def _variant_launch(name: str, symbol: str, argtypes, refused: str, q, k, v, page_tables, positions, out, *extra):
+    """Launch ``symbol`` of ``csrc/decode_variants.cu`` on checked inputs:
+    (q, k, v, tables, positions, out, B, Hq, Hkv, D, ps, max_pages, *extra,
+    dtype, stream). The C launcher is the one check of its shared memory: a
+    refusal raises ValueError(``refused``), a launch error
+    KernelLaunchError."""
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = k.shape
+    err = _build.entry("decode_variants", symbol, argtypes)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), page_tables.contiguous().data_ptr(),
+        positions.contiguous().data_ptr(), out.data_ptr(), B, Hq, Hkv, D, ps, page_tables.shape[1],
+        *extra, Q_DTYPES[k.dtype], torch.cuda.current_stream(k.device).cuda_stream,
+    )
+    _build.check(err, f"{name} ({symbol})", refused)
+    return out
+
+
+def _chunk_softmax(name: str, q, k, v, page_tables, positions, chunk_rows: int, round_probs: bool):
+    G, D = q.shape[1] // k.shape[2], q.shape[2]
+    refused = (f"{chunk_rows}-row chunks at G={G}, D={D} need more shared memory than the block's "
+               f"{SMEM_BUDGET} B (the chunk's scores, the running state and the final merge)")
+    q = _build.aligned16(q)
+    return _variant_launch(name, "chunk_softmax_decode", _CHUNK_ARGTYPES, refused, q, k, v, page_tables,
+                           positions, torch.empty_like(q), chunk_rows, int(round_probs))
+
+
+def paged_decode_attention_chunked_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
+    """K4a: K1's contract over f32 / bf16 pools of q's dtype, the context
+    walked in chunks of ``chunk_pages(ps, max_pages) * ps`` rows with the
+    probabilities rounded to the pool dtype before P.V.
+
+    Launches K4a or raises: CUDA tensors only, no int8 cache."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K4a runs on CUDA tensors; got {q.device}")
+    check_variant_args(q, k_pages, v_pages, page_tables, positions, "K4a")
+    ps, mp = k_pages.shape[1], page_tables.shape[1]
+    out = _chunk_softmax("K4a", q, k_pages, v_pages, page_tables, positions, chunk_pages(ps, mp) * ps, True)
+    paged_decode_attention_chunked_kernel.launches += 1
+    return out
+
+
+def paged_decode_perseq_variant_kernel(q, k_pages, v_pages, page_tables, positions,
+                                       cast_f32: bool = False) -> torch.Tensor:
+    """K7c: K1's contract walked one page an iteration (the reference perseq
+    kernel's schedule); without ``cast_f32`` the probabilities are rounded to
+    the pool dtype before P.V, with it this is K1's function.
+
+    Launches K7c or raises: CUDA tensors only, no int8 cache."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K7c runs on CUDA tensors; got {q.device}")
+    check_variant_args(q, k_pages, v_pages, page_tables, positions, "K7c")
+    out = _chunk_softmax("K7c", q, k_pages, v_pages, page_tables, positions, k_pages.shape[1], not cast_f32)
+    paged_decode_perseq_variant_kernel.launches += 1
+    return out
+
+
+def paged_decode_attention_grouped_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
+    """K4b: K1's contract over f32 / bf16 pools of q's dtype, ``decode_group``
+    sequences a block, one page an iteration, each page's probabilities
+    rounded to the pool dtype before P.V.
+
+    Launches K4b or raises: CUDA tensors only, no int8 cache."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K4b runs on CUDA tensors; got {q.device}")
+    check_variant_args(q, k_pages, v_pages, page_tables, positions, "K4b")
+    B, Hq, _ = q.shape
+    ps, Hkv = k_pages.shape[1], k_pages.shape[2]
+    group = decode_group(B, Hq // Hkv, ps)
+    refused = f"a page of {ps} scores at G={Hq // Hkv} needs more shared memory than the block's {SMEM_BUDGET} B"
+    q = _build.aligned16(q)
+    out = _variant_launch("K4b", "paged_decode_attention_grouped", _GROUPED_ARGTYPES, refused, q, k_pages,
+                          v_pages, page_tables, positions, torch.empty_like(q), group)
+    paged_decode_attention_grouped_kernel.launches += 1
+    return out
+
+
+def paged_decode_dmaonly_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
+    """K7b: K1's grid and page stream with no math. Returns f32 [B, Hq, D],
+    out[b, h] = the sum over context rows j < len of (K + V)[j, kv(h)]
+    (``ops/attention.py paged_decode_dmaonly``); q gives the shape only.
+
+    Launches K7b or raises: CUDA tensors only, no int8 cache."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K7b runs on CUDA tensors; got {q.device}")
+    check_variant_args(q, k_pages, v_pages, page_tables, positions, "K7b")
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    err = _build.entry("decode_variants", "paged_decode_dmaonly", _DMAONLY_ARGTYPES)(
+        k_pages.data_ptr(), v_pages.data_ptr(), page_tables.contiguous().data_ptr(),
+        positions.contiguous().data_ptr(), out.data_ptr(), B, Hq, Hkv, D, ps, page_tables.shape[1],
+        Q_DTYPES[k_pages.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "K7b (paged_decode_dmaonly)")
+    paged_decode_dmaonly_kernel.launches += 1
+    return out
+
+
 paged_decode_attention_kernel.launches = 0
 paged_decode_attention_folded_kernel.launches = 0
+paged_decode_attention_chunked_kernel.launches = 0
+paged_decode_attention_grouped_kernel.launches = 0
+paged_decode_perseq_variant_kernel.launches = 0
+paged_decode_dmaonly_kernel.launches = 0

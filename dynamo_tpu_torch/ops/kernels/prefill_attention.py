@@ -21,6 +21,14 @@ its query tile (see the source note). Plain version: ``ops/attention.py
 paged_prefill_attention`` (per lane); the dispatcher there picks the plain
 version for CPU tensors and, for CUDA tensors, K3b when ``head_dim % 128 !=
 0``, else K2.
+
+K7a (:func:`paged_prefill_dmaonly_kernel`, the same source) replaces
+``paged_prefill_dmaonly`` (``_kernel_dmaonly``), the null-hypothesis
+instrument of ``tools/profile_prefill.py``: K2's grid, causal tile bound and
+tile staging with no math. The reference's output is garbage by design and
+is not matched: a load that nothing reads is deleted by nvcc, so K7a writes
+f32 checksums of every value it loads (plain version ``ops/attention.py
+paged_prefill_dmaonly``, which reproduces K2's block partition).
 """
 
 from __future__ import annotations
@@ -73,21 +81,21 @@ def _check_common(q, k, v, page_tables, positions, name: str) -> None:
             raise ValueError(f"all inputs must be on {q.device}; got {t.device}")
 
 
-def check_prefill_args(q, k_pages, v_pages, page_tables, positions):
-    """Raise on inputs K2 does not take (lanes form); returns
-    ``unpack_pools``' tuple."""
+def check_prefill_args(q, k_pages, v_pages, page_tables, positions, name: str = "K2"):
+    """Raise on inputs K2 (or K7a, its twin) does not take (lanes form);
+    returns ``unpack_pools``' tuple."""
     if k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"expected pools [P, ps, Hkv, D]; got {tuple(k_pages.shape)}, "
                          f"{tuple(v_pages.shape)}")
-    pools = unpack_pools(q, k_pages, v_pages, "K2")
+    pools = unpack_pools(q, k_pages, v_pages, name)
     k, v = pools[:2]
     _, Hq, D = q.shape
     _, ps, Hkv, Dk = k.shape
     if Dk != D or D not in HEAD_DIMS:
-        raise ValueError(f"K2 takes head_dim in {HEAD_DIMS}; got q D={D}, pool D={Dk}")
+        raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}; got q D={D}, pool D={Dk}")
     if Hq % Hkv or ROWS_PER_BLOCK % (Hq // Hkv):
-        raise ValueError(f"K2 needs Hq/Hkv dividing {ROWS_PER_BLOCK}; got Hq={Hq}, Hkv={Hkv}")
-    _check_common(q, k, v, page_tables, positions, "K2")
+        raise ValueError(f"{name} needs Hq/Hkv dividing {ROWS_PER_BLOCK}; got Hq={Hq}, Hkv={Hkv}")
+    _check_common(q, k, v, page_tables, positions, name)
     return pools
 
 
@@ -111,7 +119,7 @@ def check_folded_prefill_args(q, k_pages, v_pages, page_tables, positions):
     return pools
 
 
-def _launch(symbol: str, q, pools, page_tables, positions) -> torch.Tensor:
+def _launch(symbol: str, q, pools, page_tables, positions, out_dtype=None) -> torch.Tensor:
     k, v, ks, vs, code = pools
     q = _build.aligned16(q)
     page_tables = page_tables.contiguous()
@@ -119,7 +127,7 @@ def _launch(symbol: str, q, pools, page_tables, positions) -> torch.Tensor:
     N, T = positions.shape
     _, Hq, D = q.shape
     Hkv, _ = folded_geometry(q, k)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=out_dtype or q.dtype)
     err = _build.entry("prefill_attention", symbol, _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if ks is None else ks.data_ptr(),
         None if vs is None else vs.data_ptr(), page_tables.data_ptr(), positions.data_ptr(),
@@ -162,5 +170,22 @@ def paged_prefill_attention_folded_kernel(q, k_pages, v_pages, page_tables, posi
     return out
 
 
+def paged_prefill_dmaonly_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
+    """K7a: K2's grid, tile bound and tile loads with no math. K2's contract
+    in; out f32 [N*T, Hq, D]: each row gets the column sums of (K + V) of its
+    kv head over its block's context (rows j <= the block's last position),
+    int8 rows dequantized. q gives the shape and the mix only.
+
+    Launches K7a or raises: CUDA tensors only."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K7a runs on CUDA tensors; got {q.device}")
+    page_tables, positions = _as_lanes(q, page_tables, positions)
+    pools = check_prefill_args(q, k_pages, v_pages, page_tables, positions, "K7a")
+    out = _launch("paged_prefill_dmaonly", q, pools, page_tables, positions, torch.float32)
+    paged_prefill_dmaonly_kernel.launches += 1
+    return out
+
+
 paged_prefill_attention_kernel.launches = 0
 paged_prefill_attention_folded_kernel.launches = 0
+paged_prefill_dmaonly_kernel.launches = 0

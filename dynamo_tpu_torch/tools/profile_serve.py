@@ -20,7 +20,6 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
-import subprocess
 import tempfile
 import time
 from pathlib import Path
@@ -30,6 +29,7 @@ import torch
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
 from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.scheduler import EngineRequest
+from dynamo_tpu_torch.tools.timing import card
 from dynamo_tpu_torch.tools.workload import (
     DEEPSEEK_V2_LITE,
     LLAMA3_8B,
@@ -40,8 +40,8 @@ from dynamo_tpu_torch.tools.workload import (
     serve_config,
     serve_requests,
 )
+from dynamo_tpu_torch.utils.step_anatomy import HBM_BYTES_S
 
-HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 GEMM_MARKS = ("gemm", "GEMM", "nvjet", "cutlass", "xmma", "sm90_")
 # the workloads profiled, in order: (engine config, requests, layers)
 WORKLOADS = {
@@ -189,10 +189,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
     torch.cuda.set_device(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     summaries = {name: profile_workload(name, smi) for name in WORKLOADS}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

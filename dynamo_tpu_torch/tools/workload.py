@@ -13,6 +13,11 @@ of three geometries at full width and depth with seeded random weights:
 
 All draw the same prompt lengths from ``SEED``; token ids fall below each
 geometry's vocabulary.
+
+``BENCH_1_3B`` and ``bench_config`` copy the reference bench's headline
+engine (``bench.py json_model_id`` and ``bench_config``), which the kernel
+profilers (``tools/profile_attn.py``, ``tools/profile_prefill.py``) take
+their geometry from.
 """
 
 from __future__ import annotations
@@ -51,6 +56,13 @@ TINYLLAMA_1_1B = dict(
     tie_word_embeddings=False, dtype="bf16",
 )
 TINYLLAMA_MAX_POSITIONS = 2048
+# bench.py json_model_id(): the reference bench's ~1.3B Llama-shaped model
+# (GQA 2:1), bf16; HEADLINE its (batch, page size)
+BENCH_1_3B = dict(
+    vocab_size=32000, hidden_size=2048, intermediate_size=5632, num_layers=24, num_heads=16,
+    num_kv_heads=8, head_dim=128, dtype="bf16",
+)
+HEADLINE = (64, 128)
 NUM_REQUESTS = 16
 MIN_PROMPT, MAX_PROMPT = 64, 2048
 MAX_TOKENS = 64
@@ -103,3 +115,15 @@ def folded_serve_requests() -> list[EngineRequest]:
     """The TinyLlama workload's requests: the same 16, clipped so prompt +
     output fits its 2048 positions (only the 1990-token prompt is cut)."""
     return serve_requests(TINYLLAMA_1_1B["vocab_size"], FOLDED_MAX_PROMPT)
+
+
+def bench_config(batch: int = HEADLINE[0], page_size: int = HEADLINE[1]) -> EngineConfig:
+    """bench.py bench_config(batch, page_size) on ``BENCH_1_3B``: enough
+    pages for the batch at 28 pages of 16 rows a sequence, 1024 positions,
+    prefill buckets 128 / 256 / 512, decode windows of 32 steps, 3 in
+    flight."""
+    return EngineConfig(
+        model_id="tiny:" + json.dumps(BENCH_1_3B), device="cuda", page_size=page_size,
+        num_pages=max(1024 * 16 // page_size, batch * 28 * 16 // page_size), max_seqs=batch,
+        max_model_len=1024, prefill_buckets=(128, 256, 512), decode_steps=32, pipeline_depth=3,
+    )

@@ -1,0 +1,345 @@
+"""The decode-kernel switch and the decode variants of the port on the CPU.
+
+- The plain versions of K4a (chunked) and K4b (grouped), and the dispatcher
+  under ``DYNTPU_DECODE_KERNEL=chunked`` / ``grouped``, against
+  ``paged_decode_attention_pallas_chunked`` / ``_grouped`` in interpret mode
+  on the same numpy-seeded inputs: contexts over 256 rows (K4a takes two or
+  more chunks) and batches of 6 and 3 (K4b takes groups of 2 and 1).
+- K7c's plain version against ``tools/profile_attn.py make_perseq_variant``
+  under ``pltpu.force_tpu_interpret_mode()`` (that module parses
+  ``sys.argv`` when it is imported, so ``sys.argv`` is patched first).
+- The routing function, the launchers' refusals, the group and chunk choices.
+- The K7a / K7b checksums against numpy sums over the same partition.
+- The engine's greedy tokens with ``chunked`` and with ``grouped`` against
+  ``AsyncJaxEngine``'s on tiny f32 weights at head_dim 128.
+
+Tolerances: f32 atol 2e-5, the reference's own for these kernels
+(``tests/test_pallas_paged_attention.py``); bf16 1e-4 + 2^-6 |ref|
+elementwise (``chip_smoke.py``'s rule: both sides round the same
+probabilities to bf16 and the output once). The checksums run over values
+that are multiples of 1/8, whose sums are exact in any order, and are held
+exactly.
+"""
+
+import asyncio
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
+from dynamo_tpu.engine.engine import AsyncJaxEngine
+from dynamo_tpu.engine.sampling import SamplingParams as JaxSamplingParams
+from dynamo_tpu.engine.scheduler import EngineRequest as JaxEngineRequest
+from dynamo_tpu.ops.pallas.paged_attention import (
+    paged_decode_attention_pallas_chunked,
+    paged_decode_attention_pallas_grouped,
+)
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+from dynamo_tpu_torch.engine.sampling import SamplingParams
+from dynamo_tpu_torch.engine.scheduler import EngineRequest
+from dynamo_tpu_torch.models.convert import params_from_jax
+from dynamo_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from dynamo_tpu_torch.ops import attention as tatt
+from dynamo_tpu_torch.ops.kernels import paged_attention as pa
+from dynamo_tpu_torch.ops.kernels.prefill_attention import ROWS_PER_BLOCK
+from dynamo_tpu_torch.quant.kv import QuantizedPages
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def assert_within(got: np.ndarray, ref: np.ndarray, dtype: str) -> None:
+    if dtype == "f32":
+        np.testing.assert_allclose(got, ref, atol=2e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=2.0**-6)
+
+
+def variant_case(B, Hq, Hkv, D, seed, ps=16, max_pages=24):
+    """Distinct pages per sequence; positions 0 (a one-row context), up to
+    the full 384-row table, and ragged ones past 256 rows."""
+    rng = np.random.default_rng(seed)
+    P = B * max_pages + 1
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    pos = rng.integers(257, max_pages * ps, B).astype(np.int32)
+    pos[0] = 0
+    if B > 1:
+        pos[1] = max_pages * ps - 1
+    pt = np.zeros((B, max_pages), np.int32)
+    perm = 1 + rng.permutation(P - 1)
+    for b in range(B):
+        used = pos[b] // ps + 1
+        pt[b, :used] = perm[b * max_pages : b * max_pages + used]
+    return q, k, v, pt, pos
+
+
+def run_both(case, dtype, pallas_fn, plain_fn, **pallas_kw):
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, pt, pos = case
+    ref = np.asarray(pallas_fn(*(jnp.asarray(x, jdt) for x in (q, k, v)), jnp.asarray(pt), jnp.asarray(pos),
+                               **pallas_kw), np.float32)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    got = plain_fn(tq, tk, tv, torch.from_numpy(pt), torch.from_numpy(pos))
+    return got, ref, (tq, tk, tv, torch.from_numpy(pt), torch.from_numpy(pos))
+
+
+K4 = {
+    "chunked": (paged_decode_attention_pallas_chunked, tatt.paged_decode_attention_chunked),
+    "grouped": (paged_decode_attention_pallas_grouped, tatt.paged_decode_attention_grouped),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,Hq,Hkv,D", [(6, 8, 2, 128), (3, 4, 4, 64)], ids=["b6-gqa-d128", "b3-mha-d64"])
+@pytest.mark.parametrize("choice", list(K4))
+def test_k4_plain_matches_pallas_and_the_switch(monkeypatch, choice, B, Hq, Hkv, D, dtype):
+    pallas_fn, plain_fn = K4[choice]
+    case = variant_case(B, Hq, Hkv, D, seed=B + D)
+    got, ref, args = run_both(case, dtype, pallas_fn, plain_fn, interpret=True)
+    assert got.dtype == args[0].dtype
+    assert_within(got.float().numpy(), ref, dtype)
+    # the dispatcher takes this plain version under the switch (a folded
+    # head_dim takes K3a's, the plain K1 function, whatever the switch)
+    monkeypatch.setenv(tatt.DECODE_KERNEL_ENV, choice)
+    dispatched = tatt.dispatch_paged_decode_attention(*args)
+    want = got if not tatt.kv_folded(D) else tatt.paged_decode_attention(*args)
+    torch.testing.assert_close(dispatched, want, rtol=0, atol=0)
+
+
+def test_k4_plain_walks_the_reference_chunks():
+    """K4a's chunk is C * ps rows with the reference's C; at ps 16 and 24
+    pages that is 16 pages, so a 384-row context takes two chunks, and the
+    rounded result differs from one page a chunk (K4b) in bf16."""
+    assert pa.chunk_pages(16, 24) == 16 and pa.chunk_pages(128, 8) == 2 and pa.chunk_pages(512, 8) == 1
+    assert pa.chunk_pages(16, 4) == 4  # never more pages than the table holds
+    case = variant_case(4, 8, 2, 128, seed=3)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in case[:3])
+    pt, pos = map(torch.from_numpy, case[3:])
+    chunked = tatt.paged_decode_attention_chunked(tq, tk, tv, pt, pos)
+    grouped = tatt.paged_decode_attention_grouped(tq, tk, tv, pt, pos)
+    assert not torch.equal(chunked, grouped)
+    one_chunk = tatt.paged_decode_attention_rounded(tq, tk, tv, pt, pos, 16 * 16)
+    torch.testing.assert_close(chunked, one_chunk, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("choice", [None, "lookahead", "perseq", "fused"])
+def test_other_switch_values_take_k1(monkeypatch, choice):
+    if choice is None:
+        monkeypatch.delenv(tatt.DECODE_KERNEL_ENV, raising=False)
+    else:
+        monkeypatch.setenv(tatt.DECODE_KERNEL_ENV, choice)
+    q, k, v, pt, pos = (torch.from_numpy(x) for x in variant_case(3, 8, 2, 128, seed=4))
+    got = tatt.dispatch_paged_decode_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), pt, pos)
+    want = tatt.paged_decode_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), pt, pos)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.fixture
+def profile_attn(monkeypatch):
+    """The reference's tools/profile_attn.py; it reads sys.argv[1:4] when
+    imported, so argv is patched first."""
+    monkeypatch.setattr(sys, "argv", ["profile_attn"])
+    spec = importlib.util.spec_from_file_location("reference_profile_attn", ROOT / "tools" / "profile_attn.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("cast_f32", [False, True], ids=["bf16-probs", "cast-f32"])
+def test_k7c_plain_matches_perseq_variant(profile_attn, cast_f32, dtype):
+    case = variant_case(3, 8, 2, 128, seed=5)
+    with pltpu.force_tpu_interpret_mode():
+        got, ref, _ = run_both(case, dtype, profile_attn.make_perseq_variant(cast_f32),
+                               lambda *a: tatt.paged_decode_perseq_variant(*a, cast_f32=cast_f32))
+    assert_within(got.float().numpy(), ref, dtype)
+
+
+ROUTES = [
+    # (head_dim, int8 cache, switch) -> launcher
+    (128, False, "lookahead", pa.paged_decode_attention_kernel),
+    (128, False, "perseq", pa.paged_decode_attention_kernel),
+    (128, False, "anything", pa.paged_decode_attention_kernel),
+    (128, False, "chunked", pa.paged_decode_attention_chunked_kernel),
+    (128, False, "grouped", pa.paged_decode_attention_grouped_kernel),
+    (128, True, "chunked", pa.paged_decode_attention_kernel),
+    (128, True, "grouped", pa.paged_decode_attention_kernel),
+    (64, False, "chunked", pa.paged_decode_attention_folded_kernel),
+    (64, True, "grouped", pa.paged_decode_attention_folded_kernel),
+    (256, False, "grouped", pa.paged_decode_attention_grouped_kernel),
+]
+
+
+@pytest.mark.parametrize("head_dim,quantized,choice,want", ROUTES)
+def test_decode_routing(head_dim, quantized, choice, want):
+    """The reference's rule: a folded head_dim takes K3a, an int8 cache K1,
+    chunked / grouped K4a / K4b, every other value K1."""
+    assert tatt.decode_kernel(head_dim, quantized, choice) is want
+    assert want in tatt.PLAIN_DECODE
+
+
+def test_decode_variant_launchers_refuse():
+    """CPU tensors, an int8 cache, a folded head_dim and a mixed dtype raise;
+    nothing falls back."""
+    q, k, v, pt, pos = (torch.from_numpy(x) for x in variant_case(2, 4, 2, 128, seed=6))
+    for launcher in (pa.paged_decode_attention_chunked_kernel, pa.paged_decode_attention_grouped_kernel,
+                     pa.paged_decode_perseq_variant_kernel, pa.paged_decode_dmaonly_kernel):
+        with pytest.raises(ValueError, match="CUDA"):
+            launcher(q, k, v, pt, pos)
+    codes = torch.zeros(k.shape, dtype=torch.int8)
+    int8 = QuantizedPages(codes, torch.ones(k.shape[:2]))
+    with pytest.raises(ValueError, match="int8"):
+        pa.check_variant_args(q, int8, int8, pt, pos, "K4a")
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.check_variant_args(q[..., :32], k[..., :32], v[..., :32], pt, pos, "K4b")
+    with pytest.raises(ValueError, match="dtype"):
+        pa.check_variant_args(q, k.bfloat16(), v.bfloat16(), pt, pos, "K4a")
+
+
+def test_decode_group_is_the_reference_choice():
+    """8, 4 or 2 when it divides B and the group's score slices fit the
+    shared-memory budget, else 1."""
+    assert pa.decode_group(64, 4, 16) == 8
+    assert pa.decode_group(12, 4, 16) == 4
+    assert pa.decode_group(6, 4, 16) == 2
+    assert pa.decode_group(3, 4, 16) == 1
+    assert pa.decode_group(64, 8, 512) == 2  # 8 x 8 x 512 x 4 B = 128 KB is over the budget
+    assert pa.decode_group(64, 8, 2048) == 1
+
+
+def exact_pools(rng, P, ps, Hkv, D, int8: bool):
+    """K and V pools of multiples of 1/8 (int8: codes x 2^-7) as torch, and
+    their f64 values as numpy."""
+    pools, dense = [], []
+    for _ in range(2):
+        if int8:
+            codes = rng.integers(-127, 128, (P, ps, Hkv, D)).astype(np.int8)
+            pools.append(QuantizedPages(torch.from_numpy(codes), torch.full((P, ps), 2.0**-7)))
+            dense.append(codes.astype(np.float64) * 2.0**-7)
+        else:
+            x = rng.integers(-8, 9, (P, ps, Hkv, D)) / 8
+            pools.append(torch.from_numpy(x.astype(np.float32)))
+            dense.append(x)
+    return pools, dense
+
+
+def test_decode_dmaonly_checksum_matches_numpy():
+    """K7b: out[b, h] = sum over j < min(max(pos + 1, 1), S) of (K + V)[j,
+    kv(h)], one row per head of each kv head."""
+    rng = np.random.default_rng(7)
+    B, Hq, Hkv, D, ps, mp = 5, 8, 2, 128, 16, 8
+    P = B * mp + 1
+    (k, v), (kd, vd) = exact_pools(rng, P, ps, Hkv, D, int8=False)
+    pt = (1 + rng.permutation(P - 1)[: B * mp]).reshape(B, mp).astype(np.int32)
+    pos = np.array([-1, 0, 17, 127, 200], np.int32)  # 200 is past the table: clipped to 128 rows
+    got = tatt.paged_decode_dmaonly(torch.zeros((B, Hq, D)), k, v, torch.from_numpy(pt), torch.from_numpy(pos))
+    G = Hq // Hkv
+    for b in range(B):
+        n = min(max(pos[b] + 1, 1), mp * ps)
+        rows = [(pt[b, j // ps], j % ps) for j in range(n)]
+        want = sum(kd[p, r] + vd[p, r] for p, r in rows)  # [Hkv, D]
+        np.testing.assert_array_equal(got[b].numpy(), np.repeat(want, G, axis=0))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("G", [4, 8])
+def test_prefill_dmaonly_checksum_matches_numpy(int8, G):
+    """K7a: K2's blocks of ROWS_PER_BLOCK // G query positions; every row
+    of a block gets the sums over j < min(block's last position + 1, S),
+    int8 rows dequantized. Two lanes (from 0 with an odd length, after a
+    prefix) and a pad lane."""
+    rng = np.random.default_rng(8 + G)
+    Hkv, D, ps, mp, T = 2, 64, 16, 12, 37
+    Hq = G * Hkv
+    P = 2 * mp + 1
+    (k, v), (kd, vd) = exact_pools(rng, P, ps, Hkv, D, int8)
+    pt = np.zeros((3, mp), np.int32)
+    pt[:2] = (1 + rng.permutation(P - 1)[: 2 * mp]).reshape(2, mp)
+    pos = np.stack([s + np.arange(T) for s in (0, 150, 0)]).astype(np.int32)
+    got = tatt.paged_prefill_dmaonly(torch.zeros((3 * T, Hq, D)), k, v, torch.from_numpy(pt),
+                                     torch.from_numpy(pos)).numpy().reshape(3, T, Hq, D)
+    BQ = ROWS_PER_BLOCK // G
+    for n in range(3):
+        for b0 in range(0, T, BQ):
+            last = pos[n, min(b0 + BQ, T) - 1]
+            rows = [(pt[n, j // ps], j % ps) for j in range(min(last + 1, mp * ps))]
+            want = np.repeat(sum(kd[p, r] + vd[p, r] for p, r in rows), G, axis=0)
+            np.testing.assert_array_equal(got[n, b0 : b0 + BQ], np.broadcast_to(want, got[n, b0 : b0 + BQ].shape))
+
+
+# ---------------------------------------------------------------- engine
+
+D128 = {"head_dim": 128}  # a head_dim the switch reaches (tiny's 16 is folded)
+ENGINE = dict(page_size=4, num_pages=64, max_seqs=4, max_model_len=64, prefill_buckets=(8, 16, 32))
+PROMPTS = [[5, 9, 2, 77, 31], list(range(40, 51)), [200 - i for i in range(20)]]
+
+
+async def collect(engine, req):
+    toks = []
+    async for out in engine.generate(req):
+        if out.token is not None:
+            toks.append(out.token)
+    return toks
+
+
+@pytest.fixture(scope="module")
+def jax_reference():
+    """(greedy tokens of the JAX engine per prompt, its params as numpy) at
+    tiny geometry with head_dim 128."""
+
+    async def run():
+        cfg = JaxEngineConfig(model_id="tiny:" + json.dumps(D128), tp=1, **ENGINE)
+        engine = AsyncJaxEngine(cfg)
+        await engine.start()
+        try:
+            outs = await asyncio.gather(*(
+                collect(engine, JaxEngineRequest(f"j{i}", p, JaxSamplingParams(max_tokens=10)))
+                for i, p in enumerate(PROMPTS)
+            ))
+            params = jax.tree.map(np.asarray, jax.device_get(engine.runner.params))
+        finally:
+            await engine.shutdown()
+        return outs, params
+
+    return asyncio.run(run())
+
+
+@pytest.mark.parametrize("choice", ["chunked", "grouped"])
+def test_engine_greedy_tokens_under_the_switch_equal_jax_engine(monkeypatch, jax_reference, choice):
+    ref_outs, params = jax_reference
+    cfg = LlamaConfig.tiny(**D128)
+    model = LlamaModel(cfg)
+    model.load_state_dict(params_from_jax(params, cfg))
+    launcher = tatt.decode_kernel(cfg.head_dim, False, choice)
+    plain = tatt.PLAIN_DECODE[launcher]
+    calls = []
+    monkeypatch.setitem(tatt.PLAIN_DECODE, launcher, lambda *a: calls.append(1) or plain(*a))
+    monkeypatch.setenv(tatt.DECODE_KERNEL_ENV, choice)
+
+    async def run():
+        engine = AsyncTorchEngine(EngineConfig(device="cpu", **ENGINE), model=model)
+        await engine.start()
+        try:
+            return await asyncio.gather(*(
+                collect(engine, EngineRequest(f"t{i}", p, SamplingParams(max_tokens=10)))
+                for i, p in enumerate(PROMPTS)
+            ))
+        finally:
+            await engine.shutdown()
+
+    outs = asyncio.run(run())
+    assert calls, f"the {choice} plain version never ran"
+    assert outs == ref_outs and all(len(t) == 10 for t in outs)

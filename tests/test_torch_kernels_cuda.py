@@ -1,7 +1,10 @@
 """The CUDA kernels K1 (paged decode), K2 (chunked-prefill flash), K3a / K3b
-(their folded variants for head_dim 16, 32, 64), K5 (MLA latent decode) and
-K6 (MLA latent prefill) against their plain PyTorch versions on the card,
-K1-K3 also over int8 pools (``QuantizedPages``). Marked ``cuda``: every test skips
+(their folded variants for head_dim 16, 32, 64), K4a / K4b (the chunked and
+grouped decode variants), K5 (MLA latent decode), K6 (MLA latent prefill)
+and the instruments K7a / K7b (load-only twins of K2 / K1) and K7c (K1's
+function one page an iteration, with and without rounded probabilities)
+against their plain PyTorch versions on the card, K1-K3 and K7a also over
+int8 pools (``QuantizedPages``). Marked ``cuda``: every test skips
 where no CUDA device is visible (a CUDA kernel has no CPU mode). On a
 machine with an H100 and nvcc (``--noconftest``: tests/conftest.py imports
 jax, which the port does not need):
@@ -16,7 +19,11 @@ step, <= 2^-7 |value|). Over int8 pools both sides read the same codes and
 scales (the plain version dequantizes, the kernel scales score and
 probability columns), so the limit is that of the query's dtype. K5 and K6 return f32 in both dtype mixes (f32
 queries over f32 or bf16 pages; both sides read the same page values), so
-both mixes are held to the f32 tolerance.
+both mixes are held to the f32 tolerance. K4a, K4b and K7c round their
+probabilities to the pool dtype at the same points as their plain versions,
+so they take the same limits. The K7 checksums are held exactly: their pools
+hold multiples of 1/8 (int8: codes times the scale 2^-7), whose f32 sums are
+exact in any order.
 """
 
 import numpy as np
@@ -29,12 +36,17 @@ from dynamo_tpu_torch.ops.kernels.mla_attention import (
     paged_mla_prefill_attention_kernel,
 )
 from dynamo_tpu_torch.ops.kernels.paged_attention import (
+    paged_decode_attention_chunked_kernel,
     paged_decode_attention_folded_kernel,
+    paged_decode_attention_grouped_kernel,
     paged_decode_attention_kernel,
+    paged_decode_dmaonly_kernel,
+    paged_decode_perseq_variant_kernel,
 )
 from dynamo_tpu_torch.ops.kernels.prefill_attention import (
     paged_prefill_attention_folded_kernel,
     paged_prefill_attention_kernel,
+    paged_prefill_dmaonly_kernel,
 )
 from dynamo_tpu_torch.quant.kv import QuantizedPages, quantize_kv_rows
 
@@ -262,6 +274,135 @@ def test_launchers_raise_on_what_the_kernels_do_not_take(cuda):
     qp = torch.zeros((64, 24, 64), device=cuda)
     with pytest.raises(ValueError, match="Hq"):
         paged_prefill_attention_folded_kernel(qp, kf, vf, pt[0], torch.arange(64, dtype=torch.int32, device=cuda))
+
+
+def _variant_tables(rng, B, ps, max_pages, device):
+    """Ragged contexts over up to max_pages pages (the first sequence one
+    token, the second the full table when B > 1), distinct pages, and for B
+    > 2 an inactive slot (trash table, position 0) and a row at -1."""
+    lengths = rng.integers(1, max_pages * ps + 1, B)
+    lengths[: min(B, 2)] = (1, max_pages * ps)[: min(B, 2)]
+    P = B * max_pages + 1
+    perm = rng.permutation(np.arange(1, P))
+    pt = np.zeros((B, max_pages), np.int32)
+    for b in range(B):
+        used = -(-lengths[b] // ps)
+        pt[b, :used] = perm[b * max_pages : b * max_pages + used]
+    pos = (lengths - 1).astype(np.int32)
+    if B > 2:
+        pt[-1], pos[-1] = 0, 0
+        pos[-2] = -1
+    return P, torch.from_numpy(pt).to(device), torch.from_numpy(pos).to(device)
+
+
+def _exact_pools(rng, P, ps, Hkv, D, dtype, device):
+    """K and V pools whose values are multiples of 1/8 in [-1, 1] (int8:
+    codes times the scale 2^-7): every f32 sum of up to 2^16 of them is
+    exact, in any order."""
+    out = []
+    for _ in range(2):
+        if dtype == torch.int8:
+            codes = torch.from_numpy(rng.integers(-127, 128, (P, ps, Hkv, D)).astype(np.int8)).to(device)
+            out.append(QuantizedPages(codes, torch.full((P, ps), 2.0**-7, device=device)))
+        else:
+            x = rng.integers(-8, 9, (P, ps, Hkv, D)).astype(np.float32) / 8
+            out.append(torch.from_numpy(x).to(device, dtype))
+    return out
+
+
+# (launcher, plain version, extra keyword arguments): K4a, K4b, K7c
+ROUNDED = {
+    "K4a": (paged_decode_attention_chunked_kernel, tatt.paged_decode_attention_chunked, {}),
+    "K4b": (paged_decode_attention_grouped_kernel, tatt.paged_decode_attention_grouped, {}),
+    "K7c": (paged_decode_perseq_variant_kernel, tatt.paged_decode_perseq_variant, {"cast_f32": False}),
+    "K7c-cast": (paged_decode_perseq_variant_kernel, tatt.paged_decode_attention, {"cast_f32": True}),
+}
+
+
+@pytest.mark.parametrize("which", list(ROUNDED))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 16), (128, 16, 8, 128)])
+@pytest.mark.parametrize("B", [1, 6, 16])
+def test_decode_variant_matches_plain(cuda, which, dtype, D, Hq, Hkv, ps, B):
+    """K4a (two or more 256-row chunks), K4b (groups of 2 at B 6, 8 at B
+    16, 1 at B 1) and K7c against their plain versions; K7c with cast_f32
+    against K1's. G 4 and 1 at ps 16, and the profilers' G 2 at ps 128 (K4a
+    chunks of 2 pages)."""
+    kernel, plain, kw = ROUNDED[which]
+    rng = np.random.default_rng(D + B + Hq + ps)
+    max_pages = 640 // ps
+    P, pt, pos = _variant_tables(rng, B, ps, max_pages, cuda)
+    k, v = _pools(rng, P, ps, Hkv, D, dtype, cuda)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D)).astype(np.float32)).to(cuda, dtype)
+    before = kernel.launches
+    got = kernel(q, k, v, pt, pos, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    ref = plain(q, k, v, pt, pos)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 128), (128, 16, 8, 128)])
+@pytest.mark.parametrize("B", [1, 6, 16])
+def test_decode_dmaonly_checksum(cuda, dtype, D, Hq, Hkv, ps, B):
+    rng = np.random.default_rng(D + B + 3)
+    max_pages = max(2, 1024 // ps)
+    P, pt, pos = _variant_tables(rng, B, ps, max_pages, cuda)
+    k, v = _exact_pools(rng, P, ps, Hkv, D, dtype, cuda)
+    q = torch.zeros((B, Hq, D), device=cuda, dtype=dtype)
+    before = paged_decode_dmaonly_kernel.launches
+    got = paged_decode_dmaonly_kernel(q, k, v, pt, pos)
+    torch.cuda.synchronize()
+    assert paged_decode_dmaonly_kernel.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, tatt.paged_decode_dmaonly(q, k, v, pt, pos), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("qdt,kvdt", MIXES, ids=MIX_IDS)
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128)])
+def test_prefill_dmaonly_checksum(cuda, qdt, kvdt, D, Hq, Hkv, ps):
+    """K7a over three lanes in one launch (from 0 with an odd length, after a
+    cached prefix, a pad lane), K2's block partition; G 4 at ps 16, and the
+    profilers' G 2 at ps 128."""
+    rng = np.random.default_rng(D + Hq + ps + 4)
+    T, max_pages = 75, 384 // ps
+    P = 2 * max_pages + 1
+    k, v = _exact_pools(rng, P, ps, Hkv, D, kvdt, cuda)
+    q = torch.zeros((3 * T, Hq, D), device=cuda, dtype=qdt)
+    pt_np = np.zeros((3, max_pages), np.int32)
+    pt_np[:2] = rng.permutation(np.arange(1, P))[: 2 * max_pages].reshape(2, max_pages)
+    pt = torch.from_numpy(pt_np).to(cuda)
+    pos = torch.stack([torch.arange(s, s + T, dtype=torch.int32) for s in (0, 250, 0)]).to(cuda)
+    before = paged_prefill_dmaonly_kernel.launches
+    got = paged_prefill_dmaonly_kernel(q, k, v, pt, pos)
+    torch.cuda.synchronize()
+    assert paged_prefill_dmaonly_kernel.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, tatt.paged_prefill_dmaonly(q, k, v, pt, pos), rtol=0, atol=0)
+
+
+def test_decode_variants_raise_on_what_they_do_not_take(cuda):
+    """An int8 cache, a folded head_dim, a mixed dtype and an oversized
+    chunk raise; nothing falls back."""
+    rng = np.random.default_rng(12)
+    pt = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    q = torch.zeros((2, 8, 128), device=cuda, dtype=torch.bfloat16)
+    k8, v8 = _pools(rng, 5, 16, 2, 128, torch.int8, cuda)
+    for kernel in (paged_decode_attention_chunked_kernel, paged_decode_attention_grouped_kernel,
+                   paged_decode_perseq_variant_kernel, paged_decode_dmaonly_kernel):
+        with pytest.raises(ValueError, match="int8"):
+            kernel(q, k8, v8, pt, pos)
+    q32 = torch.zeros((2, 8, 32), device=cuda)
+    k32, v32 = _pools(rng, 5, 16, 2, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention_grouped_kernel(q32, k32, v32, pt, pos)
+    kb, vb = _pools(rng, 5, 16, 2, 128, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        paged_decode_attention_chunked_kernel(q.float(), kb, vb, pt, pos)
+    kbig, vbig = _pools(rng, 3, 2048, 1, 128, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        paged_decode_attention_chunked_kernel(q, kbig, vbig, pt, pos)
 
 
 MLA_H, MLA_LATENT, MLA_DC = 16, 576, 512  # DeepSeek-V2(-Lite) geometry

@@ -1,0 +1,152 @@
+"""The port's kernel profilers (``dynamo_tpu_torch/tools/profile_attn.py``,
+``profile_prefill.py``) on the CPU: they import without a card and refuse to
+measure without one; ``profile_attn`` times the reference's variant set;
+their geometry is the reference bench's; and the roofline copy
+(``utils/step_anatomy.py``) does the reference's arithmetic."""
+
+import ast
+import importlib
+import importlib.util
+import json
+from pathlib import Path
+
+import pytest
+import torch
+
+from dynamo_tpu.models.registry import load_model as jax_load_model
+from dynamo_tpu.ops.pallas import paged_attention as jax_pa
+from dynamo_tpu.utils.step_anatomy import RooflineModel as JaxRooflineModel
+from dynamo_tpu.utils.step_anatomy import roofline_for_runner as jax_roofline_for_runner
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.model_runner import ModelRunner
+from dynamo_tpu_torch.models.registry import load_model
+from dynamo_tpu_torch.ops import attention as tatt
+from dynamo_tpu_torch.quant.kv import QuantizedPages
+from dynamo_tpu_torch.tools import profile_attn
+from dynamo_tpu_torch.tools.checks import TOL, exact_pools, tol_share
+from dynamo_tpu_torch.tools.workload import BENCH_1_3B, bench_config
+from dynamo_tpu_torch.utils.step_anatomy import BF16_FLOPS_S, HBM_BYTES_S, RooflineModel, roofline_for_runner
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("name", ["profile_attn", "profile_prefill"])
+def test_tools_import_and_refuse_without_a_card(monkeypatch, name):
+    module = importlib.import_module(f"dynamo_tpu_torch.tools.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA device"):
+        module.main([])
+
+
+def reference_variants() -> list[str]:
+    """The keys of ``variants`` in the reference's ``tools/profile_attn.py
+    main``: its dict literal, then the unconditional item assignments (the
+    ``fused`` one sits under a hasattr test of a kernel the reference no
+    longer has)."""
+    tree = ast.parse((ROOT / "tools" / "profile_attn.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    keys = []
+    for node in main.body:
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name) \
+                and node.targets[0].id == "variants" and isinstance(node.value, ast.Dict):
+            keys += [k.value for k in node.value.keys]
+        elif isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Subscript) \
+                and isinstance(node.targets[0].value, ast.Name) and node.targets[0].value.id == "variants":
+            keys.append(node.targets[0].slice.value)
+    return keys
+
+
+def test_profile_attn_times_the_reference_variants():
+    assert not hasattr(jax_pa, "paged_decode_attention_pallas_fused")
+    assert list(profile_attn.VARIANTS) == reference_variants()
+    assert list(profile_attn.variant_launchers()) == list(profile_attn.VARIANTS)
+
+
+def test_profile_attn_holds_each_variant_to_its_plain_version():
+    plains = profile_attn.plain_versions()
+    assert list(plains) == list(profile_attn.VARIANTS)
+    assert plains["perseq"] is plains["lookahead"] is tatt.paged_decode_attention
+    assert plains["dmaonly"] is tatt.paged_decode_dmaonly
+    assert plains["chunked"] is tatt.paged_decode_attention_chunked
+    assert plains["grouped"] is tatt.paged_decode_attention_grouped
+    assert plains["perseq_bf16"] is tatt.paged_decode_perseq_variant
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_exact_pools_sum_exactly_in_any_order(kind):
+    """The load-only twins' checksums are held exactly: every value is a
+    multiple of 1/8 (int8: a code times 2^-7) in [-1, 1], so f32 sums in
+    different orders agree bit for bit."""
+    gen = torch.Generator().manual_seed(3)
+    pools = exact_pools((40, 16, 2, 64), kind, "cpu", gen)
+    assert len(pools) == 2
+    for pool in pools:
+        if kind == "int8":
+            assert isinstance(pool, QuantizedPages) and pool.q.dtype == torch.int8
+            assert (pool.s == 2.0**-7).all()
+            x = pool.q.float() * pool.s[..., None, None]
+        else:
+            assert pool.dtype == getattr(torch, kind)
+            x = pool.float()
+        assert x.abs().max() <= 1 and ((x * 128).round() == x * 128).all()
+        rows = x.reshape(-1, 2 * 64)
+        assert torch.equal(rows.sum(0), rows.flip(0).cumsum(0)[-1])
+        assert torch.equal(rows.sum(0), rows[torch.randperm(len(rows), generator=gen)].sum(0))
+
+
+@pytest.mark.parametrize("tol", ["f32", "bf16"])
+def test_tol_share_is_the_elementwise_limit(tol):
+    atol, rtol = TOL[tol]
+    ref = torch.tensor([0.0, 1.0, -3.0])
+    limit = atol + rtol * ref.abs()
+    err, share = tol_share(ref + limit * torch.tensor([0.5, -0.25, 1.0]), ref, tol)
+    assert share == pytest.approx(1.0, rel=1e-2) and err == pytest.approx(limit.max().item(), rel=1e-2)
+    assert tol_share(ref + 2 * limit, ref, tol)[1] == pytest.approx(2.0, rel=1e-2)
+    assert tol_share(ref.to(torch.bfloat16), ref, tol)[1] == 0.0
+    assert tol_share(torch.tensor([0.0, float("nan"), 0.0]), ref, tol) == (float("inf"), float("inf"))
+
+
+def test_profile_attn_arguments_default_to_the_headline():
+    assert profile_attn.parse_args([]) == (64, 128, 256)
+    assert profile_attn.parse_args(["8", "16", "512"]) == (8, 16, 512)
+
+
+def test_bench_geometry_is_the_reference_bench():
+    spec = importlib.util.spec_from_file_location("reference_bench", ROOT / "bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    assert BENCH_1_3B == json.loads(bench.json_model_id().split(":", 1)[1])
+    for batch, ps in (bench.HEADLINE, bench.CONTINUITY):
+        ref, got = bench.bench_config(batch, ps), bench_config(batch, ps)
+        for field in ("page_size", "num_pages", "max_seqs", "max_model_len", "prefill_buckets",
+                      "decode_steps", "pipeline_depth"):
+            assert getattr(got, field) == getattr(ref, field), field
+    assert got.model_id == bench.json_model_id()
+
+
+@pytest.mark.parametrize("rows", [0, 1, 127, 128, 512, 4096])
+def test_roofline_copy_does_the_reference_arithmetic(rows):
+    args = dict(param_bytes=2_600_000_000, page_bytes=24 * 2 * 128 * 8 * 128 * 2, page_size=128,
+                param_count=1_300_000_000, hbm_bw=HBM_BYTES_S)
+    ref = JaxRooflineModel(**args, mxu_flops=BF16_FLOPS_S)
+    got = RooflineModel(**args)
+    assert got.peak_flops == BF16_FLOPS_S and got.hbm_bw == 3.35e12
+    assert got.prefill_floor_bytes(rows) == ref.prefill_floor_bytes(rows)
+    assert got.prefill_floor_seconds(rows) == ref.prefill_floor_seconds(rows)
+
+
+def test_roofline_for_runner_prices_the_reference_model():
+    """Parameter bytes, count and page bytes of a port runner equal the
+    reference's for the same tiny config."""
+    cfg = EngineConfig(device="cpu", model_id="tiny", num_pages=16, max_seqs=2, max_model_len=64)
+    got = roofline_for_runner(ModelRunner(cfg, load_model("tiny", device="cpu")), cfg)
+    jax_model, jax_params = jax_load_model("tiny")
+
+    class JaxRunner:
+        model, params = jax_model, jax_params
+
+    ref = jax_roofline_for_runner(JaxRunner, cfg)
+    assert (got.param_bytes, got.param_count, got.page_bytes, got.page_size) == \
+        (ref.param_bytes, ref.param_count, ref.page_bytes, ref.page_size)

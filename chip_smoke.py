@@ -14,7 +14,9 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      Hq 32 / Hkv 4 / D 64) in three mixes: f32, bf16, and bf16 queries over
      the int8 cache; kernel / plain / SDPA times and the bound
   4. K2 chunked-prefill flash and K3b the same way (512-row lanes at cached
-     prefixes 0 and 1024, plus a pad lane, in one launch)
+     prefixes 0 and 1024, plus a pad lane, in one launch), with achieved
+     TFLOP/s and share of the bound; the SASS of their bf16-query instances
+     must hold HGMMA (wgmma on the tensor cores)
   5. K5 MLA latent decode against its plain version (B 16, H 16, latent
      576, d_c 512, ps 16, ragged contexts 1..2048, inactive slots, a row at
      position -1), f32 queries over f32 and over bf16 pages; kernel / plain /
@@ -340,9 +342,48 @@ def check_prefill(torch, dev, rng, which: str) -> dict:
         note = " (SDPA over the dequantized bf16 context, dequantization untimed)" if kind == "int8" else ""
         log(f"{which} prefill flash {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms{note}, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP in the "
-            f"real lanes, pad lane {4 * Hq * D * pad_pairs / 1e9:.2f} GFLOP more)")
+            f"real lanes, pad lane {4 * Hq * D * pad_pairs / 1e9:.2f} GFLOP more); achieved "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound")
         res[name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     return res
+
+
+def sass_hgmma(lib) -> dict:
+    """{kernel function: HGMMA instructions} in ``cuobjdump -sass`` of a
+    built library: the tensor-core (wgmma) instructions each instance runs."""
+    import re
+    import subprocess
+
+    from dynamo_tpu_torch.ops.kernels import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_prefill_sass() -> dict:
+    """K2 / K3b run on the tensor cores: every bf16-query instance
+    (tc_prefill_kernel, bf16 and int8 pools) holds HGMMA in its SASS, the
+    f32-query FMA body none. Returns {instance: HGMMA count}."""
+    from dynamo_tpu_torch.ops.kernels import _build
+
+    counts = sass_hgmma(_build.library_path("prefill_attention"))
+    tc = {fn: n for fn, n in counts.items() if "tc_prefill_kernel" in fn}
+    fma = {fn: n for fn, n in counts.items() if "fma_prefill_kernel" in fn}
+    log("prefill SASS: HGMMA in " + ", ".join(f"{fn} {n}" for fn, n in sorted(tc.items()))
+        + f"; FMA body instances {sorted(fma.values())}")
+    # tc_prefill_kernel<bf16 | int8, D 16 | 32 | 64 | 128>: K2 and K3b share D 64
+    if len(tc) != 8 or min(tc.values()) <= 0 or any(fma.values()):
+        raise AssertionError(f"prefill SASS: tensor-core instances {tc}, FMA instances {fma}")
+    return tc
 
 
 # ---------------------------------------------------------------- K4a, K4b, K7a-c
@@ -959,6 +1000,7 @@ def main() -> int:
     t0 = time.monotonic()
     _build.build(["paged_attention", "prefill_attention", "mla_attention", "decode_variants"])
     log(f"build: four kernel sources in {time.monotonic() - t0:.1f} s")
+    check_prefill_sass()
 
     rng = np.random.default_rng(0)
     torch.manual_seed(0)

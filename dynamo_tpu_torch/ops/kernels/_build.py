@@ -58,7 +58,9 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _artifact(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or would be) built: the
+    name carries a hash of the sources and flags."""
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
@@ -73,7 +75,7 @@ def build(names) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _artifact(name)
+        out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -100,7 +102,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            out = _artifact(name)
+            out = library_path(name)
             if not out.exists():
                 build([name])
             lib = ctypes.CDLL(str(out))

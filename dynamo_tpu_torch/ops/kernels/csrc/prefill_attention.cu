@@ -1,15 +1,19 @@
 // K2 and K3b: chunked-prefill flash attention over the paged KV pool, and
 // K7a, K2's load-only twin, for Hopper (sm_90a).
 //
-// K2 replaces the TPU kernel dynamo_tpu/ops/pallas/prefill_attention.py
-// paged_prefill_attention_pallas (_kernel_lookahead / _kernel, math in
-// _flash_merge). K3b replaces paged_prefill_attention_pallas_folded
-// (_kernel_folded), the same function for head dims that are not a multiple
+// K2 replaces the TPU kernel dynamo_tpu/ops/pallas/prefill_attention.py:686
+// paged_prefill_attention_pallas (pallas_call at :783; _kernel_lookahead /
+// _kernel, math in _flash_merge). K3b replaces :615
+// paged_prefill_attention_pallas_folded (pallas_call at :662,
+// _kernel_folded), the same function for head dims that are not a multiple
 // of 128 (TinyLlama's 64), which the TPU reads from pools with the kv heads
 // folded into the lane dim through zero-placed folded queries (a Mosaic lane
-// workaround, not carried over). The TPU variants differ only in DMA
-// scheduling across the serial TPU grid; nothing carries between CUDA
-// blocks, so neither schedule is copied.
+// workaround, not carried over). The reference's folded kernel rounds its
+// probabilities to the pool dtype before P.V (:572); the port keeps f32
+// probabilities for both, as the reference's _flash_merge and plain version
+// do (see the split below). The TPU variants differ only in DMA scheduling
+// across the serial TPU grid; nothing carries between CUDA blocks, so
+// neither schedule is copied.
 //
 // Contract (per lane n of N packed lanes; N = 1 is the single-chunk call):
 // q [N*T, Hq, D] f32 or bf16; k/v pools [P, ps, Hkv, D] (the folded [P, ps,
@@ -25,42 +29,72 @@
 // algebra). The chunk's own K/V rows are already in the pool (the model
 // scatters before attending).
 //
-// What bounds both on an H100: at prefill sizes, arithmetic (4 * Hq * D FLOP
-// per causal (row, key) pair) rather than the context bytes. Both stage K/V
-// tiles of 32 keys page by page from HBM into shared memory as f32 (16-byte
-// loads: 4 f32, 8 bf16 or 16 int8 values; keys past the block's context
-// bound are not read, so pad rows and pad lanes, whose page tables point at
-// trash page 0, stay in bounds), keep their Q tile in shared memory for the
-// whole loop, and run 256 threads (16 x 16) of f32 FMA micro-tiles. Tensor
-// cores (wgmma), a TMA/cp.async pipeline and split-K are later work.
+// What bounds them on an H100: the work is arithmetic, 4 * Hq * D FLOP per
+// causal (row, key) pair, against context bytes read once; the first version
+// (f32 FMA micro-tiles, 32-key tiles staged synchronously as f32) reached
+// 13-25 TFLOP/s of the card's 67 f32 and 989 bf16 tensor-core TFLOP/s. With
+// the design below, bf16 K2 reaches ~100 TFLOP/s at its check shape and
+// is held by its load stream (K7a, the same loads with no math, takes 60-75%
+// of K2's time: every query block re-reads its context through the page
+// table, 16-byte copies whose addresses each thread computes) and by the
+// serial S -> softmax -> P.V chain of each warpgroup, at one block an SM at D
+// 128 (~185 registers a thread). A deeper ring (3 or 4 stages) measured no
+// faster.
 //
-// K2 design: one block per (64 (query, head) rows, kv head, lane): the block
-// covers 64/G query positions of the G = Hq/Hkv q heads of one kv head, so
-// every K/V tile it stages (D columns) is shared by the GQA group; threads
-// compute 4x2 score and 4x(D/16) output micro-tiles.
+// Design (bf16 queries over bf16 or int8 pools, K2 at D 64 / 128 and K3b at
+// D 16 / 32 / 64, one body: tc_prefill_kernel<TK, D>):
+// - Block = 128 (query, head) rows of one kv head's GQA group, two consumer
+//   warpgroups of 64: row r is query position r / G, head r % G, so a block
+//   covers BQ = 128 / G positions and every staged K/V tile serves all G
+//   heads. Grid (q-blocks, Hkv, lanes), the blocks with the longest context
+//   first.
+// - Both products on the tensor cores. S = Q.K^T: wgmma m64n64k16, bf16 in,
+//   f32 accumulate, Q and K from shared memory (K-major, as the pool stores
+//   rows). O += P.V: wgmma m64nDk16 with A from registers (the f32 S
+//   accumulator fragment maps onto the bf16 A fragment thread for thread)
+//   and V from shared memory through a transposed (MN-major) descriptor.
+// - P stays f32-exact: rounding P once to bf16 puts short rows' small
+//   outputs outside TOL["bf16"] (tests/test_torch_prefill_tc.py), so P (int8:
+//   times the V row scale) is split as bf16(P) + bf16(P - bf16(P)) and goes
+//   through two products: the tensor-core work grows by half.
+// - Shared memory holds tiles in the no-swizzle (interleaved) core-matrix
+//   layout for every D: 16-byte chunk (row j, column chunk c) at chunk index
+//   ((j / 8) * (D / 8) + c) * 8 + j % 8, so 8 consecutive threads fill one
+//   128-byte core matrix and the same tile is the K-major B of Q.K^T and the
+//   MN-major B of P.V. The descriptors read that layout.
+// - K/V tiles of 64 keys are held in bf16 in a ring of 2 (D 128) or 3
+//   stages filled by cp.async 16-byte copies through the page table (a tile
+//   spans 4 pages at page size 16, half a page at 128); tile t + stages - 1
+//   loads while tile t is computed. Keys at or past the block's context
+//   bound are zero-filled, never read, so pad rows and pad lanes (tables of
+//   trash page 0) stay in bounds. Int8 codes land raw in the ring with their
+//   row scales and are converted to bf16 (exact: |code| <= 127) in shared
+//   memory just before their tile's products; scores take the K scale after
+//   Q.K^T.
+// - Online softmax in registers on the accumulator fragments (a row lives in
+//   4 threads: max reduced across them, sums at the end), exp2 with the
+//   scale folded into log2(e)/sqrt(D); the causal and n_ctx masks only on
+//   tiles that cross the diagonal or the context end.
+// f32 queries (f32 or int8 pools: the f32 greedy-parity phases and the
+// checks) keep an f32 FMA body, fma_prefill_kernel<TK, D>, in the same block
+// partition: TF32 tensor cores would break TOL["f32"].
+// Next steps, not done here: TMA loads (no per-thread address work),
+// warp specialisation (a producer warp, ping-pong consumer warpgroups so one
+// warpgroup's softmax overlaps the other's products), persistent blocks,
+// split-K over long contexts, a swizzled layout.
 //
-// K3b design: one block per (BQ query positions, lane) covering ALL Hq heads
-// (Hq = 16 HJ, HJ in {1, 2, 4}; BQ = 16 / HJ), 256 (query, head) rows, so
-// every staged tile of F = Hkv * D columns serves every head and no kv head's
-// tile is staged twice. Thread (ty, tx) owns the 16 rows of heads ty + 16 j
-// (j < HJ) at the BQ query positions and keys tx, tx + 16; its f32 output
-// accumulators, 16 rows x D/16 columns (64 at D = 64), stay in registers:
-// that register budget is what sizes the query tile. Shared memory holds the
-// Q tile (256 x D f32), the K/V tiles (32 x F each) and the probabilities;
-// at D = 64 that is 161 KB for F = 256 and 225 KB for F = 512, the most a
-// block can have, so F is capped at 512.
-//
-// K7a replaces dynamo_tpu/ops/pallas/prefill_attention.py
-// paged_prefill_dmaonly (_kernel_dmaonly), the null-hypothesis instrument of
-// tools/profile_prefill.py: K2's grid (one block per (64 (query, head) rows,
-// kv head, lane)), its causal tile bound and its tile staging (32-key tiles
-// into shared memory, the same 16-byte loads and f32 conversion, int8 scales
-// included) with no math. The reference's twin writes 1e-6 x one row of the
-// last tile, garbage by design; a load that nothing reads is deleted by nvcc,
-// so every row the block owns gets instead the f32 column sums over the
-// block's context j < min(last row's position + 1, max_pages * ps) of (K +
-// V)[j, kv head, :], int8 rows dequantized (code x row scale). Its time
-// against K2's is the share of K2 that its load stream explains.
+// K7a replaces dynamo_tpu/ops/pallas/prefill_attention.py:797
+// paged_prefill_dmaonly (pallas_call at :840, _kernel_dmaonly), the
+// null-hypothesis instrument of tools/profile_prefill.py: K2's grid, causal
+// tile bound and load stream (bf16 / int8: the cp.async ring and the int8
+// conversion; f32: the FMA body's staging) with no math. The reference's
+// twin writes 1e-6 x one row of the last tile, garbage by design; a load
+// that nothing reads is deleted by nvcc, so every row the block owns gets
+// instead the f32 column sums over the block's context j < min(last row's
+// position + 1, max_pages * ps) of (K + V)[j, kv head, :], int8 rows
+// dequantized (code x row scale), summed from whole 16-byte chunks of the
+// tiles so that the sums cost little beside the loads. Its time against
+// K2's is the share of K2 that its load stream explains.
 
 #include <type_traits>
 
@@ -68,24 +102,444 @@
 
 namespace {
 
-constexpr int kRows = 64;     // K2: (query, head) rows per block
-constexpr int kKeys = 32;     // keys per context tile
-constexpr int kThreads = 256; // 16 x 16: ty owns rows, tx keys tx and tx + 16
-constexpr int kPStride = kKeys + 16;
-constexpr int kFRows = 256;   // K3b: (query, head) rows per block
-constexpr int kFRPT = 16;     // K3b: rows per thread
-constexpr int kFPStride = kFRows + 4;
-constexpr int kMaxFoldedWidth = 512;  // K3b: F = Hkv * D at most
+constexpr int kRows = 128;    // (query, head) rows per block, both bodies
+constexpr int kThreads = 256; // two warpgroups (tensor-core body); 16 x 16 (FMA body)
+constexpr int kTile = 64;     // tensor-core body: keys per context tile
+constexpr int kFmaKeys = 32;  // FMA body: keys per context tile
+constexpr int kFmaRPT = kRows / 16;  // FMA body: rows per thread
+constexpr int kPStride = kFmaKeys + 16;
 
+// ------------------------------------------------------------- PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; nothing read and zeros written when !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// generic-proxy writes (cp.async, st.shared) made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// pins registers an asynchronous wgmma reads or writes to their place in
+// the instruction stream
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor, no swizzle (layout type 0): start
+// address, leading byte offset (between core matrices along K) and stride
+// byte offset (between core matrices along M / N), all in 16-byte units
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// S [64 x 64] (+)= A [64 x 16] . B [16 x 64]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d)
+      : "memory");
+}
+// O [64 x N] += A [64 x 16] . B [16 x N], A from registers (4 x bf16x2), B
+// MN-major in shared memory
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaRS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+        : "memory");
+  }
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------- the block
+
+struct Block {
+  int q_start, n_q, pos0, n_ctx, G, BQ;
+};
+
+// The block's query range and context bound; blockIdx.x runs the longest
+// contexts (the last query blocks) first.
+__device__ __forceinline__ Block block_of(const int* __restrict__ positions, int T_len, int Hq, int Hkv,
+                                          int page_size, int max_pages) {
+  Block b;
+  b.G = Hq / Hkv;
+  b.BQ = kRows / b.G;
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  b.q_start = qb * b.BQ;
+  b.n_q = min(b.BQ, T_len - b.q_start);
+  const int* pos = positions + (size_t)blockIdx.z * T_len;
+  b.pos0 = pos[b.q_start];
+  b.n_ctx = min(pos[b.q_start + b.n_q - 1] + 1, max_pages * page_size);
+  return b;
+}
+
+// ------------------------------------------------------------- the ring
+
+template <typename TK, int D>
+struct Ring {
+  static constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  static constexpr int kStages = D >= 128 ? 2 : 3;
+  static constexpr int kEPC = 16 / sizeof(TK);          // pool elements a 16-byte chunk
+  static constexpr int kRaw = kTile * D * sizeof(TK);   // one K or V tile as stored in the ring
+  static constexpr int kStage = 2 * kRaw + (kQuant ? 2 * kTile * 4 : 0);
+  static constexpr int kBf16Tile = kTile * D * 2;       // one K or V tile in bf16
+  static constexpr int kQBytes = kRows * D * 2;
+  // Q, the ring, and (int8) the bf16 K and V tiles converted from it
+  static constexpr int kSmem = kQBytes + kStages * kStage + (kQuant ? 2 * kBf16Tile : 0);
+  // blocks an SM holds: two (128 registers a thread) where the body fits
+  // them without spilling, one at D 128 (~185 registers) and int8 at D 64
+  // (~160; at 128 it spills)
+  static constexpr int kMinBlocks = D <= 32 || (D == 64 && !kQuant) ? 2 : 1;
+};
+
+// Start the cp.async copies of context keys [kt0, kt0 + kTile) of kv head
+// column col0 into a ring stage: K then V in the interleaved chunk layout
+// (int8: raw codes, 16 a chunk, then the K and V row scales). Keys at or
+// past n_ctx are zero-filled.
+template <typename TK, int D>
+__device__ __forceinline__ void start_tile(uint8_t* stage, const TK* __restrict__ k_pool,
+                                           const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
+                                           const float* __restrict__ v_scale, const int* __restrict__ pt,
+                                           int kt0, int n_ctx, int page_size, size_t token_stride, int col0) {
+  using R = Ring<TK, D>;
+  constexpr int CPR = D / R::kEPC;  // chunks a key row
+  const uint32_t s = smem_u32(stage);
+  for (int idx = threadIdx.x; idx < kTile * CPR; idx += kThreads) {
+    const int rest = idx / 8;
+    const int c = rest % CPR;
+    const int key = kt0 + (rest / CPR) * 8 + idx % 8;
+    const bool ok = key < n_ctx;
+    size_t off = 0;
+    if (ok) off = ((size_t)pt[key / page_size] * page_size + key % page_size) * token_stride + col0 + c * R::kEPC;
+    cp_async16(s + idx * 16, k_pool + off, ok);
+    cp_async16(s + R::kRaw + idx * 16, v_pool + off, ok);
+  }
+  if constexpr (R::kQuant) {
+    if (threadIdx.x < 2 * kTile) {
+      const int j = threadIdx.x % kTile;
+      const int key = kt0 + j;
+      const bool ok = key < n_ctx;
+      size_t tok = 0;
+      if (ok) tok = (size_t)pt[key / page_size] * page_size + key % page_size;
+      const float* src = threadIdx.x < kTile ? k_scale : v_scale;
+      cp_async4(s + 2 * R::kRaw + threadIdx.x * 4, src + tok, ok);
+    }
+  }
+}
+
+// Int8: the raw K and V codes of a ring stage to bf16 tiles (dst: K then V)
+// in the interleaved layout of D / 8 chunks a row.
 template <int D>
-constexpr int smem_floats() {
-  return kRows * (D + 4) + kKeys * (D + 4) + kKeys * D + kRows * kPStride + 2 * kKeys;
+__device__ __forceinline__ void convert_tile(uint8_t* dst, const uint8_t* stage) {
+  constexpr int CPR16 = D / 16;
+  constexpr int RCH = kTile * CPR16;  // raw chunks a tile
+  for (int idx = threadIdx.x; idx < 2 * RCH; idx += kThreads) {
+    const int which = idx / RCH;
+    const int ridx = idx % RCH;
+    const int rest = ridx / 8;
+    const int c16 = rest % CPR16;
+    const int j = (rest / CPR16) * 8 + ridx % 8;
+    const int4 raw = *reinterpret_cast<const int4*>(stage + which * kTile * D + ridx * 16);
+    float f[16];
+    dtt::to_float(raw, f);
+    uint4 a, b;
+    a.x = pack_bf16(f[0], f[1]);
+    a.y = pack_bf16(f[2], f[3]);
+    a.z = pack_bf16(f[4], f[5]);
+    a.w = pack_bf16(f[6], f[7]);
+    b.x = pack_bf16(f[8], f[9]);
+    b.y = pack_bf16(f[10], f[11]);
+    b.z = pack_bf16(f[12], f[13]);
+    b.w = pack_bf16(f[14], f[15]);
+    const int b0 = ((j / 8) * (D / 8) + 2 * c16) * 8 + j % 8;
+    uint8_t* t = dst + which * kTile * D * 2;
+    *reinterpret_cast<uint4*>(t + b0 * 16) = a;
+    *reinterpret_cast<uint4*>(t + (b0 + 8) * 16) = b;
+  }
 }
 
-constexpr size_t folded_smem_bytes(int D, int F) {
-  return ((size_t)kFRows * D + (size_t)kKeys * (F + 4) + (size_t)kKeys * F +
-          (size_t)kKeys * kFPStride + 2 * kKeys) * sizeof(float);
+// Wait for the oldest tile in flight (all but the kStages - 1 newest cp.async
+// groups), make it visible to the tensor cores and to every thread, and
+// return its bf16 K tile (V follows it): the stage itself, or for int8 the
+// tiles converted into `conv`.
+template <typename TK, int D>
+__device__ __forceinline__ const uint8_t* land_tile(const uint8_t* stage, uint8_t* conv) {
+  using R = Ring<TK, D>;
+  cp_async_wait<R::kStages - 1>();
+  fence_proxy_async();
+  __syncthreads();
+  if constexpr (R::kQuant) {
+    convert_tile<D>(conv, stage);
+    fence_proxy_async();
+    __syncthreads();
+    return conv;
+  } else {
+    return stage;
+  }
 }
+
+// ---------------------------------------------------------------- K2 / K3b (bf16 queries)
+
+template <typename TK, int D>
+__global__ void __launch_bounds__(kThreads, Ring<TK, D>::kMinBlocks)
+tc_prefill_kernel(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_pool,
+                  const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale, const int* __restrict__ page_tables,
+                  const int* __restrict__ positions, __nv_bfloat16* __restrict__ out, int T_len, int Hq,
+                  int Hkv, int page_size, int max_pages, float scale_log2) {
+  using R = Ring<TK, D>;
+  constexpr int CPR = D / 8;  // bf16 chunks a row
+  constexpr int NO = D / 2;   // output accumulators a thread (64 rows x D over 128 threads)
+  static_assert(D % 16 == 0 && D <= 128, "unsupported head_dim");
+
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* sQ = smem;
+  uint8_t* ring = sQ + R::kQBytes;
+  uint8_t* conv = ring + R::kStages * R::kStage;
+
+  const Block b = block_of(positions, T_len, Hq, Hkv, page_size, max_pages);
+  const int kvh = blockIdx.y;
+  const int n = blockIdx.z;
+  const int* pt = page_tables + (size_t)n * max_pages;
+  const size_t token_stride = (size_t)Hkv * D;
+
+  // Q tile, row r = (position r / G, head r % G); rows past the block are zeros
+  {
+    const uint32_t s = smem_u32(sQ);
+    for (int idx = threadIdx.x; idx < kRows * CPR; idx += kThreads) {
+      const int rest = idx / 8;
+      const int c = rest % CPR;
+      const int r = (rest / CPR) * 8 + idx % 8;
+      const int qi = r / b.G;
+      const bool ok = qi < b.n_q;
+      size_t off = 0;
+      if (ok) off = (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r % b.G) * D + c * 8;
+      cp_async16(s + idx * 16, q + off, ok);
+    }
+  }
+  const int n_tiles = (b.n_ctx + kTile - 1) / kTile;
+#pragma unroll
+  for (int st = 0; st < R::kStages - 1; ++st) {
+    if (st < n_tiles)
+      start_tile<TK, D>(ring + st * R::kStage, k_pool, v_pool, k_scale, v_scale, pt, st * kTile, b.n_ctx,
+                        page_size, token_stride, kvh * D);
+    cp_async_commit();  // the first group carries Q too
+  }
+
+  // this thread's two rows (a, a + 8) of its warpgroup's 64, and its columns
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int row_a = wg * 64 + ((threadIdx.x % 128) / 32) * 16 + lane / 4;
+  const int qpos[2] = {b.pos0 + row_a / b.G, b.pos0 + (row_a + 8) / b.G};
+  const int cq = 2 * (lane % 4);
+
+  float m[2] = {dtt::kNegInf, dtt::kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  const uint32_t q_base = smem_u32(sQ) + wg * 64 * D * 2;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int nxt = t + R::kStages - 1;
+    if (nxt < n_tiles)
+      start_tile<TK, D>(ring + (nxt % R::kStages) * R::kStage, k_pool, v_pool, k_scale, v_scale, pt,
+                        nxt * kTile, b.n_ctx, page_size, token_stride, kvh * D);
+    cp_async_commit();
+    const uint8_t* stage = ring + (t % R::kStages) * R::kStage;
+    const uint8_t* tk = land_tile<TK, D>(stage, conv);
+    const uint32_t k_base = smem_u32(tk);
+    const uint32_t v_base = k_base + R::kBf16Tile;
+    const float* sKs = reinterpret_cast<const float*>(stage + 2 * R::kRaw);
+    const float* sVs = sKs + kTile;
+    const int kt0 = t * kTile;
+
+    // S = Q . K^T
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(s, smem_desc(q_base + kk * 256, 128, 16 * D), smem_desc(k_base + kk * 256, 128, 16 * D),
+                         1);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    // online softmax; s[i] is (row a + 8 * ((i / 2) % 2), key 8 * (i / 4) + cq + i % 2)
+    const bool edge = kt0 + kTile - 1 > b.pos0 || kt0 + kTile > b.n_ctx;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) % 2;
+      const int col = 8 * (i / 4) + cq + i % 2;
+      float v = s[i] * (R::kQuant ? sKs[col] * scale_log2 : scale_log2);
+      if (edge && (kt0 + col > qpos[h] || kt0 + col >= b.n_ctx)) v = dtt::kNegInf;
+      s[i] = v;
+      mx[h] = fmaxf(mx[h], v);
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= corr[h];
+    }
+    uint32_t ph[16], pl[16];  // P split into bf16 hi and lo, as A fragments
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i / 2) % 2;
+      const int col = 8 * (i / 4) + cq;
+      float p0 = exp2f(s[i] - m[h]);
+      float p1 = exp2f(s[i + 1] - m[h]);
+      l[h] += p0 + p1;
+      if constexpr (R::kQuant) {
+        p0 *= sVs[col];
+        p1 *= sVs[col + 1];
+      }
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(hi);
+      ph[i / 2] = *reinterpret_cast<const uint32_t*>(&hi);
+      pl[i / 2] = pack_bf16(p0 - hf.x, p1 - hf.y);
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= corr[(i / 2) % 2];
+
+    // O += P_hi . V + P_lo . V; k-step kk takes keys 16 kk .. 16 kk + 15
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint64_t dv = smem_desc(v_base + kk * 32 * D, 16 * D, 128);
+      const uint32_t ah[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3]};
+      const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3]};
+      WgmmaRS<D>::run(o, ah, dv);
+      WgmmaRS<D>::run(o, al, dv);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    __syncthreads();  // every warpgroup is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row_a + 8 * h;
+    const int qi = r / b.G;
+    if (qi >= b.n_q) continue;
+    const float denom = fmaxf(l[h], 1e-20f);
+    __nv_bfloat16* dst = out + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r % b.G) * D + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * h] / denom, o[4 * j + 2 * h + 1] / denom);
+  }
+}
+
+// ---------------------------------------------------------------- K2 / K3b (f32 queries)
 
 template <typename T>
 __device__ __forceinline__ void load_row_f32(float* dst_row, const T* src_row, bool ok, int c) {
@@ -101,21 +555,18 @@ __device__ __forceinline__ void load_row_f32(float* dst_row, const T* src_row, b
   for (int i = 0; i < V16::N; i += 4) dtt::store4(dst_row + c + i, f + i);
 }
 
-// Stage context keys [kt0, kt0 + kKeys) of one lane, F columns a row, into
-// sK (row stride KS) and sV (row stride F) as f32, and for int8 the rows'
+// Stage context keys [kt0, kt0 + kFmaKeys) of kv head column col0 into sK
+// (row stride KS) and sV (row stride D) as f32, and for int8 the rows'
 // scales into sKs / sVs; keys at or past n_ctx are zero and are not read.
-template <typename TK>
+template <typename TK, int D>
 __device__ __forceinline__ void stage_kv(float* sK, float* sV, float* sKs, float* sVs,
-                                         const TK* __restrict__ k_pool,
-                                         const TK* __restrict__ v_pool,
-                                         const float* __restrict__ k_scale,
-                                         const float* __restrict__ v_scale,
-                                         const int* __restrict__ pt, int kt0, int n_ctx,
-                                         int page_size, int F, int KS, size_t token_stride,
-                                         int col0) {
+                                         const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
+                                         const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                                         const int* __restrict__ pt, int kt0, int n_ctx, int page_size, int KS,
+                                         size_t token_stride, int col0) {
   constexpr int VEC = dtt::Vec16<TK>::N;
-  const int vpr = F / VEC;
-  for (int idx = threadIdx.x; idx < kKeys * vpr; idx += kThreads) {
+  constexpr int vpr = D / VEC;
+  for (int idx = threadIdx.x; idx < kFmaKeys * vpr; idx += kThreads) {
     const int kk = idx / vpr;
     const int c = (idx - kk * vpr) * VEC;
     const int j = kt0 + kk;
@@ -123,10 +574,10 @@ __device__ __forceinline__ void stage_kv(float* sK, float* sV, float* sKs, float
     size_t base = 0;
     if (ok) base = ((size_t)pt[j / page_size] * page_size + (j % page_size)) * token_stride + col0;
     load_row_f32<TK>(sK + kk * KS, k_pool + base, ok, c);
-    load_row_f32<TK>(sV + kk * F, v_pool + base, ok, c);
+    load_row_f32<TK>(sV + kk * D, v_pool + base, ok, c);
   }
   if constexpr (std::is_same<TK, int8_t>::value) {
-    if (threadIdx.x < kKeys) {
+    if (threadIdx.x < kFmaKeys) {
       const int j = kt0 + threadIdx.x;
       float ks = 0.f, vs = 0.f;
       if (j < n_ctx) {
@@ -140,388 +591,258 @@ __device__ __forceinline__ void stage_kv(float* sK, float* sV, float* sKs, float
   }
 }
 
-// The online-softmax step of one row for keys tx and tx + 16: masks, scales
-// (int8: by the key's K scale), reduces over the 16 tx lanes of the row's
-// half-warp, writes the probabilities (int8: times the V scale) to sP_row
-// and rescales the row's accumulators. Every thread runs it.
-template <bool kQuant, int C>
-__device__ __forceinline__ void softmax_step(float (&s)[2], int kt0, int qpos, int n_ctx,
-                                             float scale, const float* sKs, const float* sVs,
-                                             float* sP_row0, float* sP_row1, float& m, float& l,
-                                             float (&o)[C]) {
-  const int tx = threadIdx.x % 16;
-  float rmax = dtt::kNegInf;
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    const int j = kt0 + tx + 16 * jj;
-    float v = s[jj] * scale;
-    if constexpr (kQuant) v *= sKs[tx + 16 * jj];
-    s[jj] = (j <= qpos && j < n_ctx) ? v : dtt::kNegInf;
-    rmax = fmaxf(rmax, s[jj]);
-  }
-  // the 16 tx lanes of a row sit in one half-warp
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-  const float new_m = fmaxf(m, rmax);
-  const float corr = expf(m - new_m);
-  float rsum = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    const float p = expf(s[jj] - new_m);
-    rsum += p;
-    const float pv = kQuant ? p * sVs[tx + 16 * jj] : p;
-    *(jj == 0 ? sP_row0 : sP_row1) = pv;
-  }
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-  l = l * corr + rsum;
-  m = new_m;
-#pragma unroll
-  for (int c = 0; c < C; ++c) o[c] *= corr;
+template <int D>
+constexpr size_t fma_smem_bytes() {
+  return ((size_t)kRows * (D + 4) + kFmaKeys * (D + 4) + kFmaKeys * D + kRows * kPStride + 2 * kFmaKeys) *
+         sizeof(float);
 }
 
-// ---------------------------------------------------------------- K2
-
-template <typename TQ, typename TK, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
-                     const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
-                     const float* __restrict__ v_scale, const int* __restrict__ page_tables,
-                     const int* __restrict__ positions, TQ* __restrict__ out, int T_len, int Hq,
-                     int Hkv, int page_size, int max_pages, float scale) {
+// Thread (ty, tx) owns rows ty + 16 i (i < kFmaRPT), row r = (head r / BQ,
+// position r % BQ); keys tx and tx + 16 of each tile; output columns tx + 16 c.
+template <typename TK, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fma_prefill_kernel(const float* __restrict__ q, const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
+                   const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                   const int* __restrict__ page_tables, const int* __restrict__ positions, float* __restrict__ out,
+                   int T_len, int Hq, int Hkv, int page_size, int max_pages, float scale) {
   constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-  constexpr int VECQ = dtt::Vec16<TQ>::N;
-  constexpr int QS = D + 4;  // padded f32 row stride of the Q and K tiles
-  constexpr int OC = D / 64; // float4 output column groups per thread
-  static_assert(D % 64 == 0, "unsupported head_dim");
+  constexpr int QS = D + 4;  // padded row stride of the Q and K tiles
+  constexpr int CW = D / 16; // output columns a thread
+  static_assert(D % 16 == 0, "unsupported head_dim");
 
   extern __shared__ float4 smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);  // [kRows][QS]
-  float* sK = sQ + kRows * QS;                     // [kKeys][QS]
-  float* sV = sK + kKeys * QS;                     // [kKeys][D]
-  float* sP = sV + kKeys * D;                      // [kRows][kPStride]
-  float* sKs = sP + kRows * kPStride;              // [kKeys]
-  float* sVs = sKs + kKeys;                        // [kKeys]
+  float* sK = sQ + kRows * QS;                     // [kFmaKeys][QS]
+  float* sV = sK + kFmaKeys * QS;                  // [kFmaKeys][D]
+  float* sP = sV + kFmaKeys * D;                   // [kRows][kPStride]
+  float* sKs = sP + kRows * kPStride;              // [kFmaKeys]
+  float* sVs = sKs + kFmaKeys;                     // [kFmaKeys]
 
-  const int G = Hq / Hkv;
-  const int BQ = kRows / G;  // query positions per block
-  const int qb = blockIdx.x;
+  const Block b = block_of(positions, T_len, Hq, Hkv, page_size, max_pages);
   const int kvh = blockIdx.y;
   const int n = blockIdx.z;
-  const int q_start = qb * BQ;
-  const int n_q = min(BQ, T_len - q_start);
-  const int* pos = positions + (size_t)n * T_len;
   const int* pt = page_tables + (size_t)n * max_pages;
-  const int pos0 = pos[q_start];
-  const int last_pos = pos[q_start + n_q - 1];
-  const int n_ctx = min(last_pos + 1, max_pages * page_size);
-
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
 
-  // Q tile: row r = (head g = r / BQ, query qi = r % BQ)
-  for (int idx = tid; idx < kRows * (D / VECQ); idx += kThreads) {
-    const int r = idx / (D / VECQ);
-    const int c = (idx % (D / VECQ)) * VECQ;
-    const int g = r / BQ;
-    const int qi = r % BQ;
-    const TQ* src = q + (((size_t)n * T_len + q_start + qi) * Hq + (size_t)kvh * G + g) * D;
-    load_row_f32<TQ>(sQ + r * QS, src, qi < n_q, c);
+  for (int idx = tid; idx < kRows * (D / 4); idx += kThreads) {
+    const int r = idx / (D / 4);
+    const int c = (idx % (D / 4)) * 4;
+    const int qi = r % b.BQ;
+    const float* src = q + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D;
+    load_row_f32<float>(sQ + r * QS, src, qi < b.n_q, c);
   }
 
-  float m[4], l[4], o[4][OC * 4];
-  int qpos[4];
+  float m[kFmaRPT], l[kFmaRPT], o[kFmaRPT][CW];
+  int qpos[kFmaRPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kFmaRPT; ++i) {
     m[i] = dtt::kNegInf;
     l[i] = 0.f;
-    qpos[i] = pos0 + (ty + 16 * i) % BQ;
-#pragma unroll
-    for (int c = 0; c < OC * 4; ++c) o[i][c] = 0.f;
-  }
-
-  for (int kt0 = 0; kt0 < n_ctx; kt0 += kKeys) {
-    __syncthreads();  // previous tile's readers are done with sK / sV / sP
-    stage_kv<TK>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, n_ctx, page_size, D,
-                 QS, (size_t)Hkv * D, kvh * D);
-    __syncthreads();
-
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * QS + d);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) kv[jj] = *reinterpret_cast<const float4*>(sK + (tx + 16 * jj) * QS + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
-          s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
-          s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
-          s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* row = sP + (ty + 16 * i) * kPStride + tx;
-      softmax_step<kQuant, OC * 4>(s[i], kt0, qpos[i], n_ctx, scale, sKs, sVs, row, row + 16, m[i],
-                                   l[i], o[i]);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kKeys; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty + 16 * i) * kPStride + kk];
-#pragma unroll
-      for (int c = 0; c < OC; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(sV + kk * D + tx * 4 + 64 * c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][4 * c] = fmaf(p[i], vv.x, o[i][4 * c]);
-          o[i][4 * c + 1] = fmaf(p[i], vv.y, o[i][4 * c + 1]);
-          o[i][4 * c + 2] = fmaf(p[i], vv.z, o[i][4 * c + 2]);
-          o[i][4 * c + 3] = fmaf(p[i], vv.w, o[i][4 * c + 3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int g = r / BQ;
-    const int qi = r % BQ;
-    if (qi >= n_q) continue;
-    const float denom = fmaxf(l[i], 1e-20f);
-    TQ* dst = out + (((size_t)n * T_len + q_start + qi) * Hq + (size_t)kvh * G + g) * D;
-#pragma unroll
-    for (int c = 0; c < OC; ++c) {
-      float f[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) f[e] = o[i][4 * c + e] / denom;
-      dtt::store4(dst + tx * 4 + 64 * c, f);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- K3b
-
-// Block (query tile, lane): BQ = kFRPT / HJ query positions x Hq = 16 HJ
-// heads. Thread (ty, tx) owns rows i < kFRPT: head ty + 16 (i / BQ) at query
-// qi = i % BQ, stored at sQ row ty * kFRPT + i; keys tx and tx + 16 of each
-// tile; output columns tx * CW .. + CW of its rows.
-template <typename TQ, typename TK, int D, int HJ>
-__global__ void __launch_bounds__(kThreads)
-folded_prefill_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
-                      const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
-                      const float* __restrict__ v_scale, const int* __restrict__ page_tables,
-                      const int* __restrict__ positions, TQ* __restrict__ out, int T_len, int Hkv,
-                      int page_size, int max_pages, float scale) {
-  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-  constexpr int BQ = kFRPT / HJ;  // query positions per block
-  constexpr int CW = D / 16;      // output columns per thread
-  constexpr int VECQ = dtt::Vec16<TQ>::N;
-  static_assert(kFRPT % HJ == 0 && D % 16 == 0 && D % VECQ == 0, "unsupported shape");
-  const int Hq = 16 * HJ;
-  const int G = Hq / Hkv;
-  const int F = Hkv * D;
-  const int KS = F + 4;  // padded f32 row stride of the K tile
-
-  extern __shared__ float4 smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [kFRows][D]
-  float* sK = sQ + kFRows * D;                     // [kKeys][KS]
-  float* sV = sK + kKeys * KS;                     // [kKeys][F]
-  float* sP = sV + kKeys * F;                      // [kKeys][kFPStride]
-  float* sKs = sP + kKeys * kFPStride;             // [kKeys]
-  float* sVs = sKs + kKeys;                        // [kKeys]
-
-  const int qb = blockIdx.x;
-  const int n = blockIdx.y;
-  const int q_start = qb * BQ;
-  const int n_q = min(BQ, T_len - q_start);
-  const int* pos = positions + (size_t)n * T_len;
-  const int* pt = page_tables + (size_t)n * max_pages;
-  const int pos0 = pos[q_start];
-  const int last_pos = pos[q_start + n_q - 1];
-  const int n_ctx = min(last_pos + 1, max_pages * page_size);
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-
-  for (int idx = tid; idx < kFRows * (D / VECQ); idx += kThreads) {
-    const int r = idx / (D / VECQ);
-    const int c = (idx % (D / VECQ)) * VECQ;
-    const int i = r % kFRPT;
-    const int h = r / kFRPT + 16 * (i / BQ);
-    const int qi = i % BQ;
-    const TQ* src = q + (((size_t)n * T_len + q_start + qi) * Hq + h) * D;
-    load_row_f32<TQ>(sQ + r * D, src, qi < n_q, c);
-  }
-
-  int kcol[HJ];  // column of the kv head of head ty + 16 j in a K/V row
-#pragma unroll
-  for (int j = 0; j < HJ; ++j) kcol[j] = ((ty + 16 * j) / G) * D;
-
-  float m[kFRPT], l[kFRPT], o[kFRPT][CW];
-#pragma unroll
-  for (int i = 0; i < kFRPT; ++i) {
-    m[i] = dtt::kNegInf;
-    l[i] = 0.f;
+    qpos[i] = b.pos0 + (ty + 16 * i) % b.BQ;
 #pragma unroll
     for (int c = 0; c < CW; ++c) o[i][c] = 0.f;
   }
-  const float* sQt = sQ + ty * kFRPT * D;
 
-  for (int kt0 = 0; kt0 < n_ctx; kt0 += kKeys) {
+  for (int kt0 = 0; kt0 < b.n_ctx; kt0 += kFmaKeys) {
     __syncthreads();  // previous tile's readers are done with sK / sV / sP
-    stage_kv<TK>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, n_ctx, page_size, F,
-                 KS, (size_t)F, 0);
+    stage_kv<TK, D>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size, QS,
+                    (size_t)Hkv * D, kvh * D);
     __syncthreads();
 
-    float s[kFRPT][2];
+    float s[kFmaRPT][2];
 #pragma unroll
-    for (int i = 0; i < kFRPT; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 2
+    for (int i = 0; i < kFmaRPT; ++i) s[i][0] = s[i][1] = 0.f;
+#pragma unroll 4
     for (int d = 0; d < D; d += 4) {
-      float4 kv[HJ][2];
+      float4 kv[2];
 #pragma unroll
-      for (int j = 0; j < HJ; ++j)
+      for (int jj = 0; jj < 2; ++jj) kv[jj] = *reinterpret_cast<const float4*>(sK + (tx + 16 * jj) * QS + d);
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-          kv[j][jj] = *reinterpret_cast<const float4*>(sK + (tx + 16 * jj) * KS + kcol[j] + d);
-#pragma unroll
-      for (int i = 0; i < kFRPT; ++i) {
-        const float4 qv = *reinterpret_cast<const float4*>(sQt + i * D + d);
+      for (int i = 0; i < kFmaRPT; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * QS + d);
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
-          const float4 k = kv[i / BQ][jj];
-          s[i][jj] = fmaf(qv.x, k.x, s[i][jj]);
-          s[i][jj] = fmaf(qv.y, k.y, s[i][jj]);
-          s[i][jj] = fmaf(qv.z, k.z, s[i][jj]);
-          s[i][jj] = fmaf(qv.w, k.w, s[i][jj]);
+          s[i][jj] = fmaf(qv.x, kv[jj].x, s[i][jj]);
+          s[i][jj] = fmaf(qv.y, kv[jj].y, s[i][jj]);
+          s[i][jj] = fmaf(qv.z, kv[jj].z, s[i][jj]);
+          s[i][jj] = fmaf(qv.w, kv[jj].w, s[i][jj]);
         }
       }
     }
 
+    // online softmax for keys tx, tx + 16 of each row; a row's 16 tx lanes
+    // sit in one half-warp
 #pragma unroll
-    for (int i = 0; i < kFRPT; ++i) {
-      float* p0 = sP + tx * kFPStride + ty * kFRPT + i;
-      softmax_step<kQuant, CW>(s[i], kt0, pos0 + i % BQ, n_ctx, scale, sKs, sVs, p0,
-                               p0 + 16 * kFPStride, m[i], l[i], o[i]);
+    for (int i = 0; i < kFmaRPT; ++i) {
+      float rmax = dtt::kNegInf;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = kt0 + tx + 16 * jj;
+        float v = s[i][jj] * scale;
+        if constexpr (kQuant) v *= sKs[tx + 16 * jj];
+        s[i][jj] = (j <= qpos[i] && j < b.n_ctx) ? v : dtt::kNegInf;
+        rmax = fmaxf(rmax, s[i][jj]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+      const float new_m = fmaxf(m[i], rmax);
+      const float corr = expf(m[i] - new_m);
+      float rsum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const float p = expf(s[i][jj] - new_m);
+        rsum += p;
+        sP[(ty + 16 * i) * kPStride + tx + 16 * jj] = kQuant ? p * sVs[tx + 16 * jj] : p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+      l[i] = l[i] * corr + rsum;
+      m[i] = new_m;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) o[i][c] *= corr;
     }
     __syncthreads();
 
-#pragma unroll 2
-    for (int kk = 0; kk < kKeys; ++kk) {
-      float p[kFRPT];
+#pragma unroll 4
+    for (int kk = 0; kk < kFmaKeys; ++kk) {
+      float vv[CW];
 #pragma unroll
-      for (int i = 0; i < kFRPT; i += 4) {
-        const float4 pv = *reinterpret_cast<const float4*>(sP + kk * kFPStride + ty * kFRPT + i);
-        p[i] = pv.x;
-        p[i + 1] = pv.y;
-        p[i + 2] = pv.z;
-        p[i + 3] = pv.w;
+      for (int c = 0; c < CW; ++c) vv[c] = sV[kk * D + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < kFmaRPT; ++i) {
+        const float p = sP[(ty + 16 * i) * kPStride + kk];
+#pragma unroll
+        for (int c = 0; c < CW; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
       }
-      float vv[HJ][CW];
-#pragma unroll
-      for (int j = 0; j < HJ; ++j)
-#pragma unroll
-        for (int c = 0; c < CW; ++c) vv[j][c] = sV[kk * F + kcol[j] + tx * CW + c];
-#pragma unroll
-      for (int i = 0; i < kFRPT; ++i)
-#pragma unroll
-        for (int c = 0; c < CW; ++c) o[i][c] = fmaf(p[i], vv[i / BQ][c], o[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < kFRPT; ++i) {
-    const int qi = i % BQ;
-    if (qi >= n_q) continue;
-    const int h = ty + 16 * (i / BQ);
+  for (int i = 0; i < kFmaRPT; ++i) {
+    const int r = ty + 16 * i;
+    const int qi = r % b.BQ;
+    if (qi >= b.n_q) continue;
     const float denom = fmaxf(l[i], 1e-20f);
-    TQ* dst = out + (((size_t)n * T_len + q_start + qi) * Hq + h) * D + tx * CW;
+    float* dst = out + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D + tx;
 #pragma unroll
-    for (int c = 0; c < CW; ++c) dtt::store1(dst + c, o[i][c] / denom);
+    for (int c = 0; c < CW; ++c) dst[16 * c] = o[i][c] / denom;
   }
 }
 
 // ---------------------------------------------------------------- K7a
 
-template <int D>
-constexpr int twin_smem_floats() {
-  return kKeys * (D + 4) + kKeys * D + 2 * kKeys + kThreads;  // + [kThreads / D][D] sums
-}
+// K2's load stream with no math: bf16 / int8 pools through the tensor-core
+// body's ring (int8 converted as there), f32 pools through the FMA body's
+// staging; every row of the block gets the column sums of its context.
+template <typename TK, int D>
+struct Twin {
+  static constexpr bool kF32 = std::is_same<TK, float>::value;
+  // partial column sums reduced at the end: f32, kThreads / D threads a
+  // column; the ring, one a (key in a group of 8, key group) of a chunk
+  // column, read as the tile's 16-byte chunks
+  static constexpr int kPartials = kF32 ? kThreads / D : kThreads / (D / 8);
+  static constexpr size_t kSmem =
+      (kF32 ? ((size_t)kFmaKeys * (D + 4) + kFmaKeys * D) * sizeof(float)
+            : (size_t)Ring<TK, D>::kStages * Ring<TK, D>::kStage + (Ring<TK, D>::kQuant ? 2 * Ring<TK, D>::kBf16Tile : 0)) +
+      (size_t)kPartials * D * sizeof(float);
+};
 
 template <typename TK, int D>
 __global__ void __launch_bounds__(kThreads)
-prefill_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
-                  const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                  const int* __restrict__ page_tables, const int* __restrict__ positions,
-                  float* __restrict__ out, int T_len, int Hq, int Hkv, int page_size,
-                  int max_pages) {
-  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-  constexpr int KS = D + 4;            // K2's padded K-tile row stride
-  constexpr int PARTS = kThreads / D;  // threads summing one column
+prefill_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale, const int* __restrict__ page_tables,
+                  const int* __restrict__ positions, float* __restrict__ out, int T_len, int Hq, int Hkv,
+                  int page_size, int max_pages) {
+  using R = Ring<TK, D>;
   static_assert(kThreads % D == 0, "unsupported head_dim");
 
-  extern __shared__ float4 smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);  // [kKeys][KS]
-  float* sV = sK + kKeys * KS;                     // [kKeys][D]
-  float* sKs = sV + kKeys * D;                     // [kKeys]
-  float* sVs = sKs + kKeys;                        // [kKeys]
-  float* red = sVs + kKeys;                        // [PARTS][D]
-
-  // K2's block partition
-  const int G = Hq / Hkv;
-  const int BQ = kRows / G;
-  const int q_start = blockIdx.x * BQ;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const Block b = block_of(positions, T_len, Hq, Hkv, page_size, max_pages);
   const int kvh = blockIdx.y;
   const int n = blockIdx.z;
-  const int n_q = min(BQ, T_len - q_start);
-  const int* pos = positions + (size_t)n * T_len;
   const int* pt = page_tables + (size_t)n * max_pages;
-  const int n_ctx = min(pos[q_start + n_q - 1] + 1, max_pages * page_size);
+  const size_t token_stride = (size_t)Hkv * D;
+  float* red;
 
-  const int c = threadIdx.x % D;
-  const int part = threadIdx.x / D;
-  float sum = 0.f;
-  for (int kt0 = 0; kt0 < n_ctx; kt0 += kKeys) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_kv<TK>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, n_ctx, page_size, D,
-                 KS, (size_t)Hkv * D, kvh * D);
-    __syncthreads();
-    // keys at or past n_ctx were staged as zeros (int8: zero scales too)
-    for (int kk = part; kk < kKeys; kk += PARTS) {
-      if constexpr (kQuant) {
-        sum += sK[kk * KS + c] * sKs[kk] + sV[kk * D + c] * sVs[kk];
-      } else {
-        sum += sK[kk * KS + c] + sV[kk * D + c];
-      }
+  if constexpr (Twin<TK, D>::kF32) {
+    constexpr int KS = D + 4;  // the FMA body's K-tile row stride
+    float* sK = reinterpret_cast<float*>(smem);  // [kFmaKeys][KS]
+    float* sV = sK + kFmaKeys * KS;              // [kFmaKeys][D]
+    red = sV + kFmaKeys * D;                     // [kPartials][D]
+    const int c = threadIdx.x % D;
+    const int part = threadIdx.x / D;
+    float sum = 0.f;
+    for (int kt0 = 0; kt0 < b.n_ctx; kt0 += kFmaKeys) {
+      __syncthreads();  // the previous tile's readers are done
+      stage_kv<TK, D>(sK, sV, nullptr, nullptr, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size, KS,
+                      token_stride, kvh * D);
+      __syncthreads();
+      for (int kk = part; kk < kFmaKeys; kk += kThreads / D) sum += sK[kk * KS + c] + sV[kk * D + c];
     }
+    red[part * D + c] = sum;
+  } else {
+    constexpr int CPR = D / 8;                      // bf16 chunks a row
+    constexpr int GROUPS = kThreads / (8 * CPR);    // key groups summed side by side
+    uint8_t* ring = smem;
+    uint8_t* conv = ring + R::kStages * R::kStage;
+    red = reinterpret_cast<float*>(conv + (R::kQuant ? 2 * R::kBf16Tile : 0));
+    const int jl = threadIdx.x % 8;
+    const int cc = (threadIdx.x / 8) % CPR;
+    const int jg0 = threadIdx.x / (8 * CPR);
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    const int n_tiles = (b.n_ctx + kTile - 1) / kTile;
+#pragma unroll
+    for (int st = 0; st < R::kStages - 1; ++st) {
+      if (st < n_tiles)
+        start_tile<TK, D>(ring + st * R::kStage, k_pool, v_pool, k_scale, v_scale, pt, st * kTile, b.n_ctx,
+                          page_size, token_stride, kvh * D);
+      cp_async_commit();
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int nxt = t + R::kStages - 1;
+      if (nxt < n_tiles)
+        start_tile<TK, D>(ring + (nxt % R::kStages) * R::kStage, k_pool, v_pool, k_scale, v_scale, pt,
+                          nxt * kTile, b.n_ctx, page_size, token_stride, kvh * D);
+      cp_async_commit();
+      const uint8_t* stage = ring + (t % R::kStages) * R::kStage;
+      const uint8_t* tk = land_tile<TK, D>(stage, conv);
+      const float* sKs = reinterpret_cast<const float*>(stage + 2 * R::kRaw);
+      // keys at or past n_ctx were zero-filled (int8: zero scales too)
+      for (int jg = jg0; jg < kTile / 8; jg += GROUPS) {
+        const int chunk = (jg * CPR + cc) * 8 + jl;
+        float kf[8], vf[8];
+        dtt::to_float(*reinterpret_cast<const uint4*>(tk + chunk * 16), kf);
+        dtt::to_float(*reinterpret_cast<const uint4*>(tk + R::kBf16Tile + chunk * 16), vf);
+        float ks = 1.f, vs = 1.f;
+        if constexpr (R::kQuant) {
+          ks = sKs[jg * 8 + jl];
+          vs = sKs[kTile + jg * 8 + jl];
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] += kf[e] * ks + vf[e] * vs;
+      }
+      __syncthreads();  // this stage's readers are done before it is refilled
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[(jg0 * 8 + jl) * D + cc * 8 + e] = acc[e];
   }
-  red[part * D + c] = sum;
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += kThreads) {  // column d: this thread alone
+    float a = 0.f;
+#pragma unroll
+    for (int p = 0; p < Twin<TK, D>::kPartials; ++p) a += red[p * D + d];
+    red[d] = a;
+  }
   __syncthreads();
   for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
     const int r = idx / D;
-    const int d = idx % D;
-    const int g = r / BQ;
-    const int qi = r % BQ;
-    if (qi >= n_q) continue;
-    float a = 0.f;
-#pragma unroll
-    for (int p = 0; p < PARTS; ++p) a += red[p * D + d];
-    out[(((size_t)n * T_len + q_start + qi) * Hq + (size_t)kvh * G + g) * D + d] = a;
+    const int qi = r / b.G;
+    if (qi >= b.n_q) continue;
+    out[(((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r % b.G) * D + idx % D] = red[idx % D];
   }
 }
 
@@ -540,57 +861,64 @@ struct PrefillArgs {
   cudaStream_t stream;
 };
 
-template <typename TQ, typename TK, int D>
-int launch_k2(const PrefillArgs& a) {
-  // the dynamic shared memory exceeds the 48 KiB default at D=128
-  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
-  const size_t smem = (size_t)smem_floats<D>() * sizeof(float);
-  const cudaError_t err =
-      dtt::raise_smem_limit_once(paged_prefill_kernel<TQ, TK, D>, smem_raised, smem);
-  if (err != cudaSuccess) return (int)err;
+dim3 prefill_grid(const PrefillArgs& a) {
   const int BQ = kRows / (a.Hq / a.Hkv);
-  const dim3 grid((a.T_len + BQ - 1) / BQ, a.Hkv, a.N);
-  paged_prefill_kernel<TQ, TK, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks,
-      a.vs, a.pt, a.pos, static_cast<TQ*>(a.out), a.T_len, a.Hq, a.Hkv, a.ps, a.max_pages,
-      1.0f / sqrtf((float)D));
+  return dim3((a.T_len + BQ - 1) / BQ, a.Hkv, a.N);
+}
+
+template <typename TQ, typename TK, int D>
+int launch_attention(const PrefillArgs& a) {
+  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
+  if constexpr (std::is_same<TQ, float>::value) {
+    constexpr size_t smem = fma_smem_bytes<D>();
+    const cudaError_t err = dtt::raise_smem_limit_once(fma_prefill_kernel<TK, D>, smem_raised, smem);
+    if (err != cudaSuccess) return (int)err;
+    fma_prefill_kernel<TK, D><<<prefill_grid(a), kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs,
+        a.pt, a.pos, static_cast<float*>(a.out), a.T_len, a.Hq, a.Hkv, a.ps, a.max_pages,
+        1.0f / sqrtf((float)D));
+  } else {
+    constexpr size_t smem = Ring<TK, D>::kSmem;
+    const cudaError_t err = dtt::raise_smem_limit_once(tc_prefill_kernel<TK, D>, smem_raised, smem);
+    if (err != cudaSuccess) return (int)err;
+    tc_prefill_kernel<TK, D><<<prefill_grid(a), kThreads, smem, a.stream>>>(
+        static_cast<const __nv_bfloat16*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks,
+        a.vs, a.pt, a.pos, static_cast<__nv_bfloat16*>(a.out), a.T_len, a.Hq, a.Hkv, a.ps, a.max_pages,
+        1.4426950408889634f / sqrtf((float)D));
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename TK, int D>
 int launch_k7a(const PrefillArgs& a) {
-  // within the default 48 KB of dynamic shared memory (34.5 KB at D = 128)
-  const size_t smem = (size_t)twin_smem_floats<D>() * sizeof(float);
-  const int BQ = kRows / (a.Hq / a.Hkv);
-  const dim3 grid((a.T_len + BQ - 1) / BQ, a.Hkv, a.N);
-  prefill_load_twin<TK, D><<<grid, kThreads, smem, a.stream>>>(
+  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
+  constexpr size_t smem = Twin<TK, D>::kSmem;
+  const cudaError_t err = dtt::raise_smem_limit_once(prefill_load_twin<TK, D>, smem_raised, smem);
+  if (err != cudaSuccess) return (int)err;
+  prefill_load_twin<TK, D><<<prefill_grid(a), kThreads, smem, a.stream>>>(
       static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs, a.pt, a.pos,
       static_cast<float*>(a.out), a.T_len, a.Hq, a.Hkv, a.ps, a.max_pages);
-  return (int)cudaGetLastError();
-}
-
-template <typename TQ, typename TK, int D, int HJ>
-int launch_k3b(const PrefillArgs& a) {
-  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
-  const cudaError_t err = dtt::raise_smem_limit_once(
-      folded_prefill_kernel<TQ, TK, D, HJ>, smem_raised, folded_smem_bytes(D, kMaxFoldedWidth));
-  if (err != cudaSuccess) return (int)err;
-  constexpr int BQ = kFRPT / HJ;
-  const dim3 grid((a.T_len + BQ - 1) / BQ, a.N);
-  folded_prefill_kernel<TQ, TK, D, HJ><<<grid, kThreads, folded_smem_bytes(D, a.Hkv * D), a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks,
-      a.vs, a.pt, a.pos, static_cast<TQ*>(a.out), a.T_len, a.Hkv, a.ps, a.max_pages,
-      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TK>
 struct K2Types {
   static int run(const PrefillArgs& a) {
-    if (kRows % (a.Hq / a.Hkv)) return (int)cudaErrorInvalidValue;
     switch (a.D) {
-      case 64: return launch_k2<TQ, TK, 64>(a);
-      case 128: return launch_k2<TQ, TK, 128>(a);
+      case 64: return launch_attention<TQ, TK, 64>(a);
+      case 128: return launch_attention<TQ, TK, 128>(a);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+};
+
+template <typename TQ, typename TK>
+struct K3bTypes {
+  static int run(const PrefillArgs& a) {
+    switch (a.D) {
+      case 16: return launch_attention<TQ, TK, 16>(a);
+      case 32: return launch_attention<TQ, TK, 32>(a);
+      case 64: return launch_attention<TQ, TK, 64>(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -600,33 +928,9 @@ struct K2Types {
 template <typename TQ, typename TK>
 struct K7aTypes {
   static int run(const PrefillArgs& a) {
-    if (kRows % (a.Hq / a.Hkv)) return (int)cudaErrorInvalidValue;
     switch (a.D) {
       case 64: return launch_k7a<TK, 64>(a);
       case 128: return launch_k7a<TK, 128>(a);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-};
-
-template <typename TQ, typename TK, int D>
-int k3b_heads(const PrefillArgs& a) {
-  switch (a.Hq) {
-    case 16: return launch_k3b<TQ, TK, D, 1>(a);
-    case 32: return launch_k3b<TQ, TK, D, 2>(a);
-    case 64: return launch_k3b<TQ, TK, D, 4>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename TQ, typename TK>
-struct K3bTypes {
-  static int run(const PrefillArgs& a) {
-    if (a.Hkv * a.D > kMaxFoldedWidth || (a.Hkv * a.D) % 16) return (int)cudaErrorInvalidValue;
-    switch (a.D) {
-      case 16: return k3b_heads<TQ, TK, 16>(a);
-      case 32: return k3b_heads<TQ, TK, 32>(a);
-      case 64: return k3b_heads<TQ, TK, 64>(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -644,7 +948,7 @@ int with_types(int q_dtype, int kv_dtype, const PrefillArgs& a) {
 }
 
 bool prefill_shapes_ok(const PrefillArgs& a, int kv_dtype) {
-  return a.Hkv > 0 && a.Hq % a.Hkv == 0 && a.ps > 0 && a.max_pages > 0 &&
+  return a.Hkv > 0 && a.Hq % a.Hkv == 0 && kRows % (a.Hq / a.Hkv) == 0 && a.ps > 0 && a.max_pages > 0 &&
          (kv_dtype != 2 || (a.ks != nullptr && a.vs != nullptr));
 }
 

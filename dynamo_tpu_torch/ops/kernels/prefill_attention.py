@@ -2,33 +2,41 @@
 (its folded variant for head dims that are not a multiple of 128), CUDA C++ in
 ``csrc/prefill_attention.cu``.
 
-K2 replaces ``dynamo_tpu/ops/pallas/prefill_attention.py``
-``paged_prefill_attention_pallas`` (``_kernel_lookahead`` / ``_kernel``,
-math in ``_flash_merge``); K3b replaces
-``paged_prefill_attention_pallas_folded`` (``_kernel_folded``), the same
-function at head_dim 16, 32 or 64 (TinyLlama). One launch takes all N packed
-lanes of a prefill call; the TPU path launches once per lane. Both take f32
-or bf16 queries over pools of the query's dtype or over an int8 cache
-(``quant/kv.py QuantizedPages``, scales applied to score and probability
-columns).
+K2 replaces ``dynamo_tpu/ops/pallas/prefill_attention.py:686``
+``paged_prefill_attention_pallas`` (``pallas_call`` at ``:783``;
+``_kernel_lookahead`` / ``_kernel``, math in ``_flash_merge``); K3b replaces
+``:615`` ``paged_prefill_attention_pallas_folded`` (``pallas_call`` at
+``:662``, ``_kernel_folded``), the same function at head_dim 16, 32 or 64
+(TinyLlama). One launch takes all N packed lanes of a prefill call; the TPU
+path launches once per lane. Both take f32 or bf16 queries over pools of the
+query's dtype or over an int8 cache (``quant/kv.py QuantizedPages``, scales
+applied to score and probability columns).
 
 Bound on an H100: arithmetic at prefill sizes (4·Hq·D FLOP per causal
-(row, key) pair against context bytes read once). Both stage K/V tiles of 32
-keys from the pages into shared memory and run an f32 online softmax with
-FMA micro-tiles: K2 shares each tile across the G query heads of one kv head,
-K3b stages whole rows of all kv heads and shares them across all Hq heads of
-its query tile (see the source note). Plain version: ``ops/attention.py
-paged_prefill_attention`` (per lane); the dispatcher there picks the plain
-version for CPU tensors and, for CUDA tensors, K3b when ``head_dim % 128 !=
-0``, else K2.
+(row, key) pair against context bytes read once). bf16 queries (over bf16
+or int8 pools) take one tensor-core body for K2 and K3b: a block of
+``ROWS_PER_BLOCK`` (query, head) rows of one kv head's GQA group, as two
+warpgroups of 64; S = Q·Kᵀ and O += P·V through ``wgmma``; K/V tiles of 64
+keys in a ``cp.async`` ring, int8 codes converted to bf16 in shared memory.
+The probabilities stay f32-exact: P is split into bf16(P) + bf16(P −
+bf16(P)) and multiplied twice, because one bf16 rounding of P leaves
+``TOL["bf16"]`` at small outputs (``tests/test_torch_prefill_tc.py``). The
+reference's folded kernel rounds P to the pool dtype; the port does not, for
+K3b as for K3a. f32 queries keep an f32 FMA body in the same block
+partition (TF32 would break ``TOL["f32"]``). See the source note. Plain
+version: ``ops/attention.py paged_prefill_attention`` (per lane); the
+dispatcher there picks the plain version for CPU tensors and, for CUDA
+tensors, K3b when ``head_dim % 128 != 0``, else K2.
 
 K7a (:func:`paged_prefill_dmaonly_kernel`, the same source) replaces
-``paged_prefill_dmaonly`` (``_kernel_dmaonly``), the null-hypothesis
-instrument of ``tools/profile_prefill.py``: K2's grid, causal tile bound and
-tile staging with no math. The reference's output is garbage by design and
-is not matched: a load that nothing reads is deleted by nvcc, so K7a writes
-f32 checksums of every value it loads (plain version ``ops/attention.py
-paged_prefill_dmaonly``, which reproduces K2's block partition).
+``:797`` ``paged_prefill_dmaonly`` (``_kernel_dmaonly``), the
+null-hypothesis instrument of ``tools/profile_prefill.py``: K2's grid,
+causal tile bound and load stream (the ``cp.async`` ring and int8
+conversion; f32 pools: the FMA body's staging) with no math. The
+reference's output is garbage by design and is not matched: a load that
+nothing reads is deleted by nvcc, so K7a writes f32 checksums of every value
+it loads (plain version ``ops/attention.py paged_prefill_dmaonly``, which
+reproduces K2's block partition).
 """
 
 from __future__ import annotations
@@ -46,9 +54,7 @@ from dynamo_tpu_torch.ops.kernels.paged_attention import (
 )
 
 HEAD_DIMS = (64, 128)  # K2
-ROWS_PER_BLOCK = 64  # K2: (query, head) rows per block: Hq/Hkv must divide it
-FOLDED_HEADS = (16, 32, 64)  # K3b: Hq (16 heads a thread row, 1-4 of them)
-MAX_FOLDED_WIDTH = 512  # K3b: Hkv * D at most (the block's shared memory)
+ROWS_PER_BLOCK = 128  # K2, K3b, K7a: (query, head) rows per block: Hq/Hkv must divide it
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +73,12 @@ def _as_lanes(q, page_tables, positions):
     if q.dim() != 3 or q.shape[0] != N * T:
         raise ValueError(f"expected q [N*T={N * T}, Hq, D]; got {tuple(q.shape)}")
     return page_tables, positions
+
+
+def _check_group(Hq: int, Hkv: int, name: str) -> None:
+    if Hq % Hkv or ROWS_PER_BLOCK % (Hq // Hkv):
+        raise ValueError(f"{name} needs Hq a multiple of Hkv with Hq/Hkv dividing {ROWS_PER_BLOCK}; "
+                         f"got Hq={Hq}, Hkv={Hkv}")
 
 
 def _check_common(q, k, v, page_tables, positions, name: str) -> None:
@@ -93,8 +105,7 @@ def check_prefill_args(q, k_pages, v_pages, page_tables, positions, name: str = 
     _, ps, Hkv, Dk = k.shape
     if Dk != D or D not in HEAD_DIMS:
         raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}; got q D={D}, pool D={Dk}")
-    if Hq % Hkv or ROWS_PER_BLOCK % (Hq // Hkv):
-        raise ValueError(f"{name} needs Hq/Hkv dividing {ROWS_PER_BLOCK}; got Hq={Hq}, Hkv={Hkv}")
+    _check_group(Hq, Hkv, name)
     _check_common(q, k, v, page_tables, positions, name)
     return pools
 
@@ -110,11 +121,8 @@ def check_folded_prefill_args(q, k_pages, v_pages, page_tables, positions):
     _, Hq, D = q.shape
     if D not in FOLDED_HEAD_DIMS:
         raise ValueError(f"K3b takes head_dim in {FOLDED_HEAD_DIMS}; got {D}")
-    Hkv, F = folded_geometry(q, k)
-    if Hq not in FOLDED_HEADS or Hq % Hkv:
-        raise ValueError(f"K3b takes Hq in {FOLDED_HEADS}, a multiple of Hkv; got Hq={Hq}, Hkv={Hkv}")
-    if F > MAX_FOLDED_WIDTH:
-        raise ValueError(f"K3b takes Hkv*D <= {MAX_FOLDED_WIDTH}; got {F}")
+    Hkv, _ = folded_geometry(q, k)
+    _check_group(Hq, Hkv, "K3b")
     _check_common(q, k, v, page_tables, positions, "K3b")
     return pools
 
@@ -157,8 +165,8 @@ def paged_prefill_attention_kernel(q, k_pages, v_pages, page_tables, positions) 
 
 
 def paged_prefill_attention_folded_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """K3b: K2's contract at head_dim 16, 32 or 64 with Hq in 16, 32 or 64;
-    the pools may also be given folded, [P, ps, Hkv*D] (the same memory).
+    """K3b: K2's contract at head_dim 16, 32 or 64; the pools may also be
+    given folded, [P, ps, Hkv*D] (the same memory).
 
     Launches K3b or raises: CUDA tensors only."""
     if q.device.type != "cuda":

@@ -51,27 +51,29 @@ WORKLOADS = {
     "folded_int8": (lambda: folded_serve_config("int8"), folded_serve_requests,
                     TINYLLAMA_1_1B["num_layers"]),
 }
-# kernel class by a mark in its name; K3a and K5 count both of their launches
+# kernel class by a mark in its name; K3a and K5 count both of their launches.
+# K2 and K3b share their kernel bodies (tc_prefill_kernel, fma_prefill_kernel):
+# a folded workload's prefill kernels are K3b's launches
 KERNEL_MARKS = (
-    ("K1", "paged_decode_kernel"), ("K2", "paged_prefill_kernel"),
-    ("K3a", "folded_decode_"), ("K3b", "folded_prefill_kernel"),
-    ("K5", "mla_decode_"), ("K6", "mla_prefill"),
+    ("K1", "paged_decode_kernel"), ("K2", "_prefill_kernel"),
+    ("K3a", "folded_decode_"), ("K5", "mla_decode_"), ("K6", "mla_prefill"),
 )
 PREFILL_CLASSES = ("K2", "K3b", "K6")
 DECODE_STEP_KERNEL = {"K1": "paged_decode_kernel", "K3a": "folded_decode_partial", "K5": "mla_decode_partial"}
 
 
-def kernel_class(name: str) -> str:
+def kernel_class(name: str, folded: bool = False) -> str:
     for cls, mark in KERNEL_MARKS:
         if mark in name:
-            return cls
+            return "K3b" if folded and cls == "K2" else cls
     if any(m in name for m in GEMM_MARKS):
         return "gemm"
     return "other"
 
 
-def window_stats(kernels: list, lo: float, hi: float, top: int = 8) -> dict:
-    """Busy share and device time by class for kernels inside [lo, hi) (us)."""
+def window_stats(kernels: list, lo: float, hi: float, top: int = 8, folded: bool = False) -> dict:
+    """Busy share and device time by class for kernels inside [lo, hi) (us);
+    ``folded``: the workload's head_dim takes K3b for prefill."""
     inside = sorted((k for k in kernels if lo <= k["ts"] < hi), key=lambda k: k["ts"])
     busy, cur_s, cur_e = 0.0, None, None
     for k in inside:  # union of intervals
@@ -87,7 +89,7 @@ def window_stats(kernels: list, lo: float, hi: float, top: int = 8) -> dict:
     by_class: dict = {}
     by_name: dict = {}
     for k in inside:
-        c = kernel_class(k["name"])
+        c = kernel_class(k["name"], folded)
         by_class[c] = by_class.get(c, 0.0) + k["dur"]
         by_name[k["name"]] = by_name.get(k["name"], 0.0) + k["dur"]
     wall = hi - lo
@@ -151,8 +153,9 @@ def profile_workload(name: str, smi: str) -> dict:
     end = max(k["ts"] + k["dur"] for k in kernels)
     split = max((k["ts"] + k["dur"] for k in kernels if kernel_class(k["name"]) in PREFILL_CLASSES),
                 default=start)
-    prefill = window_stats(kernels, start, split)
-    decode = window_stats(kernels, split, end + 1)
+    folded = name == "folded_int8"
+    prefill = window_stats(kernels, start, split, folded=folded)
+    decode = window_stats(kernels, split, end + 1, folded=folded)
     marks = tuple(DECODE_STEP_KERNEL.values())
     step_launches = sum(1 for k in kernels if k["ts"] >= split and any(m in k["name"] for m in marks))
     steps = step_launches / layers

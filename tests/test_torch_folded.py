@@ -147,9 +147,11 @@ def test_folded_launchers_refuse_cpu_and_unsupported_shapes():
         paged_prefill_attention_folded_kernel(qp, kp, kp, pt[0], torch.arange(64, dtype=torch.int32))
     with pytest.raises(ValueError, match="Hq"):
         check_folded_prefill_args(qp[:, :24], kp, kp, pt[:1], torch.arange(64, dtype=torch.int32)[None])
+    wide = torch.zeros((5, 4, 16, 64))  # Hkv*D 1024: the tensor-core body takes any width
+    check_folded_prefill_args(qp, wide, wide, pt[:1], torch.arange(64, dtype=torch.int32)[None])
     with pytest.raises(ValueError, match="Hkv"):
-        wide = torch.zeros((5, 4, 16, 64))
-        check_folded_prefill_args(qp, wide, wide, pt[:1], torch.arange(64, dtype=torch.int32)[None])
+        odd = torch.zeros((5, 4, 3, 64))  # Hq 32 is no multiple of Hkv 3
+        check_folded_prefill_args(qp, odd, odd, pt[:1], torch.arange(64, dtype=torch.int32)[None])
     qi = tkv.init_quantized_pages((5, 4, 2, 64))
     check_folded_decode_args(q, qi, tkv.init_quantized_pages((5, 4, 2, 64)), pt, pos)
     with pytest.raises(ValueError, match="QuantizedPages"):

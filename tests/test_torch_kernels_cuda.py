@@ -247,6 +247,49 @@ def test_folded_prefill_kernel_matches_plain(cuda, qdt, kvdt, D, Hkv, Hq):
                                    msg=lambda m, j=j: f"lane {j}: {m}")
 
 
+# (kernel, D, Hq, Hkv, ps, T, lane starts; None: a pad lane) at the edges of
+# the 128-row block partition: profile_prefill's G 2 / ps 128, T no multiple
+# of the block's positions, prefixes ending mid-page so 64-key tiles cross
+# pages mid-tile, G 1 (128 positions a block) and G 8, K3b at D
+# 16 and 32
+PARTITION = [
+    ("K2", 128, 16, 8, 128, 200, (0, 700, None)),
+    ("K2", 128, 32, 8, 16, 75, (0, 37, None)),
+    ("K2", 128, 8, 8, 32, 150, (3, 301)),
+    ("K2", 64, 16, 2, 16, 100, (5, 300, None)),
+    ("K3b", 16, 16, 2, 16, 75, (0, 45, None)),
+    ("K3b", 32, 8, 4, 128, 90, (0, 200, None)),
+]
+
+
+@pytest.mark.parametrize("qdt,kvdt", MIXES, ids=MIX_IDS)
+@pytest.mark.parametrize("which,D,Hq,Hkv,ps,T,starts", PARTITION,
+                         ids=["k2-g2-ps128", "k2-ragged-t", "k2-g1", "k2-d64-g8", "k3b-d16", "k3b-d32-ps128"])
+def test_prefill_partition_edges(cuda, qdt, kvdt, which, D, Hq, Hkv, ps, T, starts):
+    kernel = paged_prefill_attention_kernel if which == "K2" else paged_prefill_attention_folded_kernel
+    rng = np.random.default_rng(D + Hq + ps + T)
+    max_pages = max(-(-((s or 0) + T) // ps) for s in starts) + 1
+    P = len(starts) * max_pages + 1
+    k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
+    q = torch.from_numpy(rng.standard_normal((len(starts) * T, Hq, D)).astype(np.float32)).to(cuda, qdt)
+    pt_np = np.zeros((len(starts), max_pages), np.int32)
+    perm = rng.permutation(np.arange(1, P))
+    for j, s in enumerate(starts):
+        if s is not None:
+            pt_np[j] = perm[j * max_pages : (j + 1) * max_pages]
+    pt = torch.from_numpy(pt_np).to(cuda)
+    pos = torch.stack([torch.arange(s or 0, (s or 0) + T, dtype=torch.int32) for s in starts]).to(cuda)
+    before = kernel.launches
+    got = kernel(q, k, v, pt, pos)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.dtype == qdt
+    assert torch.isfinite(got.float()).all()
+    for j in range(len(starts)):
+        ref = tatt.paged_prefill_attention(q[j * T : (j + 1) * T], k, v, pt[j], pos[j])
+        torch.testing.assert_close(got[j * T : (j + 1) * T].float(), ref.float(), **TOL[qdt],
+                                   msg=lambda m, j=j: f"lane {j}: {m}")
+
+
 def test_launchers_raise_on_what_the_kernels_do_not_take(cuda):
     """Unsupported head dims, dtypes and pool mixes raise on CUDA tensors;
     nothing falls back to a plain version."""

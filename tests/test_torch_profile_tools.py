@@ -150,3 +150,19 @@ def test_roofline_for_runner_prices_the_reference_model():
     ref = jax_roofline_for_runner(JaxRunner, cfg)
     assert (got.param_bytes, got.param_count, got.page_bytes, got.page_size) == \
         (ref.param_bytes, ref.param_count, ref.page_bytes, ref.page_size)
+
+
+@pytest.mark.parametrize("body", ["tc_prefill_kernel<__nv_bfloat16, 64>", "fma_prefill_kernel<float, 64>",
+                                  "tc_prefill_kernel<signed char, 128>"])
+def test_profile_serve_classes_the_shared_prefill_bodies(body):
+    """K2 and K3b share their kernel bodies: profile_serve counts a prefill
+    body as K2 in a Llama workload and as K3b in a folded one, and never as
+    another class."""
+    from dynamo_tpu_torch.tools.profile_serve import PREFILL_CLASSES, kernel_class, window_stats
+
+    name = f"void (anonymous namespace)::{body}(...)"
+    assert kernel_class(name) == "K2" and kernel_class(name, folded=True) == "K3b"
+    assert kernel_class("void (anonymous namespace)::mla_prefill<__nv_bfloat16>(...)", folded=True) == "K6"
+    kernels = [dict(name=name, ts=0.0, dur=10.0)]
+    assert window_stats(kernels, 0.0, 20.0, folded=True)["device_ms_by_class"] == {"K3b": 0.01}
+    assert {"K2", "K3b"} <= set(PREFILL_CLASSES)

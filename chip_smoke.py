@@ -12,7 +12,9 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      PyTorch versions (B 64, ps 16, ragged contexts 1..2048, inactive slots,
      a row at position -1; K1 at Hq 32 / Hkv 8 / D 128, K3a at TinyLlama's
      Hq 32 / Hkv 4 / D 64) in three mixes: f32, bf16, and bf16 queries over
-     the int8 cache; kernel / plain / SDPA times and the bound
+     the int8 cache; kernel / plain / SDPA times and the bound; the SASS of
+     K3a's and K4b's tensor-core instances must hold HMMA (mma.sync) and no
+     local memory
   4. K2 chunked-prefill flash and K3b the same way (512-row lanes at cached
      prefixes 0 and 1024, plus a pad lane, in one launch), with achieved
      TFLOP/s and share of the bound; the SASS of their bf16-query instances
@@ -25,13 +27,17 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      and 1536)
   7. the decode variants at K1's shapes and again at the profilers' (Hq 16
      / Hkv 8 / D 128, ps 128: the reference bench's 1.3B shape), f32 and
-     bf16: K4a (chunked), K4b (grouped) and K7c without cast_f32 against
-     their plain versions, K7c with cast_f32 against K1's; the load-only
+     bf16: K4a (chunked), K4b (grouped; launched twice, the same bits) and
+     K7c without cast_f32 against their plain versions, K7c with cast_f32
+     against K1's; the load-only
      twins K7b (at both) and K7a (at K2's shapes and at profile_prefill's
      512-row chunk after a 2560-row prefix, also over int8) against the
      checksums of their plain versions, exactly (pools of multiples of 1/8,
      whose f32 sums are exact in any order); kernel / plain / SDPA times and
-     the bound over the rows each sequence reads
+     the bound over the rows each sequence reads; then the widened head
+     geometries at small sizes (WIDENED: K1 / K2 at G 7 and 6, K3a / K3b at
+     D 96 with G 3, D 80 and D 8, K5 / K6 at 4 heads), each held to its
+     plain version
   8. serve paths (tools/workload.py: 16 concurrent greedy requests of
      64-2048 prompt tokens and 64 output tokens, bf16, seeded random
      weights, full width and depth); every stream must finish with exactly
@@ -60,8 +66,14 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      prefill split, K2 held to its plain version and K7a to its checksum,
      then timed against each other); every variant must pass
 
-Then a {"kernels": [...]} summary line, and as the last line
-{"ok": true, "device": {...}}. The script imports nothing of JAX.
+Kernel and SDPA times are device times (``ms``, ``library_ms``: the
+host's enqueueing hidden behind a sleep kernel), each beside its back-to-back
+time (``b2b_ms``, ``library_b2b_ms``: the host's enqueueing counts where it
+is the longer) and the host's time to enqueue one call (``host_ms``,
+``library_host_ms``); the plain versions' are back-to-back times
+(``cuda_ms``). Then a {"kernels": [...]}
+summary line, and as the last line {"ok": true, "device": {...}}. The
+script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -88,9 +100,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def lap(what: str, since: float) -> float:
+    """Log the seconds ``what`` took since ``since``; returns now."""
+    now = time.monotonic()
+    log(f"time: {what} {now - since:.1f} s")
+    return now
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
-    events, after warm-up)."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls (CUDA events,
+    after warm-up), the host's enqueueing included where it is the longer:
+    the plain versions' timer, since some of their ops wait for the device
+    (a CPU scalar copied to the card), which a sleep kernel cannot hide."""
     import torch
 
     for _ in range(2):
@@ -104,6 +125,19 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed(fn, iters: int, key: str = "") -> dict:
+    """Times of ``fn`` over ``iters`` calls, after as many warm-up calls
+    (``tools/timing.py launch_times``), in ms under ``key`` + "ms" (device
+    time: the host's enqueueing hidden behind a sleep kernel, so a launcher's
+    Python time does not count as its kernel's), + "b2b_ms" (back to back
+    with nothing in front: the host's enqueueing counts where it is the
+    longer) and + "host_ms" (the host's enqueueing of one call)."""
+    from dynamo_tpu_torch.tools.timing import launch_times
+
+    dev_us, b2b_us, host_us = launch_times(lambda i: fn(), iters)
+    return {f"{key}ms": dev_us / 1e3, f"{key}b2b_ms": b2b_us / 1e3, f"{key}host_ms": host_us / 1e3}
 
 
 def held_to_plain(what: str, dtype: str, got, ref, tol: str | None = None) -> dict:
@@ -195,12 +229,13 @@ def mix_pools(torch, k32, v32, qdt, kind):
     return k, v, dense[0], dense[1], 1, 4
 
 
-def decode_case(torch, dev, rng, Hq: int, Hkv: int, D: int, ps: int = 16) -> dict:
+def decode_case(torch, dev, rng, Hq: int, Hkv: int, D: int, ps: int = 16, B: int = 64, rows: int = 2048) -> dict:
     """K1's check inputs: B 64, page size ``ps``, ragged contexts 1..2048 in
     distinct pages, 6 inactive slots (trash tables, position 0) and a row at
     position -1; f32 pools, queries, the SDPA mask, and the rows each
-    sequence reads (``live_len``)."""
-    B, max_pages = 64, 2048 // ps
+    sequence reads (``live_len``). ``B`` (at least 9) and ``rows`` make it
+    smaller."""
+    max_pages = rows // ps
     lengths = rng.integers(1, max_pages * ps + 1, B)
     lengths[:2] = (1, max_pages * ps)
     inactive = np.zeros(B, bool)
@@ -232,13 +267,14 @@ def decode_case(torch, dev, rng, Hq: int, Hkv: int, D: int, ps: int = 16) -> dic
     )
 
 
-def sdpa_decode_ms(torch, plain, case, q, kd, vd) -> float:
-    """Yardstick only: one SDPA call over the gathered, masked context."""
+def sdpa_decode_times(torch, plain, case, q, kd, vd) -> dict:
+    """Yardstick only: one SDPA call over the gathered, masked context
+    (``timed``'s library_ times)."""
     kc = plain.gather_pages(kd, case["pt_t"]).permute(0, 2, 1, 3).contiguous()  # [B, Hkv, S, D]
     vc = plain.gather_pages(vd, case["pt_t"]).permute(0, 2, 1, 3).contiguous()
     qs = q.to(kc.dtype)[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return cuda_ms(lambda: sdpa(qs, kc, vc, attn_mask=case["mask"], enable_gqa=True), 20)
+    return timed(lambda: sdpa(qs, kc, vc, attn_mask=case["mask"], enable_gqa=True), 20, "library_")
 
 
 def decode_bound(case, q, Hkv: int, kv_bytes: int, scale_bytes: int, tol: str) -> tuple[float, str, float]:
@@ -267,7 +303,7 @@ def check_decode(torch, dev, rng, which: str) -> dict:
     extra = ""
     if which == "K3a":
         blocks = sum(-(-int(n) // pa.SPLIT_ROWS) for n in live_len)
-        extra = f"; {blocks} split blocks of {pa.FOLDED_THREADS} threads + {B * Hq} merge blocks"
+        extra = f"; {blocks} split blocks + {B * -(-Hq // 8)} merge blocks"
     res = {}
     for name, qdt_name, kind in MIXES:
         qdt = getattr(torch, qdt_name)
@@ -277,14 +313,16 @@ def check_decode(torch, dev, rng, which: str) -> dict:
         ref = plain.paged_decode_attention(q, k, v, pt_t, pos_t)
         tol = "f32" if qdt == torch.float32 else "bf16"
         held = held_to_plain(f"{which} paged decode", name, got, ref, tol)
-        ms = cuda_ms(lambda: kernel(q, k, v, pt_t, pos_t), 50)
+        kt = timed(lambda: kernel(q, k, v, pt_t, pos_t), 50)
         plain_ms = cuda_ms(lambda: plain.paged_decode_attention(q, k, v, pt_t, pos_t), 5)
-        lib_ms = sdpa_decode_ms(torch, plain, case, q, kd, vd)
+        lt = sdpa_decode_times(torch, plain, case, q, kd, vd)
+        ms, lib_ms = kt["ms"], lt["library_ms"]
         b_ms, b_by, nbytes = decode_bound(case, q, Hkv, kv_bytes, scale_bytes, tol)
         note = " (SDPA over the dequantized bf16 context, dequantization untimed)" if kind == "int8" else ""
-        log(f"{which} paged decode {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms{note}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB){extra}")
-        res[name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"{which} paged decode {name}: kernel {ms:.4f} ms (back to back {kt['b2b_ms']:.4f}, host "
+            f"{kt['host_ms']:.4f}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (back to back "
+            f"{lt['library_b2b_ms']:.4f}){note}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB){extra}")
+        res[name] = dict(**held, **kt, plain_ms=plain_ms, **lt, bound_ms=b_ms, bound_by=b_by)
     return res
 
 
@@ -328,12 +366,14 @@ def check_prefill(torch, dev, rng, which: str) -> dict:
         ref = plain.paged_prefill_attention_lanes(q, k, v, pt_t, pos_t)
         tol = "f32" if qdt == torch.float32 else "bf16"
         held = held_to_plain(f"{which} prefill flash", name, got, ref, tol)
-        ms = cuda_ms(lambda: kernel(q, k, v, pt_t, pos_t), 20)
+        kt = timed(lambda: kernel(q, k, v, pt_t, pos_t), 20)
+        ms = kt["ms"]
         plain_ms = cuda_ms(lambda: plain.paged_prefill_attention_lanes(q, k, v, pt_t, pos_t), 3)
         kc = plain.gather_pages(kd, pt_t).permute(0, 2, 1, 3).contiguous()  # [3, Hkv, S, D]
         vc = plain.gather_pages(vd, pt_t).permute(0, 2, 1, 3).contiguous()
         qs = q.to(kc.dtype).reshape(3, T, Hq, D).permute(0, 2, 1, 3)
-        lib_ms = cuda_ms(lambda: sdpa(qs, kc, vc, attn_mask=mask, enable_gqa=True), 10)
+        lt = timed(lambda: sdpa(qs, kc, vc, attn_mask=mask, enable_gqa=True), 10, "library_")
+        lib_ms = lt["library_ms"]
         itemsize = q.element_size()
         nbytes = (ctx_tokens * (Hkv * D * kv_bytes + scale_bytes) * 2 + 2 * real.size * Hq * D * itemsize
                   + pt.nbytes + pos.nbytes)
@@ -344,13 +384,14 @@ def check_prefill(torch, dev, rng, which: str) -> dict:
             f"sdpa {lib_ms:.4f} ms{note}, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP in the "
             f"real lanes, pad lane {4 * Hq * D * pad_pairs / 1e9:.2f} GFLOP more); achieved "
             f"{flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound")
-        res[name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        res[name] = dict(**held, **kt, plain_ms=plain_ms, **lt, bound_ms=b_ms, bound_by=b_by)
     return res
 
 
-def sass_hgmma(lib) -> dict:
-    """{kernel function: HGMMA instructions} in ``cuobjdump -sass`` of a
-    built library: the tensor-core (wgmma) instructions each instance runs."""
+def sass_count(lib, pattern: str) -> dict:
+    """{kernel function: instructions matching the regex ``pattern``} in
+    ``cuobjdump -sass`` of a built library (HGMMA: wgmma on the tensor
+    cores; HMMA: mma.sync; LDL / STL: local memory, i.e. spills)."""
     import re
     import subprocess
 
@@ -364,7 +405,7 @@ def sass_hgmma(lib) -> dict:
         if m:
             fn = m.group(1)
             counts[fn] = 0
-        elif fn and "HGMMA" in line:
+        elif fn and re.search(pattern, line):
             counts[fn] += 1
     return counts
 
@@ -375,15 +416,35 @@ def check_prefill_sass() -> dict:
     f32-query FMA body none. Returns {instance: HGMMA count}."""
     from dynamo_tpu_torch.ops.kernels import _build
 
-    counts = sass_hgmma(_build.library_path("prefill_attention"))
+    counts = sass_count(_build.library_path("prefill_attention"), r"\bHGMMA\b")
     tc = {fn: n for fn, n in counts.items() if "tc_prefill_kernel" in fn}
     fma = {fn: n for fn, n in counts.items() if "fma_prefill_kernel" in fn}
     log("prefill SASS: HGMMA in " + ", ".join(f"{fn} {n}" for fn, n in sorted(tc.items()))
         + f"; FMA body instances {sorted(fma.values())}")
-    # tc_prefill_kernel<bf16 | int8, D 16 | 32 | 64 | 128>: K2 and K3b share D 64
-    if len(tc) != 8 or min(tc.values()) <= 0 or any(fma.values()):
+    # tc_prefill_kernel<bf16 | int8, DP 16, 32, ..., 128>: K2 and K3b share 64 and 128
+    if len(tc) != 16 or min(tc.values()) <= 0 or any(fma.values()):
         raise AssertionError(f"prefill SASS: tensor-core instances {tc}, FMA instances {fma}")
     return tc
+
+
+def check_decode_sass() -> dict:
+    """K3a's and K4b's tensor-core bodies run mma.sync: HMMA in the SASS of
+    every instance (folded_decode_tc<bf16 | int8, DP 16..128>; grouped_scores
+    and grouped_pv at D 64, 128), and no local memory (LDL / STL: no
+    spills) in them. Returns {instance: HMMA count}."""
+    from dynamo_tpu_torch.ops.kernels import _build
+
+    found = {}
+    for lib, mark, want in (("paged_attention", "folded_decode_tc", 16), ("decode_variants", "grouped_", 4)):
+        path = _build.library_path(lib)
+        hmma = {fn: n for fn, n in sass_count(path, r"\bHMMA\b").items() if mark in fn}
+        local = {fn: n for fn, n in sass_count(path, r"\b(LDL|STL)\b").items() if mark in fn and n}
+        log(f"{lib} SASS: HMMA in " + ", ".join(f"{fn} {n}" for fn, n in sorted(hmma.items()))
+            + f"; local-memory instructions {local or 'none'}")
+        if len(hmma) != want or min(hmma.values()) <= 0 or local:
+            raise AssertionError(f"{lib} SASS: {mark} instances {hmma}, local memory {local}")
+        found |= hmma
+    return found
 
 
 # ---------------------------------------------------------------- K4a, K4b, K7a-c
@@ -429,30 +490,34 @@ def check_decode_variants(torch, dev, rng, geometry: str) -> dict:
     for name, qdt_name, _ in MIXES[:2]:
         qdt = getattr(torch, qdt_name)
         q, k, v = case["q32"].to(qdt), case["k32"].to(qdt), case["v32"].to(qdt)
-        lib_ms = sdpa_decode_ms(torch, plain, case, q, k, v)
+        lt = sdpa_decode_times(torch, plain, case, q, k, v)
+        lib_ms = lt["library_ms"]
         b_ms, b_by, nbytes = decode_bound(case, q, Hkv, k.element_size(), 0, name)
         for which, (kernel, ref_fn) in kernels.items():
-            held = held_to_plain(f"{which} {at}", name, kernel(q, k, v, pt_t, pos_t), ref_fn(q, k, v, pt_t, pos_t),
-                                 name)
-            ms = cuda_ms(lambda: kernel(q, k, v, pt_t, pos_t), 50)
+            got = kernel(q, k, v, pt_t, pos_t)
+            held = held_to_plain(f"{which} {at}", name, got, ref_fn(q, k, v, pt_t, pos_t), name)
+            if which == "K4b" and not torch.equal(got, kernel(q, k, v, pt_t, pos_t)):
+                raise AssertionError(f"K4b {at} {name}: two launches on the same inputs differ")
+            kt = timed(lambda: kernel(q, k, v, pt_t, pos_t), 50)
             plain_ms = cuda_ms(lambda: ref_fn(q, k, v, pt_t, pos_t), 3)
-            log(f"{which} decode {at} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB)")
-            res[which][name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                                    bound_by=b_by)
+            log(f"{which} decode {at} {name}: kernel {kt['ms']:.4f} ms (back to back {kt['b2b_ms']:.4f}, host "
+                f"{kt['host_ms']:.4f}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (back to back "
+                f"{lt['library_b2b_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB)")
+            res[which][name] = dict(**held, **kt, plain_ms=plain_ms, **lt, bound_ms=b_ms, bound_by=b_by)
         # K7b over exact pools of the same shape and tables
         ke, ve = exact_pools(tuple(case["k32"].shape), qdt_name, dev)
         twin = pa.paged_decode_dmaonly_kernel
         held = held_exactly(f"K7b decode twin {at}", name, twin(q, ke, ve, pt_t, pos_t),
                             plain.paged_decode_dmaonly(q, ke, ve, pt_t, pos_t))
-        ms = cuda_ms(lambda: twin(q, ke, ve, pt_t, pos_t), 50)
+        kt = timed(lambda: twin(q, ke, ve, pt_t, pos_t), 50)
+        ms = kt["ms"]
         plain_ms = cuda_ms(lambda: plain.paged_decode_dmaonly(q, ke, ve, pt_t, pos_t), 5)
         live = int(case["live_len"].sum())
         tw_bytes = live * Hkv * D * ke.element_size() * 2 + q.numel() * 4 + case["pt"].nbytes + case["pos"].nbytes
         tb_ms, tb_by = bound(tw_bytes, 2 * Hkv * D * live, "f32")  # K + V, then the running sum
         log(f"K7b decode twin {at} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {tb_ms:.4f} ms "
             f"({tb_by}; {tw_bytes / 1e6:.1f} MB); K1's load stream without its math")
-        res["K7b"][name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=tb_ms, bound_by=tb_by)
+        res["K7b"][name] = dict(**held, **kt, plain_ms=plain_ms, library_ms=None, bound_ms=tb_ms, bound_by=tb_by)
     return res
 
 
@@ -490,7 +555,8 @@ def check_prefill_twin(torch, dev, rng, geometry: str) -> dict:
         k, v = exact_pools((P, ps, Hkv, D), qdt_name if kind == "plain" else "int8", dev)
         held = held_exactly(f"K7a prefill twin {at}", name, twin(q, k, v, pt_t, pos_t),
                             plain.paged_prefill_dmaonly(q, k, v, pt_t, pos_t))
-        ms = cuda_ms(lambda: twin(q, k, v, pt_t, pos_t), 20)
+        kt = timed(lambda: twin(q, k, v, pt_t, pos_t), 20)
+        ms = kt["ms"]
         plain_ms = cuda_ms(lambda: plain.paged_prefill_dmaonly(q, k, v, pt_t, pos_t), 3)
         kv_bytes, scale_bytes = (1, 4) if kind == "int8" else (q.element_size(), 0)
         nbytes = ctx_tokens * (Hkv * D * kv_bytes + scale_bytes) * 2 + real.size * Hq * D * 4 + pt.nbytes + pos.nbytes
@@ -498,7 +564,7 @@ def check_prefill_twin(torch, dev, rng, geometry: str) -> dict:
         b_ms, b_by = bound(nbytes, ops, "f32")
         log(f"K7a prefill twin {at} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}; {nbytes / 1e6:.1f} MB); K2's load stream without its math")
-        res[name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        res[name] = dict(**held, **kt, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
     return res
 
 
@@ -549,7 +615,8 @@ def check_mla_decode(torch, dev, rng) -> dict:
         got = k5(q, pages, pt_t, pos_t, dc)
         ref = plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc)
         held = held_to_plain("K5 MLA decode", f"f32 q / {name} pages", got, ref, tol="f32")
-        ms = cuda_ms(lambda: k5(q, pages, pt_t, pos_t, dc), 50)
+        kt = timed(lambda: k5(q, pages, pt_t, pos_t, dc), 50)
+        ms = kt["ms"]
         plain_ms = cuda_ms(lambda: plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc), 5)
         # yardstick only: one SDPA call on the gathered latent context (keys
         # the 576-wide rows, values their first 512 columns, one kv head)
@@ -564,14 +631,15 @@ def check_mla_decode(torch, dev, rng) -> dict:
                 qs, ctx, vc, attn_mask=mask, scale=1.0, enable_gqa=True)
 
         backends = sdpa_backends(sdpa)
-        lib_ms = cuda_ms(sdpa, 10)
+        lt = timed(sdpa, 10, "library_")
+        lib_ms = lt["library_ms"]
         nbytes = int(live.sum()) * L * pages.element_size() + q.numel() * 4 + B * H * dc * 4 + pt.nbytes + pos.nbytes
         flops = 2 * H * (L + dc) * int(live.sum())
         b_ms, b_by = bound(nbytes, flops, "f32")
         log(f"K5 MLA decode f32 q / {name} pages: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms (backends taking it: {backends}), bound {b_ms:.4f} ms ({b_by}; "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        res[name] = dict(**held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        res[name] = dict(**held, **kt, plain_ms=plain_ms, **lt, bound_ms=b_ms, bound_by=b_by)
     return res
 
 
@@ -595,7 +663,8 @@ def check_mla_prefill(torch, dev, rng) -> dict:
             ref = plain.paged_mla_prefill_attention(qs[c], pages, pt, pos[c], dc)
             helds.append(held_to_plain(f"K6 MLA prefill (prefix {s})", f"f32 q / {name} pages", got, ref,
                                        tol="f32"))
-        ms = cuda_ms(lambda: [k6(qs[c], pages, pt, pos[c], dc) for c in range(2)], 20)
+        kt = timed(lambda: [k6(qs[c], pages, pt, pos[c], dc) for c in range(2)], 20)
+        ms = kt["ms"]
         plain_ms = cuda_ms(lambda: [plain.paged_mla_prefill_attention(qs[c], pages, pt, pos[c], dc)
                                     for c in range(2)], 3)
         S = max_pages * ps
@@ -609,7 +678,8 @@ def check_mla_prefill(torch, dev, rng) -> dict:
                 q4[c], ctx, vc, attn_mask=masks[c], scale=1.0, enable_gqa=True) for c in range(2)]
 
         backends = sdpa_backends(sdpa)
-        lib_ms = cuda_ms(sdpa, 5)
+        lt = timed(sdpa, 5, "library_")
+        lib_ms = lt["library_ms"]
         rows = sum(s + T for s in starts)  # context rows each chunk reads
         pairs = sum(int((p.long() + 1).sum()) for p in pos)
         nbytes = rows * L * pages.element_size() + 2 * T * H * (L + dc) * 4 + 2 * (pt_np[0].nbytes + T * 4)
@@ -619,15 +689,97 @@ def check_mla_prefill(torch, dev, rng) -> dict:
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (backends taking it: {backends}), bound "
             f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP)")
         res[name] = dict(max_abs_err=max(h["max_abs_err"] for h in helds),
-                         tol_share=max(h["tol_share"] for h in helds), ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                         tol_share=max(h["tol_share"] for h in helds), **kt, plain_ms=plain_ms, **lt,
+                         bound_ms=b_ms, bound_by=b_by)
+    return res
+
+
+# The head geometries the launchers were widened to, at small sizes: GQA
+# groups of 7 (Qwen2-VL's 28 / 4) and 6 (12 / 2) on K1 and K2; folded head
+# dims 96 (G 3), 80 and 8 on K3a and K3b; 4 MLA heads (the reference's
+# tiny-mla) on K5 and K6. (name, Hq, Hkv, D) or, for MLA, (name, H).
+WIDENED = {
+    "K1": (("G7", 28, 4, 128), ("G6", 12, 2, 128)),
+    "K2": (("G7", 28, 4, 128), ("G6", 12, 2, 128)),
+    "K3a": (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8)),
+    "K3b": (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8)),
+    "K5": (("H4", 4),),
+    "K6": (("H4", 4),),
+}
+
+
+def check_widened(torch, dev, rng) -> dict:
+    """Every WIDENED shape launches on the card and is held to its plain
+    version: K1 / K3a at B 12 (ragged contexts up to 512 rows, inactive
+    slots, a row at -1) and K2 / K3b on two 96-row lanes (from 0, after a
+    200-row prefix) and a pad lane, in every mix; K5 / K6 at H 4 over bf16
+    pages. Returns {kernel: {shape: largest share of the limit}}."""
+    from dynamo_tpu_torch.ops import attention as plain
+    from dynamo_tpu_torch.ops.kernels import mla_attention as mla
+    from dynamo_tpu_torch.ops.kernels import paged_attention as pa
+    from dynamo_tpu_torch.ops.kernels import prefill_attention as pf
+
+    res = {name: {} for name in WIDENED}
+    for which, kernel in (("K1", pa.paged_decode_attention_kernel), ("K3a", pa.paged_decode_attention_folded_kernel)):
+        for shape, Hq, Hkv, D in WIDENED[which]:
+            case = decode_case(torch, dev, rng, Hq, Hkv, D, B=12, rows=512)
+            shares = []
+            for name, qdt_name, kind in MIXES:
+                qdt = getattr(torch, qdt_name)
+                q = case["q32"].to(qdt)
+                k, v = mix_pools(torch, case["k32"], case["v32"], qdt, kind)[:2]
+                got = kernel(q, k, v, case["pt_t"], case["pos_t"])
+                ref = plain.paged_decode_attention(q, k, v, case["pt_t"], case["pos_t"])
+                shares.append(held_to_plain(f"{which} {shape}", name, got, ref,
+                                            "f32" if qdt == torch.float32 else "bf16")["tol_share"])
+            res[which][shape] = max(shares)
+    T, ps, max_pages = 96, 16, 24
+    for which, kernel in (("K2", pf.paged_prefill_attention_kernel), ("K3b", pf.paged_prefill_attention_folded_kernel)):
+        for shape, Hq, Hkv, D in WIDENED[which]:
+            P = 1 + 2 * max_pages
+            pt = np.zeros((3, max_pages), np.int32)
+            pt[:2] = (1 + rng.permutation(P - 1)).reshape(2, max_pages)
+            pt_t = torch.from_numpy(pt).to(dev)
+            pos_t = torch.from_numpy(np.stack([s + np.arange(T) for s in (0, 200, 0)]).astype(np.int32)).to(dev)
+            k32, v32 = (torch.randn((P, ps, Hkv, D), device=dev) for _ in range(2))
+            q32 = torch.randn((3 * T, Hq, D), device=dev)
+            shares = []
+            for name, qdt_name, kind in MIXES:
+                qdt = getattr(torch, qdt_name)
+                q = q32.to(qdt)
+                k, v = mix_pools(torch, k32, v32, qdt, kind)[:2]
+                got = kernel(q, k, v, pt_t, pos_t)
+                ref = plain.paged_prefill_attention_lanes(q, k, v, pt_t, pos_t)
+                shares.append(held_to_plain(f"{which} {shape}", name, got, ref,
+                                            "f32" if qdt == torch.float32 else "bf16")["tol_share"])
+            res[which][shape] = max(shares)
+    for shape, H in WIDENED["K5"]:
+        B, max_pages = 12, 32
+        lengths = rng.integers(1, max_pages * ps + 1, B)
+        lengths[0] = max_pages * ps  # its table holds the prefill chunk's context too
+        pt, P = mla_tables(rng, lengths, ps, max_pages)
+        pos = (lengths - 1).astype(np.int32)
+        pos[-1] = -1
+        pt_t, pos_t = torch.from_numpy(pt).to(dev), torch.from_numpy(pos).to(dev)
+        pages = torch.randn((P, ps, MLA_LATENT), device=dev).bfloat16()
+        q = torch.randn((B, H, MLA_LATENT), device=dev) / MLA_LATENT**0.5
+        got = mla.paged_mla_decode_attention_kernel(q, pages, pt_t, pos_t, MLA_DC)
+        ref = plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, MLA_DC)
+        res["K5"][shape] = held_to_plain(f"K5 {shape}", "f32 q / bf16 pages", got, ref, "f32")["tol_share"]
+        qp = torch.randn((T, H, MLA_LATENT), device=dev) / MLA_LATENT**0.5
+        pos_p = torch.arange(200, 200 + T, dtype=torch.int32, device=dev)
+        got = mla.paged_mla_prefill_attention_kernel(qp, pages, pt_t[0], pos_p, MLA_DC)
+        ref = plain.paged_mla_prefill_attention(qp, pages, pt_t[0], pos_p, MLA_DC)
+        res["K6"][shape] = held_to_plain(f"K6 {shape}", "f32 q / bf16 pages", got, ref, "f32")["tol_share"]
+    log("widened shapes, largest share of the limit: " + "; ".join(
+        f"{k} " + ", ".join(f"{s} {v:.3f}" for s, v in shapes.items()) for k, shapes in res.items()))
     return res
 
 
 def phase_refusals(torch, dev) -> None:
     """What the port does not take raises on the card and falls back to
     nothing: an int8 cache on the MLA family, and K3a/K3b launches on a head
-    dim or query dtype they do not take."""
+    dim (no multiple of 8) or query dtype they do not take."""
     from dynamo_tpu_torch.models.registry import load_model
     from dynamo_tpu_torch.ops import attention as att
 
@@ -635,8 +787,8 @@ def phase_refusals(torch, dev) -> None:
     pos = torch.zeros(2, dtype=torch.int32, device=dev)
     cases = {
         "tiny-mla with an int8 KV cache": lambda: load_model("tiny-mla", device="cuda", kv_cache_dtype="int8"),
-        "K3a at head_dim 96": lambda: att.dispatch_paged_decode_attention(
-            torch.zeros((2, 8, 96), device=dev), *[torch.zeros((5, 16, 2, 96), device=dev)] * 2, pt, pos),
+        "K3a at head_dim 100": lambda: att.dispatch_paged_decode_attention(
+            torch.zeros((2, 8, 100), device=dev), *[torch.zeros((5, 16, 2, 100), device=dev)] * 2, pt, pos),
         "K3b over float16": lambda: att.dispatch_paged_prefill_attention(
             torch.zeros((16, 32, 64), device=dev, dtype=torch.float16),
             *[torch.zeros((5, 16, 4, 64), device=dev, dtype=torch.float16)] * 2, pt[0], pos.repeat(8)),
@@ -1000,7 +1152,10 @@ def main() -> int:
     t0 = time.monotonic()
     _build.build(["paged_attention", "prefill_attention", "mla_attention", "decode_variants"])
     log(f"build: four kernel sources in {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
     check_prefill_sass()
+    check_decode_sass()
+    t0 = lap("SASS checks", t0)
 
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
@@ -1013,6 +1168,9 @@ def main() -> int:
     # the variants again at the profilers' shapes (G 2, page size 128)
     bench = check_decode_variants(torch, dev, rng, "bench")
     bench["K7a"] = check_prefill_twin(torch, dev, rng, "bench")
+    t0 = lap("kernel checks", t0)
+    widened = check_widened(torch, dev, rng)  # last: the seeded inputs of the checks above do not depend on it
+    t0 = lap("widened checks", t0)
     # each serve path runs with the counts set to 0 just before it and read
     # just after it: {path: {kernel: launches}}
     paged, folded = {"K1": k1, "K2": k2}, {"K3a": k3a, "K3b": k3b}
@@ -1036,6 +1194,7 @@ def main() -> int:
                                      {"K1": k1, "K3a": k3a, "K3b": k3b, "K4a" if name == "K4b" else "K4b": other})
         if runs[what][name] != runs["serve"]["K1"]:
             raise AssertionError(f"{what}: {name} launched {runs[what][name]} times, K1 {runs['serve']['K1']} in serve")
+    t0 = lap("serve paths", t0)
     phase_refusals(torch, dev)
     phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B)
     phase_engine_vs_naive(torch, rng, "TinyLlama geometry", TINYLLAMA_1_1B)
@@ -1043,7 +1202,9 @@ def main() -> int:
     phase_mla_vs_naive(torch, rng)
     phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B, decode_kernel="chunked", launcher=k4a)
     phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B, decode_kernel="grouped", launcher=k4b)
+    t0 = lap("refusals and greedy parity", t0)
     runs["instruments"] = phase_instruments(torch, {"K7a": k7a, "K7b": k7b, "K7c": k7c})["launches"]
+    lap("instruments", t0)
 
     csrc = "dynamo_tpu_torch/ops/kernels/csrc/"
     pallas = "dynamo_tpu/ops/pallas/"
@@ -1081,6 +1242,8 @@ def main() -> int:
                      launches=runs[path][key], **row[key]["bf16"])
         if int8_path:
             entry["int8"] = dict(launches=runs[int8_path][key], **checks[key]["int8"])
+        if key in widened:  # {shape: largest share of the limit over the mixes}
+            entry["widened"] = widened[key]
         if key in bench:
             entry["check_shapes" if key in on_bench else "bench_shapes"] = other[key]
         # checked here, not on a path: K7a over the int8 cache (the profiler

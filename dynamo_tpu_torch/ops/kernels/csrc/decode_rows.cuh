@@ -1,10 +1,12 @@
-// Row-group helpers of the register-resident paged decode kernels (K1 and
-// K3a in paged_attention.cu; K4a, K4b, K7b and K7c in decode_variants.cu): a
+// Row-group helpers of the register-resident paged decode kernels (K1 in
+// paged_attention.cu; K4a, K7b and K7c in decode_variants.cu): a
 // row group of D / RowVec<TK>::N lanes reads one token's slice of one kv
 // head straight from HBM into registers, several tokens in flight (U), and
 // computes G heads' scores of it or folds it into their online-softmax
 // states. One copy of the paged-row addressing (token_row) and of the score
-// reduction (head_scores) serves them all.
+// reduction (head_scores) serves them all. Also shared by the decode
+// kernels: warp reductions, the head sub-group rule of K1 / K4a / K7c, and
+// merge_splits, the split-K merge of K3a and K4b.
 #pragma once
 
 #include <type_traits>
@@ -134,6 +136,78 @@ __device__ __forceinline__ void consume_rows(const RowLoads<TK, U>& r, const flo
 
 __device__ __forceinline__ int decode_ctx(const int* positions, int b, int cap) {
   return min(max(positions[b] + 1, 1), cap);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The largest of 8..1 that divides G: the query heads a decode block of K1,
+// K4a or K7c holds (G <= 8: all of them). For G > 8 the kv head's G / sub
+// sub-groups go to blocks of their own, each of which re-reads the kv head's
+// rows.
+__host__ __device__ inline int head_subgroup(int G) {
+  for (int sg = 8; sg > 1; --sg)
+    if (G % sg == 0) return sg;
+  return 1;
+}
+
+// The split-K merge of the decode kernels that split a sequence's context
+// over blocks (K3a, K4b): split s of sequence b wrote m (a log2-domain
+// running max), l and acc [D] for every head to m_part, l_part [B, n_split,
+// Hq] and acc_part [B, n_split, Hq, D]; the sequence's ceil(ctx /
+// split_rows) splits combine as out = sum 2^(m_s - M) acc_s / max(sum 2^(m_s
+// - M) l_s, 1e-20), M their max. Block (8 heads, sequence), one warp a head:
+// lane j computes split s0 + j's weight once, and the lanes of a column
+// take it by shuffle. Fixed loops, no atomics: two launches give the same
+// bits.
+constexpr int kMergeHeads = 8;
+
+template <typename TQ>
+__global__ void __launch_bounds__(32 * kMergeHeads)
+merge_splits(const float* __restrict__ m_part, const float* __restrict__ l_part,
+             const float* __restrict__ acc_part, const int* __restrict__ positions,
+             TQ* __restrict__ out, int Hq, int D, int cap, int split_rows, int n_split) {
+  constexpr int kCols = 4;  // output columns a lane: D <= 128
+  const int h = blockIdx.x * kMergeHeads + (threadIdx.x >> 5);
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  if (h >= Hq) return;  // warp-uniform
+  const int n = (decode_ctx(positions, b, cap) + split_rows - 1) / split_rows;
+  const size_t base = (size_t)b * n_split;
+  float mx = kNegInf;
+  for (int s = lane; s < n; s += 32) mx = fmaxf(mx, m_part[(base + s) * Hq + h]);
+  mx = warp_max(mx);
+  float tot = 0.f, a[kCols] = {0.f, 0.f, 0.f, 0.f};
+  for (int s0 = 0; s0 < n; s0 += 32) {  // warp-uniform
+    const int s = s0 + lane;
+    const float w = s < n ? exp2f(m_part[(base + s) * Hq + h] - mx) : 0.f;
+    if (s < n) tot = fmaf(l_part[(base + s) * Hq + h], w, tot);
+    const int cnt = min(32, n - s0);
+    for (int j = 0; j < cnt; ++j) {
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      const float* row = acc_part + ((base + s0 + j) * Hq + h) * D;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int d = lane + 32 * c;
+        if (d < D) a[c] = fmaf(row[d], wj, a[c]);
+      }
+    }
+  }
+  const float denom = fmaxf(warp_sum(tot), 1e-20f);
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const int d = lane + 32 * c;
+    if (d < D) store1(out + ((size_t)b * Hq + h) * D + d, a[c] / denom);
+  }
 }
 
 }  // namespace dtt

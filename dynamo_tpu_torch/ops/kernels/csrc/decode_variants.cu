@@ -4,7 +4,8 @@
 // paged_decode_attention_pallas_chunked (_kernel_chunked): K1's function with
 // the context walked in chunks of C * ps rows, C = max(1, min(max_pages,
 // ceil(256 / ps))). K4b replaces paged_decode_attention_pallas_grouped
-// (_kernel_grouped): Gq sequences a program, one page an iteration. K7c
+// (_kernel_grouped): Gq sequences a program, one page an iteration, the
+// probabilities rounded per page; see its design below. K7c
 // replaces tools/profile_attn.py make_perseq_variant (_perseq_variant_kernel):
 // the reference perseq kernel's one-page-an-iteration schedule with its f32
 // casts toggled. K7b replaces tools/profile_attn.py paged_decode_dmaonly
@@ -46,25 +47,53 @@
 // share the chunk's max, so at the end their accumulators merge by a plain
 // sum (shuffles within a warp, shared memory across warps). The chunk
 // boundary is the reference's: that is where the rounded probabilities take
-// their running max. cp.async staging of V sub-tiles is later work.
+// their running max. cp.async staging of V sub-tiles is later work. As in K1,
+// a block holds head_subgroup(G) <= 8 of the G query heads, the rest of a
+// larger G in blocks of their own along a third grid dimension.
 //
-// K4b design (grouped_decode_kernel): one block per (Gq sequences, kv head),
-// one warp a sequence: its row groups walk the sequence's pages in the same
-// three phases, with the page's scores in the warp's slice of shared memory
-// and __syncwarp between the phases. The loop runs to the group's longest
-// page count; a warp whose sequence has no page i skips it (its state would
-// not move, as the reference's masked page leaves it). Gq is the reference's
-// choice (8, 4 or 2 when it divides B and the group's score slices fit
-// kSmemBudget, else 1): the reference's 8 MB VMEM page budget becomes the
-// budget of what this design stages, the scores.
-//
+// K4b design (grouped_scores, grouped_pv, merge_splits): an exact split over
+// the context. The reference groups sequences per program, a TPU VMEM
+// schedule; the function it computes fixes only where the probabilities are
+// rounded: page i's at the running max after that page, M_i. So with M_n the
+// sequence's last, out = sum_i e^(M_i - M_n) round(e^(s - M_i)) . V_i / sum_i
+// e^(M_i - M_n) sum e^(s - M_i), and once the page maxima are
+// known every page's share is independent: splits of whole pages differ from
+// the sequential walk only in f32 summation order, and the context splits
+// over blocks: a warp that walks a sequence's pages, three dependent phases a
+// page, is latency bound (70 GB/s on an H100).
+// - Pass 1, grouped_scores: block (split of whole pages, kv head x 16-head
+//   tile, sequence). K rows through a cp.async ring of 64-row tiles; S = Q .
+//   K^T by mma.sync m16n8k16 (bf16 in, f32 sums; the G heads zero-padded to
+//   16 rows); the split's scores to global memory and one max a (page, head).
+//   Scores and exponentials are in natural units, as in the plain version,
+//   so that the f32 probabilities the kernel rounds differ from the plain
+//   version's only by the dot products' summation order.
+// - Pass 2, grouped_pv: the same blocks. Each forms its pages' prefix
+//   maxima from the page maxima (a warp scan over at most max_pages floats),
+//   streams its scores and V rows through the ring, and walks its pages in
+//   order as the reference does: at a page whose prefix max rose it rescales
+//   its state, then P = round(e^(s - M_i)) in bf16 is exactly the
+//   function's operand, so one bf16 mma.sync P . V is exact, and l takes the
+//   unrounded values. A 16-row k-step that spans pages (page size not a
+//   multiple of 16) runs once a page with the other rows' P zero.
+// - merge_splits (decode_rows.cuh) combines the splits' (M_end, l, acc),
+//   M_end handed over in log2 units:
+//   fixed loops, no atomics, so two launches give the same bits.
+// f32 pools (the checks and the f32 parity phases) take K7c's FMA body at
+// one page a chunk: rounding to f32 is the identity.
+
 // K7b design (decode_load_twin): K1's block, row groups and load_rows; each
 // row group sums its K + V slices in f32, the row groups merge by shuffles
 // and shared memory, and every query head of the kv head gets the sum.
 
+#include <algorithm>
+
 #include "decode_rows.cuh"
 
 namespace {
+
+using dtt::warp_max;
+using dtt::warp_sum;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -80,18 +109,6 @@ __device__ __forceinline__ float round_to(float p) {
   } else {
     return p;
   }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // Sum each lane's N values over the row groups of its warp (lanes that
@@ -114,15 +131,17 @@ __device__ __forceinline__ void load_queries(float (&qf)[G][VEC], const TQ* __re
 
 // ---------------------------------------------------------------- K4a / K7c
 
-size_t chunk_smem_bytes(int G, int D, int chunk_rows) {
-  return ((size_t)G * chunk_rows + 3 * G + (size_t)kWarps * G * D) * sizeof(float);
+size_t chunk_smem_bytes(int SG, int D, int chunk_rows) {
+  return ((size_t)SG * chunk_rows + 3 * SG + (size_t)kWarps * SG * D) * sizeof(float);
 }
 
-template <typename TQ, typename TK, int D, int G, bool kRound>
+// Block (kv head, sequence, sub-group): the SG query heads kvh * G +
+// blockIdx.z * SG + g of the kv head's G.
+template <typename TQ, typename TK, int D, int SG, bool kRound>
 __global__ void __launch_bounds__(kThreads)
 chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
                      const TK* __restrict__ v_pool, const int* __restrict__ page_tables,
-                     const int* __restrict__ positions, TQ* __restrict__ out, int Hkv,
+                     const int* __restrict__ positions, TQ* __restrict__ out, int Hkv, int G,
                      int page_size, int max_pages, int chunk_rows, float scale) {
   constexpr int VEC = dtt::RowVec<TK>::N;
   constexpr int LPR = D / VEC;  // lanes per K/V row
@@ -131,15 +150,16 @@ chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
   constexpr int NROWS = kWarps * RPW;  // row groups per block
 
   extern __shared__ float smem[];
-  float* s_p = smem;                  // [G][chunk_rows]: scores, then probabilities
-  float* s_m = s_p + G * chunk_rows;  // [G] running max
-  float* s_l = s_m + G;               // [G] running sum
-  float* s_corr = s_l + G;            // [G] this chunk's rescale
-  float* red = s_corr + G;            // [kWarps][G][D] the final merge
+  float* s_p = smem;                   // [SG][chunk_rows]: scores, then probabilities
+  float* s_m = s_p + SG * chunk_rows;  // [SG] running max
+  float* s_l = s_m + SG;               // [SG] running sum
+  float* s_corr = s_l + SG;            // [SG] this chunk's rescale
+  float* red = s_corr + SG;            // [kWarps][SG][D] the final merge
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int Hq = Hkv * G;
+  const size_t head0 = (size_t)b * Hq + kvh * G + blockIdx.z * SG;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int sub = lane % LPR;
@@ -148,17 +168,17 @@ chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
   const int col = kvh * D + d0;
   const size_t token_stride = (size_t)Hkv * D;
 
-  float qf[G][VEC];
-  load_queries<TQ, G, VEC>(qf, q, (size_t)b * Hq + kvh * G, D, d0);
+  float qf[SG][VEC];
+  load_queries<TQ, SG, VEC>(qf, q, head0, D, d0);
   const int ctx = dtt::decode_ctx(positions, b, max_pages * page_size);
   const int* pt = page_tables + (size_t)b * max_pages;
 
-  float acc[G][VEC];
+  float acc[SG][VEC];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < SG; ++g)
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
-  if (threadIdx.x < G) {
+  if (threadIdx.x < SG) {
     s_m[threadIdx.x] = dtt::kNegInf;
     s_l[threadIdx.x] = 0.f;
   }
@@ -173,18 +193,18 @@ chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
                                     token_stride, col);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        float kf[VEC], s[G];
+        float kf[VEC], s[SG];
         dtt::to_float(kr[u], kf);
-        dtt::head_scores<G, VEC, LPR>(qf, kf, scale, s);
+        dtt::head_scores<SG, VEC, LPR>(qf, kf, scale, s);
         if (valid[u] && sub == 0) {
 #pragma unroll
-          for (int g = 0; g < G; ++g) s_p[g * chunk_rows + r0 + row + u * NROWS] = s[g];
+          for (int g = 0; g < SG; ++g) s_p[g * chunk_rows + r0 + row + u * NROWS] = s[g];
         }
       }
     }
     __syncthreads();
     // (2) the chunk's max, probabilities and sum: warp w takes heads w, w + 4
-    for (int g = warp; g < G; g += kWarps) {
+    for (int g = warp; g < SG; g += kWarps) {
       float* sp = s_p + g * chunk_rows;
       float mx = dtt::kNegInf;
       for (int j = lane; j < nv; j += 32) mx = fmaxf(mx, sp[j]);
@@ -208,7 +228,7 @@ chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
     __syncthreads();
     // (3) P.V: each row group streams its rows of the chunk's V
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < SG; ++g) {
       const float corr = s_corr[g];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[g][i] *= corr;
@@ -225,7 +245,7 @@ chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
         dtt::to_float(vr[u], vf);
         const int j = r0 + row + u * NROWS;
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < SG; ++g) {
           const float p = s_p[g * chunk_rows + j];
 #pragma unroll
           for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
@@ -236,147 +256,401 @@ chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
   }
 
   // merge the row groups: they share the block's max, so a plain sum
-  sum_row_groups<LPR, G * VEC>(&acc[0][0]);
+  sum_row_groups<LPR, SG * VEC>(&acc[0][0]);
   if (lane < LPR) {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int g = 0; g < SG; ++g)
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) red[(warp * G + g) * D + d0 + i] = acc[g][i];
+      for (int i = 0; i < VEC; ++i) red[(warp * SG + g) * D + d0 + i] = acc[g][i];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < SG * D; idx += kThreads) {
     const int g = idx / D;
     const int d = idx % D;
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += red[(w * G + g) * D + d];
-    dtt::store1(out + ((size_t)b * Hq + kvh * G + g) * D + d, a / fmaxf(s_l[g], 1e-20f));
+    for (int w = 0; w < kWarps; ++w) a += red[(w * SG + g) * D + d];
+    dtt::store1(out + (head0 + g) * D + d, a / fmaxf(s_l[g], 1e-20f));
   }
 }
 
 // ---------------------------------------------------------------- K4b
 
-size_t grouped_smem_bytes(int group, int G, int page_size) {
-  return (size_t)group * G * page_size * sizeof(float);
+constexpr int kGrpTile = 64;        // context rows a ring stage
+constexpr int kGrpStages = 3;
+constexpr int kGrpSplitRows = 256;  // a split holds whole pages, about this many rows
+constexpr int kScoreStride = kGrpTile + 8;  // pass 2's score tile row (floats): conflict-free float2 reads
+
+// A K4b launch's shapes (host-computed).
+struct GroupedArgs {
+  int Hkv, G, page_size, max_pages, split_rows, n_split, n_ht, s_pad;
+  float scale;  // 1 / sqrt(D)
+};
+
+// Pass 1's and pass 2's shared memory: the ring, the split's pool rows, and
+// pass 1's scores of the split (16 x split_rows f32) or pass 2's prefix
+// maxima (16 x the split's pages).
+template <int D>
+struct GrpSmem {
+  static constexpr int kRowBytes = (D / 8 + 1) * 16;  // an odd number of 16-byte chunks
+  static constexpr int kKTile = kGrpTile * kRowBytes;
+  static constexpr int kScoreTile = 16 * kScoreStride * 4;
+  static size_t scores(int split_rows) { return (size_t)kGrpStages * kKTile + split_rows * 4 + 16 * (split_rows + 4) * 4; }
+  static size_t pv(int split_rows, int page_size) {
+    return (size_t)kGrpStages * (kKTile + kScoreTile) + split_rows * 4 +
+           16 * ((split_rows + page_size - 1) / page_size + 1) * 4;
+  }
+};
+
+// The block's item: kv head kvh, 16-head tile ht (heads ht * 16 .. of its G),
+// Gt of those heads real; the split's rows [r0, r1).
+struct GrpBlock {
+  int b, split, kvh, ht, Gt, r0, r1;
+};
+
+__device__ __forceinline__ bool grp_block(GrpBlock& k, const GroupedArgs& f, const int* positions) {
+  k.split = blockIdx.x;
+  k.kvh = blockIdx.y / f.n_ht;
+  k.ht = blockIdx.y % f.n_ht;
+  k.b = blockIdx.z;
+  k.Gt = min(16, f.G - 16 * k.ht);
+  const int ctx = dtt::decode_ctx(positions, k.b, f.max_pages * f.page_size);
+  k.r0 = k.split * f.split_rows;
+  k.r1 = min(k.r0 + f.split_rows, ctx);
+  return k.r0 < ctx;
 }
 
-template <typename TQ, typename TK, int D, int G>
-__global__ void __launch_bounds__(256)
-grouped_decode_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
-                      const TK* __restrict__ v_pool, const int* __restrict__ page_tables,
-                      const int* __restrict__ positions, TQ* __restrict__ out, int Hkv,
-                      int page_size, int max_pages, int group, float scale) {
-  constexpr int VEC = dtt::RowVec<TK>::N;
-  constexpr int LPR = D / VEC;
-  static_assert(D % VEC == 0 && LPR <= 32 && 32 % LPR == 0, "unsupported head_dim");
-  constexpr int RPW = 32 / LPR;  // row groups of the warp
+// The split's context rows' pool rows into tok[], then a barrier.
+__device__ __forceinline__ void grp_rows(int* tok, const GrpBlock& k, const int* page_tables, const GroupedArgs& f) {
+  const int* pt = page_tables + (size_t)k.b * f.max_pages;
+  for (int j = k.r0 + threadIdx.x; j < k.r1; j += kThreads) tok[j - k.r0] = (int)dtt::token_row(pt, j, f.page_size);
+  __syncthreads();
+}
 
-  extern __shared__ float smem[];
-  const int kvh = blockIdx.x;
+// cp.async copies of context rows [t0, t0 + kGrpTile) of kv head kvh (rows
+// at or past r1, and each row's pad chunk, zero-filled) into a tile of
+// GrpSmem<D>::kRowBytes a row.
+template <int D>
+__device__ __forceinline__ void grp_rows_tile(uint32_t dst, const __nv_bfloat16* __restrict__ pool, const int* tok,
+                                              int t0, const GrpBlock& k, const GroupedArgs& f) {
+  constexpr int RC = D / 8 + 1;
+  for (int idx = threadIdx.x; idx < kGrpTile * RC; idx += kThreads) {
+    const int r = idx / RC;
+    const int c = idx % RC;
+    const int j = t0 + r;
+    const bool ok = j < k.r1 && c < D / 8;
+    const size_t off = ok ? ((size_t)tok[j - k.r0] * f.Hkv + k.kvh) * D + c * 8 : 0;
+    dtt::cp_async16(dst + idx * 16, pool + off, ok);
+  }
+}
+
+// This warp's query fragments: the block's 16 head rows (zero past Gt) over D.
+template <int D>
+__device__ __forceinline__ void grp_queries(uint32_t (&qa)[D / 16][4], const __nv_bfloat16* __restrict__ q,
+                                            const GrpBlock& k, const GroupedArgs& f) {
   const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const size_t head0 = (size_t)k.b * f.Hkv * f.G + (size_t)k.kvh * f.G + 16 * k.ht;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int h = g + 8 * (i & 1);
+      const int col = 16 * ks + 2 * t + 8 * (i >> 1);
+      qa[ks][i] = h < k.Gt ? *reinterpret_cast<const uint32_t*>(q + (head0 + h) * D + col) : 0u;
+    }
+  }
+}
+
+// Pass 1: the split's scores s = q . k / sqrt(D) of its context
+// rows to scores [B, Hq, s_pad] and each page's max over them to pmax [B,
+// Hq, max_pages]. Warp w computes tile rows 16 w .. 16 w + 15.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+grouped_scores(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pool,
+               const int* __restrict__ page_tables, const int* __restrict__ positions, float* __restrict__ scores,
+               float* __restrict__ pmax, const GroupedArgs f) {
+  using L = GrpSmem<D>;
+  extern __shared__ __align__(16) uint8_t grp_smem[];
+  GrpBlock k;
+  if (!grp_block(k, f, positions)) return;  // block-uniform: this split holds no context
+  int* tok = reinterpret_cast<int*>(grp_smem + kGrpStages * L::kKTile);
+  float* sS = reinterpret_cast<float*>(tok + f.split_rows);  // [16][split_rows + 4]
+  const int sstride = f.split_rows + 4;
+  grp_rows(tok, k, page_tables, f);
+
+  const int n_tiles = (k.r1 - k.r0 + kGrpTile - 1) / kGrpTile;
+  const uint32_t ring = dtt::smem_u32(grp_smem);
+#pragma unroll
+  for (int st = 0; st < kGrpStages - 1; ++st) {
+    if (st < n_tiles) grp_rows_tile<D>(ring + st * L::kKTile, k_pool, tok, k.r0 + st * kGrpTile, k, f);
+    dtt::cp_async_commit();
+  }
   const int warp = threadIdx.x >> 5;
-  const int b0 = blockIdx.y * group;
-  const int b = b0 + warp;  // this warp's sequence
-  const int Hq = Hkv * G;
-  const int sub = lane % LPR;
-  const int rg = lane / LPR;
-  const int d0 = sub * VEC;
-  const int col = kvh * D + d0;
-  const size_t token_stride = (size_t)Hkv * D;
-  float* s_p = smem + (size_t)warp * G * page_size;  // this warp's [G][page_size]
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  uint32_t qa[D / 16][4];
+  grp_queries<D>(qa, q, k, f);
 
-  float qf[G][VEC];
-  load_queries<TQ, G, VEC>(qf, q, (size_t)b * Hq + kvh * G, D, d0);
-  const int cap = max_pages * page_size;
-  const int ctx = dtt::decode_ctx(positions, b, cap);
-  const int n_pages = (ctx + page_size - 1) / page_size;
-  int max_n = 0;
-  for (int w = 0; w < group; ++w)
-    max_n = max(max_n, (dtt::decode_ctx(positions, b0 + w, cap) + page_size - 1) / page_size);
-  const int* pt = page_tables + (size_t)b * max_pages;
-
-  float m[G], l[G], acc[G][VEC];
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const int nxt = ti + kGrpStages - 1;
+    if (nxt < n_tiles)
+      grp_rows_tile<D>(ring + (nxt % kGrpStages) * L::kKTile, k_pool, tok, k.r0 + nxt * kGrpTile, k, f);
+    dtt::cp_async_commit();
+    dtt::cp_async_wait<kGrpStages - 1>();
+    __syncthreads();
+    const uint32_t kt = ring + (ti % kGrpStages) * L::kKTile;
+    const int base = ti * kGrpTile + warp * 16;  // split-relative row of this warp's first
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = dtt::kNegInf;
-    l[g] = 0.f;
+    for (int nb = 0; nb < 2; ++nb) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+      for (int ks = 0; ks < D / 16; ++ks) {
+        uint32_t b0, b1;
+        dtt::ldsm_x2(b0, b1, kt + (warp * 16 + nb * 8 + (lane & 7)) * L::kRowBytes + ks * 32 + ((lane >> 3) & 1) * 16);
+        dtt::mma_bf16_16816(s, qa[ks], b0, b1);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = base + nb * 8 + 2 * t + (i & 1);
+        if (k.r0 + r < k.r1) sS[(g + 8 * (i >> 1)) * sstride + r] = s[i] * f.scale;
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  for (int pg = 0; pg < max_n; ++pg) {
-    if (pg >= n_pages) continue;  // warp-uniform: this sequence has no page pg
-    const int p0 = pg * page_size;
-    const int nv = min(page_size, ctx - p0);
-    // (1) the page's scores
-    for (int r0 = 0; r0 < nv; r0 += RPW * kUnroll) {
-      typename dtt::RowVec<TK>::Raw kr[kUnroll];
-      bool valid[kUnroll];
-      dtt::load_slices<TK, kUnroll>(kr, valid, k_pool, pt, p0 + r0, rg, RPW, p0 + nv, page_size,
-                                    token_stride, col);
+  // page maxima: warp w takes (head, page) items w, w + 4, ...
+  const int p0 = k.r0 / f.page_size;
+  const int np = (k.r1 - k.r0 + f.page_size - 1) / f.page_size;
+  const size_t head0 = (size_t)k.b * f.Hkv * f.G + (size_t)k.kvh * f.G + 16 * k.ht;
+  for (int item = warp; item < k.Gt * np; item += kWarps) {
+    const int h = item / np;
+    const int p = item % np;
+    const int lo = p * f.page_size;
+    const int hi = min(lo + f.page_size, k.r1 - k.r0);
+    float mx = dtt::kNegInf;
+    for (int r = lo + lane; r < hi; r += 32) mx = fmaxf(mx, sS[h * sstride + r]);
+    mx = warp_max(mx);
+    if (lane == 0) pmax[(head0 + h) * f.max_pages + p0 + p] = mx;
+  }
+  for (int idx = threadIdx.x; idx < k.Gt * (k.r1 - k.r0); idx += kThreads) {
+    const int h = idx / (k.r1 - k.r0);
+    const int r = idx % (k.r1 - k.r0);
+    scores[(head0 + h) * f.s_pad + k.r0 + r] = sS[h * sstride + r];
+  }
+}
+
+// Pass 2: the split's pages in order, each at its prefix max M_i; warp w
+// takes rows 16 w .. 16 w + 15 of every 64-row tile, so each probability is
+// formed once, and the warps' states merge at the end. Writes (M of the
+// split's last page, l, acc) to the partials.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ page_tables,
+           const int* __restrict__ positions, const float* __restrict__ scores, const float* __restrict__ pmax,
+           float* __restrict__ m_part, float* __restrict__ l_part, float* __restrict__ acc_part,
+           const GroupedArgs f) {
+  using L = GrpSmem<D>;
+  constexpr int NB = D / 8;  // 8-column blocks of the output
+  constexpr int kStage = L::kKTile + L::kScoreTile;
+  static_assert(kGrpStages * kStage >= (2 + D) * kWarps * 16 * 4, "the warps' merge reuses the ring");
+  extern __shared__ __align__(16) uint8_t grp_smem[];
+  GrpBlock k;
+  if (!grp_block(k, f, positions)) return;
+  int* tok = reinterpret_cast<int*>(grp_smem + kGrpStages * kStage);
+  const int p0 = k.r0 / f.page_size;
+  const int np = (k.r1 - k.r0 + f.page_size - 1) / f.page_size;
+  float* sM = reinterpret_cast<float*>(tok + f.split_rows);  // [16][np + 1]: M before the split, then each page's
+  const int mstride = np + 1;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const size_t head0 = (size_t)k.b * f.Hkv * f.G + (size_t)k.kvh * f.G + 16 * k.ht;
+
+  grp_rows(tok, k, page_tables, f);
+  const int n_tiles = (k.r1 - k.r0 + kGrpTile - 1) / kGrpTile;
+  const uint32_t ring = dtt::smem_u32(grp_smem);
+  auto start = [&](int ti) {
+    const uint32_t st = ring + (ti % kGrpStages) * kStage;
+    const int t0 = k.r0 + ti * kGrpTile;
+    grp_rows_tile<D>(st, v_pool, tok, t0, k, f);
+    for (int idx = threadIdx.x; idx < 16 * kGrpTile; idx += kThreads) {
+      const int h = idx / kGrpTile;
+      const int r = idx % kGrpTile;
+      const bool ok = h < k.Gt && t0 + r < k.r1;
+      dtt::cp_async4(st + L::kKTile + (h * kScoreStride + r) * 4, scores + (ok ? (head0 + h) * f.s_pad + t0 + r : 0),
+                     ok);
+    }
+  };
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        float kf[VEC], s[G];
-        dtt::to_float(kr[u], kf);
-        dtt::head_scores<G, VEC, LPR>(qf, kf, scale, s);
-        if (valid[u] && sub == 0) {
+  for (int st = 0; st < kGrpStages - 1; ++st) {
+    if (st < n_tiles) start(st);
+    dtt::cp_async_commit();
+  }
+
+  // while the first tiles load: the prefix maxima. Warp w takes heads 4 w ..
+  // 4 w + 3 together (their loads in flight at once); heads past Gt get 0.
+  constexpr int HPW = 16 / kWarps;
+  const int hw = warp * HPW;
+  float run[HPW];
 #pragma unroll
-          for (int g = 0; g < G; ++g) s_p[g * page_size + r0 + rg + u * RPW] = s[g];
+  for (int i = 0; i < HPW; ++i) run[i] = dtt::kNegInf;
+  for (int p = lane; p < p0; p += 32) {
+#pragma unroll
+    for (int i = 0; i < HPW; ++i)
+      if (hw + i < k.Gt) run[i] = fmaxf(run[i], pmax[(head0 + hw + i) * f.max_pages + p]);
+  }
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    run[i] = hw + i < k.Gt ? warp_max(run[i]) : 0.f;
+    if (lane == 0) sM[(hw + i) * mstride] = run[i];
+  }
+  for (int c0 = 0; c0 < np; c0 += 32) {  // inclusive max-scans, 32 pages a step
+    float v[HPW];
+#pragma unroll
+    for (int i = 0; i < HPW; ++i)
+      v[i] = (hw + i < k.Gt && c0 + lane < np) ? pmax[(head0 + hw + i) * f.max_pages + p0 + c0 + lane] : 0.f;
+#pragma unroll
+    for (int i = 0; i < HPW; ++i) {
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, v[i], o);
+        if (lane >= o) v[i] = fmaxf(v[i], u);
+      }
+      v[i] = fmaxf(v[i], run[i]);
+      if (c0 + lane < np) sM[(hw + i) * mstride + 1 + c0 + lane] = v[i];
+      run[i] = __shfl_sync(0xffffffffu, v[i], 31);
+    }
+  }
+  __syncthreads();  // sM published
+
+  // warp w takes k-step w (tile rows 16 w .. 16 w + 15) of every tile, with
+  // a state of its own (relative to the prefix max of the last page it saw)
+  float m[2] = {sM[g * mstride], sM[(g + 8) * mstride]};
+  float l[2] = {0.f, 0.f};
+  float acc[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  int page = p0 - 1;  // the page this warp's state is at
+  const bool upper = k.Gt > 8;  // head rows g + 8 hold heads
+
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const int nxt = ti + kGrpStages - 1;
+    if (nxt < n_tiles) start(nxt);
+    dtt::cp_async_commit();
+    dtt::cp_async_wait<kGrpStages - 1>();
+    __syncthreads();
+    const uint8_t* st = grp_smem + (ti % kGrpStages) * kStage;
+    const int lo = k.r0 + ti * kGrpTile + 16 * warp;
+    if (lo < k.r1) {  // warp-uniform
+      const uint32_t vt = dtt::smem_u32(st) + 16 * warp * L::kRowBytes;
+      const float* sc = reinterpret_cast<const float*>(st + L::kKTile) + 16 * warp + 2 * t;
+      float sv[2][4];  // (head row g / g + 8) x rows 2t, 2t + 1, 2t + 8, 2t + 9 of the k-step
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 x = *reinterpret_cast<const float2*>(sc + (g + 8 * h) * kScoreStride);
+        const float2 y = *reinterpret_cast<const float2*>(sc + (g + 8 * h) * kScoreStride + 8);
+        sv[h][0] = x.x;
+        sv[h][1] = x.y;
+        sv[h][2] = y.x;
+        sv[h][3] = y.y;
+      }
+      const int hi = min(lo + 16, k.r1);
+      const int pa = lo / f.page_size;
+      const int pb = (hi - 1) / f.page_size;
+      for (int p = pa; p <= pb; ++p) {  // warp-uniform: one page unless the k-step spans pages
+        if (p > page) {  // a new page: move the state to its prefix max
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float M = sM[(g + 8 * h) * mstride + 1 + p - p0];
+            const float corr = expf(m[h] - M);
+            m[h] = M;
+            l[h] *= corr;
+#pragma unroll
+            for (int n = 0; n < NB; ++n) {
+              acc[n][2 * h] *= corr;
+              acc[n][2 * h + 1] *= corr;
+            }
+          }
+          page = p;
+        }
+        // this page's rows of the k-step (all of them when it lies in one page)
+        const int plo = pa == pb ? lo : max(lo, p * f.page_size);
+        const int phi = pa == pb ? hi : min(hi, (p + 1) * f.page_size);
+        uint32_t a[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h == 1 && !upper) break;  // warp-uniform: no heads in rows g + 8
+          float pr[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j = lo + 2 * t + (i & 1) + 8 * (i >> 1);
+            pr[i] = (j >= plo && j < phi) ? expf(sv[h][i] - m[h]) : 0.f;
+            l[h] += pr[i];
+          }
+          a[h] = dtt::pack_bf16(pr[0], pr[1]);
+          a[2 + h] = dtt::pack_bf16(pr[2], pr[3]);
+        }
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          uint32_t b0, b1;
+          dtt::ldsm_x2_trans(b0, b1, vt + (lane & 15) * L::kRowBytes + n * 16);
+          dtt::mma_bf16_16816(acc[n], a, b0, b1);
         }
       }
     }
-    __syncwarp();
-    // (2) each head's page max, rounded probabilities and sum
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float* sp = s_p + g * page_size;
-      float mx = dtt::kNegInf;
-      for (int j = lane; j < nv; j += 32) mx = fmaxf(mx, sp[j]);
-      const float new_m = fmaxf(m[g], warp_max(mx));
-      float sum = 0.f;
-      for (int j = lane; j < nv; j += 32) {
-        const float p = expf(sp[j] - new_m);
-        sum += p;
-        sp[j] = round_to<TK>(p);
-      }
-      const float corr = expf(m[g] - new_m);
-      l[g] = l[g] * corr + warp_sum(sum);
-      m[g] = new_m;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[g][i] *= corr;
-    }
-    __syncwarp();
-    // (3) P.V over the page's V rows
-    for (int r0 = 0; r0 < nv; r0 += RPW * kUnroll) {
-      typename dtt::RowVec<TK>::Raw vr[kUnroll];
-      bool valid[kUnroll];
-      dtt::load_slices<TK, kUnroll>(vr, valid, v_pool, pt, p0 + r0, rg, RPW, p0 + nv, page_size,
-                                    token_stride, col);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (!valid[u]) continue;
-        float vf[VEC];
-        dtt::to_float(vr[u], vf);
-        const int j = r0 + rg + u * RPW;
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float p = s_p[g * page_size + j];
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
-        }
-      }
-    }
-    __syncwarp();  // the next page's scores overwrite s_p
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  sum_row_groups<LPR, G * VEC>(&acc[0][0]);
-  if (lane < LPR) {
+  // merge the warps' states in shared memory (the ring is free), in a fixed
+  // order, at the split's last prefix max
+  dtt::cp_async_wait<0>();
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float inv = 1.f / fmaxf(l[g], 1e-20f);
-      TQ* dst = out + ((size_t)b * Hq + kvh * G + g) * D + d0;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  float* red_m = reinterpret_cast<float*>(grp_smem);  // [kWarps][16]
+  float* red_l = red_m + kWarps * 16;                  // [kWarps][16]
+  float* red_acc = red_l + kWarps * 16;                // [kWarps][16][D]
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) dtt::store1(dst + i, acc[g][i] * inv);
+  for (int h = 0; h < 2; ++h) {
+    const int row = g + 8 * h;
+    if (t == 0) {
+      red_m[warp * 16 + row] = m[h];
+      red_l[warp * 16 + row] = l[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<float2*>(red_acc + (warp * 16 + row) * D + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+  __syncthreads();
+  const size_t Hq = (size_t)f.Hkv * f.G;
+  const size_t part = (size_t)k.b * f.n_split + k.split;
+  for (int idx = threadIdx.x; idx < k.Gt * D; idx += kThreads) {
+    const int row = idx / D;
+    const int d = idx % D;
+    float M = dtt::kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, red_m[w * 16 + row]);
+    float A = 0.f, Lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = expf(red_m[w * 16 + row] - M);
+      A = fmaf(red_acc[(w * 16 + row) * D + d], wt, A);
+      Lsum = fmaf(red_l[w * 16 + row], wt, Lsum);
+    }
+    const size_t hq = part * Hq + (size_t)k.kvh * f.G + 16 * k.ht + row;
+    acc_part[hq * D + d] = A;
+    if (d == 0) {
+      m_part[hq] = M * 1.4426950408889634f;  // merge_splits takes log2 units
+      l_part[hq] = Lsum;
     }
   }
 }
@@ -449,73 +723,90 @@ struct VariantArgs {
   const int* pos;
   void* out;
   int B, Hq, Hkv, D, ps, max_pages;
-  int arg;  // chunk rows (K4a, K7c) or the group size (K4b)
+  int chunk_rows;  // K4a, K7c
   bool round;
   cudaStream_t stream;
 };
 
-template <typename T, int D, int G>
+template <typename T, int D, int SG>
 struct ChunkLaunch {
   static int run(const VariantArgs& a) {
     // within the default 48 KB of dynamic shared memory: no attribute to raise
-    const size_t smem = chunk_smem_bytes(G, D, a.arg);
+    const size_t smem = chunk_smem_bytes(SG, D, a.chunk_rows);
     if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
-    const dim3 grid(a.Hkv, a.B);
-    const float scale = 1.0f / sqrtf((float)D);
+    const int G = a.Hq / a.Hkv;
+    const dim3 grid(a.Hkv, a.B, G / SG);
+    const float scale = (float)(1.0 / sqrt((double)D));  // the plain version's f32 scale
     const T* q = static_cast<const T*>(a.q);
     const T* k = static_cast<const T*>(a.k);
     const T* v = static_cast<const T*>(a.v);
     T* out = static_cast<T*>(a.out);
     if (a.round) {
-      chunk_softmax_decode<T, T, D, G, true><<<grid, kThreads, smem, a.stream>>>(
-          q, k, v, a.pt, a.pos, out, a.Hkv, a.ps, a.max_pages, a.arg, scale);
+      chunk_softmax_decode<T, T, D, SG, true><<<grid, kThreads, smem, a.stream>>>(
+          q, k, v, a.pt, a.pos, out, a.Hkv, G, a.ps, a.max_pages, a.chunk_rows, scale);
     } else {
-      chunk_softmax_decode<T, T, D, G, false><<<grid, kThreads, smem, a.stream>>>(
-          q, k, v, a.pt, a.pos, out, a.Hkv, a.ps, a.max_pages, a.arg, scale);
+      chunk_softmax_decode<T, T, D, SG, false><<<grid, kThreads, smem, a.stream>>>(
+          q, k, v, a.pt, a.pos, out, a.Hkv, G, a.ps, a.max_pages, a.chunk_rows, scale);
     }
     return (int)cudaGetLastError();
   }
 };
 
-template <typename T, int D, int G>
-struct GroupedLaunch {
-  static int run(const VariantArgs& a) {
-    const int group = a.arg;
-    const size_t smem = grouped_smem_bytes(group, G, a.ps);
-    if (group < 1 || group > 8 || a.B % group || smem > kSmemBudget) return (int)cudaErrorInvalidValue;
-    grouped_decode_kernel<T, T, D, G><<<dim3(a.Hkv, a.B / group), 32 * group, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.pt,
-        a.pos, static_cast<T*>(a.out), a.Hkv, a.ps, a.max_pages, group, 1.0f / sqrtf((float)D));
-    return (int)cudaGetLastError();
-  }
-};
-
-template <template <typename, int, int> class F, typename T, int D>
-int with_group(const VariantArgs& a) {
-  switch (a.Hq / a.Hkv) {
-    case 1: return F<T, D, 1>::run(a);
-    case 2: return F<T, D, 2>::run(a);
-    case 4: return F<T, D, 4>::run(a);
-    case 8: return F<T, D, 8>::run(a);
+template <typename T, int D>
+int chunk_subgroup(const VariantArgs& a) {
+  switch (dtt::head_subgroup(a.Hq / a.Hkv)) {
+    case 1: return ChunkLaunch<T, D, 1>::run(a);
+    case 2: return ChunkLaunch<T, D, 2>::run(a);
+    case 3: return ChunkLaunch<T, D, 3>::run(a);
+    case 4: return ChunkLaunch<T, D, 4>::run(a);
+    case 5: return ChunkLaunch<T, D, 5>::run(a);
+    case 6: return ChunkLaunch<T, D, 6>::run(a);
+    case 7: return ChunkLaunch<T, D, 7>::run(a);
+    case 8: return ChunkLaunch<T, D, 8>::run(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <template <typename, int, int> class F, typename T>
-int with_head_dim(const VariantArgs& a) {
+template <typename T>
+int chunk_head_dim(const VariantArgs& a) {
   switch (a.D) {
-    case 64: return with_group<F, T, 64>(a);
-    case 128: return with_group<F, T, 128>(a);
+    case 64: return chunk_subgroup<T, 64>(a);
+    case 128: return chunk_subgroup<T, 128>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q and both pools)
-template <template <typename, int, int> class F>
-int with_dtype(int dtype, const VariantArgs& a) {
-  if (dtype == 0) return with_head_dim<F, float>(a);
-  if (dtype == 1) return with_head_dim<F, __nv_bfloat16>(a);
-  return (int)cudaErrorInvalidValue;
+// K4b over bf16 pools: pass 1, pass 2 and the merge.
+template <int D>
+int launch_grouped(const VariantArgs& a, float* scores, float* pmax, float* m_part, float* l_part, float* acc_part,
+                   int split_rows, int n_split, int s_pad) {
+  using L = GrpSmem<D>;
+  static std::atomic<bool> raised_scores[dtt::kMaxDevices], raised_pv[dtt::kMaxDevices];
+  // the plain version's scale: 1 / sqrt(D) in double, rounded once to f32
+  GroupedArgs f{a.Hkv, a.Hq / a.Hkv, a.ps, a.max_pages, split_rows, n_split, 0, s_pad,
+                (float)(1.0 / sqrt((double)D))};
+  f.n_ht = (f.G + 15) / 16;
+  const size_t smem1 = L::scores(split_rows);
+  const size_t smem2 = L::pv(split_rows, a.ps);
+  if (std::max(smem1, smem2) > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = dtt::raise_smem_limit_once(grouped_scores<D>, raised_scores, 227 * 1024);
+  if (err == cudaSuccess) err = dtt::raise_smem_limit_once(grouped_pv<D>, raised_pv, 227 * 1024);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_split, a.Hkv * f.n_ht, a.B);
+  const auto* q = static_cast<const __nv_bfloat16*>(a.q);
+  grouped_scores<D><<<grid, kThreads, smem1, a.stream>>>(q, static_cast<const __nv_bfloat16*>(a.k), a.pt, a.pos,
+                                                         scores, pmax, f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  grouped_pv<D><<<grid, kThreads, smem2, a.stream>>>(static_cast<const __nv_bfloat16*>(a.v), a.pt, a.pos, scores,
+                                                     pmax, m_part, l_part, acc_part, f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dtt::merge_splits<__nv_bfloat16><<<dim3((a.Hq + dtt::kMergeHeads - 1) / dtt::kMergeHeads, a.B),
+                                     32 * dtt::kMergeHeads, 0, a.stream>>>(
+      m_part, l_part, acc_part, a.pos, static_cast<__nv_bfloat16*>(a.out), a.Hq, D, a.max_pages * a.ps, split_rows,
+      n_split);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -543,9 +834,10 @@ bool shapes_ok(const VariantArgs& a) {
 
 // K4a and K7c: chunks of chunk_rows context rows (K4a: C * ps; K7c: ps);
 // round_probs = 1 rounds the probabilities to the pool dtype before P.V (K4a,
-// K7c without cast_f32). Each entry point returns cudaGetLastError() after
-// its launch (0 = launched); shapes the kernel does not take return
-// cudaErrorInvalidValue without launching.
+// K7c without cast_f32). dtype: 0 = float32, 1 = bfloat16 (q and both
+// pools). Each entry point returns cudaGetLastError() after its launches (0
+// = launched); shapes the kernel does not take return cudaErrorInvalidValue
+// without launching.
 extern "C" int chunk_softmax_decode(const void* q, const void* k_pool, const void* v_pool,
                                     const void* page_tables, const void* positions, void* out,
                                     int B, int Hq, int Hkv, int D, int page_size, int max_pages,
@@ -555,21 +847,41 @@ extern "C" int chunk_softmax_decode(const void* q, const void* k_pool, const voi
                       chunk_rows, round_probs != 0, static_cast<cudaStream_t>(stream)};
   if (B <= 0) return 0;
   if (!shapes_ok(a) || chunk_rows <= 0) return (int)cudaErrorInvalidValue;
-  return with_dtype<ChunkLaunch>(dtype, a);
+  if (dtype == 0) return chunk_head_dim<float>(a);
+  if (dtype == 1) return chunk_head_dim<__nv_bfloat16>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
-// K4b: groups of `group` sequences a block (group divides B, 1..8).
-extern "C" int paged_decode_attention_grouped(const void* q, const void* k_pool,
-                                              const void* v_pool, const void* page_tables,
-                                              const void* positions, void* out, int B, int Hq,
-                                              int Hkv, int D, int page_size, int max_pages,
-                                              int group, int dtype, void* stream) {
+// K4b. bf16: scratch scores [B, Hq, s_pad] (s_pad >= max_pages * ps, a
+// multiple of 4), pmax [B, Hq, max_pages] and the partials m_part, l_part
+// [B, n_split, Hq], acc_part [B, n_split, Hq, D] f32, splits of split_rows
+// rows (a multiple of ps), n_split >= ceil(max_pages * ps / split_rows).
+// f32: K7c's body at one page a chunk (the scratch is not read).
+extern "C" int paged_decode_attention_grouped(const void* q, const void* k_pool, const void* v_pool,
+                                              const void* page_tables, const void* positions, void* out, int B,
+                                              int Hq, int Hkv, int D, int page_size, int max_pages, void* scores,
+                                              void* pmax, void* m_part, void* l_part, void* acc_part,
+                                              int split_rows, int n_split, int s_pad, int dtype, void* stream) {
   const VariantArgs a{q, k_pool, v_pool, static_cast<const int*>(page_tables),
                       static_cast<const int*>(positions), out, B, Hq, Hkv, D, page_size, max_pages,
-                      group, true, static_cast<cudaStream_t>(stream)};
+                      page_size, false, static_cast<cudaStream_t>(stream)};
   if (B <= 0) return 0;
   if (!shapes_ok(a)) return (int)cudaErrorInvalidValue;
-  return with_dtype<GroupedLaunch>(dtype, a);
+  if (dtype == 0) return chunk_head_dim<float>(a);
+  if (dtype != 1 || split_rows <= 0 || split_rows % page_size || s_pad % 4 ||
+      (long long)s_pad < (long long)max_pages * page_size ||
+      (long long)n_split * split_rows < (long long)max_pages * page_size)
+    return (int)cudaErrorInvalidValue;
+  float* sc = static_cast<float*>(scores);
+  float* pm = static_cast<float*>(pmax);
+  float* mp = static_cast<float*>(m_part);
+  float* lp = static_cast<float*>(l_part);
+  float* ap = static_cast<float*>(acc_part);
+  switch (D) {
+    case 64: return launch_grouped<64>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad);
+    case 128: return launch_grouped<128>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K7b: out [B, Hq, D] float32 checksums.

@@ -28,7 +28,8 @@
 //
 // Design, right before fast (f32 FMA, no tensor cores yet):
 //   - a block holds the f32 queries of 16 heads (K5: one sequence; K6: two
-//     query positions, 32 (query, head) rows) in shared memory, stages
+//     query positions, 32 (query, head) rows; any H: the last block's heads
+//     past H are zero queries and write nothing) in shared memory, stages
 //     32-row latent tiles from the pages into shared memory as f32 (16-byte
 //     loads; rows past the block's last needed row are never read, so pad
 //     rows and trash-page tables stay in bounds), computes the tile's scores
@@ -48,7 +49,7 @@
 
 namespace {
 
-constexpr int kHeads = 16;       // query heads per block; H must be a multiple
+constexpr int kHeads = 16;       // query heads per block; the last block's heads past H are masked
 constexpr int kKeys = 32;        // latent rows per shared-memory tile
 constexpr int kThreads = 256;    // 16 x 16: ty = tid / 16, tx = tid % 16
 constexpr int kMaxColGroups = 8; // float4 column groups per thread: d_c <= 512
@@ -224,8 +225,9 @@ mla_decode_partial(const float* __restrict__ q, const T* __restrict__ pages,
   for (int idx = threadIdx.x; idx < kHeads * (L / 4); idx += kThreads) {
     const int r = idx / (L / 4);
     const int c = (idx - r * (L / 4)) * 4;
-    *reinterpret_cast<float4*>(sQ + r * QS + c) =
-        *reinterpret_cast<const float4*>(q + ((size_t)b * H + h0 + r) * L + c);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);  // heads past H: zero queries
+    if (h0 + r < H) v = *reinterpret_cast<const float4*>(q + ((size_t)b * H + h0 + r) * L + c);
+    *reinterpret_cast<float4*>(sQ + r * QS + c) = v;
   }
 
   float m[1], l[1], acc[1][kMaxColGroups][4];
@@ -240,6 +242,7 @@ mla_decode_partial(const float* __restrict__ q, const T* __restrict__ pages,
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
+  if (h0 + ty >= H) return;  // past the last block's heads: nothing to write
   const size_t part = ((size_t)b * H + h0 + ty) * n_split + split;
   if (tx == 0) {
     m_part[part] = m[0];
@@ -304,7 +307,7 @@ mla_prefill(const float* __restrict__ q, const T* __restrict__ pages,
     const int c = (idx - r * (L / 4)) * 4;
     const int qi = r / kHeads;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qi < n_q) {
+    if (qi < n_q && h0 + r % kHeads < H) {
       v = *reinterpret_cast<const float4*>(
           q + ((size_t)(q_start + qi) * H + h0 + r % kHeads) * L + c);
     }
@@ -325,6 +328,7 @@ mla_prefill(const float* __restrict__ q, const T* __restrict__ pages,
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
+  if (h0 + ty >= H) return;  // past the last block's heads
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     if (i >= n_q) continue;
@@ -354,7 +358,7 @@ int launch_decode(const float* q, const void* pages, const int* pt, const int* p
   const cudaError_t err = dtt::raise_smem_limit_once(mla_decode_partial<T>, smem_raised,
                                                      smem_bytes(kHeads, kMaxLatent));
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_split, H / kHeads, B);
+  const dim3 grid(n_split, (H + kHeads - 1) / kHeads, B);
   mla_decode_partial<T><<<grid, kThreads, smem_bytes(kHeads, L), stream>>>(
       q, static_cast<const T*>(pages), pt, pos, m_part, l_part, acc_part, H, L, d_c, ps,
       max_pages, split_rows, n_split);
@@ -373,14 +377,14 @@ int launch_prefill(const float* q, const void* pages, const int* pt, const int* 
   const cudaError_t err = dtt::raise_smem_limit_once(mla_prefill<T>, smem_raised,
                                                      smem_bytes(2 * kHeads, kMaxLatent));
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T_len + 1) / 2, H / kHeads);
+  const dim3 grid((T_len + 1) / 2, (H + kHeads - 1) / kHeads);
   mla_prefill<T><<<grid, kThreads, smem_bytes(2 * kHeads, L), stream>>>(
       q, static_cast<const T*>(pages), pt, pos, out, T_len, H, L, d_c, ps, max_pages);
   return (int)cudaGetLastError();
 }
 
 bool shapes_ok(int H, int L, int d_c, int ps, int max_pages) {
-  return H > 0 && H % kHeads == 0 && L > 0 && L % 8 == 0 && L <= kMaxLatent && d_c > 0 &&
+  return H > 0 && L > 0 && L % 8 == 0 && L <= kMaxLatent && d_c > 0 &&
          d_c % 4 == 0 && d_c <= L && d_c <= 64 * kMaxColGroups && ps > 0 && max_pages > 0;
 }
 

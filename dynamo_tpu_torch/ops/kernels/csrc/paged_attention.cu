@@ -10,9 +10,12 @@
 //
 // K3a replaces paged_decode_attention_pallas_folded (_kernel_folded): the
 // same function for head dims that are not a multiple of 128 (TinyLlama's
-// 64), which the TPU reads from pools with the kv heads folded into the lane
-// dim. Its zero-placed folded queries and one-hot output selection are a
-// Mosaic lane workaround and are not carried over; see K3a below.
+// 64; here any multiple of 8 below 128), which the TPU reads from pools with
+// the kv heads folded into the lane dim. Its zero-placed folded queries and
+// one-hot output selection are a Mosaic lane workaround and are not carried
+// over; see K3a below. The reference's folded kernel rounds its
+// probabilities to the pool dtype before P.V; K3a keeps them f32, as K1 and
+// the reference's plain version do.
 //
 // Contract (both): q [B, Hq, D] f32 or bf16; k/v pools [P, ps, Hkv, D] (the
 // folded [P, ps, Hkv*D] is the same memory) of q's dtype, or int8 with f32
@@ -41,17 +44,48 @@
 // of trash page 0, arbitrary positions) read only in-bounds pages and produce
 // finite output. Later work: split-K over long contexts, cp.async/TMA staging.
 //
-// K3a design: a token's whole K (or V) row, Hkv * D values (TinyLlama: 256,
-// 512 bytes in bf16, 256 in int8), is read once by Hkv * D / VEC consecutive
-// lanes and serves all Hq heads: the lanes of kv head h's slice hold the
-// queries of h's G heads. At the serve batch a block per sequence would leave
-// most of the 132 SMs idle, so the context is split (split-K, as K5): block
-// (split, sequence) covers split_rows context rows, its row groups merge in
-// shared memory into one (m, l, acc) per head written to partial buffers, and
-// a second launch merges the splits. Blocks past a sequence's context return
-// at once. Every shuffle loop has a block-uniform trip count (a divergent one
-// deadlocked K1 once: the lanes of a row group share warps).
+// G = Hq / Hkv may be any value: a block holds sub = head_subgroup(G) <= 8
+// of the kv head's query heads (all of them when G <= 8) and the G / sub
+// sub-groups run as a third grid dimension; each re-reads the kv head's rows.
+//
+// K3a design (bf16 queries over bf16 or int8 pools, any D that is a multiple
+// of 8 below 128, any G and Hkv): bound by the live rows' bytes like K1. A
+// warp a 512-byte TinyLlama row with an online-softmax update on every lane
+// of every row, and a merge launch of B * Hq blocks, reach 0.7 TB/s on an
+// H100; so:
+// - Grid (context split, kv-head chunk, sequence): each block covers
+//   split_rows context rows of one sequence for the kv heads of its chunk
+//   (all Hkv when they fit: TinyLlama's whole folded row), so a staged row
+//   serves every query head of those kv heads. One warp a (kv head, 16-head
+//   tile) item, at most 8 items a block; G > 16 spreads a kv head's tiles
+//   over blocks.
+// - Staging: 32-row tiles of K and V (the chunk's slice of each token row,
+//   padded to an odd number of 16-byte chunks so ldmatrix is conflict-free)
+//   in a cp.async ring of 2-4 stages through the page table, the token
+//   rows' pool offsets computed once a block; tile t + stages - 1 loads while
+//   tile t is computed. Int8 codes land raw with their row scales (rows 16
+//   bytes longer than the codes, so the fragment reads are conflict-free)
+//   and become bf16 fragments in registers as they are read (exact); a
+//   conversion pass through shared memory cost the int8 kernel twice the
+//   bf16 one's time on an H100.
+// - Scores on the tensor cores: S = Q . K^T by mma.sync m16n8k16 (bf16 in,
+//   f32 sums: bf16 x bf16 products are exact), the G heads zero-padded to
+//   16 rows and D to a multiple of 16 (zero query columns; a row's pad
+//   chunk is zero-filled), K fragments by ldmatrix. One max / sum update
+//   per head per tile instead of per row; exp2 with the scale folded in.
+// - P . V by mma.sync with V fragments by ldmatrix.trans and P split into
+//   bf16 hi + lo (two products, as K2 / K3b do), so the probabilities stay
+//   f32-exact under TOL["bf16"] (one rounding of P leaves it). Int8: the K
+//   scale multiplies S's columns, the V scale P after l took it.
+// - Split-K as before (split_rows 128 fills the card at the serve batch);
+//   the splits merge in merge_splits (decode_rows.cuh), a launch of B *
+//   ceil(Hq / 8) blocks of 8 warps, one head a warp.
+// f32 queries (f32 or int8 pools: the f32 parity phases and the checks)
+// take an FMA body in the same split partition: block (split, kv head,
+// sequence), a warp a query head, a lane a row for the score and an output
+// column for P . V. Every shuffle loop has a warp-uniform trip count.
 
+#include <algorithm>
 #include <type_traits>
 
 #include "decode_rows.cuh"
@@ -66,18 +100,17 @@ using dtt::RowLoads;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 4;
-constexpr int kFoldThreads = 128;
-constexpr int kFoldUnroll = 2;
-constexpr int kMergeThreads = 64;  // K3a merge: one thread a column, D <= 64
 
 // ---------------------------------------------------------------- K1
 
-template <typename TQ, typename TK, int D, int G>
+// Block (kv head, sequence, sub-group): the SG query heads kvh * G +
+// blockIdx.z * SG + g, g < SG, of the kv head's G.
+template <typename TQ, typename TK, int D, int SG>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
                     const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, const int* __restrict__ page_tables,
-                    const int* __restrict__ positions, TQ* __restrict__ out, int Hkv,
+                    const int* __restrict__ positions, TQ* __restrict__ out, int Hkv, int G,
                     int page_size, int max_pages, float scale) {
   constexpr int VEC = dtt::RowVec<TK>::N;
   constexpr int LPR = D / VEC;  // lanes per K/V row
@@ -88,24 +121,23 @@ paged_decode_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int Hq = Hkv * G;
+  const size_t head0 = (size_t)b * Hq + kvh * G + blockIdx.z * SG;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int sub = lane % LPR;
   const int row = warp * RPW + lane / LPR;
   const int d0 = sub * VEC;
 
-  float qf[G][VEC];
+  float qf[SG][VEC];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    dtt::load_floats<TQ, VEC>(q + ((size_t)b * Hq + kvh * G + g) * D + d0, qf[g]);
-  }
+  for (int g = 0; g < SG; ++g) dtt::load_floats<TQ, VEC>(q + (head0 + g) * D + d0, qf[g]);
 
   const int ctx = decode_ctx(positions, b, max_pages * page_size);
   const int* pt = page_tables + (size_t)b * max_pages;
 
-  float m[G], l[G], acc[G][VEC];
+  float m[SG], l[SG], acc[SG][VEC];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < SG; ++g) {
     m[g] = dtt::kNegInf;
     l[g] = 0.f;
 #pragma unroll
@@ -118,27 +150,27 @@ paged_decode_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
     RowLoads<TK, kUnroll> r;
     load_rows<TK, kUnroll>(r, k_pool, v_pool, k_scale, v_scale, pt, t0, row, NROWS, ctx, page_size,
                            (size_t)Hkv * D, kvh * D + d0);
-    consume_rows<TK, kUnroll, G, LPR>(r, qf, scale, m, l, acc);
+    consume_rows<TK, kUnroll, SG, LPR>(r, qf, scale, m, l, acc);
   }
 
   // merge the NROWS row groups' partial softmax states
-  __shared__ float sm_m[NROWS][G];
-  __shared__ float sm_l[NROWS][G];
-  __shared__ float sm_acc[NROWS][G][D];
+  __shared__ float sm_m[NROWS][SG];
+  __shared__ float sm_l[NROWS][SG];
+  __shared__ float sm_acc[NROWS][SG][D];
   if (sub == 0) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < SG; ++g) {
       sm_m[row][g] = m[g];
       sm_l[row][g] = l[g];
     }
   }
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < SG; ++g) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) sm_acc[row][g][d0 + i] = acc[g][i];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < SG * D; idx += kThreads) {
     const int g = idx / D;
     const int d = idx % D;
     float mx = dtt::kNegInf;
@@ -151,131 +183,398 @@ paged_decode_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
       L = fmaf(sm_l[r][g], w, L);
       A = fmaf(sm_acc[r][g][d], w, A);
     }
-    dtt::store1(out + ((size_t)b * Hq + kvh * G + g) * D + d, A / fmaxf(L, 1e-20f));
+    dtt::store1(out + (head0 + g) * D + d, A / fmaxf(L, 1e-20f));
   }
 }
 
 // ---------------------------------------------------------------- K3a
 
-// Pass 1: block (split, sequence) covers context rows [split * split_rows,
-// min(+split_rows, ctx)) for all Hq heads. Thread t reads the VEC values at
-// column (t % RL) * VEC of row group t / RL, RL = Hkv * D / VEC lanes a row
-// (RL divides kFoldThreads; the launcher checks). Its head slice is kv head
-// (t % RL) / LPH; it holds that kv head's G queries. Writes the block's (m,
-// l, acc) per head to m_part, l_part [B, n_split, Hq] and acc_part [B,
-// n_split, Hq, D].
-template <typename TQ, typename TK, int D, int G>
-__global__ void __launch_bounds__(kFoldThreads)
-folded_decode_partial(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
-                      const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
-                      const float* __restrict__ v_scale, const int* __restrict__ page_tables,
-                      const int* __restrict__ positions, float* __restrict__ m_part,
-                      float* __restrict__ l_part, float* __restrict__ acc_part, int Hkv,
-                      int page_size, int max_pages, int split_rows, int n_split, float scale) {
-  constexpr int VEC = dtt::RowVec<TK>::N;
-  constexpr int LPH = D / VEC;  // lanes per head slice of a row
-  static_assert(D % VEC == 0 && LPH <= 32 && 32 % LPH == 0, "unsupported head_dim");
-  const int RL = Hkv * LPH;     // lanes per row
-  const int NROWS = kFoldThreads / RL;
-  const int Hq = Hkv * G;
+constexpr int kFoldRows = 32;   // token rows a ring stage
+constexpr int kFoldItems = 8;   // (kv head, 16-head tile) items a block at most: one warp each
+constexpr int kFoldRing = 100 * 1024;  // the ring's budget: two blocks an SM
+constexpr int kFoldFmaWarps = 4;
 
-  const int split = blockIdx.x;
-  const int b = blockIdx.y;
-  const int ctx = decode_ctx(positions, b, max_pages * page_size);
-  const int r0 = split * split_rows;
-  if (r0 >= ctx) return;  // block-uniform: this split holds no context
-  const int r1 = min(r0 + split_rows, ctx);
+// A K3a launch's partition and shared-memory layout (host-computed).
+struct FoldArgs {
+  int Hkv, G, D, page_size, max_pages, split_rows, n_split;
+  int n_ht;    // 16-head tiles of a kv head, ceil(G / 16)
+  int hb;      // kv heads a block stages (n_ht == 1), else 1
+  int tpb;     // head tiles a block (n_ht > 1)
+  int rs;      // a bf16 tile row, in 16-byte chunks (odd: conflict-free ldmatrix)
+  int rsr;     // an int8 raw row, in bytes (a multiple of 16)
+  int stages;  // ring stages
+  float scale_log2;  // log2(e) / sqrt(D)
+};
 
-  const int row = threadIdx.x / RL;
-  const int rl = threadIdx.x % RL;
-  const int kvh = rl / LPH;
-  const int d0 = (rl % LPH) * VEC;
-  const int* pt = page_tables + (size_t)b * max_pages;
+// The block's kv heads [kv_lo, kv_lo + kv_n) and this warp's item (kvh, ht).
+struct FoldItem {
+  int kv_lo, kv_n, kvh, ht;
+  bool active;
+};
 
-  float qf[G][VEC];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    dtt::load_floats<TQ, VEC>(q + ((size_t)b * Hq + kvh * G + g) * D + d0, qf[g]);
+__device__ __forceinline__ FoldItem fold_item(const FoldArgs& f, int chunk, int warp) {
+  FoldItem it;
+  if (f.n_ht == 1) {
+    it.kv_lo = chunk * f.hb;
+    it.kv_n = min(f.hb, f.Hkv - it.kv_lo);
+    it.kvh = it.kv_lo + warp;
+    it.ht = 0;
+    it.active = warp < it.kv_n;
+  } else {
+    const int bpk = (f.n_ht + f.tpb - 1) / f.tpb;
+    it.kvh = chunk / bpk;
+    it.kv_lo = it.kvh;
+    it.kv_n = 1;
+    it.ht = (chunk % bpk) * f.tpb + warp;
+    it.active = it.ht < f.n_ht;
   }
-  float m[G], l[G], acc[G][VEC];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = dtt::kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
-  }
+  return it;
+}
 
-  // block-uniform trip count (r0, r1 and NROWS are the block's)
-  for (int t0 = r0; t0 < r1; t0 += NROWS * kFoldUnroll) {
-    RowLoads<TK, kFoldUnroll> r;
-    load_rows<TK, kFoldUnroll>(r, k_pool, v_pool, k_scale, v_scale, pt, t0, row, NROWS, r1,
-                               page_size, (size_t)Hkv * D, rl * VEC);
-    consume_rows<TK, kFoldUnroll, G, LPH>(r, qf, scale, m, l, acc);
-  }
+template <typename TK>
+__host__ __device__ inline int fold_stage_bytes(const FoldArgs& f) {
+  return std::is_same<TK, int8_t>::value ? 2 * kFoldRows * f.rsr + 2 * kFoldRows * 4
+                                         : 2 * kFoldRows * f.rs * 16;
+}
 
-  // merge the row groups: sm_m, sm_l [NROWS][Hq], sm_acc [NROWS][Hq][D]
-  extern __shared__ float smem[];
-  float* sm_m = smem;
-  float* sm_l = sm_m + NROWS * Hq;
-  float* sm_acc = sm_l + NROWS * Hq;
-  const int h0 = row * Hq + kvh * G;
-  if (d0 == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      sm_m[h0 + g] = m[g];
-      sm_l[h0 + g] = l[g];
+// Start the cp.async copies of context rows [t0, t0 + kFoldRows) (rows at or
+// past r1 zero-filled) of the block's kv heads into a ring stage: K then V
+// (bf16: tiles of f.rs chunks a row, pad chunks zero; int8: raw rows of
+// f.rsr bytes, then the K and V row scales). tok[] holds the split's rows'
+// pool rows.
+template <typename TK>
+__device__ __forceinline__ void fold_start_tile(uint8_t* stage, const TK* __restrict__ k_pool,
+                                                const TK* __restrict__ v_pool,
+                                                const float* __restrict__ k_scale,
+                                                const float* __restrict__ v_scale, const int* tok,
+                                                int t0, int r0, int r1, int W, size_t token_stride,
+                                                size_t col0, const FoldArgs& f) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const uint32_t s = dtt::smem_u32(stage);
+  if constexpr (std::is_same<TK, int8_t>::value) {
+    const int half = f.rsr * kFoldRows;  // the V rows follow the K rows
+    // 16-byte copies where every row piece starts on 16 bytes, else 8-byte
+    // ones (W, the token stride and col0 are multiples of 8)
+    const bool wide = W % 16 == 0 && token_stride % 16 == 0 && col0 % 16 == 0;
+    const int units = wide ? W / 16 : W / 8;
+    for (int r = warp; r < kFoldRows; r += nw) {
+      const int j = t0 + r;
+      const bool ok = j < r1;
+      const size_t off = ok ? (size_t)tok[j - r0] * token_stride + col0 : 0;
+      for (int u = lane; u < units; u += 32) {
+        if (wide) {
+          dtt::cp_async16(s + r * f.rsr + u * 16, k_pool + off + u * 16, ok);
+          dtt::cp_async16(s + half + r * f.rsr + u * 16, v_pool + off + u * 16, ok);
+        } else {
+          dtt::cp_async8(s + r * f.rsr + u * 8, k_pool + off + u * 8, ok);
+          dtt::cp_async8(s + half + r * f.rsr + u * 8, v_pool + off + u * 8, ok);
+        }
+      }
     }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) sm_acc[(size_t)(h0 + g) * D + d0 + i] = acc[g][i];
-  }
-  __syncthreads();
-  const size_t part = (size_t)b * n_split + split;
-  for (int idx = threadIdx.x; idx < Hq * D; idx += kFoldThreads) {
-    const int h = idx / D;
-    const int d = idx % D;
-    float mx = dtt::kNegInf;
-    for (int r = 0; r < NROWS; ++r) mx = fmaxf(mx, sm_m[r * Hq + h]);
-    float L = 0.f, A = 0.f;
-    for (int r = 0; r < NROWS; ++r) {
-      const float w = expf(sm_m[r * Hq + h] - mx);
-      L = fmaf(sm_l[r * Hq + h], w, L);
-      A = fmaf(sm_acc[(size_t)(r * Hq + h) * D + d], w, A);
+    if (threadIdx.x < 2 * kFoldRows) {
+      const int r = threadIdx.x % kFoldRows;
+      const int j = t0 + r;
+      const bool ok = j < r1;
+      const float* src = threadIdx.x < kFoldRows ? k_scale : v_scale;
+      dtt::cp_async4(s + 2 * half + threadIdx.x * 4, src + (ok ? tok[j - r0] : 0), ok);
     }
-    acc_part[(part * Hq + h) * D + d] = A;
-    if (d == 0) {
-      m_part[part * Hq + h] = mx;
-      l_part[part * Hq + h] = L;
+  } else {
+    const int half = f.rs * 16 * kFoldRows;
+    for (int r = warp; r < kFoldRows; r += nw) {
+      const int j = t0 + r;
+      const size_t off = j < r1 ? (size_t)tok[j - r0] * token_stride + col0 : 0;
+      for (int c = lane; c < f.rs; c += 32) {
+        const bool ok = j < r1 && c * 8 < W;
+        dtt::cp_async16(s + (r * f.rs + c) * 16, k_pool + off + c * 8, ok);
+        dtt::cp_async16(s + half + (r * f.rs + c) * 16, v_pool + off + c * 8, ok);
+      }
     }
   }
 }
 
-// Pass 2: block (head, sequence) merges the sequence's splits that hold
-// context for that head, one output column a thread.
-template <typename TQ>
-__global__ void __launch_bounds__(kMergeThreads)
-folded_decode_merge(const float* __restrict__ m_part, const float* __restrict__ l_part,
-                    const float* __restrict__ acc_part, const int* __restrict__ positions,
-                    TQ* __restrict__ out, int Hq, int D, int page_size, int max_pages,
-                    int split_rows, int n_split) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int ctx = decode_ctx(positions, b, max_pages * page_size);
-  const int n = (ctx + split_rows - 1) / split_rows;
-  const size_t base = (size_t)b * n_split;
-  float mx = dtt::kNegInf;
-  for (int s = 0; s < n; ++s) mx = fmaxf(mx, m_part[(base + s) * Hq + h]);
-  float tot = 0.f;
-  for (int s = 0; s < n; ++s) tot = fmaf(l_part[(base + s) * Hq + h], expf(m_part[(base + s) * Hq + h] - mx), tot);
-  const float denom = fmaxf(tot, 1e-20f);
-  for (int d = threadIdx.x; d < D; d += kMergeThreads) {
-    float a = 0.f;
-    for (int s = 0; s < n; ++s)
-      a = fmaf(acc_part[((base + s) * Hq + h) * D + d], expf(m_part[(base + s) * Hq + h] - mx), a);
-    dtt::store1(out + ((size_t)b * Hq + h) * D + d, a / denom);
+// Int8: two codes as a bf16 pair (exact: |code| <= 127).
+__device__ __forceinline__ uint32_t codes_bf16(int lo, int hi) { return dtt::pack_bf16((float)lo, (float)hi); }
+
+template <typename TK, int DP>
+__global__ void __launch_bounds__(32 * kFoldItems, 1)
+folded_decode_tc(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_pool,
+                 const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
+                 const float* __restrict__ v_scale, const int* __restrict__ page_tables,
+                 const int* __restrict__ positions, float* __restrict__ m_part,
+                 float* __restrict__ l_part, float* __restrict__ acc_part, const FoldArgs f) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  constexpr int KS = DP / 16;  // k-steps of Q . K^T
+  constexpr int NB = DP / 8;   // 8-column blocks of the output
+  static_assert(DP % 16 == 0 && DP <= 128, "unsupported head_dim");
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  const int split = blockIdx.x;
+  const int b = blockIdx.z;
+  const int ctx = decode_ctx(positions, b, f.max_pages * f.page_size);
+  const int r0 = split * f.split_rows;
+  if (r0 >= ctx) return;  // block-uniform: this split holds no context
+  const int r1 = min(r0 + f.split_rows, ctx);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int Hq = f.Hkv * f.G;
+  const FoldItem it = fold_item(f, blockIdx.y, warp);
+  const int W = it.kv_n * f.D;  // staged values of a row
+  const size_t token_stride = (size_t)f.Hkv * f.D;
+
+  const int stage_bytes = fold_stage_bytes<TK>(f);
+  int* tok = reinterpret_cast<int*>(smem + f.stages * stage_bytes);  // [split_rows]
+  const int* pt = page_tables + (size_t)b * f.max_pages;
+  for (int j = r0 + threadIdx.x; j < r1; j += blockDim.x) tok[j - r0] = (int)dtt::token_row(pt, j, f.page_size);
+  __syncthreads();
+
+  const int n_tiles = (r1 - r0 + kFoldRows - 1) / kFoldRows;
+  for (int st = 0; st < f.stages - 1; ++st) {
+    if (st < n_tiles)
+      fold_start_tile<TK>(smem + st * stage_bytes, k_pool, v_pool, k_scale, v_scale, tok, r0 + st * kFoldRows,
+                          r0, r1, W, token_stride, (size_t)it.kv_lo * f.D, f);
+    dtt::cp_async_commit();
+  }
+
+  // this warp's query fragments: heads ht * 16 + g and + 8 of kv head kvh
+  // (zero past G), columns past D zero
+  const int hA = it.ht * 16 + g;
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int h = hA + 8 * (i & 1);
+      const int col = 16 * ks + 2 * t + 8 * (i >> 1);
+      qa[ks][i] = 0u;
+      if (it.active && h < f.G && col < f.D)
+        qa[ks][i] = *reinterpret_cast<const uint32_t*>(q + ((size_t)b * Hq + it.kvh * f.G + h) * f.D + col);
+    }
+  }
+  float m[2] = {dtt::kNegInf, dtt::kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float acc[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  const uint32_t kofs = (uint32_t)(it.kvh - it.kv_lo) * f.D * 2;  // this kv head's bytes into a bf16 row
+  const uint32_t row_bytes = f.rs * 16;
+
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const int nxt = ti + f.stages - 1;
+    if (nxt < n_tiles)
+      fold_start_tile<TK>(smem + (nxt % f.stages) * stage_bytes, k_pool, v_pool, k_scale, v_scale, tok,
+                          r0 + nxt * kFoldRows, r0, r1, W, token_stride, (size_t)it.kv_lo * f.D, f);
+    dtt::cp_async_commit();
+    dtt::cp_async_wait_upto(f.stages - 1);
+    __syncthreads();
+    const uint8_t* stage = smem + (ti % f.stages) * stage_bytes;
+    // int8: the raw codes, converted to bf16 fragments in registers
+    const int8_t* kc = reinterpret_cast<const int8_t*>(stage) + (it.kvh - it.kv_lo) * f.D;
+    const int8_t* vc = kc + kFoldRows * f.rsr;
+    const float* sKs = reinterpret_cast<const float*>(stage + 2 * kFoldRows * f.rsr);
+    const float* sVs = sKs + kFoldRows;
+    const int t0 = r0 + ti * kFoldRows;
+    if (it.active) {  // warp-uniform
+      const uint32_t kt = dtt::smem_u32(stage) + kofs;
+      const uint32_t vt = kt + kFoldRows * row_bytes;
+      // S = Q . K^T over the tile's 4 blocks of 8 rows
+      float s[4][4];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t b0, b1;
+          if constexpr (kQuant) {
+            const int8_t* r = kc + (nb * 8 + g) * f.rsr + 16 * ks + 2 * t;
+            const char2 x = *reinterpret_cast<const char2*>(r);
+            const char2 y = *reinterpret_cast<const char2*>(r + 8);
+            b0 = codes_bf16(x.x, x.y);
+            b1 = codes_bf16(y.x, y.y);
+          } else {
+            dtt::ldsm_x2(b0, b1, kt + (nb * 8 + (lane & 7)) * row_bytes + ks * 32 + ((lane >> 3) & 1) * 16);
+          }
+          dtt::mma_bf16_16816(s[nb], qa[ks], b0, b1);
+        }
+      }
+      // online softmax; s[nb][i] is (head row g + 8 (i / 2), tile row 8 nb + 2t + i % 2)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = nb * 8 + 2 * t + (i & 1);
+          float v = s[nb][i] * f.scale_log2;
+          if constexpr (kQuant) v *= sKs[r];
+          if (t0 + r >= r1) v = dtt::kNegInf;
+          s[nb][i] = v;
+          mx[i >> 1] = fmaxf(mx[i >> 1], v);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        corr[h] = exp2f(m[h] - mx[h]);
+        m[h] = mx[h];
+        l[h] *= corr[h];
+      }
+      uint32_t ph[4][2], pl[4][2];  // P split into bf16 hi and lo: (block nb, head row g / g + 8)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float p0 = exp2f(s[nb][2 * h] - m[h]);
+          float p1 = exp2f(s[nb][2 * h + 1] - m[h]);
+          l[h] += p0 + p1;
+          if constexpr (kQuant) {
+            p0 *= sVs[nb * 8 + 2 * t];
+            p1 *= sVs[nb * 8 + 2 * t + 1];
+          }
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(hi);
+          ph[nb][h] = *reinterpret_cast<const uint32_t*>(&hi);
+          pl[nb][h] = dtt::pack_bf16(p0 - hf.x, p1 - hf.y);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+      // O += P_hi . V + P_lo . V; k-step kk takes tile rows 16 kk .. 16 kk + 15
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t ah[4] = {ph[2 * kk][0], ph[2 * kk][1], ph[2 * kk + 1][0], ph[2 * kk + 1][1]};
+        const uint32_t al[4] = {pl[2 * kk][0], pl[2 * kk][1], pl[2 * kk + 1][0], pl[2 * kk + 1][1]};
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          if (n * 8 >= f.D) break;  // the pad columns' block: never written
+          uint32_t b0, b1;
+          if constexpr (kQuant) {
+            const int8_t* c = vc + (16 * kk + 2 * t) * f.rsr + 8 * n + g;
+            b0 = codes_bf16(c[0], c[f.rsr]);
+            b1 = codes_bf16(c[8 * f.rsr], c[9 * f.rsr]);
+          } else {
+            dtt::ldsm_x2_trans(b0, b1, vt + (16 * kk + (lane & 15)) * row_bytes + n * 16);
+          }
+          dtt::mma_bf16_16816(acc[n], ah, b0, b1);
+          dtt::mma_bf16_16816(acc[n], al, b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  if (!it.active) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const size_t part = (size_t)b * f.n_split + split;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int head = hA + 8 * h;
+    if (head >= f.G) continue;
+    const size_t hq = part * Hq + (size_t)it.kvh * f.G + head;
+    if (t == 0) {
+      m_part[hq] = m[h];
+      l_part[hq] = l[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      if (n * 8 >= f.D) break;
+      *reinterpret_cast<float2*>(acc_part + hq * f.D + n * 8 + 2 * t) = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+    }
+  }
+}
+
+// f32 queries over f32 or int8 pools. Block (split, kv head, sequence); warp
+// w takes the kv head's query heads w, w + 4, ...; lane j scores row j of
+// each 32-row step against the head's query (in shared memory) and owns
+// output columns lane + 32 i.
+template <typename TK>
+__global__ void __launch_bounds__(32 * kFoldFmaWarps)
+folded_decode_fma(const float* __restrict__ q, const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
+                  const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                  const int* __restrict__ page_tables, const int* __restrict__ positions,
+                  float* __restrict__ m_part, float* __restrict__ l_part, float* __restrict__ acc_part,
+                  const FoldArgs f) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  __shared__ float sq[kFoldFmaWarps][128];
+  const int split = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int ctx = decode_ctx(positions, b, f.max_pages * f.page_size);
+  const int r0 = split * f.split_rows;
+  if (r0 >= ctx) return;
+  const int r1 = min(r0 + f.split_rows, ctx);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int Hq = f.Hkv * f.G;
+  const size_t token_stride = (size_t)f.Hkv * f.D;
+  const int* pt = page_tables + (size_t)b * f.max_pages;
+  const size_t part = (size_t)b * f.n_split + split;
+
+  for (int h = warp; h < f.G; h += kFoldFmaWarps) {  // warp-uniform
+    const size_t hq = (size_t)kvh * f.G + h;
+    for (int d = lane; d < f.D; d += 32) sq[warp][d] = q[((size_t)b * Hq + hq) * f.D + d];
+    __syncwarp();
+    float m = dtt::kNegInf, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j0 = r0; j0 < r1; j0 += 32) {
+      const int j = j0 + lane;
+      long long tk = 0;
+      float s = dtt::kNegInf;
+      if (j < r1) {
+        tk = (long long)dtt::token_row(pt, j, f.page_size);
+        const TK* kr = k_pool + tk * token_stride + (size_t)kvh * f.D;
+        float dot = 0.f;
+        for (int d = 0; d < f.D; ++d) dot = fmaf(sq[warp][d], (float)kr[d], dot);
+        s = dot * f.scale_log2;
+        if constexpr (kQuant) s *= k_scale[tk];
+      }
+      const float new_m = fmaxf(m, dtt::warp_max(s));
+      const float corr = exp2f(m - new_m);
+      float p = j < r1 ? exp2f(s - new_m) : 0.f;
+      l = l * corr + dtt::warp_sum(p);
+      m = new_m;
+      if constexpr (kQuant) {
+        if (j < r1) p *= v_scale[tk];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] *= corr;
+      const int n = min(32, r1 - j0);
+      for (int r = 0; r < n; ++r) {  // warp-uniform
+        const float pr = __shfl_sync(0xffffffffu, p, r);
+        const long long tr = __shfl_sync(0xffffffffu, tk, r);
+        const TK* vr = v_pool + tr * token_stride + (size_t)kvh * f.D;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = lane + 32 * i;
+          if (d < f.D) acc[i] = fmaf(pr, (float)vr[d], acc[i]);
+        }
+      }
+    }
+    if (lane == 0) {
+      m_part[part * Hq + hq] = m;
+      l_part[part * Hq + hq] = l;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = lane + 32 * i;
+      if (d < f.D) acc_part[(part * Hq + hq) * f.D + d] = acc[i];
+    }
+    __syncwarp();  // sq is rewritten for the next head
   }
 }
 
@@ -294,79 +593,132 @@ struct DecodeArgs {
   cudaStream_t stream;
 };
 
-template <typename TQ, typename TK, int D, int G>
-int launch_k1(const DecodeArgs& a) {
-  paged_decode_kernel<TQ, TK, D, G><<<dim3(a.Hkv, a.B), kThreads, 0, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks,
-      a.vs, a.pt, a.pos, static_cast<TQ*>(a.out), a.Hkv, a.ps, a.max_pages,
-      1.0f / sqrtf((float)D));
+template <typename TQ, typename TK, int D, int SG>
+struct K1Launch {
+  static int run(const DecodeArgs& a) {
+    const int G = a.Hq / a.Hkv;
+    paged_decode_kernel<TQ, TK, D, SG><<<dim3(a.Hkv, a.B, G / SG), kThreads, 0, a.stream>>>(
+        static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks,
+        a.vs, a.pt, a.pos, static_cast<TQ*>(a.out), a.Hkv, G, a.ps, a.max_pages, 1.0f / sqrtf((float)D));
+    return (int)cudaGetLastError();
+  }
+};
+
+// Dispatch on the sub-group size head_subgroup(G) to F<TQ, TK, D, SG>::run.
+template <template <typename, typename, int, int> class F, typename TQ, typename TK, int D>
+int with_subgroup(const DecodeArgs& a) {
+  switch (dtt::head_subgroup(a.Hq / a.Hkv)) {
+    case 1: return F<TQ, TK, D, 1>::run(a);
+    case 2: return F<TQ, TK, D, 2>::run(a);
+    case 3: return F<TQ, TK, D, 3>::run(a);
+    case 4: return F<TQ, TK, D, 4>::run(a);
+    case 5: return F<TQ, TK, D, 5>::run(a);
+    case 6: return F<TQ, TK, D, 6>::run(a);
+    case 7: return F<TQ, TK, D, 7>::run(a);
+    case 8: return F<TQ, TK, D, 8>::run(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TQ, typename TK>
+struct K1Types {
+  static int run(const DecodeArgs& a) {
+    switch (a.D) {
+      case 64: return with_subgroup<K1Launch, TQ, TK, 64>(a);
+      case 128: return with_subgroup<K1Launch, TQ, TK, 128>(a);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+};
+
+// K3a's partition: the kv heads a block stages (as many as fit the ring's
+// budget at two stages, at most kFoldItems), the ring's stages and the
+// dynamic shared memory (ring, int8 conversion tiles, the split's pool rows).
+template <typename TK>
+FoldArgs fold_plan(const DecodeArgs& a, int split_rows, int n_split, size_t* smem, int* warps, int* chunks) {
+  FoldArgs f{};
+  f.Hkv = a.Hkv;
+  f.G = a.Hq / a.Hkv;
+  f.D = a.D;
+  f.page_size = a.ps;
+  f.max_pages = a.max_pages;
+  f.split_rows = split_rows;
+  f.n_split = n_split;
+  f.scale_log2 = 1.4426950408889634f / sqrtf((float)a.D);
+  f.n_ht = (f.G + 15) / 16;
+  f.tpb = std::min(f.n_ht, kFoldItems);
+  for (f.hb = f.n_ht == 1 ? std::min(a.Hkv, kFoldItems) : 1;; --f.hb) {
+    const int W = f.hb * a.D;
+    f.rs = W / 8 + (a.D % 16 ? 1 : 0);  // a pad chunk when D is no multiple of 16
+    f.rs |= 1;
+    // int8 rows: 16 bytes past the codes, so consecutive rows fall 4 banks
+    // apart for the fragment loads
+    f.rsr = (W + 15) / 16 * 16 + 16;
+    if (f.hb == 1 || 2 * fold_stage_bytes<TK>(f) <= kFoldRing) break;
+  }
+  const int stage = fold_stage_bytes<TK>(f);
+  f.stages = std::max(2, std::min(4, kFoldRing / stage));
+  *smem = (size_t)f.stages * stage + split_rows * sizeof(int);
+  *warps = f.n_ht == 1 ? f.hb : f.tpb;
+  *chunks = f.n_ht == 1 ? (a.Hkv + f.hb - 1) / f.hb : a.Hkv * ((f.n_ht + f.tpb - 1) / f.tpb);
+  return f;
+}
+
+template <typename TQ>
+int launch_merge(const DecodeArgs& a, const float* m, const float* l, const float* acc, int split_rows,
+                 int n_split) {
+  dtt::merge_splits<TQ><<<dim3((a.Hq + dtt::kMergeHeads - 1) / dtt::kMergeHeads, a.B), 32 * dtt::kMergeHeads, 0,
+                          a.stream>>>(m, l, acc, a.pos, static_cast<TQ*>(a.out), a.Hq, a.D, a.max_pages * a.ps,
+                                      split_rows, n_split);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, typename TK, int D, int G>
-int launch_k3a(const DecodeArgs& a, float* m_part, float* l_part, float* acc_part, int split_rows,
-               int n_split) {
-  constexpr int VEC = dtt::RowVec<TK>::N;
-  const int nrows = kFoldThreads / (a.Hkv * (D / VEC));
-  const size_t smem = (size_t)nrows * a.Hq * (2 + D) * sizeof(float);
-  folded_decode_partial<TQ, TK, D, G><<<dim3(n_split, a.B), kFoldThreads, smem, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks,
-      a.vs, a.pt, a.pos, m_part, l_part, acc_part, a.Hkv, a.ps, a.max_pages, split_rows, n_split,
-      1.0f / sqrtf((float)D));
+template <typename TK, int DP>
+int launch_fold_tc(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
+  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
+  size_t smem;
+  int warps, chunks;
+  const FoldArgs f = fold_plan<TK>(a, split_rows, n_split, &smem, &warps, &chunks);
+  const cudaError_t err = dtt::raise_smem_limit_once(folded_decode_tc<TK, DP>, smem_raised, 227 * 1024);
+  if (err != cudaSuccess) return (int)err;
+  folded_decode_tc<TK, DP><<<dim3(n_split, chunks, a.B), 32 * warps, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs,
+      a.pt, a.pos, m, l, acc, f);
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
-  folded_decode_merge<TQ><<<dim3(a.Hq, a.B), kMergeThreads, 0, a.stream>>>(
-      m_part, l_part, acc_part, a.pos, static_cast<TQ*>(a.out), a.Hq, D, a.ps, a.max_pages,
-      split_rows, n_split);
-  return (int)cudaGetLastError();
+  return launch_merge<__nv_bfloat16>(a, m, l, acc, split_rows, n_split);
 }
 
-// Dispatch on (D, G) to F<TQ, TK, D, G>::run; D in Ds, G in {1, 2, 4, 8}.
-template <template <typename, typename, int, int> class F, typename TQ, typename TK, int D,
-          typename... Args>
-int with_group(int G, Args&&... args) {
-  switch (G) {
-    case 1: return F<TQ, TK, D, 1>::run(args...);
-    case 2: return F<TQ, TK, D, 2>::run(args...);
-    case 4: return F<TQ, TK, D, 4>::run(args...);
-    case 8: return F<TQ, TK, D, 8>::run(args...);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <typename TK>
+int launch_fold_fma(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
+  FoldArgs f{};
+  f.Hkv = a.Hkv;
+  f.G = a.Hq / a.Hkv;
+  f.D = a.D;
+  f.page_size = a.ps;
+  f.max_pages = a.max_pages;
+  f.split_rows = split_rows;
+  f.n_split = n_split;
+  f.scale_log2 = 1.4426950408889634f / sqrtf((float)a.D);
+  folded_decode_fma<TK><<<dim3(n_split, a.Hkv, a.B), 32 * kFoldFmaWarps, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs, a.pt,
+      a.pos, m, l, acc, f);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return (int)launched;
+  return launch_merge<float>(a, m, l, acc, split_rows, n_split);
 }
 
-template <typename TQ, typename TK, int D, int G>
-struct K1Launch {
-  static int run(const DecodeArgs& a) { return launch_k1<TQ, TK, D, G>(a); }
-};
-
-template <typename TQ, typename TK, int D, int G>
-struct K3aLaunch {
-  static int run(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
-    return launch_k3a<TQ, TK, D, G>(a, m, l, acc, split_rows, n_split);
-  }
-};
-
-template <typename TQ, typename TK>
-int k1_types(const DecodeArgs& a) {
-  const int G = a.Hq / a.Hkv;
-  switch (a.D) {
-    case 64: return with_group<K1Launch, TQ, TK, 64>(G, a);
-    case 128: return with_group<K1Launch, TQ, TK, 128>(G, a);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename TQ, typename TK>
-int k3a_types(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
-  constexpr int VEC = dtt::RowVec<TK>::N;
-  const int G = a.Hq / a.Hkv;
-  if (a.D % VEC) return (int)cudaErrorInvalidValue;
-  const int rl = a.Hkv * (a.D / VEC);  // lanes per row: must divide the block
-  if (rl > kFoldThreads || kFoldThreads % rl) return (int)cudaErrorInvalidValue;
-  switch (a.D) {
-    case 16: return with_group<K3aLaunch, TQ, TK, 16>(G, a, m, l, acc, split_rows, n_split);
-    case 32: return with_group<K3aLaunch, TQ, TK, 32>(G, a, m, l, acc, split_rows, n_split);
-    case 64: return with_group<K3aLaunch, TQ, TK, 64>(G, a, m, l, acc, split_rows, n_split);
+template <typename TK>
+int fold_tc_dim(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
+  switch ((a.D + 15) / 16) {  // D padded to a multiple of 16
+    case 1: return launch_fold_tc<TK, 16>(a, m, l, acc, split_rows, n_split);
+    case 2: return launch_fold_tc<TK, 32>(a, m, l, acc, split_rows, n_split);
+    case 3: return launch_fold_tc<TK, 48>(a, m, l, acc, split_rows, n_split);
+    case 4: return launch_fold_tc<TK, 64>(a, m, l, acc, split_rows, n_split);
+    case 5: return launch_fold_tc<TK, 80>(a, m, l, acc, split_rows, n_split);
+    case 6: return launch_fold_tc<TK, 96>(a, m, l, acc, split_rows, n_split);
+    case 7: return launch_fold_tc<TK, 112>(a, m, l, acc, split_rows, n_split);
+    case 8: return launch_fold_tc<TK, 128>(a, m, l, acc, split_rows, n_split);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -382,15 +734,15 @@ int with_types(int q_dtype, int kv_dtype, Args&&... args) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TQ, typename TK>
-struct K1Types {
-  static int run(const DecodeArgs& a) { return k1_types<TQ, TK>(a); }
-};
-
+// bf16 queries take the tensor-core body, f32 queries the FMA body
 template <typename TQ, typename TK>
 struct K3aTypes {
   static int run(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
-    return k3a_types<TQ, TK>(a, m, l, acc, split_rows, n_split);
+    if constexpr (std::is_same<TQ, float>::value) {
+      return launch_fold_fma<TK>(a, m, l, acc, split_rows, n_split);
+    } else {
+      return fold_tc_dim<TK>(a, m, l, acc, split_rows, n_split);
+    }
   }
 };
 
@@ -417,8 +769,9 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool, const v
   return with_types<K1Types>(q_dtype, kv_dtype, a);
 }
 
-// K3a. Partial buffers m_part, l_part [B, n_split, Hq] and acc_part [B,
-// n_split, Hq, D] f32, n_split >= ceil(max_pages * page_size / split_rows).
+// K3a: head_dim D a multiple of 8 below 128, any Hq a multiple of Hkv.
+// Partial buffers m_part, l_part [B, n_split, Hq] and acc_part [B, n_split,
+// Hq, D] f32, n_split >= ceil(max_pages * page_size / split_rows).
 extern "C" int paged_decode_attention_folded(const void* q, const void* k_pool,
                                              const void* v_pool, const void* k_scale,
                                              const void* v_scale, const void* page_tables,
@@ -432,8 +785,8 @@ extern "C" int paged_decode_attention_folded(const void* q, const void* k_pool,
                      static_cast<const int*>(positions), out, B, Hq, Hkv, D, page_size, max_pages,
                      static_cast<cudaStream_t>(stream)};
   if (B <= 0) return 0;
-  if (!decode_shapes_ok(a, kv_dtype) || split_rows <= 0 ||
-      (long long)n_split * split_rows < (long long)max_pages * page_size)
+  if (!decode_shapes_ok(a, kv_dtype) || D % 8 || D <= 0 || D >= 128 || split_rows <= 0 ||
+      split_rows % kFoldRows || (long long)n_split * split_rows < (long long)max_pages * page_size)
     return (int)cudaErrorInvalidValue;
   return with_types<K3aTypes>(q_dtype, kv_dtype, a, static_cast<float*>(m_part),
                               static_cast<float*>(l_part), static_cast<float*>(acc_part),

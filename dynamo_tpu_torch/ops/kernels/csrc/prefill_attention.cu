@@ -6,7 +6,7 @@
 // _kernel, math in _flash_merge). K3b replaces :615
 // paged_prefill_attention_pallas_folded (pallas_call at :662,
 // _kernel_folded), the same function for head dims that are not a multiple
-// of 128 (TinyLlama's 64), which the TPU reads from pools with the kv heads
+// of 128 (TinyLlama's 64; here any multiple of 8 below 128), which the TPU reads from pools with the kv heads
 // folded into the lane dim through zero-placed folded queries (a Mosaic lane
 // workaround, not carried over). The reference's folded kernel rounds its
 // probabilities to the pool dtype before P.V (:572); the port keeps f32
@@ -42,24 +42,28 @@
 // faster.
 //
 // Design (bf16 queries over bf16 or int8 pools, K2 at D 64 / 128 and K3b at
-// D 16 / 32 / 64, one body: tc_prefill_kernel<TK, D>):
+// any D that is a multiple of 8 below 128, one body: tc_prefill_kernel<TK,
+// DP>, DP = D rounded up to 16: the tiles hold DP columns, those past D zero,
+// and the output's pad columns are never written):
 // - Block = 128 (query, head) rows of one kv head's GQA group, two consumer
 //   warpgroups of 64: row r is query position r / G, head r % G, so a block
-//   covers BQ = 128 / G positions and every staged K/V tile serves all G
-//   heads. Grid (q-blocks, Hkv, lanes), the blocks with the longest context
-//   first.
+//   covers BQ = floor(128 / G) positions (any G up to 128; the rows from BQ *
+//   G on are zero queries and write nothing) and every staged K/V tile
+//   serves all G heads. Grid (q-blocks, Hkv, lanes), the blocks with the
+//   longest context first.
 // - Both products on the tensor cores. S = Q.K^T: wgmma m64n64k16, bf16 in,
 //   f32 accumulate, Q and K from shared memory (K-major, as the pool stores
-//   rows). O += P.V: wgmma m64nDk16 with A from registers (the f32 S
+//   rows). O += P.V: wgmma m64nDPk16 with A from registers (the f32 S
 //   accumulator fragment maps onto the bf16 A fragment thread for thread)
-//   and V from shared memory through a transposed (MN-major) descriptor.
+//   and V from shared memory through a transposed (MN-major) descriptor; a
+//   width with no instruction (48, 80, 96, 112) is pieces of 64, 32 and 16.
 // - P stays f32-exact: rounding P once to bf16 puts short rows' small
 //   outputs outside TOL["bf16"] (tests/test_torch_prefill_tc.py), so P (int8:
 //   times the V row scale) is split as bf16(P) + bf16(P - bf16(P)) and goes
 //   through two products: the tensor-core work grows by half.
 // - Shared memory holds tiles in the no-swizzle (interleaved) core-matrix
-//   layout for every D: 16-byte chunk (row j, column chunk c) at chunk index
-//   ((j / 8) * (D / 8) + c) * 8 + j % 8, so 8 consecutive threads fill one
+//   layout for every DP: 16-byte chunk (row j, column chunk c) at chunk index
+//   ((j / 8) * (DP / 8) + c) * 8 + j % 8, so 8 consecutive threads fill one
 //   128-byte core matrix and the same tile is the K-major B of Q.K^T and the
 //   MN-major B of P.V. The descriptors read that layout.
 // - K/V tiles of 64 keys are held in bf16 in a ring of 2 (D 128) or 3
@@ -69,14 +73,15 @@
 //   bound are zero-filled, never read, so pad rows and pad lanes (tables of
 //   trash page 0) stay in bounds. Int8 codes land raw in the ring with their
 //   row scales and are converted to bf16 (exact: |code| <= 127) in shared
-//   memory just before their tile's products; scores take the K scale after
-//   Q.K^T.
+//   memory just before their tile's products (at D % 16 == 8 a row's last 8
+//   codes arrive as an 8-byte copy beside 8 zero bytes); scores take the K
+//   scale after Q.K^T.
 // - Online softmax in registers on the accumulator fragments (a row lives in
 //   4 threads: max reduced across them, sums at the end), exp2 with the
 //   scale folded into log2(e)/sqrt(D); the causal and n_ctx masks only on
 //   tiles that cross the diagonal or the context end.
 // f32 queries (f32 or int8 pools: the f32 greedy-parity phases and the
-// checks) keep an f32 FMA body, fma_prefill_kernel<TK, D>, in the same block
+// checks) keep an f32 FMA body, fma_prefill_kernel<TK, DP>, in the same block
 // partition: TF32 tensor cores would break TOL["f32"].
 // Next steps, not done here: TMA loads (no per-thread address work),
 // warp specialisation (a producer warp, ping-pong consumer warpgroups so one
@@ -111,27 +116,13 @@ constexpr int kPStride = kFmaKeys + 16;
 
 // ------------------------------------------------------------- PTX helpers
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; nothing read and zeros written when !ok
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using dtt::cp_async16;
+using dtt::cp_async4;
+using dtt::cp_async8;
+using dtt::cp_async_commit;
+using dtt::cp_async_wait;
+using dtt::pack_bf16;
+using dtt::smem_u32;
 
 // generic-proxy writes (cp.async, st.shared) made visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
@@ -237,11 +228,6 @@ struct WgmmaRS<128> {
   }
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // ------------------------------------------------------------- the block
 
 struct Block {
@@ -266,44 +252,57 @@ __device__ __forceinline__ Block block_of(const int* __restrict__ positions, int
 
 // ------------------------------------------------------------- the ring
 
-template <typename TK, int D>
+// DP: the head dim padded to a multiple of 16 (the tiles' width in shared
+// memory; the pad columns are zero)
+template <typename TK, int DP>
 struct Ring {
   static constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-  static constexpr int kStages = D >= 128 ? 2 : 3;
+  static constexpr int kStages = DP >= 128 ? 2 : 3;
   static constexpr int kEPC = 16 / sizeof(TK);          // pool elements a 16-byte chunk
-  static constexpr int kRaw = kTile * D * sizeof(TK);   // one K or V tile as stored in the ring
+  static constexpr int kRaw = kTile * DP * sizeof(TK);   // one K or V tile as stored in the ring
   static constexpr int kStage = 2 * kRaw + (kQuant ? 2 * kTile * 4 : 0);
-  static constexpr int kBf16Tile = kTile * D * 2;       // one K or V tile in bf16
-  static constexpr int kQBytes = kRows * D * 2;
+  static constexpr int kBf16Tile = kTile * DP * 2;       // one K or V tile in bf16
+  static constexpr int kQBytes = kRows * DP * 2;
   // Q, the ring, and (int8) the bf16 K and V tiles converted from it
   static constexpr int kSmem = kQBytes + kStages * kStage + (kQuant ? 2 * kBf16Tile : 0);
   // blocks an SM holds: two (128 registers a thread) where the body fits
-  // them without spilling, one at D 128 (~185 registers) and int8 at D 64
+  // them without spilling, one at D 128 (~185 registers) and int8 from D 64
   // (~160; at 128 it spills)
-  static constexpr int kMinBlocks = D <= 32 || (D == 64 && !kQuant) ? 2 : 1;
+  static constexpr int kMinBlocks = DP <= 32 || (DP <= 64 && !kQuant) ? 2 : 1;
 };
 
 // Start the cp.async copies of context keys [kt0, kt0 + kTile) of kv head
 // column col0 into a ring stage: K then V in the interleaved chunk layout
 // (int8: raw codes, 16 a chunk, then the K and V row scales). Keys at or
-// past n_ctx are zero-filled.
-template <typename TK, int D>
+// past n_ctx, and the columns from D to DP, are zero-filled (int8 at D % 16
+// == 8, where a kv head's row need not start on 16 bytes: 8-byte copies, the
+// last chunk's second half zero).
+template <typename TK, int DP>
 __device__ __forceinline__ void start_tile(uint8_t* stage, const TK* __restrict__ k_pool,
                                            const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
                                            const float* __restrict__ v_scale, const int* __restrict__ pt,
-                                           int kt0, int n_ctx, int page_size, size_t token_stride, int col0) {
-  using R = Ring<TK, D>;
-  constexpr int CPR = D / R::kEPC;  // chunks a key row
+                                           int kt0, int n_ctx, int page_size, size_t token_stride, int col0, int D) {
+  using R = Ring<TK, DP>;
+  constexpr int CPR = DP / R::kEPC;  // chunks a key row
   const uint32_t s = smem_u32(stage);
   for (int idx = threadIdx.x; idx < kTile * CPR; idx += kThreads) {
     const int rest = idx / 8;
     const int c = rest % CPR;
     const int key = kt0 + (rest / CPR) * 8 + idx % 8;
-    const bool ok = key < n_ctx;
+    const int e0 = c * R::kEPC;  // the chunk's first column
+    const bool ok = key < n_ctx && e0 < D;
     size_t off = 0;
-    if (ok) off = ((size_t)pt[key / page_size] * page_size + key % page_size) * token_stride + col0 + c * R::kEPC;
-    cp_async16(s + idx * 16, k_pool + off, ok);
-    cp_async16(s + R::kRaw + idx * 16, v_pool + off, ok);
+    if (ok) off = ((size_t)pt[key / page_size] * page_size + key % page_size) * token_stride + col0 + e0;
+    if (!R::kQuant || D % 16 == 0) {
+      cp_async16(s + idx * 16, k_pool + off, ok);
+      cp_async16(s + R::kRaw + idx * 16, v_pool + off, ok);
+    } else {
+      const bool hi = ok && e0 + 8 < D;
+      cp_async8(s + idx * 16, k_pool + off, ok);
+      cp_async8(s + idx * 16 + 8, k_pool + off + (hi ? 8 : 0), hi);
+      cp_async8(s + R::kRaw + idx * 16, v_pool + off, ok);
+      cp_async8(s + R::kRaw + idx * 16 + 8, v_pool + off + (hi ? 8 : 0), hi);
+    }
   }
   if constexpr (R::kQuant) {
     if (threadIdx.x < 2 * kTile) {
@@ -319,10 +318,10 @@ __device__ __forceinline__ void start_tile(uint8_t* stage, const TK* __restrict_
 }
 
 // Int8: the raw K and V codes of a ring stage to bf16 tiles (dst: K then V)
-// in the interleaved layout of D / 8 chunks a row.
-template <int D>
+// in the interleaved layout of DP / 8 chunks a row.
+template <int DP>
 __device__ __forceinline__ void convert_tile(uint8_t* dst, const uint8_t* stage) {
-  constexpr int CPR16 = D / 16;
+  constexpr int CPR16 = DP / 16;
   constexpr int RCH = kTile * CPR16;  // raw chunks a tile
   for (int idx = threadIdx.x; idx < 2 * RCH; idx += kThreads) {
     const int which = idx / RCH;
@@ -330,7 +329,7 @@ __device__ __forceinline__ void convert_tile(uint8_t* dst, const uint8_t* stage)
     const int rest = ridx / 8;
     const int c16 = rest % CPR16;
     const int j = (rest / CPR16) * 8 + ridx % 8;
-    const int4 raw = *reinterpret_cast<const int4*>(stage + which * kTile * D + ridx * 16);
+    const int4 raw = *reinterpret_cast<const int4*>(stage + which * kTile * DP + ridx * 16);
     float f[16];
     dtt::to_float(raw, f);
     uint4 a, b;
@@ -342,8 +341,8 @@ __device__ __forceinline__ void convert_tile(uint8_t* dst, const uint8_t* stage)
     b.y = pack_bf16(f[10], f[11]);
     b.z = pack_bf16(f[12], f[13]);
     b.w = pack_bf16(f[14], f[15]);
-    const int b0 = ((j / 8) * (D / 8) + 2 * c16) * 8 + j % 8;
-    uint8_t* t = dst + which * kTile * D * 2;
+    const int b0 = ((j / 8) * (DP / 8) + 2 * c16) * 8 + j % 8;
+    uint8_t* t = dst + which * kTile * DP * 2;
     *reinterpret_cast<uint4*>(t + b0 * 16) = a;
     *reinterpret_cast<uint4*>(t + (b0 + 8) * 16) = b;
   }
@@ -353,14 +352,14 @@ __device__ __forceinline__ void convert_tile(uint8_t* dst, const uint8_t* stage)
 // groups), make it visible to the tensor cores and to every thread, and
 // return its bf16 K tile (V follows it): the stage itself, or for int8 the
 // tiles converted into `conv`.
-template <typename TK, int D>
+template <typename TK, int DP>
 __device__ __forceinline__ const uint8_t* land_tile(const uint8_t* stage, uint8_t* conv) {
-  using R = Ring<TK, D>;
+  using R = Ring<TK, DP>;
   cp_async_wait<R::kStages - 1>();
   fence_proxy_async();
   __syncthreads();
   if constexpr (R::kQuant) {
-    convert_tile<D>(conv, stage);
+    convert_tile<DP>(conv, stage);
     fence_proxy_async();
     __syncthreads();
     return conv;
@@ -371,17 +370,33 @@ __device__ __forceinline__ const uint8_t* land_tile(const uint8_t* stage, uint8_
 
 // ---------------------------------------------------------------- K2 / K3b (bf16 queries)
 
-template <typename TK, int D>
-__global__ void __launch_bounds__(kThreads, Ring<TK, D>::kMinBlocks)
+// O [64 x DP] += A [64 x 16] . V [16 x DP] for DP a multiple of 16 up to
+// 128: one wgmma of width DP where the instruction exists (16, 32, 64, 128),
+// else pieces of 64, 32 and 16 columns (v_addr: the V tile's first column;
+// the interleaved layout puts column chunk c at 128 c bytes).
+template <int DP>
+__device__ __forceinline__ void pv_product(float (&o)[DP / 2], const uint32_t (&a)[4], uint32_t v_addr,
+                                           uint32_t lbo) {
+  if constexpr (DP == 16 || DP == 32 || DP == 64 || DP == 128) {
+    WgmmaRS<DP>::run(o, a, smem_desc(v_addr, lbo, 128));
+  } else {
+    constexpr int N = DP >= 64 ? 64 : (DP >= 32 ? 32 : 16);
+    WgmmaRS<N>::run(*reinterpret_cast<float(*)[N / 2]>(&o[0]), a, smem_desc(v_addr, lbo, 128));
+    pv_product<DP - N>(*reinterpret_cast<float(*)[(DP - N) / 2]>(&o[N / 2]), a, v_addr + N * 16, lbo);
+  }
+}
+
+template <typename TK, int DP>
+__global__ void __launch_bounds__(kThreads, Ring<TK, DP>::kMinBlocks)
 tc_prefill_kernel(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_pool,
                   const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale, const int* __restrict__ page_tables,
                   const int* __restrict__ positions, __nv_bfloat16* __restrict__ out, int T_len, int Hq,
-                  int Hkv, int page_size, int max_pages, float scale_log2) {
-  using R = Ring<TK, D>;
-  constexpr int CPR = D / 8;  // bf16 chunks a row
-  constexpr int NO = D / 2;   // output accumulators a thread (64 rows x D over 128 threads)
-  static_assert(D % 16 == 0 && D <= 128, "unsupported head_dim");
+                  int Hkv, int D, int page_size, int max_pages, float scale_log2) {
+  using R = Ring<TK, DP>;
+  constexpr int CPR = DP / 8;  // bf16 chunks a row
+  constexpr int NO = DP / 2;   // output accumulators a thread (64 rows x DP over 128 threads)
+  static_assert(DP % 16 == 0 && DP <= 128, "unsupported head_dim");
 
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* sQ = smem;
@@ -394,7 +409,8 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_
   const int* pt = page_tables + (size_t)n * max_pages;
   const size_t token_stride = (size_t)Hkv * D;
 
-  // Q tile, row r = (position r / G, head r % G); rows past the block are zeros
+  // Q tile, row r = (position r / G, head r % G); rows past the block and
+  // columns past D are zeros
   {
     const uint32_t s = smem_u32(sQ);
     for (int idx = threadIdx.x; idx < kRows * CPR; idx += kThreads) {
@@ -402,7 +418,7 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_
       const int c = rest % CPR;
       const int r = (rest / CPR) * 8 + idx % 8;
       const int qi = r / b.G;
-      const bool ok = qi < b.n_q;
+      const bool ok = qi < b.n_q && c * 8 < D;
       size_t off = 0;
       if (ok) off = (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r % b.G) * D + c * 8;
       cp_async16(s + idx * 16, q + off, ok);
@@ -412,8 +428,8 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_
 #pragma unroll
   for (int st = 0; st < R::kStages - 1; ++st) {
     if (st < n_tiles)
-      start_tile<TK, D>(ring + st * R::kStage, k_pool, v_pool, k_scale, v_scale, pt, st * kTile, b.n_ctx,
-                        page_size, token_stride, kvh * D);
+      start_tile<TK, DP>(ring + st * R::kStage, k_pool, v_pool, k_scale, v_scale, pt, st * kTile, b.n_ctx,
+                         page_size, token_stride, kvh * D, D);
     cp_async_commit();  // the first group carries Q too
   }
 
@@ -429,16 +445,16 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_
   float o[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
-  const uint32_t q_base = smem_u32(sQ) + wg * 64 * D * 2;
+  const uint32_t q_base = smem_u32(sQ) + wg * 64 * DP * 2;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int nxt = t + R::kStages - 1;
     if (nxt < n_tiles)
-      start_tile<TK, D>(ring + (nxt % R::kStages) * R::kStage, k_pool, v_pool, k_scale, v_scale, pt,
-                        nxt * kTile, b.n_ctx, page_size, token_stride, kvh * D);
+      start_tile<TK, DP>(ring + (nxt % R::kStages) * R::kStage, k_pool, v_pool, k_scale, v_scale, pt,
+                         nxt * kTile, b.n_ctx, page_size, token_stride, kvh * D, D);
     cp_async_commit();
     const uint8_t* stage = ring + (t % R::kStages) * R::kStage;
-    const uint8_t* tk = land_tile<TK, D>(stage, conv);
+    const uint8_t* tk = land_tile<TK, DP>(stage, conv);
     const uint32_t k_base = smem_u32(tk);
     const uint32_t v_base = k_base + R::kBf16Tile;
     const float* sKs = reinterpret_cast<const float*>(stage + 2 * R::kRaw);
@@ -451,8 +467,8 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_m64n64k16(s, smem_desc(q_base + kk * 256, 128, 16 * D), smem_desc(k_base + kk * 256, 128, 16 * D),
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_m64n64k16(s, smem_desc(q_base + kk * 256, 128, 16 * DP), smem_desc(k_base + kk * 256, 128, 16 * DP),
                          1);
     wgmma_commit();
     wgmma_wait0();
@@ -506,11 +522,11 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint64_t dv = smem_desc(v_base + kk * 32 * D, 16 * D, 128);
+      const uint32_t va = v_base + kk * 32 * DP;
       const uint32_t ah[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3]};
       const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3]};
-      WgmmaRS<D>::run(o, ah, dv);
-      WgmmaRS<D>::run(o, al, dv);
+      pv_product<DP>(o, ah, va, 16 * DP);
+      pv_product<DP>(o, al, va, 16 * DP);
     }
     wgmma_commit();
     wgmma_wait0();
@@ -533,39 +549,44 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_
     const float denom = fmaxf(l[h], 1e-20f);
     __nv_bfloat16* dst = out + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r % b.G) * D + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DP / 8; ++j) {
+      if (8 * j >= D) break;  // the pad columns are never written
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * h] / denom, o[4 * j + 2 * h + 1] / denom);
+    }
   }
 }
 
 // ---------------------------------------------------------------- K2 / K3b (f32 queries)
 
+// The FMA bodies' loads: 4 f32 values (16 bytes) or 8 int8 codes (8 bytes,
+// so any D that is a multiple of 8 is whole vectors).
 template <typename T>
 __device__ __forceinline__ void load_row_f32(float* dst_row, const T* src_row, bool ok, int c) {
-  using V16 = dtt::Vec16<T>;
-  float f[V16::N];
+  using V = dtt::RowVec<T>;
+  float f[V::N];
   if (ok) {
-    dtt::to_float(dtt::load16(src_row + c), f);
+    dtt::to_float(dtt::load_row(src_row + c), f);
   } else {
 #pragma unroll
-    for (int i = 0; i < V16::N; ++i) f[i] = 0.f;
+    for (int i = 0; i < V::N; ++i) f[i] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < V16::N; i += 4) dtt::store4(dst_row + c + i, f + i);
+  for (int i = 0; i < V::N; i += 4) dtt::store4(dst_row + c + i, f + i);
 }
 
-// Stage context keys [kt0, kt0 + kFmaKeys) of kv head column col0 into sK
-// (row stride KS) and sV (row stride D) as f32, and for int8 the rows'
-// scales into sKs / sVs; keys at or past n_ctx are zero and are not read.
-template <typename TK, int D>
+// Stage context keys [kt0, kt0 + kFmaKeys) of kv head column col0, D
+// columns, into sK (row stride KS) and sV (row stride VS) as f32, and for
+// int8 the rows' scales into sKs / sVs; keys at or past n_ctx are zero and
+// are not read.
+template <typename TK>
 __device__ __forceinline__ void stage_kv(float* sK, float* sV, float* sKs, float* sVs,
                                          const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
                                          const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                                          const int* __restrict__ pt, int kt0, int n_ctx, int page_size, int KS,
-                                         size_t token_stride, int col0) {
-  constexpr int VEC = dtt::Vec16<TK>::N;
-  constexpr int vpr = D / VEC;
+                                         int VS, size_t token_stride, int col0, int D) {
+  constexpr int VEC = dtt::RowVec<TK>::N;
+  const int vpr = D / VEC;
   for (int idx = threadIdx.x; idx < kFmaKeys * vpr; idx += kThreads) {
     const int kk = idx / vpr;
     const int c = (idx - kk * vpr) * VEC;
@@ -574,7 +595,7 @@ __device__ __forceinline__ void stage_kv(float* sK, float* sV, float* sKs, float
     size_t base = 0;
     if (ok) base = ((size_t)pt[j / page_size] * page_size + (j % page_size)) * token_stride + col0;
     load_row_f32<TK>(sK + kk * KS, k_pool + base, ok, c);
-    load_row_f32<TK>(sV + kk * D, v_pool + base, ok, c);
+    load_row_f32<TK>(sV + kk * VS, v_pool + base, ok, c);
   }
   if constexpr (std::is_same<TK, int8_t>::value) {
     if (threadIdx.x < kFmaKeys) {
@@ -591,30 +612,31 @@ __device__ __forceinline__ void stage_kv(float* sK, float* sV, float* sKs, float
   }
 }
 
-template <int D>
+template <int DP>
 constexpr size_t fma_smem_bytes() {
-  return ((size_t)kRows * (D + 4) + kFmaKeys * (D + 4) + kFmaKeys * D + kRows * kPStride + 2 * kFmaKeys) *
+  return ((size_t)kRows * (DP + 4) + kFmaKeys * (DP + 4) + kFmaKeys * DP + kRows * kPStride + 2 * kFmaKeys) *
          sizeof(float);
 }
 
 // Thread (ty, tx) owns rows ty + 16 i (i < kFmaRPT), row r = (head r / BQ,
-// position r % BQ); keys tx and tx + 16 of each tile; output columns tx + 16 c.
-template <typename TK, int D>
+// position r % BQ; rows from G * BQ on hold no head); keys tx and tx + 16 of
+// each tile; output columns tx + 16 c below D (DP: D rounded up to 16).
+template <typename TK, int DP>
 __global__ void __launch_bounds__(kThreads, 1)
 fma_prefill_kernel(const float* __restrict__ q, const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
                    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                    const int* __restrict__ page_tables, const int* __restrict__ positions, float* __restrict__ out,
-                   int T_len, int Hq, int Hkv, int page_size, int max_pages, float scale) {
+                   int T_len, int Hq, int Hkv, int D, int page_size, int max_pages, float scale) {
   constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-  constexpr int QS = D + 4;  // padded row stride of the Q and K tiles
-  constexpr int CW = D / 16; // output columns a thread
-  static_assert(D % 16 == 0, "unsupported head_dim");
+  constexpr int QS = DP + 4;   // padded row stride of the Q and K tiles
+  constexpr int CW = DP / 16;  // output columns a thread
+  static_assert(DP % 16 == 0, "unsupported head_dim");
 
   extern __shared__ float4 smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);  // [kRows][QS]
   float* sK = sQ + kRows * QS;                     // [kFmaKeys][QS]
-  float* sV = sK + kFmaKeys * QS;                  // [kFmaKeys][D]
-  float* sP = sV + kFmaKeys * D;                   // [kRows][kPStride]
+  float* sV = sK + kFmaKeys * QS;                  // [kFmaKeys][DP]
+  float* sP = sV + kFmaKeys * DP;                  // [kRows][kPStride]
   float* sKs = sP + kRows * kPStride;              // [kFmaKeys]
   float* sVs = sKs + kFmaKeys;                     // [kFmaKeys]
 
@@ -631,7 +653,7 @@ fma_prefill_kernel(const float* __restrict__ q, const TK* __restrict__ k_pool, c
     const int c = (idx % (D / 4)) * 4;
     const int qi = r % b.BQ;
     const float* src = q + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D;
-    load_row_f32<float>(sQ + r * QS, src, qi < b.n_q, c);
+    load_row_f32<float>(sQ + r * QS, src, qi < b.n_q && r / b.BQ < b.G, c);
   }
 
   float m[kFmaRPT], l[kFmaRPT], o[kFmaRPT][CW];
@@ -647,8 +669,8 @@ fma_prefill_kernel(const float* __restrict__ q, const TK* __restrict__ k_pool, c
 
   for (int kt0 = 0; kt0 < b.n_ctx; kt0 += kFmaKeys) {
     __syncthreads();  // previous tile's readers are done with sK / sV / sP
-    stage_kv<TK, D>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size, QS,
-                    (size_t)Hkv * D, kvh * D);
+    stage_kv<TK>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size, QS, DP,
+                 (size_t)Hkv * D, kvh * D, D);
     __syncthreads();
 
     float s[kFmaRPT][2];
@@ -709,7 +731,7 @@ fma_prefill_kernel(const float* __restrict__ q, const TK* __restrict__ k_pool, c
     for (int kk = 0; kk < kFmaKeys; ++kk) {
       float vv[CW];
 #pragma unroll
-      for (int c = 0; c < CW; ++c) vv[c] = sV[kk * D + tx + 16 * c];
+      for (int c = 0; c < CW; ++c) vv[c] = sV[kk * DP + tx + 16 * c];  // past D: unread pad
 #pragma unroll
       for (int i = 0; i < kFmaRPT; ++i) {
         const float p = sP[(ty + 16 * i) * kPStride + kk];
@@ -723,11 +745,12 @@ fma_prefill_kernel(const float* __restrict__ q, const TK* __restrict__ k_pool, c
   for (int i = 0; i < kFmaRPT; ++i) {
     const int r = ty + 16 * i;
     const int qi = r % b.BQ;
-    if (qi >= b.n_q) continue;
+    if (qi >= b.n_q || r / b.BQ >= b.G) continue;
     const float denom = fmaxf(l[i], 1e-20f);
     float* dst = out + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D + tx;
 #pragma unroll
-    for (int c = 0; c < CW; ++c) dst[16 * c] = o[i][c] / denom;
+    for (int c = 0; c < CW; ++c)
+      if (tx + 16 * c < D) dst[16 * c] = o[i][c] / denom;
   }
 }
 
@@ -776,8 +799,8 @@ prefill_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool, 
     float sum = 0.f;
     for (int kt0 = 0; kt0 < b.n_ctx; kt0 += kFmaKeys) {
       __syncthreads();  // the previous tile's readers are done
-      stage_kv<TK, D>(sK, sV, nullptr, nullptr, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size, KS,
-                      token_stride, kvh * D);
+      stage_kv<TK>(sK, sV, nullptr, nullptr, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size, KS, D,
+                   token_stride, kvh * D, D);
       __syncthreads();
       for (int kk = part; kk < kFmaKeys; kk += kThreads / D) sum += sK[kk * KS + c] + sV[kk * D + c];
     }
@@ -799,14 +822,14 @@ prefill_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool, 
     for (int st = 0; st < R::kStages - 1; ++st) {
       if (st < n_tiles)
         start_tile<TK, D>(ring + st * R::kStage, k_pool, v_pool, k_scale, v_scale, pt, st * kTile, b.n_ctx,
-                          page_size, token_stride, kvh * D);
+                          page_size, token_stride, kvh * D, D);
       cp_async_commit();
     }
     for (int t = 0; t < n_tiles; ++t) {
       const int nxt = t + R::kStages - 1;
       if (nxt < n_tiles)
         start_tile<TK, D>(ring + (nxt % R::kStages) * R::kStage, k_pool, v_pool, k_scale, v_scale, pt,
-                          nxt * kTile, b.n_ctx, page_size, token_stride, kvh * D);
+                          nxt * kTile, b.n_ctx, page_size, token_stride, kvh * D, D);
       cp_async_commit();
       const uint8_t* stage = ring + (t % R::kStages) * R::kStage;
       const uint8_t* tk = land_tile<TK, D>(stage, conv);
@@ -866,25 +889,26 @@ dim3 prefill_grid(const PrefillArgs& a) {
   return dim3((a.T_len + BQ - 1) / BQ, a.Hkv, a.N);
 }
 
-template <typename TQ, typename TK, int D>
+// DP: a.D rounded up to a multiple of 16
+template <typename TQ, typename TK, int DP>
 int launch_attention(const PrefillArgs& a) {
   static std::atomic<bool> smem_raised[dtt::kMaxDevices];
   if constexpr (std::is_same<TQ, float>::value) {
-    constexpr size_t smem = fma_smem_bytes<D>();
-    const cudaError_t err = dtt::raise_smem_limit_once(fma_prefill_kernel<TK, D>, smem_raised, smem);
+    constexpr size_t smem = fma_smem_bytes<DP>();
+    const cudaError_t err = dtt::raise_smem_limit_once(fma_prefill_kernel<TK, DP>, smem_raised, smem);
     if (err != cudaSuccess) return (int)err;
-    fma_prefill_kernel<TK, D><<<prefill_grid(a), kThreads, smem, a.stream>>>(
+    fma_prefill_kernel<TK, DP><<<prefill_grid(a), kThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs,
-        a.pt, a.pos, static_cast<float*>(a.out), a.T_len, a.Hq, a.Hkv, a.ps, a.max_pages,
-        1.0f / sqrtf((float)D));
+        a.pt, a.pos, static_cast<float*>(a.out), a.T_len, a.Hq, a.Hkv, a.D, a.ps, a.max_pages,
+        1.0f / sqrtf((float)a.D));
   } else {
-    constexpr size_t smem = Ring<TK, D>::kSmem;
-    const cudaError_t err = dtt::raise_smem_limit_once(tc_prefill_kernel<TK, D>, smem_raised, smem);
+    constexpr size_t smem = Ring<TK, DP>::kSmem;
+    const cudaError_t err = dtt::raise_smem_limit_once(tc_prefill_kernel<TK, DP>, smem_raised, smem);
     if (err != cudaSuccess) return (int)err;
-    tc_prefill_kernel<TK, D><<<prefill_grid(a), kThreads, smem, a.stream>>>(
+    tc_prefill_kernel<TK, DP><<<prefill_grid(a), kThreads, smem, a.stream>>>(
         static_cast<const __nv_bfloat16*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks,
-        a.vs, a.pt, a.pos, static_cast<__nv_bfloat16*>(a.out), a.T_len, a.Hq, a.Hkv, a.ps, a.max_pages,
-        1.4426950408889634f / sqrtf((float)D));
+        a.vs, a.pt, a.pos, static_cast<__nv_bfloat16*>(a.out), a.T_len, a.Hq, a.Hkv, a.D, a.ps, a.max_pages,
+        1.4426950408889634f / sqrtf((float)a.D));
   }
   return (int)cudaGetLastError();
 }
@@ -912,13 +936,20 @@ struct K2Types {
   }
 };
 
+// K3b: any D that is a multiple of 8 below 128, in tiles padded to 16
 template <typename TQ, typename TK>
 struct K3bTypes {
   static int run(const PrefillArgs& a) {
-    switch (a.D) {
-      case 16: return launch_attention<TQ, TK, 16>(a);
-      case 32: return launch_attention<TQ, TK, 32>(a);
-      case 64: return launch_attention<TQ, TK, 64>(a);
+    if (a.D % 8 || a.D <= 0 || a.D >= 128) return (int)cudaErrorInvalidValue;
+    switch ((a.D + 15) / 16) {
+      case 1: return launch_attention<TQ, TK, 16>(a);
+      case 2: return launch_attention<TQ, TK, 32>(a);
+      case 3: return launch_attention<TQ, TK, 48>(a);
+      case 4: return launch_attention<TQ, TK, 64>(a);
+      case 5: return launch_attention<TQ, TK, 80>(a);
+      case 6: return launch_attention<TQ, TK, 96>(a);
+      case 7: return launch_attention<TQ, TK, 112>(a);
+      case 8: return launch_attention<TQ, TK, 128>(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -948,7 +979,7 @@ int with_types(int q_dtype, int kv_dtype, const PrefillArgs& a) {
 }
 
 bool prefill_shapes_ok(const PrefillArgs& a, int kv_dtype) {
-  return a.Hkv > 0 && a.Hq % a.Hkv == 0 && kRows % (a.Hq / a.Hkv) == 0 && a.ps > 0 && a.max_pages > 0 &&
+  return a.Hkv > 0 && a.Hq % a.Hkv == 0 && a.Hq / a.Hkv <= kRows && a.ps > 0 && a.max_pages > 0 &&
          (kv_dtype != 2 || (a.ks != nullptr && a.vs != nullptr));
 }
 

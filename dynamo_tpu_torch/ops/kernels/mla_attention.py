@@ -11,7 +11,8 @@ in f32.
 
 Bound on an H100: the f32 FMA work, 2·(L + d_c) FLOP per (row, head, key),
 against pages read once and shared by every head. Each block stages 32-row
-latent tiles once for 16 heads; K5 splits each sequence's context over
+latent tiles once for 16 heads (any H: the last block masks the heads past
+it); K5 splits each sequence's context over
 blocks of ``SPLIT_ROWS`` rows and merges their softmax states in a second
 launch (see the source note). Plain versions: ``ops/attention.py
 paged_mla_decode_attention`` / ``paged_mla_prefill_attention``; the
@@ -27,7 +28,6 @@ import torch
 
 from dynamo_tpu_torch.ops.kernels import _build
 
-HEADS_PER_BLOCK = 16  # H must be a multiple
 MAX_LATENT = 768  # the kernels' shared-memory budget (kMaxLatent)
 MAX_D_C = 512  # the kernels' register accumulator (kMaxColGroups * 64)
 # K5: context rows per block, a multiple of the kernel's 32-row tile. At 64,
@@ -50,7 +50,7 @@ def check_mla_args(q_cat, pages, page_tables, positions, d_c: int, decode: bool)
     if q_cat.dim() != 3 or pages.dim() != 3:
         raise ValueError(f"expected q_cat [.., H, L] and pages [P, ps, L]; got "
                          f"{tuple(q_cat.shape)}, {tuple(pages.shape)}")
-    n, H, L = q_cat.shape
+    n, _, L = q_cat.shape
     if q_cat.dtype != torch.float32 or pages.dtype not in PAGE_DTYPES:
         raise ValueError(f"K5/K6 take float32 q_cat and float32 or bfloat16 pages; got "
                          f"{q_cat.dtype}, {pages.dtype}")
@@ -60,8 +60,6 @@ def check_mla_args(q_cat, pages, page_tables, positions, d_c: int, decode: bool)
         raise ValueError(f"K5/K6 take a latent width that is a multiple of 8, at most {MAX_LATENT}; got {L}")
     if not 0 < d_c <= min(L, MAX_D_C) or d_c % 4:
         raise ValueError(f"K5/K6 take 0 < d_c <= min(latent, {MAX_D_C}), d_c % 4 == 0; got d_c={d_c}, latent={L}")
-    if H % HEADS_PER_BLOCK:
-        raise ValueError(f"K5/K6 take H a multiple of {HEADS_PER_BLOCK}; got H={H}")
     want_tables = (n, page_tables.shape[-1]) if decode else (page_tables.shape[-1],)
     if page_tables.dim() != len(want_tables) or tuple(page_tables.shape) != want_tables or positions.shape != (n,):
         form = "page_tables [B, max_pages] and positions [B]" if decode else "page_table [max_pages] and positions [T]"

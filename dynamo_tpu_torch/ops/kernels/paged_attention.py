@@ -6,7 +6,9 @@ K1 replaces ``dynamo_tpu/ops/pallas/paged_attention.py``
 ``paged_decode_attention_pallas`` (``_kernel``): the two TPU kernels compute
 the same function and differ only in TPU DMA scheduling, so this one kernel
 stands for both. K3a replaces ``paged_decode_attention_pallas_folded``
-(``_kernel_folded``), the same function at head_dim 16, 32 or 64 (TinyLlama).
+(``_kernel_folded``), the same function at a head_dim that is a multiple of
+8 below 128 (:func:`folded_head_dim`; TinyLlama's 64). Both take any GQA
+group G = Hq / Hkv, as the reference does.
 
 Both take f32 or bf16 queries over pools of the query's dtype, or over an
 int8 cache (``quant/kv.py QuantizedPages``: int8 pools with one f32 scale a
@@ -14,10 +16,13 @@ token row, applied to score and probability columns).
 
 Bound on an H100: memory bytes — each sequence's ``ceil(len/ps)`` pages of K
 and V are read once, at 4 FLOP per element. K1 gives each (sequence, kv head)
-one block whose GQA query heads share every K/V row it loads; K3a reads each
-token's whole row of all kv heads once for all query heads, splits each
-sequence's context over blocks of ``SPLIT_ROWS`` rows and merges them in a
-second launch (see the source note). Plain version: ``ops/attention.py
+one block whose GQA query heads (up to 8 of them; a larger G in sub-groups
+of blocks that re-read the rows) share every K/V row it loads. K3a (bf16
+queries) splits each sequence's context over blocks of ``SPLIT_ROWS`` rows
+that stage the token rows of several kv heads through a ``cp.async`` ring,
+compute Q.Kᵀ and P.V on the tensor cores (``mma.sync``, P split into bf16 hi
++ lo so the probabilities stay f32-exact), and merge in a second launch;
+f32 queries take an FMA body in the same partition (see the source note). Plain version: ``ops/attention.py
 paged_decode_attention``; the dispatcher there picks the plain version for
 CPU tensors and, for CUDA tensors, K3a when ``head_dim % 128 != 0``, else K1
 (or K4a / K4b, below, as ``DYNTPU_DECODE_KERNEL`` asks).
@@ -30,9 +35,10 @@ pools of q's dtype, head_dim 64 or 128; no int8 cache, as on the TPU):
   of :func:`chunk_pages` pages, each chunk's probabilities rounded to the pool
   dtype before P.V (``ops/attention.py paged_decode_attention_chunked``).
 - K4b (:func:`paged_decode_attention_grouped_kernel`) replaces
-  ``paged_decode_attention_pallas_grouped``: :func:`decode_group` sequences a
-  block, one page an iteration, rounded the same way
-  (``paged_decode_attention_grouped``).
+  ``paged_decode_attention_pallas_grouped``: one page an iteration, rounded
+  the same way (``paged_decode_attention_grouped``). bf16: an exact split
+  over the context (a score pass, a P.V pass at each page's prefix max, a
+  merge; :func:`grouped_split_rows`); f32: K7c's body at one page a chunk.
 - K7c (:func:`paged_decode_perseq_variant_kernel`) replaces
   ``tools/profile_attn.py make_perseq_variant``: one page an iteration, with
   the probabilities rounded unless ``cast_f32`` (then K1's function).
@@ -42,7 +48,8 @@ pools of q's dtype, head_dim 64 or 128; no int8 cache, as on the TPU):
   deleted by nvcc, so this one writes an f32 checksum of every value it
   loads (``ops/attention.py paged_decode_dmaonly``).
 
-All four are bound by the bytes of the pages they read, as K1.
+All four are bound by the bytes of the pages they read, as K1, and take any
+G, as K1 does.
 """
 
 from __future__ import annotations
@@ -54,16 +61,11 @@ import torch
 from dynamo_tpu_torch.ops.kernels import _build
 from dynamo_tpu_torch.quant.kv import QuantizedPages
 
-HEAD_DIMS = (64, 128)  # K1
-FOLDED_HEAD_DIMS = (16, 32, 64)  # K3a
-GROUP_SIZES = (1, 2, 4, 8)
+HEAD_DIMS = (64, 128)  # K1, K4a, K4b, K7b, K7c
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 INT8 = 2  # the C entry points' kv dtype code for int8 pools
-# K3a: threads a block (a token row's Hkv*D/VEC lanes must divide it; VEC =
-# 4 values a lane for f32 pools, 8 for bf16 and int8) and context rows a
-# block. At 128 rows a decode batch of 16 TinyLlama sequences of up to 2048
-# rows spreads over about 130 blocks.
-FOLDED_THREADS = 128
+# K3a: context rows a block. At 128 rows a decode batch of 16 TinyLlama
+# sequences of up to 2048 rows spreads over about 130 blocks.
 SPLIT_ROWS = 128
 
 _P = ctypes.c_void_p
@@ -71,10 +73,9 @@ _I = ctypes.c_int
 _ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 _FOLDED_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]
 CHUNK_ROWS = 256  # K4a: context rows a chunk, at least (the reference's target)
-GROUP_CANDIDATES = (8, 4, 2)  # K4b: sequences a block, the reference's order
-SMEM_BUDGET = 48 * 1024  # K4b's group choice: the C launchers' shared-memory budget of a block
+GROUPED_SPLIT_ROWS = 256  # K4b: context rows a split, at least (whole pages)
 _CHUNK_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
-_GROUPED_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
+_GROUPED_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P] * 5 + [_I] * 4 + [_P]
 _DMAONLY_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
 
 
@@ -136,11 +137,17 @@ def check_decode_args(q, k_pages, v_pages, page_tables, positions, name: str = "
     _, ps, Hkv, Dk = k.shape
     if Dk != D or D not in HEAD_DIMS:
         raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}; got q D={D}, pool D={Dk}")
-    if Hq % Hkv or Hq // Hkv not in GROUP_SIZES:
-        raise ValueError(f"{name} takes Hq/Hkv in {GROUP_SIZES}; got Hq={Hq}, Hkv={Hkv}")
+    if Hq % Hkv:
+        raise ValueError(f"{name} takes Hq a multiple of Hkv; got Hq={Hq}, Hkv={Hkv}")
     _check_tables(B, ps, page_tables, positions)
     _check_pools(q, k, v, page_tables, positions, name)
     return pools
+
+
+def folded_head_dim(D: int) -> bool:
+    """K3a's and K3b's head dims: the multiples of 8 below 128 (tiles padded
+    to 16 columns)."""
+    return 0 < D < 128 and D % 8 == 0
 
 
 def folded_geometry(q, k) -> tuple[int, int]:
@@ -161,20 +168,13 @@ def check_folded_decode_args(q, k_pages, v_pages, page_tables, positions):
         raise ValueError(f"expected q [B, Hq, D] and pools of one shape; got {tuple(q.shape)}, "
                          f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
     pools = unpack_pools(q, k_pages, v_pages, "K3a")
-    k, v, _, _, code = pools
+    k, v = pools[:2]
     B, Hq, D = q.shape
-    if D not in FOLDED_HEAD_DIMS:
-        raise ValueError(f"K3a takes head_dim in {FOLDED_HEAD_DIMS}; got {D}")
-    Hkv, F = folded_geometry(q, k)
-    if Hq % Hkv or Hq // Hkv not in GROUP_SIZES:
-        raise ValueError(f"K3a takes Hq/Hkv in {GROUP_SIZES}; got Hq={Hq}, Hkv={Hkv}")
-    vec = 4 if code == Q_DTYPES[torch.float32] else 8
-    lanes = F // vec
-    if lanes > FOLDED_THREADS or FOLDED_THREADS % lanes:
-        raise ValueError(f"K3a reads a token row with Hkv*D/{vec} lanes, which must divide "
-                         f"{FOLDED_THREADS}; got Hkv={Hkv}, D={D}")
-    if code == INT8 and F % 16:
-        raise ValueError(f"K3a int8 rows must be 16-byte multiples (Hkv*D % 16 == 0); got {F}")
+    if not folded_head_dim(D):
+        raise ValueError(f"K3a takes a head_dim that is a multiple of 8 below 128; got {D}")
+    Hkv, _ = folded_geometry(q, k)
+    if Hq % Hkv:
+        raise ValueError(f"K3a takes Hq a multiple of Hkv; got Hq={Hq}, Hkv={Hkv}")
     _check_tables(B, k.shape[1], page_tables, positions)
     _check_pools(q, k, v, page_tables, positions, "K3a")
     return pools
@@ -182,6 +182,18 @@ def check_folded_decode_args(q, k_pages, v_pages, page_tables, positions):
 
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def split_partials(B: int, n_split: int, Hq: int, D: int, device, extra: int = 0):
+    """One f32 scratch allocation a launch for the split-K partials of K3a
+    and K4b: (the tensor, which the caller holds until it has launched, and
+    pointers to m, l [B, n_split, Hq], acc [B, n_split, Hq, D] and ``extra``
+    more floats: K4b's scores and page maxima), each part on 16 bytes."""
+    ml = -(-B * n_split * Hq // 4) * 4
+    acc = -(-B * n_split * Hq * D // 4) * 4
+    ws = torch.empty(2 * ml + acc + extra, dtype=torch.float32, device=device)
+    base = ws.data_ptr()
+    return ws, base, base + 4 * ml, base + 8 * ml, base + 4 * (2 * ml + acc)
 
 
 def paged_decode_attention_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
@@ -212,8 +224,8 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, page_tables, positions) -
 
 
 def paged_decode_attention_folded_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """K3a: K1's contract at head_dim 16, 32 or 64; the pools may also be
-    given folded, [P, ps, Hkv*D] (the same memory).
+    """K3a: K1's contract at a head_dim that is a multiple of 8 below 128;
+    the pools may also be given folded, [P, ps, Hkv*D] (the same memory).
 
     Launches K3a (a split pass and a merge pass) or raises: CUDA tensors
     only."""
@@ -228,15 +240,12 @@ def paged_decode_attention_folded_kernel(q, k_pages, v_pages, page_tables, posit
     ps, mp = k.shape[1], page_tables.shape[1]
     n_split = -(-mp * ps // SPLIT_ROWS)
     dev = q.device
-    m_part = torch.empty((B, n_split, Hq), dtype=torch.float32, device=dev)
-    l_part = torch.empty((B, n_split, Hq), dtype=torch.float32, device=dev)
-    acc_part = torch.empty((B, n_split, Hq, D), dtype=torch.float32, device=dev)
+    ws, m_part, l_part, acc_part, _ = split_partials(B, n_split, Hq, D, dev)  # ws: alive past the launch
     out = torch.empty_like(q)
     err = _build.entry("paged_attention", "paged_decode_attention_folded", _FOLDED_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs), page_tables.data_ptr(),
-        positions.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, D, ps, mp, SPLIT_ROWS, n_split, Q_DTYPES[q.dtype], code,
-        torch.cuda.current_stream(dev).cuda_stream,
+        positions.data_ptr(), m_part, l_part, acc_part, out.data_ptr(), B, Hq, Hkv, D, ps, mp, SPLIT_ROWS,
+        n_split, Q_DTYPES[q.dtype], code, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "paged_decode_attention_folded")
     paged_decode_attention_folded_kernel.launches += 1
@@ -249,15 +258,10 @@ def chunk_pages(page_size: int, max_pages: int) -> int:
     return max(1, min(max_pages, -(-CHUNK_ROWS // page_size)))
 
 
-def decode_group(B: int, G: int, page_size: int) -> int:
-    """K4b's sequences a block: the first of 8, 4, 2 that divides B and whose
-    score slices (G x page_size f32 a sequence) fit ``SMEM_BUDGET``, else 1
-    (the reference's choice, its VMEM page budget become the budget of what
-    K4b stages)."""
-    for cand in GROUP_CANDIDATES:
-        if B % cand == 0 and cand * G * page_size * 4 <= SMEM_BUDGET:
-            return cand
-    return 1
+def grouped_split_rows(page_size: int) -> int:
+    """K4b's context rows a split: whole pages, at least
+    ``GROUPED_SPLIT_ROWS`` (one page when a page is longer)."""
+    return page_size * -(-GROUPED_SPLIT_ROWS // page_size)
 
 
 def check_variant_args(q, k_pages, v_pages, page_tables, positions, name: str) -> None:
@@ -288,8 +292,8 @@ def _variant_launch(name: str, symbol: str, argtypes, refused: str, q, k, v, pag
 
 def _chunk_softmax(name: str, q, k, v, page_tables, positions, chunk_rows: int, round_probs: bool):
     G, D = q.shape[1] // k.shape[2], q.shape[2]
-    refused = (f"{chunk_rows}-row chunks at G={G}, D={D} need more shared memory than the block's "
-               f"{SMEM_BUDGET} B (the chunk's scores, the running state and the final merge)")
+    refused = (f"{chunk_rows}-row chunks at G={G}, D={D} need more shared memory than a block's default "
+               f"48 KB (the chunk's scores, the running state and the final merge)")
     q = _build.aligned16(q)
     return _variant_launch(name, "chunk_softmax_decode", _CHUNK_ARGTYPES, refused, q, k, v, page_tables,
                            positions, torch.empty_like(q), chunk_rows, int(round_probs))
@@ -326,21 +330,30 @@ def paged_decode_perseq_variant_kernel(q, k_pages, v_pages, page_tables, positio
 
 
 def paged_decode_attention_grouped_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """K4b: K1's contract over f32 / bf16 pools of q's dtype, ``decode_group``
-    sequences a block, one page an iteration, each page's probabilities
-    rounded to the pool dtype before P.V.
+    """K4b: K1's contract over f32 / bf16 pools of q's dtype, one page an
+    iteration, each page's probabilities rounded to the pool dtype before
+    P.V. bf16: splits of ``grouped_split_rows(ps)`` rows, scratch for the
+    scores, the page maxima and the splits' partial states.
 
-    Launches K4b or raises: CUDA tensors only, no int8 cache."""
+    Launches K4b (bf16: three kernels) or raises: CUDA tensors only, no int8
+    cache."""
     if q.device.type != "cuda":
         raise ValueError(f"K4b runs on CUDA tensors; got {q.device}")
     check_variant_args(q, k_pages, v_pages, page_tables, positions, "K4b")
-    B, Hq, _ = q.shape
-    ps, Hkv = k_pages.shape[1], k_pages.shape[2]
-    group = decode_group(B, Hq // Hkv, ps)
-    refused = f"a page of {ps} scores at G={Hq // Hkv} needs more shared memory than the block's {SMEM_BUDGET} B"
+    B, Hq, D = q.shape
+    ps, mp = k_pages.shape[1], page_tables.shape[1]
+    split_rows = grouped_split_rows(ps)
+    n_split = -(-mp * ps // split_rows)
+    s_pad = -(-mp * ps // 4) * 4
+    ws, ptrs = None, [None] * 5  # f32 pools take K7c's body: no scratch (ws: alive past the launch)
+    if q.dtype == torch.bfloat16:  # scratch: m, l, acc, then scores [B, Hq, s_pad] and page maxima [B, Hq, mp]
+        ws, m_part, l_part, acc_part, tail = split_partials(B, n_split, Hq, D, q.device, B * Hq * (s_pad + mp))
+        ptrs = [tail, tail + 4 * B * Hq * s_pad, m_part, l_part, acc_part]
+    refused = (f"page size {ps} at G={Hq // k_pages.shape[2]} needs more shared memory than a block has "
+               f"(bf16: the split's scores; f32: a page of scores in 48 KB)")
     q = _build.aligned16(q)
     out = _variant_launch("K4b", "paged_decode_attention_grouped", _GROUPED_ARGTYPES, refused, q, k_pages,
-                          v_pages, page_tables, positions, torch.empty_like(q), group)
+                          v_pages, page_tables, positions, torch.empty_like(q), *ptrs, split_rows, n_split, s_pad)
     paged_decode_attention_grouped_kernel.launches += 1
     return out
 

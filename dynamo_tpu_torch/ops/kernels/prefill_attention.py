@@ -6,8 +6,8 @@ K2 replaces ``dynamo_tpu/ops/pallas/prefill_attention.py:686``
 ``paged_prefill_attention_pallas`` (``pallas_call`` at ``:783``;
 ``_kernel_lookahead`` / ``_kernel``, math in ``_flash_merge``); K3b replaces
 ``:615`` ``paged_prefill_attention_pallas_folded`` (``pallas_call`` at
-``:662``, ``_kernel_folded``), the same function at head_dim 16, 32 or 64
-(TinyLlama). One launch takes all N packed lanes of a prefill call; the TPU
+``:662``, ``_kernel_folded``), the same function at a head_dim that is a
+multiple of 8 below 128 (TinyLlama's 64; tiles padded to 16 columns). One launch takes all N packed lanes of a prefill call; the TPU
 path launches once per lane. Both take f32 or bf16 queries over pools of the
 query's dtype or over an int8 cache (``quant/kv.py QuantizedPages``, scales
 applied to score and probability columns).
@@ -16,7 +16,8 @@ Bound on an H100: arithmetic at prefill sizes (4·Hq·D FLOP per causal
 (row, key) pair against context bytes read once). bf16 queries (over bf16
 or int8 pools) take one tensor-core body for K2 and K3b: a block of
 ``ROWS_PER_BLOCK`` (query, head) rows of one kv head's GQA group, as two
-warpgroups of 64; S = Q·Kᵀ and O += P·V through ``wgmma``; K/V tiles of 64
+warpgroups of 64 (``ROWS_PER_BLOCK // G`` query positions; any G up to 128,
+the rows past them zero); S = Q·Kᵀ and O += P·V through ``wgmma``; K/V tiles of 64
 keys in a ``cp.async`` ring, int8 codes converted to bf16 in shared memory.
 The probabilities stay f32-exact: P is split into bf16(P) + bf16(P −
 bf16(P)) and multiplied twice, because one bf16 rounding of P leaves
@@ -47,14 +48,14 @@ import torch
 
 from dynamo_tpu_torch.ops.kernels import _build
 from dynamo_tpu_torch.ops.kernels.paged_attention import (
-    FOLDED_HEAD_DIMS,
     Q_DTYPES,
     folded_geometry,
+    folded_head_dim,
     unpack_pools,
 )
 
 HEAD_DIMS = (64, 128)  # K2
-ROWS_PER_BLOCK = 128  # K2, K3b, K7a: (query, head) rows per block: Hq/Hkv must divide it
+ROWS_PER_BLOCK = 128  # K2, K3b, K7a: (query, head) rows per block; Hq/Hkv at most this
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,8 +77,8 @@ def _as_lanes(q, page_tables, positions):
 
 
 def _check_group(Hq: int, Hkv: int, name: str) -> None:
-    if Hq % Hkv or ROWS_PER_BLOCK % (Hq // Hkv):
-        raise ValueError(f"{name} needs Hq a multiple of Hkv with Hq/Hkv dividing {ROWS_PER_BLOCK}; "
+    if Hq % Hkv or Hq // Hkv > ROWS_PER_BLOCK:
+        raise ValueError(f"{name} needs Hq a multiple of Hkv with Hq/Hkv at most {ROWS_PER_BLOCK}; "
                          f"got Hq={Hq}, Hkv={Hkv}")
 
 
@@ -119,8 +120,8 @@ def check_folded_prefill_args(q, k_pages, v_pages, page_tables, positions):
     pools = unpack_pools(q, k_pages, v_pages, "K3b")
     k, v = pools[:2]
     _, Hq, D = q.shape
-    if D not in FOLDED_HEAD_DIMS:
-        raise ValueError(f"K3b takes head_dim in {FOLDED_HEAD_DIMS}; got {D}")
+    if not folded_head_dim(D):
+        raise ValueError(f"K3b takes a head_dim that is a multiple of 8 below 128; got {D}")
     Hkv, _ = folded_geometry(q, k)
     _check_group(Hq, Hkv, "K3b")
     _check_common(q, k, v, page_tables, positions, "K3b")
@@ -165,8 +166,8 @@ def paged_prefill_attention_kernel(q, k_pages, v_pages, page_tables, positions) 
 
 
 def paged_prefill_attention_folded_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """K3b: K2's contract at head_dim 16, 32 or 64; the pools may also be
-    given folded, [P, ps, Hkv*D] (the same memory).
+    """K3b: K2's contract at a head_dim that is a multiple of 8 below 128;
+    the pools may also be given folded, [P, ps, Hkv*D] (the same memory).
 
     Launches K3b or raises: CUDA tensors only."""
     if q.device.type != "cuda":

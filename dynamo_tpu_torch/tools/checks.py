@@ -1,6 +1,7 @@
-"""Kernel-against-plain checks shared by ``chip_smoke.py`` and the kernel
-profilers (``tools/profile_attn.py``, ``tools/profile_prefill.py``): the
-elementwise tolerance a kernel is held to, and pools whose checksums are
+"""Kernel-against-plain checks shared by ``chip_smoke.py``, the kernel
+profilers (``tools/profile_attn.py``, ``tools/profile_prefill.py``) and the
+card tests: the elementwise tolerance a kernel is held to, what probabilities
+rounded at a bf16 boundary may add to it, and pools whose checksums are
 exact.
 
 Kernel vs plain, elementwise |got - ref| <= atol + rtol * |ref|. Both sides
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from dynamo_tpu_torch.ops.attention import gather_pages
 from dynamo_tpu_torch.quant.kv import QuantizedPages
 
 TOL = {"f32": (1e-4, 0.0), "bf16": (1e-4, 2.0**-6)}
@@ -31,6 +33,44 @@ def tol_share(got: torch.Tensor, ref: torch.Tensor, tol: str) -> tuple[float, fl
     if not torch.isfinite(got).all():
         return float("inf"), float("inf")
     return diff.max().item(), (diff / (atol + rtol * ref.abs())).max().item()
+
+
+def rounding_slack(q, k_pages, v_pages, page_tables, positions, chunk_rows: int,
+                   rel: float = 2.0**-16) -> torch.Tensor:
+    """f32 [B, Hq, D]: how far probabilities that lie at a rounding boundary
+    may move the rounded walk of ``chunk_rows``-row chunks
+    (``ops/attention.py paged_decode_attention_rounded``, the function of
+    K4a, K4b and K7c) over plain pools.
+
+    Each chunk's probabilities p = exp(s - M_c), M_c the running max after
+    the chunk, are rounded to the pool dtype before P.V. A kernel's scores
+    differ from the plain version's by summation order (about 1e-6 absolute,
+    so about 1e-6 of p), so a p within ``rel`` (1.5e-5) of a bf16 rounding
+    boundary may round up on one side and down on the other: one bf16 step
+    at p. Summed over those p, step * e^(M_c - M_n) * |V| / l bounds what
+    such flips move an output element (M_n the final max, l the final sum).
+    Every other p must round the same on both sides: a wrong rounding point
+    moves many of them and breaks TOL plus this slack. Zero over f32 pools
+    (no rounding)."""
+    B, Hq, D = q.shape
+    if k_pages.dtype == torch.float32:
+        return torch.zeros((B, Hq, D), device=q.device)
+    k = gather_pages(k_pages, page_tables).float()  # [B, S, Hkv, D]
+    S, Hkv = k.shape[1], k.shape[2]
+    valid = torch.arange(S, device=q.device)[None, :] < (positions.long() + 1).clamp(1, S)[:, None]
+    v = torch.where(valid[:, :, None, None], gather_pages(v_pages, page_tables).float(), 0.0)
+    s = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(B, Hkv, Hq // Hkv, D), k) / D**0.5
+    s = torch.where(valid[:, None, None, :], s, float("-inf"))
+    n = -(-S // chunk_rows)
+    chunk_max = torch.nn.functional.pad(s, (0, n * chunk_rows - S), value=float("-inf"))
+    chunk_max = chunk_max.reshape(*s.shape[:3], n, chunk_rows).amax(-1)
+    m = torch.cummax(chunk_max, -1).values.repeat_interleave(chunk_rows, -1)[..., :S]  # M_c of each row
+    p = torch.exp(s - m)
+    w = torch.exp(m - m[..., -1:])
+    lo, hi = ((p * f).to(k_pages.dtype).float() for f in (1 - rel, 1 + rel))
+    steps = torch.where(lo != hi, hi - lo, 0.0) * w
+    l = (w * p).sum(-1)
+    return (torch.einsum("bkgs,bskd->bkgd", steps, v.abs()) / l[..., None]).reshape(B, Hq, D)
 
 
 def exact_pools(shape, kind: str, device, generator: torch.Generator | None = None) -> list:

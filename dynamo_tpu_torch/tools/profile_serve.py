@@ -1,15 +1,16 @@
 """Where the serving time goes on the card: torch.profiler over the serve
 workloads of ``chip_smoke.py`` (``tools/workload.py``: 16 concurrent greedy
-requests on Llama-3-8B geometry, on DeepSeek-V2-Lite geometry, and on
-TinyLlama-1.1B geometry with the int8 KV cache; bf16 weights, seeded random),
-each split at its last prefill-attention launch (K2, K6 or K3b) into a
-prefill window and a decode window.
+requests on Llama-3-8B geometry, on DeepSeek-V2-Lite geometry, on
+TinyLlama-1.1B geometry with the int8 KV cache, and on Llama-3-8B geometry
+with ``DYNTPU_DECODE_KERNEL=grouped`` (K4b decode); bf16 weights, seeded
+random), each split at its last prefill-attention launch (K2, K6 or K3b)
+into a prefill window and a decode window.
 
     python -m dynamo_tpu_torch.tools.profile_serve [--out profile_serve.json]
 
 For each workload and window it reports the wall time, the device's busy
 and idle share (union of kernel intervals), device time by kernel class
-(K1, K2, K3a, K3b, K5, K6, GEMM, other) and the top kernels; for the decode window
+(K1, K2, K3a, K3b, K4b, K5, K6, GEMM, other) and the top kernels; for the decode window
 also the time per decode step. Needs one CUDA device. The profiler adds
 host overhead, so walls here run longer than chip_smoke.py's unprofiled
 serve numbers; shares and device times are the point.
@@ -20,6 +21,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import tempfile
 import time
 from pathlib import Path
@@ -29,6 +31,7 @@ import torch
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
 from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.scheduler import EngineRequest
+from dynamo_tpu_torch.ops.attention import DECODE_KERNEL_ENV
 from dynamo_tpu_torch.tools.timing import card
 from dynamo_tpu_torch.tools.workload import (
     DEEPSEEK_V2_LITE,
@@ -43,26 +46,35 @@ from dynamo_tpu_torch.tools.workload import (
 from dynamo_tpu_torch.utils.step_anatomy import HBM_BYTES_S
 
 GEMM_MARKS = ("gemm", "GEMM", "nvjet", "cutlass", "xmma", "sm90_")
-# the workloads profiled, in order: (engine config, requests, layers)
+# the workloads profiled, in order: (engine config, requests, layers,
+# DYNTPU_DECODE_KERNEL or None for the default)
 WORKLOADS = {
-    "llama": (serve_config, serve_requests, LLAMA3_8B["num_layers"]),
+    "llama": (serve_config, serve_requests, LLAMA3_8B["num_layers"], None),
     "mla": (mla_serve_config, lambda: serve_requests(DEEPSEEK_V2_LITE["vocab_size"]),
-            DEEPSEEK_V2_LITE["num_layers"]),
+            DEEPSEEK_V2_LITE["num_layers"], None),
     "folded_int8": (lambda: folded_serve_config("int8"), folded_serve_requests,
-                    TINYLLAMA_1_1B["num_layers"]),
+                    TINYLLAMA_1_1B["num_layers"], None),
+    "grouped": (serve_config, serve_requests, LLAMA3_8B["num_layers"], "grouped"),
 }
-# kernel class by a mark in its name; K3a and K5 count both of their launches.
-# K2 and K3b share their kernel bodies (tc_prefill_kernel, fma_prefill_kernel):
-# a folded workload's prefill kernels are K3b's launches
+# kernel class by a mark in its name; K3a, K4b and K5 count all of their
+# launches (K3a's split body, folded_decode_tc or _fma, and its merge,
+# merge_splits; K4b's grouped_scores, grouped_pv and the same merge: a
+# window where grouped_scores runs gives merge_splits to K4b). K2 and K3b
+# share their kernel bodies (tc_prefill_kernel, fma_prefill_kernel): a
+# folded workload's prefill kernels are K3b's launches
 KERNEL_MARKS = (
     ("K1", "paged_decode_kernel"), ("K2", "_prefill_kernel"),
-    ("K3a", "folded_decode_"), ("K5", "mla_decode_"), ("K6", "mla_prefill"),
+    ("K3a", "folded_decode_"), ("K3a", "merge_splits"), ("K4b", "grouped_"), ("K5", "mla_decode_"),
+    ("K6", "mla_prefill"),
 )
 PREFILL_CLASSES = ("K2", "K3b", "K6")
-DECODE_STEP_KERNEL = {"K1": "paged_decode_kernel", "K3a": "folded_decode_partial", "K5": "mla_decode_partial"}
+DECODE_STEP_KERNEL = {"K1": "paged_decode_kernel", "K3a": "folded_decode_", "K4b": "grouped_scores",
+                      "K5": "mla_decode_partial"}
 
 
 def kernel_class(name: str, folded: bool = False) -> str:
+    """The class of a kernel by its name; ``folded``: the workload's prefill
+    bodies are K3b's."""
     for cls, mark in KERNEL_MARKS:
         if mark in name:
             return "K3b" if folded and cls == "K2" else cls
@@ -88,8 +100,9 @@ def window_stats(kernels: list, lo: float, hi: float, top: int = 8, folded: bool
         busy += cur_e - cur_s
     by_class: dict = {}
     by_name: dict = {}
+    merge = "K4b" if any("grouped_scores" in k["name"] for k in inside) else "K3a"
     for k in inside:
-        c = kernel_class(k["name"], folded)
+        c = merge if "merge_splits" in k["name"] else kernel_class(k["name"], folded)
         by_class[c] = by_class.get(c, 0.0) + k["dur"]
         by_name[k["name"]] = by_name.get(k["name"], 0.0) + k["dur"]
     wall = hi - lo
@@ -139,12 +152,20 @@ async def profiled_serve(config, requests: list, trace_path: Path) -> tuple[floa
 
 def profile_workload(name: str, smi: str) -> dict:
     """Profile one of ``WORKLOADS`` and print its windows; returns the summary."""
-    make_config, make_requests, layers = WORKLOADS[name]
+    make_config, make_requests, layers, decode_kernel = WORKLOADS[name]
     requests = make_requests()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "trace.json"
-        wall, step_bytes = asyncio.run(profiled_serve(make_config(), requests, trace))
-        events = json.loads(trace.read_text())["traceEvents"]
+    old = os.environ.pop(DECODE_KERNEL_ENV, None)
+    if decode_kernel is not None:
+        os.environ[DECODE_KERNEL_ENV] = decode_kernel
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            wall, step_bytes = asyncio.run(profiled_serve(make_config(), requests, trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+    finally:
+        os.environ.pop(DECODE_KERNEL_ENV, None)
+        if old is not None:
+            os.environ[DECODE_KERNEL_ENV] = old
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     del events
     if not kernels:

@@ -1,6 +1,7 @@
 """Device timing for the port's measurement tools: the card's name and power
 limit, and the device time of a launch sequence with the host's launch
-overhead kept out of it."""
+overhead kept out of it, beside its back-to-back time and the host's time to
+enqueue a launch."""
 
 from __future__ import annotations
 
@@ -21,12 +22,12 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def device_us(launch, iters: int) -> float:
-    """Mean device microseconds of ``launch(i)`` for i in range(iters), run
-    back to back. A sleep kernel holds the stream while the host enqueues
+def _device_and_host_us(launch, iters: int) -> tuple[float, float]:
+    """(device, host) mean microseconds of ``launch(i)`` for i in range(iters),
+    run back to back. A sleep kernel holds the stream while the host enqueues
     all of them, so host overhead between launches does not show in the CUDA
     events; if the host took longer than the sleep, the sleep doubles and the
-    measurement repeats."""
+    measurement repeats. The host time is the enqueueing's, a launch."""
     for i in range(iters):  # warm-up: builds, allocator, caches
         launch(i)
     torch.cuda.synchronize()
@@ -43,6 +44,30 @@ def device_us(launch, iters: int) -> float:
         end.record()
         end.synchronize()
         if host_ms < slept.elapsed_time(start):
-            return start.elapsed_time(end) * 1e3 / iters
+            return start.elapsed_time(end) * 1e3 / iters, host_ms * 1e3 / iters
         cycles *= 2
     raise RuntimeError(f"the host needed {host_ms:.1f} ms to enqueue {iters} launches, longer than the sleep")
+
+
+def device_us(launch, iters: int) -> float:
+    """Mean device microseconds of ``launch(i)`` for i in range(iters), run
+    back to back, the host's enqueueing hidden (``_device_and_host_us``)."""
+    return _device_and_host_us(launch, iters)[0]
+
+
+def launch_times(launch, iters: int) -> tuple[float, float, float]:
+    """(device, back-to-back, host) mean microseconds of ``launch(i)`` for i
+    in range(iters). Device: ``device_us``. Back-to-back: CUDA events around
+    the same launches with nothing in front of them, so where the host's
+    enqueueing is the longer it is what counts, as for a caller that launches
+    and goes on. Host: the enqueueing of one launch, measured behind the
+    sleep."""
+    dev, host = _device_and_host_us(launch, iters)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        launch(i)
+    end.record()
+    end.synchronize()
+    return dev, start.elapsed_time(end) * 1e3 / iters, host

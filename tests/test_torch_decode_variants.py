@@ -8,7 +8,9 @@
 - K7c's plain version against ``tools/profile_attn.py make_perseq_variant``
   under ``pltpu.force_tpu_interpret_mode()`` (that module parses
   ``sys.argv`` when it is imported, so ``sys.argv`` is patched first).
-- The routing function, the launchers' refusals, the group and chunk choices.
+- The routing function, the launchers' refusals, the chunk and split
+  choices, and a torch model of K4b's exact split over the context (splits
+  combined by the prefix-max formula) against the sequential walk.
 - The K7a / K7b checksums against numpy sums over the same partition.
 - The engine's greedy tokens with ``chunked`` and with ``grouped`` against
   ``AsyncJaxEngine``'s on tiny f32 weights at head_dim 128.
@@ -209,15 +211,97 @@ def test_decode_variant_launchers_refuse():
         pa.check_variant_args(q, k.bfloat16(), v.bfloat16(), pt, pos, "K4a")
 
 
-def test_decode_group_is_the_reference_choice():
-    """8, 4 or 2 when it divides B and the group's score slices fit the
-    shared-memory budget, else 1."""
-    assert pa.decode_group(64, 4, 16) == 8
-    assert pa.decode_group(12, 4, 16) == 4
-    assert pa.decode_group(6, 4, 16) == 2
-    assert pa.decode_group(3, 4, 16) == 1
-    assert pa.decode_group(64, 8, 512) == 2  # 8 x 8 x 512 x 4 B = 128 KB is over the budget
-    assert pa.decode_group(64, 8, 2048) == 1
+def k4b_split_model(q, k, v, pt, pos, starts):
+    """K4b's split algebra in torch: every sequence's context cut at the
+    rows ``starts`` (split s covers [starts[s], starts[s + 1])), each split
+    walked as the kernel's pass 2 walks it, from the prefix max of the pages
+    before it and at each page's prefix max M_i (the page maxima come from
+    the whole pages, pass 1), its probabilities rounded to the pool dtype
+    before P.V and summed unrounded; then the splits merged as
+    merge_splits does. Natural-log units: the scores are the plain
+    version's own, so every rounded probability is the same value."""
+    B, Hq, D = q.shape
+    ps, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kc = tatt.gather_pages(k, pt).float()  # [B, S, Hkv, D]
+    vc = tatt.gather_pages(v, pt).float()
+    S = kc.shape[1]
+    s_all = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(B, Hkv, G, D), kc) * (1.0 / D**0.5)
+    out = torch.empty((B, Hkv, G, D))
+    for b in range(B):
+        n = int(min(max(int(pos[b]) + 1, 1), S))
+        s = s_all[b, ..., :n]
+        pages = -(-n // ps)
+        page_max = torch.stack([s[..., i * ps : (i + 1) * ps].amax(-1) for i in range(pages)], -1)
+        prefix = torch.cummax(page_max, -1).values  # M_i
+        parts = []
+        for a, e in zip(starts, list(starts[1:]) + [S]):
+            a, e = min(a, n), min(e, n)
+            if a >= e:
+                continue
+            first = a // ps
+            m = prefix[..., first - 1] if first else torch.full((Hkv, G), -1e30)
+            l, acc = torch.zeros((Hkv, G)), torch.zeros((Hkv, G, D))
+            for i in range(first, -(-e // ps)):
+                lo, hi = max(a, i * ps), min(e, (i + 1) * ps)
+                M = prefix[..., i]
+                corr = torch.exp(m - M)
+                p = torch.exp(s[..., lo:hi] - M[..., None])
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum("kgs,skd->kgd", p.to(k.dtype).float(), vc[b, lo:hi])
+                m = M
+            parts.append((m, l, acc))
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.exp(m - M) for m, _, _ in parts]
+        lsum = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+        out[b] = sum(wi[..., None] * acc for wi, (_, _, acc) in zip(w, parts)) / lsum.clamp(min=1e-20)[..., None]
+    return out.reshape(B, Hq, D)
+
+
+@pytest.mark.parametrize("starts", [(0,), (0, 160), (0, 64, 128, 256), (0, 37, 200, 201), (0, 256)],
+                         ids=["one-split", "page-edge", "page-edges", "mid-page", "kernel-split"])
+@pytest.mark.parametrize("ps", [16, 24])
+def test_k4b_split_algebra_matches_the_sequential_walk(starts, ps):
+    """Splits at page edges (the kernel's: whole pages of grouped_split_rows
+    rows), mid-sequence and mid-page, at a page size the 16-row k-steps of
+    the kernel divide and one they do not, over bf16 pools (probabilities
+    rounded to bf16) with f32 queries (an f32 output): the splits combined
+    by the prefix-max formula equal the sequential one-page-a-chunk walk
+    (paged_decode_attention_grouped) at the f32 tolerance, atol 2e-5."""
+    assert pa.grouped_split_rows(16) == 256 and pa.grouped_split_rows(24) == 264
+    assert pa.grouped_split_rows(128) == 256 and pa.grouped_split_rows(512) == 512
+    q, k, v, pt, pos = (torch.from_numpy(x) for x in variant_case(5, 8, 2, 64, seed=ps + len(starts), ps=ps))
+    # bf16 pools round the probabilities; f32 queries keep the output f32
+    q, k, v = q.bfloat16().float(), k.bfloat16(), v.bfloat16()
+    pos[2] = -1  # attends row 0 only
+    got = k4b_split_model(q, k, v, pt, pos, starts)
+    want = tatt.paged_decode_attention_grouped(q, k, v, pt, pos)
+    assert want.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("Hq,Hkv,ps", [(8, 2, 16), (12, 4, 24), (4, 2, 128)])
+def test_rounding_slack_admits_score_noise_and_rejects_other_rounding_points(Hq, Hkv, ps):
+    """``tools/checks.py rounding_slack``, the card tests' allowance for
+    K4a, K4b and K7c over random bf16 inputs at the serve batch: K4b's plain
+    version with its scores summed in another order (q's and K's head-dim
+    columns permuted alike) or shifted by 1e-6 of themselves stays within
+    the bf16 TOL plus the slack; the same inputs rounded at other points
+    (chunks of 8 pages, or f32 probabilities) break it in many elements."""
+    from dynamo_tpu_torch.tools.checks import rounding_slack
+
+    case = variant_case(16, Hq, Hkv, 128, seed=Hq + ps, ps=ps, max_pages=640 // ps)
+    q, k, v, pt, pos = (torch.from_numpy(x) for x in case)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    want = tatt.paged_decode_attention_grouped(q, k, v, pt, pos).float()
+    limit = 1e-4 + 2.0**-6 * want.abs() + rounding_slack(q, k, v, pt, pos, ps)
+    perm = torch.randperm(128, generator=torch.Generator().manual_seed(ps))
+    for same in (tatt.paged_decode_attention_grouped(q[..., perm], k[..., perm].contiguous(), v, pt, pos),
+                 tatt.paged_decode_attention_grouped(q.float() * (1 + 1e-6), k, v, pt, pos)):
+        assert bool(((same.float() - want).abs() <= limit).all())
+    for other in (tatt.paged_decode_attention_rounded(q, k, v, pt, pos, 8 * ps),
+                  tatt.paged_decode_attention(q, k, v, pt, pos)):
+        assert int(((other.float() - want).abs() > limit).sum()) >= 20
 
 
 def exact_pools(rng, P, ps, Hkv, D, int8: bool):

@@ -4,6 +4,7 @@ requests, and the stop conditions, admission rejections and device rule of
 the port's engine hold."""
 
 import asyncio
+import json
 
 import jax
 import numpy as np
@@ -94,6 +95,46 @@ def test_greedy_tokens_equal_jax_engine(reference, decode_steps, prefill_lanes):
     for (toks, reason), (ref_toks, ref_reason) in zip(outs, ref_outs):
         assert reason == ref_reason == "length"
         assert toks == ref_toks and len(toks) == 10
+
+
+@pytest.mark.parametrize("num_heads,num_kv_heads", [(6, 2), (14, 2)], ids=["g3", "g7"])
+def test_greedy_tokens_equal_jax_engine_at_odd_groups(num_heads, num_kv_heads):
+    """A tiny Llama whose GQA group (3; 7, Qwen2-VL's 28 / 4) the port's
+    first launchers refused on the card: the port's engine (plain versions
+    on the CPU) gives the JAX engine's greedy tokens on the same weights."""
+    over = dict(num_heads=num_heads, num_kv_heads=num_kv_heads)
+
+    async def jax_run():
+        engine = AsyncJaxEngine(JaxEngineConfig(model_id="tiny:" + json.dumps(over), tp=1, **ENGINE))
+        await engine.start()
+        try:
+            outs = await asyncio.gather(*(
+                collect(engine, JaxEngineRequest(f"j{i}", p, JaxSamplingParams(max_tokens=8)))
+                for i, p in enumerate(PROMPTS)
+            ))
+            params = jax.tree.map(np.asarray, jax.device_get(engine.runner.params))
+        finally:
+            await engine.shutdown()
+        return outs, params
+
+    ref_outs, params = asyncio.run(jax_run())
+    cfg = LlamaConfig.tiny(**over)
+    model = LlamaModel(cfg)
+    model.load_state_dict(params_from_jax(params, cfg))
+
+    async def port_run():
+        engine = AsyncTorchEngine(EngineConfig(device="cpu", **ENGINE), model=model)
+        await engine.start()
+        try:
+            return await asyncio.gather(*(
+                collect(engine, EngineRequest(f"t{i}", p, SamplingParams(max_tokens=8)))
+                for i, p in enumerate(PROMPTS)
+            ))
+        finally:
+            await engine.shutdown()
+
+    outs = asyncio.run(port_run())
+    assert outs == ref_outs and all(len(t) == 8 for t, _ in outs)
 
 
 def test_eos_stop_and_max_model_len(reference):

@@ -7,8 +7,10 @@ to the plain versions.
 
 Here the port's plain versions are held against the folded Pallas kernels in
 interpret mode on the same numpy-seeded inputs, folded pools on the JAX
-side, at D 16, 32 and 64 with Hkv*D a multiple of 128 (the reference
-dispatcher's condition), over f32 and int8 pools; tolerance 1e-5 (f32, the
+side, at D 16, 32 and 64, and at the head geometries the launchers were
+widened to (D 8 over 16 kv heads, D 80 over 8, D 96 over 4 kv heads with G
+3), all with Hkv*D a multiple of 128 (the reference dispatcher's condition),
+over f32 and int8 pools; tolerance 1e-5 (f32, the
 same algebra in another order, outputs O(1)). The dispatch rule is checked
 as a pure function, and a D=64 tiny LlamaModel against the JAX model, whose
 pools are folded, at 1e-4 on logits. The kernels themselves run only on the
@@ -42,8 +44,9 @@ torch.set_num_threads(2)
 
 ATOL = 1e-5
 LOGIT_ATOL = 1e-4
-GEOMETRIES = [(16, 8, 16), (32, 4, 8), (64, 2, 8)]  # (D, Hkv, Hq): Hkv * D = 128
-GEOMETRY_IDS = ["d16", "d32", "d64"]
+# (D, Hkv, Hq): Hkv * D a multiple of 128
+GEOMETRIES = [(16, 8, 16), (32, 4, 8), (64, 2, 8), (8, 16, 32), (80, 8, 16), (96, 4, 12)]
+GEOMETRY_IDS = ["d16", "d32", "d64", "d8", "d80", "d96-g3"]
 
 
 def _t(a):
@@ -136,17 +139,22 @@ def test_folded_launchers_refuse_cpu_and_unsupported_shapes():
         paged_decode_attention_folded_kernel(q, k, k, pt, pos)
     with pytest.raises(ValueError, match="head_dim"):
         check_folded_decode_args(q.repeat(1, 1, 2), k.repeat(1, 1, 1, 2), k.repeat(1, 1, 1, 2), pt, pos)
+    with pytest.raises(ValueError, match="head_dim"):  # 100: no multiple of 8
+        check_folded_decode_args(q[..., :50].repeat(1, 1, 2), *[torch.zeros((5, 4, 2, 100))] * 2, pt, pos)
     with pytest.raises(ValueError, match="dtype"):
         check_folded_decode_args(q, k.bfloat16(), k.bfloat16(), pt, pos)
-    with pytest.raises(ValueError, match="Hq/Hkv"):
-        check_folded_decode_args(q.repeat(1, 4, 1), k, k, pt, pos)
+    check_folded_decode_args(q.repeat(1, 4, 1), k, k, pt, pos)  # G 16: any group launches
+    check_folded_decode_args(q[..., :48].repeat(1, 3, 2), *[torch.zeros((5, 4, 8, 96))] * 2, pt, pos)  # D 96, G 3
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        check_folded_decode_args(q[:, :7], k, k, pt, pos)
     qp = _t(rng.standard_normal((64, 32, 64)).astype(np.float32))
     kp = torch.zeros((5, 4, 4, 64))
     check_folded_prefill_args(qp, kp, kp, pt[:1], torch.arange(64, dtype=torch.int32)[None])
     with pytest.raises(ValueError, match="CUDA"):
         paged_prefill_attention_folded_kernel(qp, kp, kp, pt[0], torch.arange(64, dtype=torch.int32))
+    check_folded_prefill_args(qp[:, :24], kp, kp, pt[:1], torch.arange(64, dtype=torch.int32)[None])  # G 6
     with pytest.raises(ValueError, match="Hq"):
-        check_folded_prefill_args(qp[:, :24], kp, kp, pt[:1], torch.arange(64, dtype=torch.int32)[None])
+        check_folded_prefill_args(qp[:, :30], kp, kp, pt[:1], torch.arange(64, dtype=torch.int32)[None])
     wide = torch.zeros((5, 4, 16, 64))  # Hkv*D 1024: the tensor-core body takes any width
     check_folded_prefill_args(qp, wide, wide, pt[:1], torch.arange(64, dtype=torch.int32)[None])
     with pytest.raises(ValueError, match="Hkv"):

@@ -1,10 +1,12 @@
 """The CUDA kernels K1 (paged decode), K2 (chunked-prefill flash), K3a / K3b
-(their folded variants for head_dim 16, 32, 64), K4a / K4b (the chunked and
-grouped decode variants), K5 (MLA latent decode), K6 (MLA latent prefill)
-and the instruments K7a / K7b (load-only twins of K2 / K1) and K7c (K1's
-function one page an iteration, with and without rounded probabilities)
-against their plain PyTorch versions on the card, K1-K3 and K7a also over
-int8 pools (``QuantizedPages``). Marked ``cuda``: every test skips
+(their folded variants for a head_dim that is a multiple of 8 below 128),
+K4a / K4b (the chunked and grouped decode variants), K5 (MLA latent
+decode), K6 (MLA latent prefill) and the instruments K7a / K7b (load-only
+twins of K2 / K1) and K7c (K1's function one page an iteration, with and
+without rounded probabilities) against their plain PyTorch versions on the
+card, K1-K3 and K7a also over int8 pools (``QuantizedPages``), at the
+reference's head geometries: GQA groups of any size (G 3, 6, 7, and past 8
+and 16), folded head dims 8, 24, 80 and 96, and MLA at 4 and 20 heads. Marked ``cuda``: every test skips
 where no CUDA device is visible (a CUDA kernel has no CPU mode). On a
 machine with an H100 and nvcc (``--noconftest``: tests/conftest.py imports
 jax, which the port does not need):
@@ -21,7 +23,9 @@ probability columns), so the limit is that of the query's dtype. K5 and K6 retur
 queries over f32 or bf16 pages; both sides read the same page values), so
 both mixes are held to the f32 tolerance. K4a, K4b and K7c round their
 probabilities to the pool dtype at the same points as their plain versions,
-so they take the same limits. The K7 checksums are held exactly: their pools
+so they take the same limits; over random inputs at the serve batch (B 64)
+the limit adds ``tools/checks.py rounding_slack`` (a probability at a bf16
+rounding boundary may round either way). The K7 checksums are held exactly: their pools
 hold multiples of 1/8 (int8: codes times the scale 2^-7), whose f32 sums are
 exact in any order.
 """
@@ -36,6 +40,7 @@ from dynamo_tpu_torch.ops.kernels.mla_attention import (
     paged_mla_prefill_attention_kernel,
 )
 from dynamo_tpu_torch.ops.kernels.paged_attention import (
+    chunk_pages,
     paged_decode_attention_chunked_kernel,
     paged_decode_attention_folded_kernel,
     paged_decode_attention_grouped_kernel,
@@ -49,6 +54,7 @@ from dynamo_tpu_torch.ops.kernels.prefill_attention import (
     paged_prefill_dmaonly_kernel,
 )
 from dynamo_tpu_torch.quant.kv import QuantizedPages, quantize_kv_rows
+from dynamo_tpu_torch.tools.checks import rounding_slack
 
 pytestmark = pytest.mark.cuda
 
@@ -103,8 +109,11 @@ def _decode_tables(rng, B, P, ps, max_pages, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (128, 128, 16, 2)])
+@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (128, 128, 16, 2), (128, 16, 28, 4),
+                                         (128, 16, 12, 2), (128, 16, 3, 1), (64, 16, 36, 2)])
 def test_decode_kernel_matches_plain(cuda, dtype, D, ps, Hq, Hkv):
+    """G 4, 1 and 2, and G 7, 6, 3 and 18 (three blocks of 6 heads a kv
+    head)."""
     rng = np.random.default_rng(D + ps + Hq)
     B, max_pages = 12, 8
     P = B * max_pages + 1
@@ -132,10 +141,12 @@ def test_decode_kernel_matches_plain(cuda, dtype, D, ps, Hq, Hkv):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (128, 16, 16, 2)])
+@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (128, 16, 16, 2), (128, 16, 28, 4),
+                                         (128, 16, 12, 2)])
 def test_prefill_kernel_matches_plain_per_lane(cuda, dtype, D, ps, Hq, Hkv):
     """Three lanes in one launch: a chunk from position 0 with pad rows, a
-    chunk after a cached prefix, and a pad lane (n=0, all-zero table)."""
+    chunk after a cached prefix, and a pad lane (n=0, all-zero table); G 7
+    and 6 leave the trailing rows of every 128-row block empty."""
     rng = np.random.default_rng(D + ps + Hq + 1)
     T, max_pages = 96, 16
     P = 2 * max_pages + 1
@@ -180,7 +191,7 @@ def test_decode_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
 
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES[2:], ids=MIX_IDS[2:])
-@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 16, 8, 2)])
+@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 16, 8, 2), (128, 16, 28, 4)])
 def test_prefill_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
     rng = np.random.default_rng(D + ps + 8)
     T, max_pages = 96, 16
@@ -196,20 +207,32 @@ def test_prefill_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
         torch.testing.assert_close(got[j * T : (j + 1) * T].float(), ref.float(), **TOL[qdt])
 
 
-FOLDED = [(16, 8, 16), (32, 4, 32), (64, 4, 32), (64, 2, 16)]  # (D, Hkv, Hq)
+# (D, Hkv, Hq): TinyLlama's fold, G 1 and 4 at D 16 / 32 / 64, and the
+# widened geometries: D 96 at G 3, D 80, D 8 over 16 kv heads, D 24 (tiles
+# padded to 32 columns; over 3 kv heads an int8 row starts off 16 bytes, so
+# it arrives in 8-byte copies) and G 40 (three 16-head tiles a kv head)
+FOLDED = [(16, 8, 16), (32, 4, 32), (64, 4, 32), (64, 2, 16), (96, 4, 12), (80, 8, 16), (8, 16, 32), (24, 4, 8), (24, 3, 9),
+          (64, 1, 40)]
 
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES, ids=MIX_IDS)
 @pytest.mark.parametrize("D,Hkv,Hq", FOLDED)
-def test_folded_decode_kernel_matches_plain(cuda, qdt, kvdt, D, Hkv, Hq):
-    """K3a over ragged contexts spanning several 128-row splits, an inactive
-    slot and a row at position -1, unfolded and folded pool views."""
-    rng = np.random.default_rng(D + Hq + 9)
-    B, ps, max_pages = 10, 16, 40
-    P = B * max_pages + 1
-    k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
-    q = torch.from_numpy(rng.standard_normal((B, Hq, D)).astype(np.float32)).to(cuda, qdt)
-    pt_t, pos_t = _decode_tables(rng, B, P, ps, max_pages, cuda)
+@pytest.mark.parametrize("B", [10, 1, 6, 64])
+def test_folded_decode_kernel_matches_plain(cuda, qdt, kvdt, D, Hkv, Hq, B):
+    """K3a over ragged contexts spanning several 128-row splits (B > 2: an
+    inactive slot and a row at position -1), unfolded and folded pool
+    views."""
+    rng = np.random.default_rng(D + Hq + 9 + (B != 10) * B)
+    ps, max_pages = 16, 40
+    if B == 10:
+        P = B * max_pages + 1
+        k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
+        q = torch.from_numpy(rng.standard_normal((B, Hq, D)).astype(np.float32)).to(cuda, qdt)
+        pt_t, pos_t = _decode_tables(rng, B, P, ps, max_pages, cuda)
+    else:
+        P, pt_t, pos_t = _variant_tables(rng, B, ps, max_pages, cuda)
+        k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
+        q = torch.from_numpy(rng.standard_normal((B, Hq, D)).astype(np.float32)).to(cuda, qdt)
     before = paged_decode_attention_folded_kernel.launches
     got = paged_decode_attention_folded_kernel(q, k, v, pt_t, pos_t)
     torch.cuda.synchronize()
@@ -296,12 +319,12 @@ def test_launchers_raise_on_what_the_kernels_do_not_take(cuda):
     rng = np.random.default_rng(11)
     pt = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
     pos = torch.zeros(2, dtype=torch.int32, device=cuda)
-    q96 = torch.zeros((2, 8, 96), device=cuda)
-    k96, v96 = _pools(rng, 5, 16, 2, 96, torch.float32, cuda)
+    q100 = torch.zeros((2, 8, 100), device=cuda)  # no multiple of 8 (96 launches)
+    k100, v100 = _pools(rng, 5, 16, 2, 100, torch.float32, cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        paged_decode_attention_folded_kernel(q96, k96, v96, pt, pos)
+        paged_decode_attention_folded_kernel(q100, k100, v100, pt, pos)
     with pytest.raises(ValueError, match="head_dim"):
-        tatt.dispatch_paged_decode_attention(q96, k96, v96, pt, pos)
+        tatt.dispatch_paged_decode_attention(q100, k100, v100, pt, pos)
     q = torch.zeros((2, 8, 64), device=cuda, dtype=torch.float16)
     k, v = _pools(rng, 5, 16, 2, 64, torch.float16, cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -314,9 +337,12 @@ def test_launchers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="dtype"):
         paged_decode_attention_kernel(q.repeat(1, 1, 2), kf.bfloat16().repeat(1, 1, 1, 2),
                                       vf.bfloat16().repeat(1, 1, 1, 2), pt, pos)
-    qp = torch.zeros((64, 24, 64), device=cuda)
+    qp = torch.zeros((64, 25, 64), device=cuda)  # Hq 25 over Hkv 2 (G 12 launches)
     with pytest.raises(ValueError, match="Hq"):
         paged_prefill_attention_folded_kernel(qp, kf, vf, pt[0], torch.arange(64, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="Hq"):
+        paged_decode_attention_kernel(torch.zeros((2, 25, 128), device=cuda), *_pools(rng, 5, 16, 2, 128,
+                                                                                       torch.float32, cuda), pt, pos)
 
 
 def _variant_tables(rng, B, ps, max_pages, device):
@@ -364,13 +390,16 @@ ROUNDED = {
 
 @pytest.mark.parametrize("which", list(ROUNDED))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 16), (128, 16, 8, 128)])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 16), (128, 16, 8, 128), (128, 28, 4, 16),
+                                         (128, 48, 2, 16), (64, 12, 4, 24)])
 @pytest.mark.parametrize("B", [1, 6, 16])
 def test_decode_variant_matches_plain(cuda, which, dtype, D, Hq, Hkv, ps, B):
-    """K4a (two or more 256-row chunks), K4b (groups of 2 at B 6, 8 at B
-    16, 1 at B 1) and K7c against their plain versions; K7c with cast_f32
-    against K1's. G 4 and 1 at ps 16, and the profilers' G 2 at ps 128 (K4a
-    chunks of 2 pages)."""
+    """K4a (two or more 256-row chunks), K4b (splits of whole pages, 256
+    rows and more) and K7c against their plain versions; K7c with cast_f32
+    against K1's. G 4 and 1 at ps 16, the profilers' G 2 at ps 128 (K4a
+    chunks of 2 pages), G 7, G 24 (K4b: two 16-head tiles; K4a, K7c: three
+    blocks of 8 heads) and G 3 at page size 24 (K4b's 16-row k-steps span
+    pages)."""
     kernel, plain, kw = ROUNDED[which]
     rng = np.random.default_rng(D + B + Hq + ps)
     max_pages = 640 // ps
@@ -386,8 +415,86 @@ def test_decode_variant_matches_plain(cuda, which, dtype, D, Hq, Hkv, ps, B):
     torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
 
 
+def _exact_queries(rng, B, Hq, D, dtype, device):
+    """Queries of multiples of 1/8 in [-1, 1]: over exact pools every q.k
+    (at most 128 products of multiples of 1/64) is exact in f32 in any
+    order."""
+    return torch.from_numpy((rng.integers(-8, 9, (B, Hq, D)) / 8).astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.parametrize("which", ["K4a", "K4b", "K7c"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 128), (128, 16, 8, 128)])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 16), (128, 16, 8, 128), (128, 28, 4, 16),
+                                         (128, 48, 2, 16), (64, 12, 4, 24)])
+def test_rounded_variants_at_the_serve_batch(cuda, which, dtype, D, Hq, Hkv, ps):
+    """K4a, K4b and K7c (rounded probabilities) at B 64 over exact inputs.
+    Over random inputs a probability whose f32 value lies within the dot
+    products' summation-order noise of a bf16 rounding boundary rounds one
+    way in the kernel and the other in the plain version: one bf16 step of
+    that probability, which TOL does not bound where an output is near zero
+    (K4a fails so at B 64, G 7 on an H100 in 4 of 229376 elements, by <= 3.1e-4).
+    Exact scores give both sides the same f32 probabilities, so this holds
+    the kernels' arithmetic to TOL unchanged."""
+    kernel, plain, kw = ROUNDED[which]
+    rng = np.random.default_rng(D + Hq + ps + 64)
+    P, pt, pos = _variant_tables(rng, 64, ps, 640 // ps, cuda)
+    k, v = _exact_pools(rng, P, ps, Hkv, D, dtype, cuda)
+    q = _exact_queries(rng, 64, Hq, D, dtype, cuda)
+    got = kernel(q, k, v, pt, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), plain(q, k, v, pt, pos).float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("which", ["K4a", "K4b", "K7c"])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 16), (128, 16, 8, 128), (128, 28, 4, 16),
+                                         (128, 48, 2, 16), (64, 12, 4, 24)])
+def test_rounded_variants_at_the_serve_batch_over_random_inputs(cuda, which, D, Hq, Hkv, ps):
+    """K4a, K4b and K7c at B 64 over random bf16 inputs (contexts up to 2048
+    rows, an inactive slot, a row at -1), held to TOL plus
+    ``tools/checks.py rounding_slack``: a probability within 2^-16 of a bf16
+    rounding boundary may round either way (the scores' summation order),
+    every other one must round where the plain version rounds it. Rounding
+    at another point (K4a's chunks for K4b's pages, or not at all) breaks
+    this bound in many elements
+    (``test_rounding_slack_admits_score_noise_and_rejects_other_rounding_points``)."""
+    kernel, plain, kw = ROUNDED[which]
+    rng = np.random.default_rng(D + Hq + ps + 65)
+    max_pages = 2048 // ps
+    P, pt, pos = _variant_tables(rng, 64, ps, max_pages, cuda)
+    k, v = _pools(rng, P, ps, Hkv, D, torch.bfloat16, cuda)
+    q = torch.from_numpy(rng.standard_normal((64, Hq, D)).astype(np.float32)).to(cuda, torch.bfloat16)
+    got = kernel(q, k, v, pt, pos, **kw).float()
+    torch.cuda.synchronize()
+    ref = plain(q, k, v, pt, pos).float()
+    chunk_rows = chunk_pages(ps, max_pages) * ps if which == "K4a" else ps
+    tol = TOL[torch.bfloat16]
+    limit = tol["atol"] + tol["rtol"] * ref.abs() + rounding_slack(q, k, v, pt, pos, chunk_rows)
+    over = (got - ref).abs() > limit
+    assert torch.isfinite(got).all() and not over.any(), (
+        f"{int(over.sum())} of {over.numel()} elements past the limit, by up to "
+        f"{float(((got - ref).abs() - limit).max()):.3g}")
+
+
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128)])
+def test_grouped_decode_gives_the_same_bits_twice(cuda, D, Hq, Hkv, ps):
+    """K4b merges its splits in fixed order, without atomics: two launches
+    on the same inputs (B 64: ragged contexts, an inactive slot, a row at
+    -1) give the same bits."""
+    rng = np.random.default_rng(D + Hq + ps + 13)
+    P, pt, pos = _variant_tables(rng, 64, ps, 2048 // ps, cuda)
+    k, v = _pools(rng, P, ps, Hkv, D, torch.bfloat16, cuda)
+    q = torch.from_numpy(rng.standard_normal((64, Hq, D)).astype(np.float32)).to(cuda, torch.bfloat16)
+    first = paged_decode_attention_grouped_kernel(q, k, v, pt, pos)
+    second = paged_decode_attention_grouped_kernel(q, k, v, pt, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.float(), tatt.paged_decode_attention_grouped(q, k, v, pt, pos).float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 128), (128, 16, 8, 128), (128, 28, 4, 16)])
 @pytest.mark.parametrize("B", [1, 6, 16])
 def test_decode_dmaonly_checksum(cuda, dtype, D, Hq, Hkv, ps, B):
     rng = np.random.default_rng(D + B + 3)
@@ -403,11 +510,13 @@ def test_decode_dmaonly_checksum(cuda, dtype, D, Hq, Hkv, ps, B):
 
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES, ids=MIX_IDS)
-@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128)])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128), (128, 12, 2, 16),
+                                         (128, 28, 4, 16)])
 def test_prefill_dmaonly_checksum(cuda, qdt, kvdt, D, Hq, Hkv, ps):
     """K7a over three lanes in one launch (from 0 with an odd length, after a
-    cached prefix, a pad lane), K2's block partition; G 4 at ps 16, and the
-    profilers' G 2 at ps 128."""
+    cached prefix, a pad lane), K2's block partition; G 4 at ps 16, the
+    profilers' G 2 at ps 128, and G 6 and 7 (blocks of 21 and 18
+    positions)."""
     rng = np.random.default_rng(D + Hq + ps + 4)
     T, max_pages = 75, 384 // ps
     P = 2 * max_pages + 1
@@ -510,3 +619,27 @@ def test_mla_prefill_kernel_matches_plain(cuda, dtype, ps):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         ref = tatt.paged_mla_prefill_attention(q, pages, pt_t, pos_t, MLA_DC)
         torch.testing.assert_close(got, ref, **TOL[torch.float32], msg=lambda m: f"T {T} from {start}: {m}")
+
+
+@pytest.mark.parametrize("H", [4, 20], ids=["h4-tiny-mla", "h20"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32-pages", "bf16-pages"])
+def test_mla_kernels_take_any_head_count(cuda, dtype, H):
+    """K5 and K6 at H 4 (the reference's tiny-mla) and 20 (a 16-head block
+    and one of 4): the last block's heads past H are masked."""
+    rng = np.random.default_rng(H + (dtype == torch.bfloat16))
+    B, ps, max_pages = 6, 16, 40
+    P = B * max_pages + 1
+    pages = torch.from_numpy(rng.standard_normal((P, ps, MLA_LATENT)).astype(np.float32)).to(cuda, dtype)
+    q = torch.from_numpy((rng.standard_normal((B, H, MLA_LATENT)) / np.sqrt(MLA_LATENT)).astype(np.float32)).to(cuda)
+    pt, pos = _decode_tables(rng, B, P, ps, max_pages, cuda)
+    got = paged_mla_decode_attention_kernel(q, pages, pt, pos, MLA_DC)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, MLA_DC) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, tatt.paged_mla_decode_attention(q, pages, pt, pos, MLA_DC), **TOL[torch.float32])
+    T, start = 75, 300
+    qp = torch.from_numpy((rng.standard_normal((T, H, MLA_LATENT)) / np.sqrt(MLA_LATENT)).astype(np.float32)).to(cuda)
+    pos_p = torch.arange(start, start + T, dtype=torch.int32, device=cuda)
+    got = paged_mla_prefill_attention_kernel(qp, pages, pt[1], pos_p, MLA_DC)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tatt.paged_mla_prefill_attention(qp, pages, pt[1], pos_p, MLA_DC),
+                               **TOL[torch.float32])

@@ -141,8 +141,10 @@ def test_mla_kernel_arg_checks_raise_on_shapes_the_kernels_do_not_take():
         check_mla_args(q[..., :572], pages[..., :572], pt, pos, dc, decode=True)
     with pytest.raises(ValueError, match="d_c"):
         check_mla_args(q[..., :504], pages[..., :504], pt, pos, 508, decode=True)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        check_mla_args(q[:, :4], pages, pt, pos, dc, decode=True)
+    check_mla_args(q[:, :4], pages, pt, pos, dc, decode=True)  # any H: tiny-mla's 4 heads
+    check_mla_args(q[:, :5], pages, pt[0], pos, dc, decode=False)
+    with pytest.raises(ValueError, match="at most 768"):  # the kernels' shared-memory budget
+        check_mla_args(torch.zeros((B, Hs, 776)), torch.zeros((P, ps, 776)), pt, pos, dc, decode=True)
     with pytest.raises(ValueError, match="float32 q_cat"):
         check_mla_args(q.bfloat16(), pages, pt, pos, dc, decode=True)
     with pytest.raises(ValueError, match="int32"):

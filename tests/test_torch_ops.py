@@ -192,8 +192,9 @@ def test_kernel_arg_checks_raise_on_shapes_the_kernels_do_not_take():
         check_decode_args(qs, ks, vs, pts, poss)
     with pytest.raises(ValueError, match="int32"):
         check_decode_args(q, k, v, pt, pos.long())
-    with pytest.raises(ValueError, match="Hq/Hkv"):
-        check_decode_args(q.repeat(1, 8, 1), k, v, pt, pos)
+    check_decode_args(q.repeat(1, 8, 1), k, v, pt, pos)  # G 16: any group launches (sub-group blocks)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        check_decode_args(q[:, :3], k, v, pt, pos)
     qp, kp, vp, ptp, posp = (_t(a) for a in prefill_case(D=128))
     check_prefill_args(qp, kp, vp, ptp[None], posp[None])
     with pytest.raises(ValueError, match="dtype"):

@@ -166,3 +166,13 @@ def test_profile_serve_classes_the_shared_prefill_bodies(body):
     kernels = [dict(name=name, ts=0.0, dur=10.0)]
     assert window_stats(kernels, 0.0, 20.0, folded=True)["device_ms_by_class"] == {"K3b": 0.01}
     assert {"K2", "K3b"} <= set(PREFILL_CLASSES)
+    # K3a's split bodies and its merge are K3a's, in any workload
+    for k3a in ("folded_decode_tc<signed char, 64>", "folded_decode_fma<float>", "merge_splits<__nv_bfloat16>"):
+        assert kernel_class(f"void (anonymous namespace)::{k3a}(...)", folded=True) == "K3a"
+    # K4b's passes; the merge it shares with K3a is K4b's in a window where K4b's scores run
+    for k4b in ("grouped_scores<128>", "grouped_pv<128>"):
+        assert kernel_class(f"void (anonymous namespace)::{k4b}(...)") == "K4b"
+    merge = dict(name="void (anonymous namespace)::merge_splits<__nv_bfloat16>(...)", ts=5.0, dur=2.0)
+    scores = dict(name="void (anonymous namespace)::grouped_scores<128>(...)", ts=0.0, dur=4.0)
+    assert window_stats([scores, merge], 0.0, 20.0)["device_ms_by_class"] == {"K4b": 0.006}
+    assert window_stats([merge], 0.0, 20.0)["device_ms_by_class"] == {"K3a": 0.002}

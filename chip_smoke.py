@@ -13,8 +13,8 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      a row at position -1; K1 at Hq 32 / Hkv 8 / D 128, K3a at TinyLlama's
      Hq 32 / Hkv 4 / D 64) in three mixes: f32, bf16, and bf16 queries over
      the int8 cache; kernel / plain / SDPA times and the bound; the SASS of
-     K3a's and K4b's tensor-core instances must hold HMMA (mma.sync) and no
-     local memory
+     the mma.sync bodies (K3a, K4a / K4b's passes, K6's bf16 body) must hold
+     HMMA and no local memory (the cuobjdump runs side by side)
   4. K2 chunked-prefill flash and K3b the same way (512-row lanes at cached
      prefixes 0 and 1024, plus a pad lane, in one launch), with achieved
      TFLOP/s and share of the bound; the SASS of their bf16-query instances
@@ -24,10 +24,13 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      position -1), f32 queries over f32 and over bf16 pages; kernel / plain /
      SDPA times and the SDPA backends that take the inputs
   6. K6 MLA latent prefill the same way (512-row chunks at cached prefixes 0
-     and 1536)
+     and 1536); K5 and K6 bounded over the function's own operations, 2 H
+     (L + d_c) a (row, key) pair, at the pages' rate (bf16 pages: the bf16
+     tensor rate)
   7. the decode variants at K1's shapes and again at the profilers' (Hq 16
      / Hkv 8 / D 128, ps 128: the reference bench's 1.3B shape), f32 and
-     bf16: K4a (chunked), K4b (grouped; launched twice, the same bits) and
+     bf16: K4a (chunked) and K4b (grouped), each launched twice for the same
+     bits, and
      K7c without cast_f32 against their plain versions, K7c with cast_f32
      against K1's; the load-only
      twins K7b (at both) and K7a (at K2's shapes and at profile_prefill's
@@ -35,9 +38,10 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      checksums of their plain versions, exactly (pools of multiples of 1/8,
      whose f32 sums are exact in any order); kernel / plain / SDPA times and
      the bound over the rows each sequence reads; then the widened head
-     geometries at small sizes (WIDENED: K1 / K2 at G 7 and 6, K3a / K3b at
-     D 96 with G 3, D 80 and D 8, K5 / K6 at 4 heads), each held to its
-     plain version
+     geometries at small sizes (WIDENED: K1 / K2 at G 7 and 6; D 256 on K1,
+     K2, K4a, K4b, K7a-c; K3a / K3b at D 96 with G 3, D 80, 8, 192, 100 and
+     20; K5 / K6 at 4 and 20 heads and at L 1088 / d_c 1024), each held to
+     its plain version in every mix it takes
   8. serve paths (tools/workload.py: 16 concurrent greedy requests of
      64-2048 prompt tokens and 64 output tokens, bf16, seeded random
      weights, full width and depth); every stream must finish with exactly
@@ -49,9 +53,9 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
        chunked serve / grouped serve: Llama-3-8B geometry, bf16 KV, with
        DYNTPU_DECODE_KERNEL=chunked / grouped: K4a / K4b decode (as many
        launches as K1 in serve) and K2; no K1, K3 or other K4 launch
-  9. refusals: an int8 cache on tiny-mla, K3 launches at a head dim or
-     dtype they do not take, and K4 launches over an int8 cache or at a
-     folded head dim raise on the card
+  9. refusals: an int8 cache on tiny-mla and on K4a, K1 at head_dim 512 and
+     K3a at 264 (past their budgets), K3b over float16 and K4b at a folded
+     head dim raise on the card
  10. 2-layer f32 greedy parity: the engine's tokens must equal a dense
      no-paging forward's on Llama-3-8B geometry, on TinyLlama geometry with
      an f32 and with an int8 KV cache (the dense forward quantizes and
@@ -140,15 +144,19 @@ def timed(fn, iters: int, key: str = "") -> dict:
     return {f"{key}ms": dev_us / 1e3, f"{key}b2b_ms": b2b_us / 1e3, f"{key}host_ms": host_us / 1e3}
 
 
-def held_to_plain(what: str, dtype: str, got, ref, tol: str | None = None) -> dict:
+def held_to_plain(what: str, dtype: str, got, ref, tol: str | None = None, slack=None) -> dict:
     """Raise unless ``got`` is finite and within the elementwise limit
-    ``TOL[tol or dtype]`` of ``ref`` (``tools/checks.py``, which says why);
-    returns {max_abs_err, tol_share}: the max abs error and the largest
-    share of the limit used."""
+    ``TOL[tol or dtype]`` of ``ref`` (``tools/checks.py``, which says why),
+    plus ``slack`` (elementwise, ``tools/checks.py rounding_slack``) where
+    given; returns {max_abs_err, tol_share}: the max abs error and the
+    largest share of the limit used."""
     from dynamo_tpu_torch.tools.checks import TOL, tol_share
 
     atol, rtol = TOL[tol or dtype]
     err, share = tol_share(got, ref, tol or dtype)
+    if slack is not None and share != float("inf"):
+        diff = (got.float() - ref.float()).abs()
+        share = (diff / (atol + rtol * ref.float().abs() + slack)).max().item()
     log(f"{what} {dtype}: max_abs_err {err:.3e}; max |got-ref| / (atol + rtol*|ref|) = "
         f"{share:.3f} (must be <= 1; atol {atol:g}, rtol {rtol:g})")
     if not share <= 1.0:
@@ -410,35 +418,41 @@ def sass_count(lib, pattern: str) -> dict:
     return counts
 
 
-def check_prefill_sass() -> dict:
-    """K2 / K3b run on the tensor cores: every bf16-query instance
-    (tc_prefill_kernel, bf16 and int8 pools) holds HGMMA in its SASS, the
-    f32-query FMA body none. Returns {instance: HGMMA count}."""
+def sass_counts(jobs) -> list[dict]:
+    """``sass_count`` of each (library, pattern) of ``jobs``, the cuobjdump
+    processes run side by side."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return list(pool.map(lambda job: sass_count(*job), jobs))
+
+
+def check_sass() -> dict:
+    """The tensor-core bodies' SASS: K2 / K3b's bf16-query instances
+    (tc_prefill_kernel, bf16 and int8 pools, DP 16..128 and 256) hold HGMMA
+    (wgmma), the f32 FMA bodies none; K3a's (folded_decode_tc<bf16 | int8, DP
+    16..128>), K4a's and K4b's (grouped_scores and grouped_pv at D 64, 128,
+    256) and K6's bf16 body (mla_prefill_tc) hold HMMA (mma.sync) and no
+    local memory (LDL / STL: no spills). Returns {instance: count}."""
     from dynamo_tpu_torch.ops.kernels import _build
 
-    counts = sass_count(_build.library_path("prefill_attention"), r"\bHGMMA\b")
-    tc = {fn: n for fn, n in counts.items() if "tc_prefill_kernel" in fn}
-    fma = {fn: n for fn, n in counts.items() if "fma_prefill_kernel" in fn}
+    mma = (("paged_attention", "folded_decode_tc", 16), ("decode_variants", "grouped_", 6),
+           ("mla_attention", "mla_prefill_tc", 1))
+    jobs = [(_build.library_path("prefill_attention"), r"\bHGMMA\b")]
+    for lib, _, _ in mma:
+        jobs += [(_build.library_path(lib), r"\bHMMA\b"), (_build.library_path(lib), r"\b(LDL|STL)\b")]
+    counts = sass_counts(jobs)
+    tc = {fn: n for fn, n in counts[0].items() if "tc_prefill_kernel" in fn}
+    fma = {fn: n for fn, n in counts[0].items() if "fma_prefill_kernel" in fn}
     log("prefill SASS: HGMMA in " + ", ".join(f"{fn} {n}" for fn, n in sorted(tc.items()))
         + f"; FMA body instances {sorted(fma.values())}")
-    # tc_prefill_kernel<bf16 | int8, DP 16, 32, ..., 128>: K2 and K3b share 64 and 128
-    if len(tc) != 16 or min(tc.values()) <= 0 or any(fma.values()):
+    # tc_prefill_kernel<bf16 | int8, DP 16, 32, ..., 128, 256>: K2 and K3b share 64, 128 and 256
+    if len(tc) != 18 or min(tc.values()) <= 0 or any(fma.values()):
         raise AssertionError(f"prefill SASS: tensor-core instances {tc}, FMA instances {fma}")
-    return tc
-
-
-def check_decode_sass() -> dict:
-    """K3a's and K4b's tensor-core bodies run mma.sync: HMMA in the SASS of
-    every instance (folded_decode_tc<bf16 | int8, DP 16..128>; grouped_scores
-    and grouped_pv at D 64, 128), and no local memory (LDL / STL: no
-    spills) in them. Returns {instance: HMMA count}."""
-    from dynamo_tpu_torch.ops.kernels import _build
-
-    found = {}
-    for lib, mark, want in (("paged_attention", "folded_decode_tc", 16), ("decode_variants", "grouped_", 4)):
-        path = _build.library_path(lib)
-        hmma = {fn: n for fn, n in sass_count(path, r"\bHMMA\b").items() if mark in fn}
-        local = {fn: n for fn, n in sass_count(path, r"\b(LDL|STL)\b").items() if mark in fn and n}
+    found = dict(tc)
+    for i, (lib, mark, want) in enumerate(mma):
+        hmma = {fn: n for fn, n in counts[1 + 2 * i].items() if mark in fn}
+        local = {fn: n for fn, n in counts[2 + 2 * i].items() if mark in fn and n}
         log(f"{lib} SASS: HMMA in " + ", ".join(f"{fn} {n}" for fn, n in sorted(hmma.items()))
             + f"; local-memory instructions {local or 'none'}")
         if len(hmma) != want or min(hmma.values()) <= 0 or local:
@@ -496,8 +510,8 @@ def check_decode_variants(torch, dev, rng, geometry: str) -> dict:
         for which, (kernel, ref_fn) in kernels.items():
             got = kernel(q, k, v, pt_t, pos_t)
             held = held_to_plain(f"{which} {at}", name, got, ref_fn(q, k, v, pt_t, pos_t), name)
-            if which == "K4b" and not torch.equal(got, kernel(q, k, v, pt_t, pos_t)):
-                raise AssertionError(f"K4b {at} {name}: two launches on the same inputs differ")
+            if which in ("K4a", "K4b") and not torch.equal(got, kernel(q, k, v, pt_t, pos_t)):
+                raise AssertionError(f"{which} {at} {name}: two launches on the same inputs differ")
             kt = timed(lambda: kernel(q, k, v, pt_t, pos_t), 50)
             plain_ms = cuda_ms(lambda: ref_fn(q, k, v, pt_t, pos_t), 3)
             log(f"{which} decode {at} {name}: kernel {kt['ms']:.4f} ms (back to back {kt['b2b_ms']:.4f}, host "
@@ -573,7 +587,10 @@ def check_prefill_twin(torch, dev, rng, geometry: str) -> dict:
 # DeepSeek-V2-Lite's attention geometry: 16 heads, latent rows of d_c 512 +
 # d_r 64. K5/K6 take f32 queries and return f32 in both page dtypes; both
 # sides read the same page values, so both mixes are held to TOL["f32"]. The
-# bound counts f32 FMA work at the f32 peak (the queries are f32).
+# bound counts the function's own operations, 2 H (L + d_c) a (row, key)
+# pair, at the rate of the pages' type: bf16 pages at the bf16 tensor rate
+# (K6's tensor-core body splits q and P into hi + lo, extra products that are
+# the kernel's cost, not the work), f32 pages at the f32 rate.
 MLA_H, MLA_LATENT, MLA_DC = 16, 576, 512
 MLA_MIXES = (("f32", "float32"), ("bf16", "bfloat16"))
 
@@ -635,7 +652,7 @@ def check_mla_decode(torch, dev, rng) -> dict:
         lib_ms = lt["library_ms"]
         nbytes = int(live.sum()) * L * pages.element_size() + q.numel() * 4 + B * H * dc * 4 + pt.nbytes + pos.nbytes
         flops = 2 * H * (L + dc) * int(live.sum())
-        b_ms, b_by = bound(nbytes, flops, "f32")
+        b_ms, b_by = bound(nbytes, flops, name)  # bf16 pages: the bf16 tensor rate, f32 pages the f32 rate
         log(f"K5 MLA decode f32 q / {name} pages: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms (backends taking it: {backends}), bound {b_ms:.4f} ms ({b_by}; "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
@@ -684,7 +701,7 @@ def check_mla_prefill(torch, dev, rng) -> dict:
         pairs = sum(int((p.long() + 1).sum()) for p in pos)
         nbytes = rows * L * pages.element_size() + 2 * T * H * (L + dc) * 4 + 2 * (pt_np[0].nbytes + T * 4)
         flops = 2 * H * (L + dc) * pairs
-        b_ms, b_by = bound(nbytes, flops, "f32")
+        b_ms, b_by = bound(nbytes, flops, name)  # bf16 pages: the bf16 tensor rate, f32 pages the f32 rate
         log(f"K6 MLA prefill f32 q / {name} pages (both chunks): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (backends taking it: {backends}), bound "
             f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP)")
@@ -695,46 +712,93 @@ def check_mla_prefill(torch, dev, rng) -> dict:
 
 
 # The head geometries the launchers were widened to, at small sizes: GQA
-# groups of 7 (Qwen2-VL's 28 / 4) and 6 (12 / 2) on K1 and K2; folded head
-# dims 96 (G 3), 80 and 8 on K3a and K3b; 4 MLA heads (the reference's
-# tiny-mla) on K5 and K6. (name, Hq, Hkv, D) or, for MLA, (name, H).
+# groups of 7 (Qwen2-VL's 28 / 4) and 6 (12 / 2) on K1 and K2; head_dim 256
+# (Gemma's) on K1, K2, K4a, K4b, K7a, K7b and K7c; folded head dims 96 (G 3),
+# 80, 8, 192 (over 2 kv heads), and 100 / 20 (no multiple of 8: rows start off
+# 16 bytes) on K3a and K3b; MLA at 4 heads (the reference's tiny-mla), 20
+# heads, and a latent row of d_c 1024 + d_r 64 on K5 and K6. (name, Hq, Hkv,
+# D) or, for MLA, (name, H, latent, d_c).
 WIDENED = {
-    "K1": (("G7", 28, 4, 128), ("G6", 12, 2, 128)),
-    "K2": (("G7", 28, 4, 128), ("G6", 12, 2, 128)),
-    "K3a": (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8)),
-    "K3b": (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8)),
-    "K5": (("H4", 4),),
-    "K6": (("H4", 4),),
+    "K1": (("G7", 28, 4, 128), ("G6", 12, 2, 128), ("D256", 8, 2, 256)),
+    "K2": (("G7", 28, 4, 128), ("G6", 12, 2, 128), ("D256", 8, 2, 256)),
+    "K3a": (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8), ("D192", 8, 2, 192),
+            ("D100", 8, 2, 100), ("D20", 16, 4, 20)),
+    "K3b": (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8), ("D192", 8, 2, 192),
+            ("D100", 8, 2, 100), ("D20", 16, 4, 20)),
+    "K4a": (("D256", 8, 2, 256),),
+    "K4b": (("D256", 8, 2, 256),),
+    "K7c": (("D256", 8, 2, 256),),
+    "K7b": (("D256", 8, 2, 256),),
+    "K7a": (("D256", 8, 2, 256),),
+    "K5": (("H4", 4, MLA_LATENT, MLA_DC), ("H20", 20, MLA_LATENT, MLA_DC), ("L1088", 4, 1088, 1024)),
+    "K6": (("H4", 4, MLA_LATENT, MLA_DC), ("H20", 20, MLA_LATENT, MLA_DC), ("L1088", 4, 1088, 1024)),
 }
 
 
 def check_widened(torch, dev, rng) -> dict:
     """Every WIDENED shape launches on the card and is held to its plain
-    version: K1 / K3a at B 12 (ragged contexts up to 512 rows, inactive
-    slots, a row at -1) and K2 / K3b on two 96-row lanes (from 0, after a
-    200-row prefix) and a pad lane, in every mix; K5 / K6 at H 4 over bf16
-    pages. Returns {kernel: {shape: largest share of the limit}}."""
+    version: K1 / K3a / K4a / K4b / K7c at B 12 (ragged contexts up to 512
+    rows, inactive slots, a row at -1) and K2 / K3b on two 96-row lanes (from
+    0, after a 200-row prefix) and a pad lane, in every mix they take (the
+    rounded variants with ``rounding_slack``); K7b / K7a on the same tables
+    over exact pools, exactly; K5 / K6 over f32 and bf16 pages (K6 at prefixes
+    0 and 200). Each launch is then timed at its test shape (device ms; K6
+    the chunk after the prefix). Returns {kernel: {shape: {"tol_share": the
+    largest share of the limit, "ms": {mix: ms}}}}."""
+    import functools
+
     from dynamo_tpu_torch.ops import attention as plain
     from dynamo_tpu_torch.ops.kernels import mla_attention as mla
     from dynamo_tpu_torch.ops.kernels import paged_attention as pa
     from dynamo_tpu_torch.ops.kernels import prefill_attention as pf
+    from dynamo_tpu_torch.tools.checks import exact_pools, rounding_slack
 
     res = {name: {} for name in WIDENED}
-    for which, kernel in (("K1", pa.paged_decode_attention_kernel), ("K3a", pa.paged_decode_attention_folded_kernel)):
+
+    def record(which, shape, shares, ms):
+        res[which][shape] = {"tol_share": max(shares), "ms": ms}
+
+    decode = {
+        "K1": (pa.paged_decode_attention_kernel, plain.paged_decode_attention, MIXES),
+        "K3a": (pa.paged_decode_attention_folded_kernel, plain.paged_decode_attention, MIXES),
+        "K4a": (pa.paged_decode_attention_chunked_kernel, plain.paged_decode_attention_chunked, MIXES[:2]),
+        "K4b": (pa.paged_decode_attention_grouped_kernel, plain.paged_decode_attention_grouped, MIXES[:2]),
+        "K7c": (functools.partial(pa.paged_decode_perseq_variant_kernel, cast_f32=False),
+                plain.paged_decode_attention_grouped, MIXES[:2]),
+    }
+    for which, (kernel, ref_fn, mixes) in decode.items():
         for shape, Hq, Hkv, D in WIDENED[which]:
             case = decode_case(torch, dev, rng, Hq, Hkv, D, B=12, rows=512)
-            shares = []
-            for name, qdt_name, kind in MIXES:
+            shares, ms = [], {}
+            for name, qdt_name, kind in mixes:
                 qdt = getattr(torch, qdt_name)
                 q = case["q32"].to(qdt)
                 k, v = mix_pools(torch, case["k32"], case["v32"], qdt, kind)[:2]
                 got = kernel(q, k, v, case["pt_t"], case["pos_t"])
-                ref = plain.paged_decode_attention(q, k, v, case["pt_t"], case["pos_t"])
+                ms[name] = timed(lambda: kernel(q, k, v, case["pt_t"], case["pos_t"]), 10)["ms"]
+                ref = ref_fn(q, k, v, case["pt_t"], case["pos_t"])
+                slack = None
+                if which in ("K4a", "K4b", "K7c"):  # probabilities rounded at a bf16 boundary
+                    unit = pa.chunk_pages(case["ps"], case["pt"].shape[1]) if which == "K4a" else 1
+                    slack = rounding_slack(q, k, v, case["pt_t"], case["pos_t"], unit * case["ps"])
                 shares.append(held_to_plain(f"{which} {shape}", name, got, ref,
-                                            "f32" if qdt == torch.float32 else "bf16")["tol_share"])
-            res[which][shape] = max(shares)
+                                            "f32" if qdt == torch.float32 else "bf16", slack)["tol_share"])
+            record(which, shape, shares, ms)
+    twin = pa.paged_decode_dmaonly_kernel
+    for shape, Hq, Hkv, D in WIDENED["K7b"]:
+        case = decode_case(torch, dev, rng, Hq, Hkv, D, B=12, rows=512)
+        ms = {}
+        for name, qdt_name, _ in MIXES[:2]:
+            q = case["q32"].to(getattr(torch, qdt_name))
+            ke, ve = exact_pools(tuple(case["k32"].shape), qdt_name, dev)
+            held_exactly(f"K7b {shape}", name, twin(q, ke, ve, case["pt_t"], case["pos_t"]),
+                         plain.paged_decode_dmaonly(q, ke, ve, case["pt_t"], case["pos_t"]))
+            ms[name] = timed(lambda: twin(q, ke, ve, case["pt_t"], case["pos_t"]), 10)["ms"]
+        record("K7b", shape, [0.0], ms)
     T, ps, max_pages = 96, 16, 24
-    for which, kernel in (("K2", pf.paged_prefill_attention_kernel), ("K3b", pf.paged_prefill_attention_folded_kernel)):
+    prefill = {"K2": pf.paged_prefill_attention_kernel, "K3b": pf.paged_prefill_attention_folded_kernel,
+               "K7a": pf.paged_prefill_dmaonly_kernel}
+    for which, kernel in prefill.items():
         for shape, Hq, Hkv, D in WIDENED[which]:
             P = 1 + 2 * max_pages
             pt = np.zeros((3, max_pages), np.int32)
@@ -743,43 +807,63 @@ def check_widened(torch, dev, rng) -> dict:
             pos_t = torch.from_numpy(np.stack([s + np.arange(T) for s in (0, 200, 0)]).astype(np.int32)).to(dev)
             k32, v32 = (torch.randn((P, ps, Hkv, D), device=dev) for _ in range(2))
             q32 = torch.randn((3 * T, Hq, D), device=dev)
-            shares = []
+            shares, ms = [], {}
             for name, qdt_name, kind in MIXES:
                 qdt = getattr(torch, qdt_name)
                 q = q32.to(qdt)
-                k, v = mix_pools(torch, k32, v32, qdt, kind)[:2]
-                got = kernel(q, k, v, pt_t, pos_t)
-                ref = plain.paged_prefill_attention_lanes(q, k, v, pt_t, pos_t)
-                shares.append(held_to_plain(f"{which} {shape}", name, got, ref,
-                                            "f32" if qdt == torch.float32 else "bf16")["tol_share"])
-            res[which][shape] = max(shares)
-    for shape, H in WIDENED["K5"]:
+                if which == "K7a":  # exact pools: the checksums hold exactly
+                    k, v = exact_pools((P, ps, Hkv, D), qdt_name if kind == "plain" else "int8", dev)
+                    held_exactly(f"K7a {shape}", name, kernel(q, k, v, pt_t, pos_t),
+                                 plain.paged_prefill_dmaonly(q, k, v, pt_t, pos_t))
+                    shares.append(0.0)
+                else:
+                    k, v = mix_pools(torch, k32, v32, qdt, kind)[:2]
+                    got = kernel(q, k, v, pt_t, pos_t)
+                    ref = plain.paged_prefill_attention_lanes(q, k, v, pt_t, pos_t)
+                    shares.append(held_to_plain(f"{which} {shape}", name, got, ref,
+                                                "f32" if qdt == torch.float32 else "bf16")["tol_share"])
+                ms[name] = timed(lambda: kernel(q, k, v, pt_t, pos_t), 10)["ms"]
+            record(which, shape, shares, ms)
+    for shape, H, L, dc in WIDENED["K5"]:
         B, max_pages = 12, 32
         lengths = rng.integers(1, max_pages * ps + 1, B)
-        lengths[0] = max_pages * ps  # its table holds the prefill chunk's context too
+        lengths[0] = max_pages * ps  # its table holds the prefill chunks' context too
         pt, P = mla_tables(rng, lengths, ps, max_pages)
         pos = (lengths - 1).astype(np.int32)
         pos[-1] = -1
         pt_t, pos_t = torch.from_numpy(pt).to(dev), torch.from_numpy(pos).to(dev)
-        pages = torch.randn((P, ps, MLA_LATENT), device=dev).bfloat16()
-        q = torch.randn((B, H, MLA_LATENT), device=dev) / MLA_LATENT**0.5
-        got = mla.paged_mla_decode_attention_kernel(q, pages, pt_t, pos_t, MLA_DC)
-        ref = plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, MLA_DC)
-        res["K5"][shape] = held_to_plain(f"K5 {shape}", "f32 q / bf16 pages", got, ref, "f32")["tol_share"]
-        qp = torch.randn((T, H, MLA_LATENT), device=dev) / MLA_LATENT**0.5
-        pos_p = torch.arange(200, 200 + T, dtype=torch.int32, device=dev)
-        got = mla.paged_mla_prefill_attention_kernel(qp, pages, pt_t[0], pos_p, MLA_DC)
-        ref = plain.paged_mla_prefill_attention(qp, pages, pt_t[0], pos_p, MLA_DC)
-        res["K6"][shape] = held_to_plain(f"K6 {shape}", "f32 q / bf16 pages", got, ref, "f32")["tol_share"]
-    log("widened shapes, largest share of the limit: " + "; ".join(
-        f"{k} " + ", ".join(f"{s} {v:.3f}" for s, v in shapes.items()) for k, shapes in res.items()))
+        pages32 = torch.randn((P, ps, L), device=dev)
+        q = torch.randn((B, H, L), device=dev) / L**0.5
+        qp = torch.randn((T, H, L), device=dev) / L**0.5
+        shares = {"K5": [], "K6": []}
+        ms = {"K5": {}, "K6": {}}
+        k5, k6 = mla.paged_mla_decode_attention_kernel, mla.paged_mla_prefill_attention_kernel
+        for name, dt in MLA_MIXES:
+            pages = pages32.to(getattr(torch, dt))
+            got = k5(q, pages, pt_t, pos_t, dc)
+            ref = plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc)
+            shares["K5"].append(held_to_plain(f"K5 {shape}", f"f32 q / {name} pages", got, ref, "f32")["tol_share"])
+            ms["K5"][name] = timed(lambda: k5(q, pages, pt_t, pos_t, dc), 10)["ms"]
+            for start in (0, 200):
+                pos_p = torch.arange(start, start + T, dtype=torch.int32, device=dev)
+                got = k6(qp, pages, pt_t[0], pos_p, dc)
+                ref = plain.paged_mla_prefill_attention(qp, pages, pt_t[0], pos_p, dc)
+                shares["K6"].append(held_to_plain(f"K6 {shape} (prefix {start})", f"f32 q / {name} pages", got, ref,
+                                                  "f32")["tol_share"])
+            ms["K6"][name] = timed(lambda: k6(qp, pages, pt_t[0], pos_p, dc), 10)["ms"]
+        for which in ("K5", "K6"):
+            record(which, shape, shares[which], ms[which])
+    log("widened shapes, largest share of the limit and device ms a mix: " + "; ".join(
+        f"{k} " + ", ".join(f"{s} {v['tol_share']:.3f} (" + ", ".join(f"{m} {t:.4f}" for m, t in v["ms"].items()) + ")"
+                            for s, v in shapes.items()) for k, shapes in res.items()))
     return res
 
 
 def phase_refusals(torch, dev) -> None:
     """What the port does not take raises on the card and falls back to
-    nothing: an int8 cache on the MLA family, and K3a/K3b launches on a head
-    dim (no multiple of 8) or query dtype they do not take."""
+    nothing: an int8 cache on the MLA family and on K4a, a float16 query on
+    K3b, K4b at a head dim it does not take, and head dims past the launchers'
+    budgets (K1 at 512, K3a at 264)."""
     from dynamo_tpu_torch.models.registry import load_model
     from dynamo_tpu_torch.ops import attention as att
 
@@ -787,8 +871,10 @@ def phase_refusals(torch, dev) -> None:
     pos = torch.zeros(2, dtype=torch.int32, device=dev)
     cases = {
         "tiny-mla with an int8 KV cache": lambda: load_model("tiny-mla", device="cuda", kv_cache_dtype="int8"),
-        "K3a at head_dim 100": lambda: att.dispatch_paged_decode_attention(
-            torch.zeros((2, 8, 100), device=dev), *[torch.zeros((5, 16, 2, 100), device=dev)] * 2, pt, pos),
+        "K1 at head_dim 512": lambda: att.dispatch_paged_decode_attention(
+            torch.zeros((2, 8, 512), device=dev), *[torch.zeros((5, 16, 2, 512), device=dev)] * 2, pt, pos),
+        "K3a at head_dim 264": lambda: att.dispatch_paged_decode_attention(
+            torch.zeros((2, 8, 264), device=dev), *[torch.zeros((5, 16, 2, 264), device=dev)] * 2, pt, pos),
         "K3b over float16": lambda: att.dispatch_paged_prefill_attention(
             torch.zeros((16, 32, 64), device=dev, dtype=torch.float16),
             *[torch.zeros((5, 16, 4, 64), device=dev, dtype=torch.float16)] * 2, pt[0], pos.repeat(8)),
@@ -1153,8 +1239,7 @@ def main() -> int:
     _build.build(["paged_attention", "prefill_attention", "mla_attention", "decode_variants"])
     log(f"build: four kernel sources in {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    check_prefill_sass()
-    check_decode_sass()
+    check_sass()
     t0 = lap("SASS checks", t0)
 
     rng = np.random.default_rng(0)
@@ -1242,7 +1327,7 @@ def main() -> int:
                      launches=runs[path][key], **row[key]["bf16"])
         if int8_path:
             entry["int8"] = dict(launches=runs[int8_path][key], **checks[key]["int8"])
-        if key in widened:  # {shape: largest share of the limit over the mixes}
+        if key in widened:  # {shape: {tol_share: largest over the mixes, ms: {mix: device ms}}}
             entry["widened"] = widened[key]
         if key in bench:
             entry["check_shapes" if key in on_bench else "bench_shapes"] = other[key]

@@ -9,6 +9,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace dtt {
 
@@ -46,8 +47,29 @@ template <> struct RowVec<int8_t> {
   using Raw = int2;
 };
 
+// f32 rows wider than 128 values: 8 values a lane (two 16-byte loads), so
+// that a 256-value row still fits a warp's 32 lanes, as a bf16 or int8 row
+// of 256 does with RowVec's 8.
+struct __align__(16) Float8 {
+  float4 lo, hi;
+};
+struct RowVecF32Wide {
+  static constexpr int N = 8;
+  using Raw = Float8;
+};
+
+// The lane slice of a D-value row of T in the register-resident decode
+// kernels (K1, K4a, K7b, K7c).
+template <typename T, int D>
+using LaneVec = typename std::conditional<std::is_same<T, float>::value && (D > 128), RowVecF32Wide, RowVec<T>>::type;
+
 __device__ __forceinline__ void to_float(const float4& r, float* f) {
   f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
+}
+
+__device__ __forceinline__ void to_float(const Float8& r, float* f) {
+  to_float(r.lo, f);
+  to_float(r.hi, f + 4);
 }
 
 __device__ __forceinline__ void to_float(const uint4& r, float* f) {
@@ -82,9 +104,9 @@ __device__ __forceinline__ void to_float(const int2& r, float* f) {
   }
 }
 
-template <typename T>
-__device__ __forceinline__ typename RowVec<T>::Raw load_row(const T* p) {
-  return *reinterpret_cast<const typename RowVec<T>::Raw*>(p);
+template <typename T, typename RV = RowVec<T>>
+__device__ __forceinline__ typename RV::Raw load_row(const T* p) {
+  return *reinterpret_cast<const typename RV::Raw*>(p);
 }
 
 // N elements of T starting at p (16-byte aligned, N * sizeof(T) a multiple
@@ -109,12 +131,18 @@ __device__ __forceinline__ typename Vec16<T>::Raw zero16() {
   return r;
 }
 
-template <typename T>
-__device__ __forceinline__ typename RowVec<T>::Raw zero_row() {
-  typename RowVec<T>::Raw r;
+template <typename T, typename RV = RowVec<T>>
+__device__ __forceinline__ typename RV::Raw zero_row() {
+  typename RV::Raw r;
   memset(&r, 0, sizeof(r));
   return r;
 }
+
+// One element of a pool or query row as f32 (the scalar loads of the
+// bodies that take rows at any alignment).
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 // Store 4 floats as 4 elements of T (16 bytes of f32, 8 bytes of bf16).
 __device__ __forceinline__ void store4(float* p, const float* f) {
@@ -201,9 +229,27 @@ __device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t add
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r0), "=r"(r1) : "r"(addr));
 }
 
+// Four 8 x 8 bf16 matrices (lanes 8i .. 8i + 7 give the rows of matrix i):
+// with row = lane % 16 and column chunk lane / 16 over a row-major 16 x 16
+// tile, the A fragment of mma_bf16_16816.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+
+// ldsm_x4's transposed form: with row = lane % 16 over 16 key rows and
+// column chunk lane / 16, the B fragments of two 8-column blocks of P . V
+// (r[0], r[1] the first block's, r[2], r[3] the second's).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 constexpr int kMaxDevices = 64;

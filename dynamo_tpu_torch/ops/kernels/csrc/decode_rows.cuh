@@ -22,9 +22,9 @@ __device__ __forceinline__ size_t token_row(const int* __restrict__ pt, int t, i
 
 // The raw VEC-value slices at column `col` of the U rows t0 + row + u *
 // stride of one sequence in one pool; rows at or past `end` are not read
-// (zero, valid false).
-template <typename TK, int U>
-__device__ __forceinline__ void load_slices(typename RowVec<TK>::Raw (&raw)[U], bool (&valid)[U],
+// (zero, valid false). RV: the lane slice (RowVec<TK>, or LaneVec<TK, D>).
+template <typename TK, int U, typename RV = RowVec<TK>>
+__device__ __forceinline__ void load_slices(typename RV::Raw (&raw)[U], bool (&valid)[U],
                                             const TK* __restrict__ pool, const int* __restrict__ pt,
                                             int t0, int row, int stride, int end, int page_size,
                                             size_t token_stride, int col) {
@@ -33,9 +33,9 @@ __device__ __forceinline__ void load_slices(typename RowVec<TK>::Raw (&raw)[U], 
     const int t = t0 + row + u * stride;
     valid[u] = t < end;
     if (valid[u]) {
-      raw[u] = load_row(pool + token_row(pt, t, page_size) * token_stride + col);
+      raw[u] = load_row<TK, RV>(pool + token_row(pt, t, page_size) * token_stride + col);
     } else {
-      raw[u] = zero_row<TK>();
+      raw[u] = zero_row<TK, RV>();
     }
   }
 }
@@ -59,9 +59,9 @@ __device__ __forceinline__ void head_scores(const float (&qf)[G][VEC], const flo
 
 // One token row slice of K and V: kr / vr raw loads, ks / vs the int8 row
 // scales.
-template <typename TK, int U>
+template <typename TK, int U, typename RV = RowVec<TK>>
 struct RowLoads {
-  typename RowVec<TK>::Raw kr[U], vr[U];
+  typename RV::Raw kr[U], vr[U];
   float ks[U], vs[U];
   bool valid[U];
 };
@@ -70,8 +70,8 @@ struct RowLoads {
 // from both pools, and the rows' scales for int8. One pass, each row's pool
 // address computed once for K, V and the scales: two load_slices passes
 // re-read the page table and made K1 19-39% slower on an H100.
-template <typename TK, int U>
-__device__ __forceinline__ void load_rows(RowLoads<TK, U>& r, const TK* __restrict__ k_pool,
+template <typename TK, int U, typename RV = RowVec<TK>>
+__device__ __forceinline__ void load_rows(RowLoads<TK, U, RV>& r, const TK* __restrict__ k_pool,
                                           const TK* __restrict__ v_pool,
                                           const float* __restrict__ k_scale,
                                           const float* __restrict__ v_scale,
@@ -84,15 +84,15 @@ __device__ __forceinline__ void load_rows(RowLoads<TK, U>& r, const TK* __restri
     r.ks[u] = r.vs[u] = 0.f;
     if (r.valid[u]) {
       const size_t tok = token_row(pt, t, page_size);
-      r.kr[u] = load_row(k_pool + tok * token_stride + col);
-      r.vr[u] = load_row(v_pool + tok * token_stride + col);
+      r.kr[u] = load_row<TK, RV>(k_pool + tok * token_stride + col);
+      r.vr[u] = load_row<TK, RV>(v_pool + tok * token_stride + col);
       if constexpr (std::is_same<TK, int8_t>::value) {
         r.ks[u] = k_scale[tok];
         r.vs[u] = v_scale[tok];
       }
     } else {
-      r.kr[u] = zero_row<TK>();
-      r.vr[u] = zero_row<TK>();
+      r.kr[u] = zero_row<TK, RV>();
+      r.vr[u] = zero_row<TK, RV>();
     }
   }
 }
@@ -100,11 +100,11 @@ __device__ __forceinline__ void load_rows(RowLoads<TK, U>& r, const TK* __restri
 // Online-softmax update of G heads' states with the U loaded rows. The
 // score's partial dot is reduced over the LPH lanes of one head slice; every
 // lane runs the shuffles, valid row or not.
-template <typename TK, int U, int G, int LPH>
-__device__ __forceinline__ void consume_rows(const RowLoads<TK, U>& r, const float (&qf)[G][RowVec<TK>::N],
+template <typename TK, int U, int G, int LPH, typename RV = RowVec<TK>>
+__device__ __forceinline__ void consume_rows(const RowLoads<TK, U, RV>& r, const float (&qf)[G][RV::N],
                                              float scale, float (&m)[G], float (&l)[G],
-                                             float (&acc)[G][RowVec<TK>::N]) {
-  constexpr int VEC = RowVec<TK>::N;
+                                             float (&acc)[G][RV::N]) {
+  constexpr int VEC = RV::N;
   constexpr bool kQuant = std::is_same<TK, int8_t>::value;
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -176,7 +176,7 @@ __global__ void __launch_bounds__(32 * kMergeHeads)
 merge_splits(const float* __restrict__ m_part, const float* __restrict__ l_part,
              const float* __restrict__ acc_part, const int* __restrict__ positions,
              TQ* __restrict__ out, int Hq, int D, int cap, int split_rows, int n_split) {
-  constexpr int kCols = 4;  // output columns a lane: D <= 128
+  constexpr int kCols = 8;  // output columns a lane: D <= 256
   const int h = blockIdx.x * kMergeHeads + (threadIdx.x >> 5);
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
@@ -186,7 +186,7 @@ merge_splits(const float* __restrict__ m_part, const float* __restrict__ l_part,
   float mx = kNegInf;
   for (int s = lane; s < n; s += 32) mx = fmaxf(mx, m_part[(base + s) * Hq + h]);
   mx = warp_max(mx);
-  float tot = 0.f, a[kCols] = {0.f, 0.f, 0.f, 0.f};
+  float tot = 0.f, a[kCols] = {};
   for (int s0 = 0; s0 < n; s0 += 32) {  // warp-uniform
     const int s = s0 + lane;
     const float w = s < n ? exp2f(m_part[(base + s) * Hq + h] - mx) : 0.f;

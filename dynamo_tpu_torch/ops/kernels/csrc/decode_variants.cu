@@ -3,7 +3,7 @@
 // K4a replaces dynamo_tpu/ops/pallas/paged_attention.py
 // paged_decode_attention_pallas_chunked (_kernel_chunked): K1's function with
 // the context walked in chunks of C * ps rows, C = max(1, min(max_pages,
-// ceil(256 / ps))). K4b replaces paged_decode_attention_pallas_grouped
+// ceil(256 / ps))), on K4b's passes with a rounding unit of C pages. K4b replaces paged_decode_attention_pallas_grouped
 // (_kernel_grouped): Gq sequences a program, one page an iteration, the
 // probabilities rounded per page; see its design below. K7c
 // replaces tools/profile_attn.py make_perseq_variant (_perseq_variant_kernel):
@@ -32,35 +32,36 @@
 // What bounds all four on an H100: bytes, as K1: each sequence's pages of K
 // and V are read once, at 4 FLOP an element (K7b: 1 add).
 //
-// K4a / K7c design (chunk_softmax_decode): one block per (sequence, kv head),
-// K1's four warps and row groups of D / VEC lanes, so the G query heads of a
-// GQA group share every K/V row the block loads. A 256-row chunk of bf16 K
-// and V at D 128 is 128 KB, 256 KB double-buffered: more than the 227 KB a
-// block can have, so a chunk is never staged whole. Per chunk: (1) the row
-// groups stream its K rows from HBM into registers, kUnroll rows in flight,
-// and write the G heads' scores to shared memory (G x chunk rows f32, 8 KB at
-// G 8 and 256 rows); (2) warp w takes heads w, w + 4: the chunk max, each
-// probability once (one exp a (head, row), where K1 repeats its softmax
-// update on every lane of a row group), the sum, and the rounded
-// probabilities back into shared memory; (3) the row groups rescale their
-// accumulators once and stream the chunk's V rows into them. The row groups
-// share the chunk's max, so at the end their accumulators merge by a plain
-// sum (shuffles within a warp, shared memory across warps). The chunk
-// boundary is the reference's: that is where the rounded probabilities take
-// their running max. cp.async staging of V sub-tiles is later work. As in K1,
-// a block holds head_subgroup(G) <= 8 of the G query heads, the rest of a
-// larger G in blocks of their own along a third grid dimension.
+// K7c design, and K4a / K4b over f32 pools (chunk_softmax_decode): one
+// block per (sequence, kv head), K1's four warps and row groups of D / VEC
+// lanes, so the G query heads of a GQA group share every K/V row the block
+// loads. A 256-row chunk of bf16 K and V at D 128 is 128 KB, 256 KB
+// double-buffered: more than the 227 KB a block can have, so a chunk is never
+// staged whole. Per chunk: (1) the row groups stream its K rows from HBM into
+// registers, kUnroll rows in flight, and write the G heads' scores to shared
+// memory (G x chunk rows f32, 8 KB at G 8 and 256 rows); (2) warp w takes
+// heads w, w + 4: the chunk max, each probability once (one exp a (head,
+// row), where K1 repeats its softmax update on every lane of a row group),
+// the sum, and the rounded probabilities back into shared memory; (3) the
+// row groups rescale their accumulators once and stream the chunk's V rows
+// into them. The row groups share the chunk's max, so at the end their
+// accumulators merge by a plain sum (shuffles within a warp, shared memory
+// across warps). The chunk boundary is the reference's: that is where the
+// rounded probabilities take their running max. As in K1, a block holds
+// head_subgroup(G) <= 8 of the G query heads, the rest of a larger G in
+// blocks of their own along a third grid dimension.
 //
-// K4b design (grouped_scores, grouped_pv, merge_splits): an exact split over
-// the context. The reference groups sequences per program, a TPU VMEM
-// schedule; the function it computes fixes only where the probabilities are
-// rounded: page i's at the running max after that page, M_i. So with M_n the
-// sequence's last, out = sum_i e^(M_i - M_n) round(e^(s - M_i)) . V_i / sum_i
-// e^(M_i - M_n) sum e^(s - M_i), and once the page maxima are
-// known every page's share is independent: splits of whole pages differ from
-// the sequential walk only in f32 summation order, and the context splits
-// over blocks: a warp that walks a sequence's pages, three dependent phases a
-// page, is latency bound (70 GB/s on an H100).
+// K4b and K4a over bf16 pools (grouped_scores, grouped_pv, merge_splits):
+// an exact split over the context. The reference groups sequences per
+// program (K4b) or walks chunks of C pages (K4a), TPU VMEM schedules; the
+// function each computes fixes only where the probabilities are rounded:
+// unit i's (one page for K4b, C pages for K4a) at the running max after
+// that unit, M_i. So with M_n the sequence's last, out = sum_i e^(M_i - M_n)
+// round(e^(s - M_i)) . V_i / sum_i e^(M_i - M_n) sum e^(s - M_i), and once
+// the page maxima are known every page's share is independent: splits of
+// whole pages differ from the sequential walk only in f32 summation order,
+// and the context splits over blocks: a warp that walks a sequence's pages,
+// three dependent phases a page, is latency bound (70 GB/s on an H100).
 // - Pass 1, grouped_scores: block (split of whole pages, kv head x 16-head
 //   tile, sequence). K rows through a cp.async ring of 64-row tiles; S = Q .
 //   K^T by mma.sync m16n8k16 (bf16 in, f32 sums; the G heads zero-padded to
@@ -68,25 +69,33 @@
 //   Scores and exponentials are in natural units, as in the plain version,
 //   so that the f32 probabilities the kernel rounds differ from the plain
 //   version's only by the dot products' summation order.
-// - Pass 2, grouped_pv: the same blocks. Each forms its pages' prefix
-//   maxima from the page maxima (a warp scan over at most max_pages floats),
-//   streams its scores and V rows through the ring, and walks its pages in
-//   order as the reference does: at a page whose prefix max rose it rescales
-//   its state, then P = round(e^(s - M_i)) in bf16 is exactly the
-//   function's operand, so one bf16 mma.sync P . V is exact, and l takes the
-//   unrounded values. A 16-row k-step that spans pages (page size not a
-//   multiple of 16) runs once a page with the other rows' P zero.
+// - Pass 2, grouped_pv: the same blocks. Each forms the prefix maxima of
+//   its pages and of the pages through the end of its last page's unit from
+//   the page maxima (a warp scan over at most max_pages floats); a unit's
+//   max is the max of its pages' maxima, so page p's rounding point is the
+//   prefix max through the last page of p's unit. Splits need not fall on
+//   unit edges. It streams its scores and V rows through the ring, and walks
+//   its pages in order: at a page whose rounding point rose it rescales its
+//   state, then P = round(e^(s - M_i)) in bf16 is exactly the function's
+//   operand, so one bf16 mma.sync P . V is exact, and l takes the unrounded
+//   values. A 16-row k-step that spans pages (page size not a multiple of
+//   16) runs once a page with the other rows' P zero.
 // - merge_splits (decode_rows.cuh) combines the splits' (M_end, l, acc),
 //   M_end handed over in log2 units:
 //   fixed loops, no atomics, so two launches give the same bits.
-// f32 pools (the checks and the f32 parity phases) take K7c's FMA body at
-// one page a chunk: rounding to f32 is the identity.
+// f32 pools (the checks and the f32 parity phases) take chunk_softmax_decode
+// at one unit a chunk: rounding to f32 is the identity.
+//
+// Head dims: 64, 128 and 256 (f32 rows of 256 in two 16-byte loads a lane,
+// LaneVec; K4b's pass 2 holds 128 accumulators a thread at 256). A wider row
+// needs more than a warp's 32 lanes of 8 values.
 
 // K7b design (decode_load_twin): K1's block, row groups and load_rows; each
 // row group sums its K + V slices in f32, the row groups merge by shuffles
 // and shared memory, and every query head of the kv head gets the sum.
 
 #include <algorithm>
+#include <climits>
 
 #include "decode_rows.cuh"
 
@@ -98,7 +107,7 @@ using dtt::warp_sum;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 4;
-constexpr int kSmemBudget = 48 * 1024;  // the default dynamic shared memory of a block
+constexpr int kSmemBudget = 227 * 1024;  // the dynamic shared memory a block may have
 
 // p rounded to the pool dtype TK and back (round to nearest even, as the
 // reference's astype and torch's .to).
@@ -143,7 +152,8 @@ chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
                      const TK* __restrict__ v_pool, const int* __restrict__ page_tables,
                      const int* __restrict__ positions, TQ* __restrict__ out, int Hkv, int G,
                      int page_size, int max_pages, int chunk_rows, float scale) {
-  constexpr int VEC = dtt::RowVec<TK>::N;
+  using RV = dtt::LaneVec<TK, D>;
+  constexpr int VEC = RV::N;
   constexpr int LPR = D / VEC;  // lanes per K/V row
   static_assert(D % VEC == 0 && LPR <= 32 && 32 % LPR == 0, "unsupported head_dim");
   constexpr int RPW = 32 / LPR;        // row groups per warp
@@ -187,9 +197,9 @@ chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
     const int nv = min(chunk_rows, ctx - c0);  // the chunk's rows inside the context
     // (1) scores; the trip count is block-uniform (full-mask shuffles)
     for (int r0 = 0; r0 < nv; r0 += NROWS * kUnroll) {
-      typename dtt::RowVec<TK>::Raw kr[kUnroll];
+      typename RV::Raw kr[kUnroll];
       bool valid[kUnroll];
-      dtt::load_slices<TK, kUnroll>(kr, valid, k_pool, pt, c0 + r0, row, NROWS, c0 + nv, page_size,
+      dtt::load_slices<TK, kUnroll, RV>(kr, valid, k_pool, pt, c0 + r0, row, NROWS, c0 + nv, page_size,
                                     token_stride, col);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -234,9 +244,9 @@ chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
       for (int i = 0; i < VEC; ++i) acc[g][i] *= corr;
     }
     for (int r0 = 0; r0 < nv; r0 += NROWS * kUnroll) {
-      typename dtt::RowVec<TK>::Raw vr[kUnroll];
+      typename RV::Raw vr[kUnroll];
       bool valid[kUnroll];
-      dtt::load_slices<TK, kUnroll>(vr, valid, v_pool, pt, c0 + r0, row, NROWS, c0 + nv, page_size,
+      dtt::load_slices<TK, kUnroll, RV>(vr, valid, v_pool, pt, c0 + r0, row, NROWS, c0 + nv, page_size,
                                     token_stride, col);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -284,28 +294,30 @@ constexpr int kScoreStride = kGrpTile + 8;  // pass 2's score tile row (floats):
 // A K4b launch's shapes (host-computed).
 struct GroupedArgs {
   int Hkv, G, page_size, max_pages, split_rows, n_split, n_ht, s_pad;
-  float scale;  // 1 / sqrt(D)
+  int unit_pages;  // the rounding unit: K4b 1 page, K4a chunk_pages(ps, max_pages)
+  float scale;     // 1 / sqrt(D)
 };
 
 // Pass 1's and pass 2's shared memory: the ring, the split's pool rows, and
 // pass 1's scores of the split (16 x split_rows f32) or pass 2's prefix
-// maxima (16 x the split's pages).
+// maxima (16 x the pages through the end of the split's last unit).
 template <int D>
 struct GrpSmem {
   static constexpr int kRowBytes = (D / 8 + 1) * 16;  // an odd number of 16-byte chunks
   static constexpr int kKTile = kGrpTile * kRowBytes;
   static constexpr int kScoreTile = 16 * kScoreStride * 4;
   static size_t scores(int split_rows) { return (size_t)kGrpStages * kKTile + split_rows * 4 + 16 * (split_rows + 4) * 4; }
-  static size_t pv(int split_rows, int page_size) {
+  static size_t pv(int split_rows, int page_size, int unit_pages) {
     return (size_t)kGrpStages * (kKTile + kScoreTile) + split_rows * 4 +
-           16 * ((split_rows + page_size - 1) / page_size + 1) * 4;
+           16 * ((split_rows + page_size - 1) / page_size + unit_pages + 1) * 4;
   }
 };
 
 // The block's item: kv head kvh, 16-head tile ht (heads ht * 16 .. of its G),
-// Gt of those heads real; the split's rows [r0, r1).
+// Gt of those heads real; the split's rows [r0, r1); npc, the pages of the
+// sequence's context.
 struct GrpBlock {
-  int b, split, kvh, ht, Gt, r0, r1;
+  int b, split, kvh, ht, Gt, r0, r1, npc;
 };
 
 __device__ __forceinline__ bool grp_block(GrpBlock& k, const GroupedArgs& f, const int* positions) {
@@ -317,6 +329,7 @@ __device__ __forceinline__ bool grp_block(GrpBlock& k, const GroupedArgs& f, con
   const int ctx = dtt::decode_ctx(positions, k.b, f.max_pages * f.page_size);
   k.r0 = k.split * f.split_rows;
   k.r1 = min(k.r0 + f.split_rows, ctx);
+  k.npc = (ctx + f.page_size - 1) / f.page_size;
   return k.r0 < ctx;
 }
 
@@ -442,10 +455,11 @@ grouped_scores(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 }
 
-// Pass 2: the split's pages in order, each at its prefix max M_i; warp w
-// takes rows 16 w .. 16 w + 15 of every 64-row tile, so each probability is
-// formed once, and the warps' states merge at the end. Writes (M of the
-// split's last page, l, acc) to the partials.
+// Pass 2: the split's pages in order, each at its unit's prefix max M_i (the
+// max over every page through the end of the unit of unit_pages pages that
+// holds it); warp w takes rows 16 w .. 16 w + 15 of every 64-row tile, so
+// each probability is formed once, and the warps' states merge at the end.
+// Writes (M of the split's last page, l, acc) to the partials.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ page_tables,
@@ -462,8 +476,12 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
   int* tok = reinterpret_cast<int*>(grp_smem + kGrpStages * kStage);
   const int p0 = k.r0 / f.page_size;
   const int np = (k.r1 - k.r0 + f.page_size - 1) / f.page_size;
-  float* sM = reinterpret_cast<float*>(tok + f.split_rows);  // [16][np + 1]: M before the split, then each page's
-  const int mstride = np + 1;
+  const int U = f.unit_pages;
+  // pages scanned: through the end of the unit of the split's last page, or
+  // of the context; a split need not end on a unit's edge
+  const int ns = min(((p0 + np - 1) / U + 1) * U, k.npc) - p0;
+  float* sM = reinterpret_cast<float*>(tok + f.split_rows);  // [16][ns + 1]: M before the split, then through each page
+  const int mstride = ns + 1;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -508,11 +526,11 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
     run[i] = hw + i < k.Gt ? warp_max(run[i]) : 0.f;
     if (lane == 0) sM[(hw + i) * mstride] = run[i];
   }
-  for (int c0 = 0; c0 < np; c0 += 32) {  // inclusive max-scans, 32 pages a step
+  for (int c0 = 0; c0 < ns; c0 += 32) {  // inclusive max-scans, 32 pages a step
     float v[HPW];
 #pragma unroll
     for (int i = 0; i < HPW; ++i)
-      v[i] = (hw + i < k.Gt && c0 + lane < np) ? pmax[(head0 + hw + i) * f.max_pages + p0 + c0 + lane] : 0.f;
+      v[i] = (hw + i < k.Gt && c0 + lane < ns) ? pmax[(head0 + hw + i) * f.max_pages + p0 + c0 + lane] : 0.f;
 #pragma unroll
     for (int i = 0; i < HPW; ++i) {
 #pragma unroll
@@ -521,7 +539,7 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
         if (lane >= o) v[i] = fmaxf(v[i], u);
       }
       v[i] = fmaxf(v[i], run[i]);
-      if (c0 + lane < np) sM[(hw + i) * mstride + 1 + c0 + lane] = v[i];
+      if (c0 + lane < ns) sM[(hw + i) * mstride + 1 + c0 + lane] = v[i];
       run[i] = __shfl_sync(0xffffffffu, v[i], 31);
     }
   }
@@ -564,10 +582,11 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
       const int pa = lo / f.page_size;
       const int pb = (hi - 1) / f.page_size;
       for (int p = pa; p <= pb; ++p) {  // warp-uniform: one page unless the k-step spans pages
-        if (p > page) {  // a new page: move the state to its prefix max
+        if (p > page) {  // a new page: move the state to its unit's prefix max (the same within a unit)
+          const int pu = min((p / U + 1) * U, k.npc) - 1;  // the last page of p's unit
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float M = sM[(g + 8 * h) * mstride + 1 + p - p0];
+            const float M = sM[(g + 8 * h) * mstride + 1 + pu - p0];
             const float corr = expf(m[h] - M);
             m[h] = M;
             l[h] *= corr;
@@ -662,7 +681,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
                  const int* __restrict__ page_tables, const int* __restrict__ positions,
                  float* __restrict__ out, int Hkv, int G, int page_size, int max_pages) {
-  constexpr int VEC = dtt::RowVec<TK>::N;
+  using RV = dtt::LaneVec<TK, D>;
+  constexpr int VEC = RV::N;
   constexpr int LPR = D / VEC;
   static_assert(D % VEC == 0 && LPR <= 32 && 32 % LPR == 0, "unsupported head_dim");
   constexpr int RPW = 32 / LPR;
@@ -682,8 +702,8 @@ decode_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
 #pragma unroll
   for (int i = 0; i < VEC; ++i) sum[i] = 0.f;
   for (int t0 = 0; t0 < ctx; t0 += NROWS * kUnroll) {
-    dtt::RowLoads<TK, kUnroll> r;
-    dtt::load_rows<TK, kUnroll>(r, k_pool, v_pool, nullptr, nullptr, pt, t0, row, NROWS, ctx,
+    dtt::RowLoads<TK, kUnroll, RV> r;
+    dtt::load_rows<TK, kUnroll, RV>(r, k_pool, v_pool, nullptr, nullptr, pt, t0, row, NROWS, ctx,
                                 page_size, (size_t)Hkv * D, kvh * D + d0);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -723,7 +743,7 @@ struct VariantArgs {
   const int* pos;
   void* out;
   int B, Hq, Hkv, D, ps, max_pages;
-  int chunk_rows;  // K4a, K7c
+  int chunk_rows;  // K4a, K7c, and K4a / K4b over f32 pools: unit_pages * ps
   bool round;
   cudaStream_t stream;
 };
@@ -731,9 +751,12 @@ struct VariantArgs {
 template <typename T, int D, int SG>
 struct ChunkLaunch {
   static int run(const VariantArgs& a) {
-    // within the default 48 KB of dynamic shared memory: no attribute to raise
     const size_t smem = chunk_smem_bytes(SG, D, a.chunk_rows);
     if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
+    static std::atomic<bool> raised[2][dtt::kMaxDevices];
+    const cudaError_t err = a.round ? dtt::raise_smem_limit_once(chunk_softmax_decode<T, T, D, SG, true>, raised[1], kSmemBudget)
+                                    : dtt::raise_smem_limit_once(chunk_softmax_decode<T, T, D, SG, false>, raised[0], kSmemBudget);
+    if (err != cudaSuccess) return (int)err;
     const int G = a.Hq / a.Hkv;
     const dim3 grid(a.Hkv, a.B, G / SG);
     const float scale = (float)(1.0 / sqrt((double)D));  // the plain version's f32 scale
@@ -772,6 +795,7 @@ int chunk_head_dim(const VariantArgs& a) {
   switch (a.D) {
     case 64: return chunk_subgroup<T, 64>(a);
     case 128: return chunk_subgroup<T, 128>(a);
+    case 256: return chunk_subgroup<T, 256>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -779,15 +803,15 @@ int chunk_head_dim(const VariantArgs& a) {
 // K4b over bf16 pools: pass 1, pass 2 and the merge.
 template <int D>
 int launch_grouped(const VariantArgs& a, float* scores, float* pmax, float* m_part, float* l_part, float* acc_part,
-                   int split_rows, int n_split, int s_pad) {
+                   int split_rows, int n_split, int s_pad, int unit_pages) {
   using L = GrpSmem<D>;
   static std::atomic<bool> raised_scores[dtt::kMaxDevices], raised_pv[dtt::kMaxDevices];
   // the plain version's scale: 1 / sqrt(D) in double, rounded once to f32
-  GroupedArgs f{a.Hkv, a.Hq / a.Hkv, a.ps, a.max_pages, split_rows, n_split, 0, s_pad,
+  GroupedArgs f{a.Hkv, a.Hq / a.Hkv, a.ps, a.max_pages, split_rows, n_split, 0, s_pad, unit_pages,
                 (float)(1.0 / sqrt((double)D))};
   f.n_ht = (f.G + 15) / 16;
   const size_t smem1 = L::scores(split_rows);
-  const size_t smem2 = L::pv(split_rows, a.ps);
+  const size_t smem2 = L::pv(split_rows, a.ps, unit_pages);
   if (std::max(smem1, smem2) > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = dtt::raise_smem_limit_once(grouped_scores<D>, raised_scores, 227 * 1024);
   if (err == cudaSuccess) err = dtt::raise_smem_limit_once(grouped_pv<D>, raised_pv, 227 * 1024);
@@ -822,6 +846,7 @@ int twin_head_dim(const VariantArgs& a) {
   switch (a.D) {
     case 64: return launch_twin<T, 64>(a);
     case 128: return launch_twin<T, 128>(a);
+    case 256: return launch_twin<T, 256>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -852,20 +877,24 @@ extern "C" int chunk_softmax_decode(const void* q, const void* k_pool, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// K4b. bf16: scratch scores [B, Hq, s_pad] (s_pad >= max_pages * ps, a
+// K4b (unit_pages 1) and K4a (unit_pages = its chunk's pages): the
+// probabilities rounded at the running max after each unit of unit_pages
+// pages. bf16: scratch scores [B, Hq, s_pad] (s_pad >= max_pages * ps, a
 // multiple of 4), pmax [B, Hq, max_pages] and the partials m_part, l_part
 // [B, n_split, Hq], acc_part [B, n_split, Hq, D] f32, splits of split_rows
 // rows (a multiple of ps), n_split >= ceil(max_pages * ps / split_rows).
-// f32: K7c's body at one page a chunk (the scratch is not read).
+// f32: K7c's body at a unit a chunk (the scratch is not read).
 extern "C" int paged_decode_attention_grouped(const void* q, const void* k_pool, const void* v_pool,
                                               const void* page_tables, const void* positions, void* out, int B,
                                               int Hq, int Hkv, int D, int page_size, int max_pages, void* scores,
                                               void* pmax, void* m_part, void* l_part, void* acc_part,
-                                              int split_rows, int n_split, int s_pad, int dtype, void* stream) {
+                                              int split_rows, int n_split, int s_pad, int unit_pages, int dtype,
+                                              void* stream) {
+  if (B <= 0) return 0;
+  if (unit_pages <= 0 || (long long)unit_pages * page_size > INT_MAX) return (int)cudaErrorInvalidValue;
   const VariantArgs a{q, k_pool, v_pool, static_cast<const int*>(page_tables),
                       static_cast<const int*>(positions), out, B, Hq, Hkv, D, page_size, max_pages,
-                      page_size, false, static_cast<cudaStream_t>(stream)};
-  if (B <= 0) return 0;
+                      unit_pages * page_size, false, static_cast<cudaStream_t>(stream)};
   if (!shapes_ok(a)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return chunk_head_dim<float>(a);
   if (dtype != 1 || split_rows <= 0 || split_rows % page_size || s_pad % 4 ||
@@ -878,8 +907,9 @@ extern "C" int paged_decode_attention_grouped(const void* q, const void* k_pool,
   float* lp = static_cast<float*>(l_part);
   float* ap = static_cast<float*>(acc_part);
   switch (D) {
-    case 64: return launch_grouped<64>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad);
-    case 128: return launch_grouped<128>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad);
+    case 64: return launch_grouped<64>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad, unit_pages);
+    case 128: return launch_grouped<128>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad, unit_pages);
+    case 256: return launch_grouped<256>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad, unit_pages);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,7 @@
 //
 // K3a replaces paged_decode_attention_pallas_folded (_kernel_folded): the
 // same function for head dims that are not a multiple of 128 (TinyLlama's
-// 64; here any multiple of 8 below 128), which the TPU reads from pools with
+// 64; here any head dim below 256 but 128), which the TPU reads from pools with
 // the kv heads folded into the lane dim. Its zero-placed folded queries and
 // one-hot output selection are a Mosaic lane workaround and are not carried
 // over; see K3a below. The reference's folded kernel rounds its
@@ -48,6 +48,10 @@
 // of the kv head's query heads (all of them when G <= 8) and the G / sub
 // sub-groups run as a third grid dimension; each re-reads the kv head's rows.
 //
+// K1 takes D 64, 128 and 256 (f32 rows of 256 in two 16-byte loads a lane,
+// LaneVec). A wider row needs more than a warp's 32 lanes of 8 values (and
+// 16 values a lane would need 256 query and accumulator registers at G 8).
+//
 // K3a design (bf16 queries over bf16 or int8 pools, any D that is a multiple
 // of 8 below 128, any G and Hkv): bound by the live rows' bytes like K1. A
 // warp a 512-byte TinyLlama row with an online-softmax update on every lane
@@ -80,10 +84,14 @@
 // - Split-K as before (split_rows 128 fills the card at the serve batch);
 //   the splits merge in merge_splits (decode_rows.cuh), a launch of B *
 //   ceil(Hq / 8) blocks of 8 warps, one head a warp.
-// f32 queries (f32 or int8 pools: the f32 parity phases and the checks)
-// take an FMA body in the same split partition: block (split, kv head,
-// sequence), a warp a query head, a lane a row for the score and an output
-// column for P . V. Every shuffle loop has a warp-uniform trip count.
+// f32 queries (f32 or int8 pools: the f32 parity phases and the checks),
+// and bf16 queries at the head dims the tensor-core body does not take (D
+// 136..248, and any D that is no multiple of 8, whose rows start off 16 and
+// off 8 bytes: D 100 over 2 kv heads, which the reference runs in plain XLA,
+// or D 20 over 4), take an FMA body in the same split partition: block
+// (split, kv head, sequence), a warp a query head, a lane a row for the
+// score and an output column for P . V, rows read an element at a time.
+// Every shuffle loop has a warp-uniform trip count.
 
 #include <algorithm>
 #include <type_traits>
@@ -112,7 +120,8 @@ paged_decode_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
                     const float* __restrict__ v_scale, const int* __restrict__ page_tables,
                     const int* __restrict__ positions, TQ* __restrict__ out, int Hkv, int G,
                     int page_size, int max_pages, float scale) {
-  constexpr int VEC = dtt::RowVec<TK>::N;
+  using RV = dtt::LaneVec<TK, D>;
+  constexpr int VEC = RV::N;
   constexpr int LPR = D / VEC;  // lanes per K/V row
   static_assert(D % VEC == 0 && LPR <= 32 && 32 % LPR == 0, "unsupported head_dim");
   constexpr int RPW = 32 / LPR;          // row groups per warp
@@ -147,10 +156,10 @@ paged_decode_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
   // the trip count is uniform across the block: row groups sharing a warp
   // must run the same iterations, or the full-mask shuffles deadlock
   for (int t0 = 0; t0 < ctx; t0 += NROWS * kUnroll) {
-    RowLoads<TK, kUnroll> r;
-    load_rows<TK, kUnroll>(r, k_pool, v_pool, k_scale, v_scale, pt, t0, row, NROWS, ctx, page_size,
-                           (size_t)Hkv * D, kvh * D + d0);
-    consume_rows<TK, kUnroll, SG, LPR>(r, qf, scale, m, l, acc);
+    RowLoads<TK, kUnroll, RV> r;
+    load_rows<TK, kUnroll, RV>(r, k_pool, v_pool, k_scale, v_scale, pt, t0, row, NROWS, ctx, page_size,
+                               (size_t)Hkv * D, kvh * D + d0);
+    consume_rows<TK, kUnroll, SG, LPR, RV>(r, qf, scale, m, l, acc);
   }
 
   // merge the NROWS row groups' partial softmax states
@@ -193,6 +202,7 @@ constexpr int kFoldRows = 32;   // token rows a ring stage
 constexpr int kFoldItems = 8;   // (kv head, 16-head tile) items a block at most: one warp each
 constexpr int kFoldRing = 100 * 1024;  // the ring's budget: two blocks an SM
 constexpr int kFoldFmaWarps = 4;
+constexpr int kFoldMaxD = 256;  // the FMA body's head dims: below this
 
 // A K3a launch's partition and shared-memory layout (host-computed).
 struct FoldArgs {
@@ -499,19 +509,23 @@ folded_decode_tc(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_p
   }
 }
 
-// f32 queries over f32 or int8 pools. Block (split, kv head, sequence); warp
-// w takes the kv head's query heads w, w + 4, ...; lane j scores row j of
-// each 32-row step against the head's query (in shared memory) and owns
-// output columns lane + 32 i.
-template <typename TK>
+// The FMA body: f32 queries over f32 or int8 pools, and bf16 queries at
+// the head dims the tensor-core body does not take (no multiple of 8, or
+// above 128), over bf16 or int8 pools. Block (split, kv head, sequence);
+// warp w takes the kv head's query heads w, w + 4, ...; lane j scores row j
+// of each 32-row step against the head's query (in shared memory) and owns
+// output columns lane + 32 i. Rows are read an element at a time, so a row
+// may start at any offset (D 100 over 2 kv heads, D 20 over 4).
+template <typename TQ, typename TK>
 __global__ void __launch_bounds__(32 * kFoldFmaWarps)
-folded_decode_fma(const float* __restrict__ q, const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
+folded_decode_fma(const TQ* __restrict__ q, const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
                   const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                   const int* __restrict__ page_tables, const int* __restrict__ positions,
                   float* __restrict__ m_part, float* __restrict__ l_part, float* __restrict__ acc_part,
                   const FoldArgs f) {
   constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-  __shared__ float sq[kFoldFmaWarps][128];
+  constexpr int kCols = kFoldMaxD / 32;  // output columns a lane
+  __shared__ float sq[kFoldFmaWarps][kFoldMaxD];
   const int split = blockIdx.x;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -528,9 +542,9 @@ folded_decode_fma(const float* __restrict__ q, const TK* __restrict__ k_pool, co
 
   for (int h = warp; h < f.G; h += kFoldFmaWarps) {  // warp-uniform
     const size_t hq = (size_t)kvh * f.G + h;
-    for (int d = lane; d < f.D; d += 32) sq[warp][d] = q[((size_t)b * Hq + hq) * f.D + d];
+    for (int d = lane; d < f.D; d += 32) sq[warp][d] = dtt::to_f(q[((size_t)b * Hq + hq) * f.D + d]);
     __syncwarp();
-    float m = dtt::kNegInf, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+    float m = dtt::kNegInf, l = 0.f, acc[kCols] = {};
     for (int j0 = r0; j0 < r1; j0 += 32) {
       const int j = j0 + lane;
       long long tk = 0;
@@ -539,7 +553,7 @@ folded_decode_fma(const float* __restrict__ q, const TK* __restrict__ k_pool, co
         tk = (long long)dtt::token_row(pt, j, f.page_size);
         const TK* kr = k_pool + tk * token_stride + (size_t)kvh * f.D;
         float dot = 0.f;
-        for (int d = 0; d < f.D; ++d) dot = fmaf(sq[warp][d], (float)kr[d], dot);
+        for (int d = 0; d < f.D; ++d) dot = fmaf(sq[warp][d], dtt::to_f(kr[d]), dot);
         s = dot * f.scale_log2;
         if constexpr (kQuant) s *= k_scale[tk];
       }
@@ -552,16 +566,16 @@ folded_decode_fma(const float* __restrict__ q, const TK* __restrict__ k_pool, co
         if (j < r1) p *= v_scale[tk];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] *= corr;
+      for (int i = 0; i < kCols; ++i) acc[i] *= corr;
       const int n = min(32, r1 - j0);
       for (int r = 0; r < n; ++r) {  // warp-uniform
         const float pr = __shfl_sync(0xffffffffu, p, r);
         const long long tr = __shfl_sync(0xffffffffu, tk, r);
         const TK* vr = v_pool + tr * token_stride + (size_t)kvh * f.D;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kCols; ++i) {
           const int d = lane + 32 * i;
-          if (d < f.D) acc[i] = fmaf(pr, (float)vr[d], acc[i]);
+          if (d < f.D) acc[i] = fmaf(pr, dtt::to_f(vr[d]), acc[i]);
         }
       }
     }
@@ -570,7 +584,7 @@ folded_decode_fma(const float* __restrict__ q, const TK* __restrict__ k_pool, co
       l_part[part * Hq + hq] = l;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kCols; ++i) {
       const int d = lane + 32 * i;
       if (d < f.D) acc_part[(part * Hq + hq) * f.D + d] = acc[i];
     }
@@ -626,6 +640,7 @@ struct K1Types {
     switch (a.D) {
       case 64: return with_subgroup<K1Launch, TQ, TK, 64>(a);
       case 128: return with_subgroup<K1Launch, TQ, TK, 128>(a);
+      case 256: return with_subgroup<K1Launch, TQ, TK, 256>(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -689,7 +704,7 @@ int launch_fold_tc(const DecodeArgs& a, float* m, float* l, float* acc, int spli
   return launch_merge<__nv_bfloat16>(a, m, l, acc, split_rows, n_split);
 }
 
-template <typename TK>
+template <typename TQ, typename TK>
 int launch_fold_fma(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
   FoldArgs f{};
   f.Hkv = a.Hkv;
@@ -700,12 +715,12 @@ int launch_fold_fma(const DecodeArgs& a, float* m, float* l, float* acc, int spl
   f.split_rows = split_rows;
   f.n_split = n_split;
   f.scale_log2 = 1.4426950408889634f / sqrtf((float)a.D);
-  folded_decode_fma<TK><<<dim3(n_split, a.Hkv, a.B), 32 * kFoldFmaWarps, 0, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs, a.pt,
+  folded_decode_fma<TQ, TK><<<dim3(n_split, a.Hkv, a.B), 32 * kFoldFmaWarps, 0, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs, a.pt,
       a.pos, m, l, acc, f);
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
-  return launch_merge<float>(a, m, l, acc, split_rows, n_split);
+  return launch_merge<TQ>(a, m, l, acc, split_rows, n_split);
 }
 
 template <typename TK>
@@ -734,15 +749,16 @@ int with_types(int q_dtype, int kv_dtype, Args&&... args) {
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16 queries take the tensor-core body, f32 queries the FMA body
+// bf16 queries at a head dim that is a multiple of 8 below 128 take the
+// tensor-core body; f32 queries, and bf16 queries at other head dims (no
+// multiple of 8, or 136..248), the FMA body
 template <typename TQ, typename TK>
 struct K3aTypes {
   static int run(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
-    if constexpr (std::is_same<TQ, float>::value) {
-      return launch_fold_fma<TK>(a, m, l, acc, split_rows, n_split);
-    } else {
-      return fold_tc_dim<TK>(a, m, l, acc, split_rows, n_split);
+    if constexpr (std::is_same<TQ, __nv_bfloat16>::value) {
+      if (a.D % 8 == 0 && a.D < 128) return fold_tc_dim<TK>(a, m, l, acc, split_rows, n_split);
     }
+    return launch_fold_fma<TQ, TK>(a, m, l, acc, split_rows, n_split);
   }
 };
 
@@ -769,7 +785,7 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool, const v
   return with_types<K1Types>(q_dtype, kv_dtype, a);
 }
 
-// K3a: head_dim D a multiple of 8 below 128, any Hq a multiple of Hkv.
+// K3a: head_dim 0 < D < 256, any Hq a multiple of Hkv.
 // Partial buffers m_part, l_part [B, n_split, Hq] and acc_part [B, n_split,
 // Hq, D] f32, n_split >= ceil(max_pages * page_size / split_rows).
 extern "C" int paged_decode_attention_folded(const void* q, const void* k_pool,
@@ -785,7 +801,7 @@ extern "C" int paged_decode_attention_folded(const void* q, const void* k_pool,
                      static_cast<const int*>(positions), out, B, Hq, Hkv, D, page_size, max_pages,
                      static_cast<cudaStream_t>(stream)};
   if (B <= 0) return 0;
-  if (!decode_shapes_ok(a, kv_dtype) || D % 8 || D <= 0 || D >= 128 || split_rows <= 0 ||
+  if (!decode_shapes_ok(a, kv_dtype) || D <= 0 || D >= kFoldMaxD || split_rows <= 0 ||
       split_rows % kFoldRows || (long long)n_split * split_rows < (long long)max_pages * page_size)
     return (int)cudaErrorInvalidValue;
   return with_types<K3aTypes>(q_dtype, kv_dtype, a, static_cast<float*>(m_part),

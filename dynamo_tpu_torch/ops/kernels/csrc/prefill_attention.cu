@@ -6,7 +6,7 @@
 // _kernel, math in _flash_merge). K3b replaces :615
 // paged_prefill_attention_pallas_folded (pallas_call at :662,
 // _kernel_folded), the same function for head dims that are not a multiple
-// of 128 (TinyLlama's 64; here any multiple of 8 below 128), which the TPU reads from pools with the kv heads
+// of 128 (TinyLlama's 64; here any head dim below 256), which the TPU reads from pools with the kv heads
 // folded into the lane dim through zero-placed folded queries (a Mosaic lane
 // workaround, not carried over). The reference's folded kernel rounds its
 // probabilities to the pool dtype before P.V (:572); the port keeps f32
@@ -41,10 +41,13 @@
 // 128 (~185 registers a thread). A deeper ring (3 or 4 stages) measured no
 // faster.
 //
-// Design (bf16 queries over bf16 or int8 pools, K2 at D 64 / 128 and K3b at
-// any D that is a multiple of 8 below 128, one body: tc_prefill_kernel<TK,
-// DP>, DP = D rounded up to 16: the tiles hold DP columns, those past D zero,
-// and the output's pad columns are never written):
+// Design (bf16 queries over bf16 or int8 pools, K2 at D 64 / 128 / 256 and
+// K3b at any D that is a multiple of 8 below 256, one body:
+// tc_prefill_kernel<TK, DP>, DP = D rounded up to 16 below 128 and 256 above
+// it (K3b's D 136..248 run K2's D 256 instance): the tiles hold DP columns,
+// those past D zero, and the output's pad columns are never written. At DP
+// 256 the bf16 Q tile and two ring stages take 192 KB and the 64 x 256 f32
+// output accumulator 128 registers a thread):
 // - Block = 128 (query, head) rows of one kv head's GQA group, two consumer
 //   warpgroups of 64: row r is query position r / G, head r % G, so a block
 //   covers BQ = floor(128 / G) positions (any G up to 128; the rows from BQ *
@@ -81,8 +84,14 @@
 //   scale folded into log2(e)/sqrt(D); the causal and n_ctx masks only on
 //   tiles that cross the diagonal or the context end.
 // f32 queries (f32 or int8 pools: the f32 greedy-parity phases and the
-// checks) keep an f32 FMA body, fma_prefill_kernel<TK, DP>, in the same block
-// partition: TF32 tensor cores would break TOL["f32"].
+// checks) keep an f32 FMA body, fma_prefill_kernel, in the same block
+// partition: TF32 tensor cores would break TOL["f32"]. Its narrow form
+// stages Q, K and V an element at a time with the columns past D zero, for
+// rows at any offset: K3b's head dims that are no multiple of 8 (D 100 over
+// 2 kv heads, which the reference runs in plain XLA; D 20 over 4), in every
+// mix, and its f32 queries above 128. Head dims above 256 are refused: K2's
+// bf16 Q tile alone would be 128 KB at D 512, and the FMA body's f32 tiles
+// (224 KB at 256) would not fit.
 // Next steps, not done here: TMA loads (no per-thread address work),
 // warp specialisation (a producer warp, ping-pong consumer warpgroups so one
 // warpgroup's softmax overlaps the other's products), persistent blocks,
@@ -371,16 +380,16 @@ __device__ __forceinline__ const uint8_t* land_tile(const uint8_t* stage, uint8_
 // ---------------------------------------------------------------- K2 / K3b (bf16 queries)
 
 // O [64 x DP] += A [64 x 16] . V [16 x DP] for DP a multiple of 16 up to
-// 128: one wgmma of width DP where the instruction exists (16, 32, 64, 128),
-// else pieces of 64, 32 and 16 columns (v_addr: the V tile's first column;
-// the interleaved layout puts column chunk c at 128 c bytes).
+// 256: one wgmma of width DP where the instruction exists here (16, 32, 64,
+// 128), else pieces of 128, 64, 32 and 16 columns (v_addr: the V tile's
+// first column; the interleaved layout puts column chunk c at 128 c bytes).
 template <int DP>
 __device__ __forceinline__ void pv_product(float (&o)[DP / 2], const uint32_t (&a)[4], uint32_t v_addr,
                                            uint32_t lbo) {
   if constexpr (DP == 16 || DP == 32 || DP == 64 || DP == 128) {
     WgmmaRS<DP>::run(o, a, smem_desc(v_addr, lbo, 128));
   } else {
-    constexpr int N = DP >= 64 ? 64 : (DP >= 32 ? 32 : 16);
+    constexpr int N = DP >= 128 ? 128 : (DP >= 64 ? 64 : (DP >= 32 ? 32 : 16));
     WgmmaRS<N>::run(*reinterpret_cast<float(*)[N / 2]>(&o[0]), a, smem_desc(v_addr, lbo, 128));
     pv_product<DP - N>(*reinterpret_cast<float(*)[(DP - N) / 2]>(&o[N / 2]), a, v_addr + N * 16, lbo);
   }
@@ -396,7 +405,7 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_
   using R = Ring<TK, DP>;
   constexpr int CPR = DP / 8;  // bf16 chunks a row
   constexpr int NO = DP / 2;   // output accumulators a thread (64 rows x DP over 128 threads)
-  static_assert(DP % 16 == 0 && DP <= 128, "unsupported head_dim");
+  static_assert(DP % 16 == 0 && DP <= 256, "unsupported head_dim");
 
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* sQ = smem;
@@ -579,23 +588,40 @@ __device__ __forceinline__ void load_row_f32(float* dst_row, const T* src_row, b
 // columns, into sK (row stride KS) and sV (row stride VS) as f32, and for
 // int8 the rows' scales into sKs / sVs; keys at or past n_ctx are zero and
 // are not read.
-template <typename TK>
+// kNarrow: element at a time, columns D .. DP zero (rows at any offset).
+template <typename TK, int DP = 0, bool kNarrow = false>
 __device__ __forceinline__ void stage_kv(float* sK, float* sV, float* sKs, float* sVs,
                                          const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
                                          const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                                          const int* __restrict__ pt, int kt0, int n_ctx, int page_size, int KS,
                                          int VS, size_t token_stride, int col0, int D) {
-  constexpr int VEC = dtt::RowVec<TK>::N;
-  const int vpr = D / VEC;
-  for (int idx = threadIdx.x; idx < kFmaKeys * vpr; idx += kThreads) {
-    const int kk = idx / vpr;
-    const int c = (idx - kk * vpr) * VEC;
-    const int j = kt0 + kk;
-    const bool ok = j < n_ctx;
-    size_t base = 0;
-    if (ok) base = ((size_t)pt[j / page_size] * page_size + (j % page_size)) * token_stride + col0;
-    load_row_f32<TK>(sK + kk * KS, k_pool + base, ok, c);
-    load_row_f32<TK>(sV + kk * VS, v_pool + base, ok, c);
+  if constexpr (kNarrow) {
+    for (int idx = threadIdx.x; idx < kFmaKeys * DP; idx += kThreads) {
+      const int kk = idx / DP;
+      const int c = idx - kk * DP;
+      const int j = kt0 + kk;
+      float kv = 0.f, vv = 0.f;
+      if (j < n_ctx && c < D) {
+        const size_t at = ((size_t)pt[j / page_size] * page_size + (j % page_size)) * token_stride + col0 + c;
+        kv = dtt::to_f(k_pool[at]);
+        vv = dtt::to_f(v_pool[at]);
+      }
+      sK[kk * KS + c] = kv;
+      sV[kk * VS + c] = vv;
+    }
+  } else {
+    constexpr int VEC = dtt::RowVec<TK>::N;
+    const int vpr = D / VEC;
+    for (int idx = threadIdx.x; idx < kFmaKeys * vpr; idx += kThreads) {
+      const int kk = idx / vpr;
+      const int c = (idx - kk * vpr) * VEC;
+      const int j = kt0 + kk;
+      const bool ok = j < n_ctx;
+      size_t base = 0;
+      if (ok) base = ((size_t)pt[j / page_size] * page_size + (j % page_size)) * token_stride + col0;
+      load_row_f32<TK>(sK + kk * KS, k_pool + base, ok, c);
+      load_row_f32<TK>(sV + kk * VS, v_pool + base, ok, c);
+    }
   }
   if constexpr (std::is_same<TK, int8_t>::value) {
     if (threadIdx.x < kFmaKeys) {
@@ -621,11 +647,14 @@ constexpr size_t fma_smem_bytes() {
 // Thread (ty, tx) owns rows ty + 16 i (i < kFmaRPT), row r = (head r / BQ,
 // position r % BQ; rows from G * BQ on hold no head); keys tx and tx + 16 of
 // each tile; output columns tx + 16 c below D (DP: D rounded up to 16).
-template <typename TK, int DP>
+// kNarrow (any D below DP, f32 or bf16 queries, rows at any offset: the
+// folded head dims that are no multiple of 8, and K3b's f32 queries above
+// 128): Q, K and V staged an element at a time, the columns past D zero.
+template <typename TQ, typename TK, int DP, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, 1)
-fma_prefill_kernel(const float* __restrict__ q, const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
+fma_prefill_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
                    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                   const int* __restrict__ page_tables, const int* __restrict__ positions, float* __restrict__ out,
+                   const int* __restrict__ page_tables, const int* __restrict__ positions, TQ* __restrict__ out,
                    int T_len, int Hq, int Hkv, int D, int page_size, int max_pages, float scale) {
   constexpr bool kQuant = std::is_same<TK, int8_t>::value;
   constexpr int QS = DP + 4;   // padded row stride of the Q and K tiles
@@ -648,13 +677,27 @@ fma_prefill_kernel(const float* __restrict__ q, const TK* __restrict__ k_pool, c
   const int ty = tid / 16;
   const int tx = tid % 16;
 
-  for (int idx = tid; idx < kRows * (D / 4); idx += kThreads) {
-    const int r = idx / (D / 4);
-    const int c = (idx % (D / 4)) * 4;
-    const int qi = r % b.BQ;
-    const float* src = q + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D;
-    load_row_f32<float>(sQ + r * QS, src, qi < b.n_q && r / b.BQ < b.G, c);
+  if constexpr (kNarrow) {
+    for (int idx = tid; idx < kRows * DP; idx += kThreads) {
+      const int r = idx / DP;
+      const int c = idx - r * DP;
+      const int qi = r % b.BQ;
+      float x = 0.f;
+      if (qi < b.n_q && r / b.BQ < b.G && c < D)
+        x = dtt::to_f(q[(((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D + c]);
+      sQ[r * QS + c] = x;
+    }
+  } else {
+    static_assert(kNarrow || std::is_same<TQ, float>::value, "the 16-byte staging takes f32 queries");
+    for (int idx = tid; idx < kRows * (D / 4); idx += kThreads) {
+      const int r = idx / (D / 4);
+      const int c = (idx % (D / 4)) * 4;
+      const int qi = r % b.BQ;
+      const TQ* src = q + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D;
+      load_row_f32<TQ>(sQ + r * QS, src, qi < b.n_q && r / b.BQ < b.G, c);
+    }
   }
+  const int Dq = kNarrow ? (D + 3) / 4 * 4 : D;  // the score's columns (narrow: the pad is zero)
 
   float m[kFmaRPT], l[kFmaRPT], o[kFmaRPT][CW];
   int qpos[kFmaRPT];
@@ -669,15 +712,15 @@ fma_prefill_kernel(const float* __restrict__ q, const TK* __restrict__ k_pool, c
 
   for (int kt0 = 0; kt0 < b.n_ctx; kt0 += kFmaKeys) {
     __syncthreads();  // previous tile's readers are done with sK / sV / sP
-    stage_kv<TK>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size, QS, DP,
-                 (size_t)Hkv * D, kvh * D, D);
+    stage_kv<TK, DP, kNarrow>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size,
+                              QS, DP, (size_t)Hkv * D, kvh * D, D);
     __syncthreads();
 
     float s[kFmaRPT][2];
 #pragma unroll
     for (int i = 0; i < kFmaRPT; ++i) s[i][0] = s[i][1] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < Dq; d += 4) {
       float4 kv[2];
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) kv[jj] = *reinterpret_cast<const float4*>(sK + (tx + 16 * jj) * QS + d);
@@ -747,10 +790,10 @@ fma_prefill_kernel(const float* __restrict__ q, const TK* __restrict__ k_pool, c
     const int qi = r % b.BQ;
     if (qi >= b.n_q || r / b.BQ >= b.G) continue;
     const float denom = fmaxf(l[i], 1e-20f);
-    float* dst = out + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D + tx;
+    TQ* dst = out + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D + tx;
 #pragma unroll
     for (int c = 0; c < CW; ++c)
-      if (tx + 16 * c < D) dst[16 * c] = o[i][c] / denom;
+      if (tx + 16 * c < D) dtt::store1(dst + 16 * c, o[i][c] / denom);
   }
 }
 
@@ -895,9 +938,9 @@ int launch_attention(const PrefillArgs& a) {
   static std::atomic<bool> smem_raised[dtt::kMaxDevices];
   if constexpr (std::is_same<TQ, float>::value) {
     constexpr size_t smem = fma_smem_bytes<DP>();
-    const cudaError_t err = dtt::raise_smem_limit_once(fma_prefill_kernel<TK, DP>, smem_raised, smem);
+    const cudaError_t err = dtt::raise_smem_limit_once(fma_prefill_kernel<float, TK, DP, false>, smem_raised, smem);
     if (err != cudaSuccess) return (int)err;
-    fma_prefill_kernel<TK, DP><<<prefill_grid(a), kThreads, smem, a.stream>>>(
+    fma_prefill_kernel<float, TK, DP, false><<<prefill_grid(a), kThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs,
         a.pt, a.pos, static_cast<float*>(a.out), a.T_len, a.Hq, a.Hkv, a.D, a.ps, a.max_pages,
         1.0f / sqrtf((float)a.D));
@@ -910,6 +953,19 @@ int launch_attention(const PrefillArgs& a) {
         a.vs, a.pt, a.pos, static_cast<__nv_bfloat16*>(a.out), a.T_len, a.Hq, a.Hkv, a.D, a.ps, a.max_pages,
         1.4426950408889634f / sqrtf((float)a.D));
   }
+  return (int)cudaGetLastError();
+}
+
+// The FMA body at any D below DP, rows read an element at a time.
+template <typename TQ, typename TK, int DP>
+int launch_narrow(const PrefillArgs& a) {
+  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
+  constexpr size_t smem = fma_smem_bytes<DP>();
+  const cudaError_t err = dtt::raise_smem_limit_once(fma_prefill_kernel<TQ, TK, DP, true>, smem_raised, smem);
+  if (err != cudaSuccess) return (int)err;
+  fma_prefill_kernel<TQ, TK, DP, true><<<prefill_grid(a), kThreads, smem, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs, a.pt,
+      a.pos, static_cast<TQ*>(a.out), a.T_len, a.Hq, a.Hkv, a.D, a.ps, a.max_pages, 1.0f / sqrtf((float)a.D));
   return (int)cudaGetLastError();
 }
 
@@ -931,16 +987,24 @@ struct K2Types {
     switch (a.D) {
       case 64: return launch_attention<TQ, TK, 64>(a);
       case 128: return launch_attention<TQ, TK, 128>(a);
+      case 256: return launch_attention<TQ, TK, 256>(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }
 };
 
-// K3b: any D that is a multiple of 8 below 128, in tiles padded to 16
+// K3b: any D below 256. A multiple of 8 below 128: the body of its mix in
+// tiles padded to 16; a multiple of 8 above 128: bf16 queries the
+// tensor-core body at 256 (K2's instance, the pad columns zero), f32 queries
+// the narrow FMA body; no multiple of 8: the narrow FMA body.
 template <typename TQ, typename TK>
 struct K3bTypes {
   static int run(const PrefillArgs& a) {
-    if (a.D % 8 || a.D <= 0 || a.D >= 128) return (int)cudaErrorInvalidValue;
+    if (a.D <= 0 || a.D >= 256) return (int)cudaErrorInvalidValue;
+    constexpr bool kBf16 = std::is_same<TQ, __nv_bfloat16>::value;
+    if (a.D % 8 || (a.D > 128 && !kBf16))
+      return a.D < 128 ? launch_narrow<TQ, TK, 128>(a) : launch_narrow<TQ, TK, 256>(a);
+    if (a.D > 128) return launch_attention<TQ, TK, 256>(a);
     switch ((a.D + 15) / 16) {
       case 1: return launch_attention<TQ, TK, 16>(a);
       case 2: return launch_attention<TQ, TK, 32>(a);
@@ -962,6 +1026,7 @@ struct K7aTypes {
     switch (a.D) {
       case 64: return launch_k7a<TK, 64>(a);
       case 128: return launch_k7a<TK, 128>(a);
+      case 256: return launch_k7a<TK, 256>(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -9,12 +9,27 @@ pre-scaled queries ``q_cat [.., H, L]`` against a latent pool ``[P, ps, L]``
 of f32 or bf16 rows and return the latent-space output ``a_lat [.., H, d_c]``
 in f32.
 
-Bound on an H100: the f32 FMA work, 2·(L + d_c) FLOP per (row, head, key),
-against pages read once and shared by every head. Each block stages 32-row
-latent tiles once for 16 heads (any H: the last block masks the heads past
-it); K5 splits each sequence's context over
-blocks of ``SPLIT_ROWS`` rows and merges their softmax states in a second
-launch (see the source note). Plain versions: ``ops/attention.py
+Bound on an H100: the arithmetic, 2·(L + d_c) FLOP per (row, head, key),
+against pages read once and shared by every head.
+
+Which body takes which shapes:
+
+- K6 over bf16 pages at a latent width L <= 576 (the shared-memory budget
+  of the 64-row tile's bf16 hi + lo queries, a two-stage ring of 32 latent
+  rows and the warps' exchange), L % 8 == 0, d_c % 8 == 0 and d_c <= 512
+  (two warps' 256 output columns): the tensor-core body. 64-row tiles of the
+  chunk's (position, head) pairs flattened position-major, any H; S = Q·Kᵀ
+  and O += P·V by ``mma.sync`` with q and P split into bf16 hi + lo, so both
+  stay f32-exact (DeepSeek-V2-Lite's L 576, d_c 512 on the serve path).
+- K5, and K6 over f32 pages or past that budget: the f32 FMA body. Blocks
+  stage 32-row latent tiles once for 16 heads (any H: the last block masks
+  the heads past it); a row wider than 768 is scored in chunks of 512
+  columns, and a d_c above 512 in slices of 512 over a grid dimension (each
+  slice's block recomputes the scores), so any L % 8 == 0 and d_c % 4 == 0
+  launch. K5 splits each sequence's context over blocks of ``SPLIT_ROWS``
+  rows and merges their softmax states in a second launch.
+
+See the source note. Plain versions: ``ops/attention.py
 paged_mla_decode_attention`` / ``paged_mla_prefill_attention``; the
 dispatchers there pick the plain version for CPU tensors and these launchers
 for CUDA tensors.
@@ -28,8 +43,6 @@ import torch
 
 from dynamo_tpu_torch.ops.kernels import _build
 
-MAX_LATENT = 768  # the kernels' shared-memory budget (kMaxLatent)
-MAX_D_C = 512  # the kernels' register accumulator (kMaxColGroups * 64)
 # K5: context rows per block, a multiple of the kernel's 32-row tile. At 64,
 # a decode batch of 16 sequences of up to 2048 rows fills the 132 SMs about
 # twice over, and two blocks fit an SM's shared memory, so one block's tile
@@ -56,10 +69,10 @@ def check_mla_args(q_cat, pages, page_tables, positions, d_c: int, decode: bool)
                          f"{q_cat.dtype}, {pages.dtype}")
     if pages.shape[2] != L:
         raise ValueError(f"q_cat latent width {L} != pool row width {pages.shape[2]}")
-    if L % 8 or L > MAX_LATENT:
-        raise ValueError(f"K5/K6 take a latent width that is a multiple of 8, at most {MAX_LATENT}; got {L}")
-    if not 0 < d_c <= min(L, MAX_D_C) or d_c % 4:
-        raise ValueError(f"K5/K6 take 0 < d_c <= min(latent, {MAX_D_C}), d_c % 4 == 0; got d_c={d_c}, latent={L}")
+    if L % 8:
+        raise ValueError(f"K5/K6 take a latent width that is a multiple of 8; got {L}")
+    if not 0 < d_c <= L or d_c % 4:
+        raise ValueError(f"K5/K6 take 0 < d_c <= latent, d_c % 4 == 0; got d_c={d_c}, latent={L}")
     want_tables = (n, page_tables.shape[-1]) if decode else (page_tables.shape[-1],)
     if page_tables.dim() != len(want_tables) or tuple(page_tables.shape) != want_tables or positions.shape != (n,):
         form = "page_tables [B, max_pages] and positions [B]" if decode else "page_table [max_pages] and positions [T]"
@@ -113,7 +126,8 @@ def paged_mla_decode_attention_kernel(q_cat, pages, page_tables, positions, d_c:
 def paged_mla_prefill_attention_kernel(q_cat, pages, page_table, positions, d_c: int) -> torch.Tensor:
     """q_cat [T, H, L] f32 pre-scaled, pages [P, ps, L], page_table
     [max_pages] int32 (layer offset added), positions [T] int32 unit-stride
-    -> a_lat [T, H, d_c] f32.
+    -> a_lat [T, H, d_c] f32. bf16 pages within the tensor-core body's
+    budget (module docstring) take it, others the FMA body.
 
     Launches K6 or raises: CUDA tensors only (``ops/attention.py
     dispatch_paged_mla_prefill_attention`` sends CPU tensors to the plain

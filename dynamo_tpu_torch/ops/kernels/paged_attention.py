@@ -6,9 +6,10 @@ K1 replaces ``dynamo_tpu/ops/pallas/paged_attention.py``
 ``paged_decode_attention_pallas`` (``_kernel``): the two TPU kernels compute
 the same function and differ only in TPU DMA scheduling, so this one kernel
 stands for both. K3a replaces ``paged_decode_attention_pallas_folded``
-(``_kernel_folded``), the same function at a head_dim that is a multiple of
-8 below 128 (:func:`folded_head_dim`; TinyLlama's 64). Both take any GQA
-group G = Hq / Hkv, as the reference does.
+(``_kernel_folded``), the same function at a head_dim below 256 that is not
+128 (:func:`folded_head_dim`; TinyLlama's 64). Both take any GQA group G =
+Hq / Hkv, as the reference does. K1 takes head_dim 64, 128 and 256 (a wider
+row needs more than a warp's 32 lanes of 8 values).
 
 Both take f32 or bf16 queries over pools of the query's dtype, or over an
 int8 cache (``quant/kv.py QuantizedPages``: int8 pools with one f32 scale a
@@ -22,13 +23,15 @@ queries) splits each sequence's context over blocks of ``SPLIT_ROWS`` rows
 that stage the token rows of several kv heads through a ``cp.async`` ring,
 compute Q.Kᵀ and P.V on the tensor cores (``mma.sync``, P split into bf16 hi
 + lo so the probabilities stay f32-exact), and merge in a second launch;
-f32 queries take an FMA body in the same partition (see the source note). Plain version: ``ops/attention.py
+f32 queries, and bf16 queries at a head_dim above 128 or no multiple of 8
+(rows that start off 16 bytes), take an FMA body in the same partition that
+reads rows an element at a time (see the source note). Plain version: ``ops/attention.py
 paged_decode_attention``; the dispatcher there picks the plain version for
 CPU tensors and, for CUDA tensors, K3a when ``head_dim % 128 != 0``, else K1
 (or K4a / K4b, below, as ``DYNTPU_DECODE_KERNEL`` asks).
 
 The decode variants, CUDA C++ in ``csrc/decode_variants.cu`` (f32 and bf16
-pools of q's dtype, head_dim 64 or 128; no int8 cache, as on the TPU):
+pools of q's dtype, head_dim 64, 128 or 256; no int8 cache, as on the TPU):
 
 - K4a (:func:`paged_decode_attention_chunked_kernel`) replaces
   ``paged_decode_attention_pallas_chunked``: K1's function walked in chunks
@@ -36,9 +39,13 @@ pools of q's dtype, head_dim 64 or 128; no int8 cache, as on the TPU):
   dtype before P.V (``ops/attention.py paged_decode_attention_chunked``).
 - K4b (:func:`paged_decode_attention_grouped_kernel`) replaces
   ``paged_decode_attention_pallas_grouped``: one page an iteration, rounded
-  the same way (``paged_decode_attention_grouped``). bf16: an exact split
-  over the context (a score pass, a P.V pass at each page's prefix max, a
-  merge; :func:`grouped_split_rows`); f32: K7c's body at one page a chunk.
+  the same way (``paged_decode_attention_grouped``).
+- K4a and K4b over bf16 pools run one set of passes, an exact split over the
+  context whose rounding unit is a parameter (one page for K4b,
+  :func:`chunk_pages` pages for K4a): a score pass with each page's max, a
+  P.V pass that rounds each probability at its unit's prefix max, a merge
+  (:func:`grouped_split_rows`). Over f32 pools (rounding is the identity)
+  both take K7c's FMA body at one unit a chunk.
 - K7c (:func:`paged_decode_perseq_variant_kernel`) replaces
   ``tools/profile_attn.py make_perseq_variant``: one page an iteration, with
   the probabilities rounded unless ``cast_f32`` (then K1's function).
@@ -61,7 +68,7 @@ import torch
 from dynamo_tpu_torch.ops.kernels import _build
 from dynamo_tpu_torch.quant.kv import QuantizedPages
 
-HEAD_DIMS = (64, 128)  # K1, K4a, K4b, K7b, K7c
+HEAD_DIMS = (64, 128, 256)  # K1, K4a, K4b, K7b, K7c
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 INT8 = 2  # the C entry points' kv dtype code for int8 pools
 # K3a: context rows a block. At 128 rows a decode batch of 16 TinyLlama
@@ -75,7 +82,7 @@ _FOLDED_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]
 CHUNK_ROWS = 256  # K4a: context rows a chunk, at least (the reference's target)
 GROUPED_SPLIT_ROWS = 256  # K4b: context rows a split, at least (whole pages)
 _CHUNK_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
-_GROUPED_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P] * 5 + [_I] * 4 + [_P]
+_GROUPED_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P] * 5 + [_I] * 5 + [_P]
 _DMAONLY_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
 
 
@@ -145,9 +152,11 @@ def check_decode_args(q, k_pages, v_pages, page_tables, positions, name: str = "
 
 
 def folded_head_dim(D: int) -> bool:
-    """K3a's and K3b's head dims: the multiples of 8 below 128 (tiles padded
-    to 16 columns)."""
-    return 0 < D < 128 and D % 8 == 0
+    """K3a's and K3b's head dims: every head dim below 256 but 128 (which
+    K1 / K2 take), as the reference folds (or, for a folded row that is no
+    multiple of 128, runs in plain XLA) every head_dim % 128 != 0. Above 256
+    they are refused: the FMA bodies hold at most 256 columns."""
+    return 0 < D < 256 and D != 128
 
 
 def folded_geometry(q, k) -> tuple[int, int]:
@@ -171,7 +180,7 @@ def check_folded_decode_args(q, k_pages, v_pages, page_tables, positions):
     k, v = pools[:2]
     B, Hq, D = q.shape
     if not folded_head_dim(D):
-        raise ValueError(f"K3a takes a head_dim that is a multiple of 8 below 128; got {D}")
+        raise ValueError(f"K3a takes a head_dim below 256 other than 128; got {D}")
     Hkv, _ = folded_geometry(q, k)
     if Hq % Hkv:
         raise ValueError(f"K3a takes Hq a multiple of Hkv; got Hq={Hq}, Hkv={Hkv}")
@@ -224,7 +233,7 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, page_tables, positions) -
 
 
 def paged_decode_attention_folded_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """K3a: K1's contract at a head_dim that is a multiple of 8 below 128;
+    """K3a: K1's contract at a head_dim below 256 other than 128;
     the pools may also be given folded, [P, ps, Hkv*D] (the same memory).
 
     Launches K3a (a split pass and a merge pass) or raises: CUDA tensors
@@ -290,26 +299,19 @@ def _variant_launch(name: str, symbol: str, argtypes, refused: str, q, k, v, pag
     return out
 
 
-def _chunk_softmax(name: str, q, k, v, page_tables, positions, chunk_rows: int, round_probs: bool):
-    G, D = q.shape[1] // k.shape[2], q.shape[2]
-    refused = (f"{chunk_rows}-row chunks at G={G}, D={D} need more shared memory than a block's default "
-               f"48 KB (the chunk's scores, the running state and the final merge)")
-    q = _build.aligned16(q)
-    return _variant_launch(name, "chunk_softmax_decode", _CHUNK_ARGTYPES, refused, q, k, v, page_tables,
-                           positions, torch.empty_like(q), chunk_rows, int(round_probs))
-
-
 def paged_decode_attention_chunked_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
     """K4a: K1's contract over f32 / bf16 pools of q's dtype, the context
     walked in chunks of ``chunk_pages(ps, max_pages) * ps`` rows with the
-    probabilities rounded to the pool dtype before P.V.
+    probabilities rounded to the pool dtype before P.V: K4b's passes with a
+    rounding unit of ``chunk_pages`` pages.
 
-    Launches K4a or raises: CUDA tensors only, no int8 cache."""
+    Launches K4a (bf16: three kernels) or raises: CUDA tensors only, no int8
+    cache."""
     if q.device.type != "cuda":
         raise ValueError(f"K4a runs on CUDA tensors; got {q.device}")
     check_variant_args(q, k_pages, v_pages, page_tables, positions, "K4a")
-    ps, mp = k_pages.shape[1], page_tables.shape[1]
-    out = _chunk_softmax("K4a", q, k_pages, v_pages, page_tables, positions, chunk_pages(ps, mp) * ps, True)
+    out = _rounded_split("K4a", q, k_pages, v_pages, page_tables, positions,
+                         chunk_pages(k_pages.shape[1], page_tables.shape[1]))
     paged_decode_attention_chunked_kernel.launches += 1
     return out
 
@@ -324,22 +326,21 @@ def paged_decode_perseq_variant_kernel(q, k_pages, v_pages, page_tables, positio
     if q.device.type != "cuda":
         raise ValueError(f"K7c runs on CUDA tensors; got {q.device}")
     check_variant_args(q, k_pages, v_pages, page_tables, positions, "K7c")
-    out = _chunk_softmax("K7c", q, k_pages, v_pages, page_tables, positions, k_pages.shape[1], not cast_f32)
+    G, D, ps = q.shape[1] // k_pages.shape[2], q.shape[2], k_pages.shape[1]
+    refused = (f"{ps}-row chunks at G={G}, D={D} need more shared memory than a block's 227 KB "
+               f"(the chunk's scores, the running state and the final merge)")
+    q = _build.aligned16(q)
+    out = _variant_launch("K7c", "chunk_softmax_decode", _CHUNK_ARGTYPES, refused, q, k_pages, v_pages, page_tables,
+                          positions, torch.empty_like(q), ps, int(not cast_f32))
     paged_decode_perseq_variant_kernel.launches += 1
     return out
 
 
-def paged_decode_attention_grouped_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """K4b: K1's contract over f32 / bf16 pools of q's dtype, one page an
-    iteration, each page's probabilities rounded to the pool dtype before
-    P.V. bf16: splits of ``grouped_split_rows(ps)`` rows, scratch for the
-    scores, the page maxima and the splits' partial states.
-
-    Launches K4b (bf16: three kernels) or raises: CUDA tensors only, no int8
-    cache."""
-    if q.device.type != "cuda":
-        raise ValueError(f"K4b runs on CUDA tensors; got {q.device}")
-    check_variant_args(q, k_pages, v_pages, page_tables, positions, "K4b")
+def _rounded_split(name: str, q, k_pages, v_pages, page_tables, positions, unit_pages: int) -> torch.Tensor:
+    """K4a's and K4b's launch: the probabilities rounded at the running max
+    after each unit of ``unit_pages`` pages. bf16: splits of
+    ``grouped_split_rows(ps)`` rows, scratch for the scores, the page maxima
+    and the splits' partial states; f32: K7c's body at one unit a chunk."""
     B, Hq, D = q.shape
     ps, mp = k_pages.shape[1], page_tables.shape[1]
     split_rows = grouped_split_rows(ps)
@@ -349,11 +350,25 @@ def paged_decode_attention_grouped_kernel(q, k_pages, v_pages, page_tables, posi
     if q.dtype == torch.bfloat16:  # scratch: m, l, acc, then scores [B, Hq, s_pad] and page maxima [B, Hq, mp]
         ws, m_part, l_part, acc_part, tail = split_partials(B, n_split, Hq, D, q.device, B * Hq * (s_pad + mp))
         ptrs = [tail, tail + 4 * B * Hq * s_pad, m_part, l_part, acc_part]
-    refused = (f"page size {ps} at G={Hq // k_pages.shape[2]} needs more shared memory than a block has "
-               f"(bf16: the split's scores; f32: a page of scores in 48 KB)")
+    refused = (f"page size {ps} at G={Hq // k_pages.shape[2]}, {unit_pages} pages a unit, needs more shared "
+               f"memory than a block has (bf16: the split's scores; f32: a unit of scores)")
     q = _build.aligned16(q)
-    out = _variant_launch("K4b", "paged_decode_attention_grouped", _GROUPED_ARGTYPES, refused, q, k_pages,
-                          v_pages, page_tables, positions, torch.empty_like(q), *ptrs, split_rows, n_split, s_pad)
+    return _variant_launch(name, "paged_decode_attention_grouped", _GROUPED_ARGTYPES, refused, q, k_pages,
+                           v_pages, page_tables, positions, torch.empty_like(q), *ptrs, split_rows, n_split, s_pad,
+                           unit_pages)
+
+
+def paged_decode_attention_grouped_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
+    """K4b: K1's contract over f32 / bf16 pools of q's dtype, one page an
+    iteration, each page's probabilities rounded to the pool dtype before
+    P.V (:func:`_rounded_split` at one page a unit).
+
+    Launches K4b (bf16: three kernels) or raises: CUDA tensors only, no int8
+    cache."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K4b runs on CUDA tensors; got {q.device}")
+    check_variant_args(q, k_pages, v_pages, page_tables, positions, "K4b")
+    out = _rounded_split("K4b", q, k_pages, v_pages, page_tables, positions, 1)
     paged_decode_attention_grouped_kernel.launches += 1
     return out
 

@@ -52,6 +52,7 @@ from dynamo_tpu_torch.models.convert import params_from_jax
 from dynamo_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from dynamo_tpu_torch.ops import attention as tatt
 from dynamo_tpu_torch.ops.kernels import paged_attention as pa
+from dynamo_tpu_torch.ops.kernels import prefill_attention as pf
 from dynamo_tpu_torch.ops.kernels.prefill_attention import ROWS_PER_BLOCK
 from dynamo_tpu_torch.quant.kv import QuantizedPages
 
@@ -211,15 +212,18 @@ def test_decode_variant_launchers_refuse():
         pa.check_variant_args(q, k.bfloat16(), v.bfloat16(), pt, pos, "K4a")
 
 
-def k4b_split_model(q, k, v, pt, pos, starts):
-    """K4b's split algebra in torch: every sequence's context cut at the
-    rows ``starts`` (split s covers [starts[s], starts[s + 1])), each split
-    walked as the kernel's pass 2 walks it, from the prefix max of the pages
-    before it and at each page's prefix max M_i (the page maxima come from
-    the whole pages, pass 1), its probabilities rounded to the pool dtype
-    before P.V and summed unrounded; then the splits merged as
-    merge_splits does. Natural-log units: the scores are the plain
-    version's own, so every rounded probability is the same value."""
+def k4b_split_model(q, k, v, pt, pos, starts, unit: int = 1):
+    """The split algebra of K4b (``unit`` 1) and K4a (``unit`` =
+    chunk_pages) in torch: every sequence's context cut at the rows
+    ``starts`` (split s covers [starts[s], starts[s + 1])), each split
+    walked as the kernels' pass 2 walks it, from the prefix max of the pages
+    before it and at each page's rounding point M_i, the prefix max through
+    the last page of its unit of ``unit`` pages (the page maxima come from
+    the whole pages, pass 1; a unit's max is its pages' max), its
+    probabilities rounded to the pool dtype before P.V and summed unrounded;
+    then the splits merged as merge_splits does. Natural-log units: the
+    scores are the plain version's own, so every rounded probability is the
+    same value."""
     B, Hq, D = q.shape
     ps, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -233,7 +237,8 @@ def k4b_split_model(q, k, v, pt, pos, starts):
         s = s_all[b, ..., :n]
         pages = -(-n // ps)
         page_max = torch.stack([s[..., i * ps : (i + 1) * ps].amax(-1) for i in range(pages)], -1)
-        prefix = torch.cummax(page_max, -1).values  # M_i
+        unit_max = torch.stack([page_max[..., u : u + unit].amax(-1) for u in range(0, pages, unit)], -1)
+        prefix = torch.cummax(unit_max, -1).values.repeat_interleave(unit, -1)[..., :pages]  # M_i
         parts = []
         for a, e in zip(starts, list(starts[1:]) + [S]):
             a, e = min(a, n), min(e, n)
@@ -278,6 +283,30 @@ def test_k4b_split_algebra_matches_the_sequential_walk(starts, ps):
     want = tatt.paged_decode_attention_grouped(q, k, v, pt, pos)
     assert want.dtype == torch.float32
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("starts", [(0,), (0, 256), (0, 100, 300), (0, 37, 200, 201)],
+                         ids=["one-split", "kernel-split", "mid-unit", "mid-page"])
+@pytest.mark.parametrize("ps", [16, 24])
+def test_k4a_unit_algebra_matches_the_reference_chunked_kernel(starts, ps):
+    """K4a on K4b's passes: the split model at K4a's rounding unit
+    (chunk_pages: 16 pages at page size 16, 11 at 24; the kernel's splits of
+    grouped_split_rows rows, 256 and 264, end on unit edges, the other
+    splits fall mid-unit and mid-page) over bf16 pools with bf16-valued f32
+    queries equals the plain chunked walk at atol 2e-5, and the reference's
+    chunked kernel in interpret mode (all bf16, a bf16 output) at the bf16
+    limit."""
+    unit = pa.chunk_pages(ps, 24)
+    assert unit == -(-256 // ps)
+    case = variant_case(5, 8, 2, 64, seed=ps + 7 * len(starts), ps=ps)
+    q, k, v, pt, pos = (torch.from_numpy(x) for x in case)
+    q, k, v = q.bfloat16().float(), k.bfloat16(), v.bfloat16()
+    got = k4b_split_model(q, k, v, pt, pos, starts, unit)
+    torch.testing.assert_close(got, tatt.paged_decode_attention_chunked(q, k, v, pt, pos), atol=2e-5, rtol=0)
+    want = np.asarray(paged_decode_attention_pallas_chunked(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)), jnp.asarray(pt.numpy()),
+        jnp.asarray(pos.numpy()), interpret=True), np.float32)
+    assert_within(got.bfloat16().float().numpy(), want, "bf16")
 
 
 @pytest.mark.parametrize("Hq,Hkv,ps", [(8, 2, 16), (12, 4, 24), (4, 2, 128)])
@@ -427,3 +456,51 @@ def test_engine_greedy_tokens_under_the_switch_equal_jax_engine(monkeypatch, jax
     outs = asyncio.run(run())
     assert calls, f"the {choice} plain version never ran"
     assert outs == ref_outs and all(len(t) == 10 for t in outs)
+
+
+def _decode_args(Hq, Hkv, D, dtype=torch.float32):
+    return (torch.zeros((2, Hq, D), dtype=dtype), *[torch.zeros((5, 16, Hkv, D), dtype=dtype)] * 2,
+            torch.zeros((2, 4), dtype=torch.int32), torch.zeros(2, dtype=torch.int32))
+
+
+def _prefill_args(Hq, Hkv, D, dtype=torch.float32):
+    return (torch.zeros((32, Hq, D), dtype=dtype), *[torch.zeros((5, 16, Hkv, D), dtype=dtype)] * 2,
+            torch.zeros((1, 4), dtype=torch.int32), torch.arange(32, dtype=torch.int32)[None])
+
+
+# the shapes the reference serves that the launchers refused before: head_dim
+# 256 on K1, K2, K4a, K4b, K7a-c; folded 192, 100 and 20 on K3a and K3b
+WIDE_SHAPES = {
+    "K1-D256": lambda: pa.check_decode_args(*_decode_args(8, 2, 256)),
+    "K4a-D256": lambda: pa.check_variant_args(*_decode_args(8, 2, 256, torch.bfloat16), "K4a"),
+    "K4b-D256": lambda: pa.check_variant_args(*_decode_args(8, 2, 256, torch.bfloat16), "K4b"),
+    "K7b-D256": lambda: pa.check_variant_args(*_decode_args(8, 2, 256), "K7b"),
+    "K7c-D256": lambda: pa.check_variant_args(*_decode_args(8, 2, 256), "K7c"),
+    "K2-D256": lambda: pf.check_prefill_args(*_prefill_args(8, 2, 256, torch.bfloat16)),
+    "K7a-D256": lambda: pf.check_prefill_args(*_prefill_args(8, 2, 256), "K7a"),
+    "K3a-D192": lambda: pa.check_folded_decode_args(*_decode_args(8, 2, 192, torch.bfloat16)),
+    "K3a-D100": lambda: pa.check_folded_decode_args(*_decode_args(8, 2, 100)),
+    "K3a-D20": lambda: pa.check_folded_decode_args(*_decode_args(16, 4, 20, torch.bfloat16)),
+    "K3b-D192": lambda: pf.check_folded_prefill_args(*_prefill_args(8, 2, 192)),
+    "K3b-D100": lambda: pf.check_folded_prefill_args(*_prefill_args(8, 2, 100, torch.bfloat16)),
+    "K3b-D20": lambda: pf.check_folded_prefill_args(*_prefill_args(16, 4, 20)),
+}
+
+
+@pytest.mark.parametrize("which", list(WIDE_SHAPES))
+def test_launcher_checks_take_the_reference_head_geometries(which):
+    """Each shape's argument check passes (run here on CPU tensors: the
+    checks precede any launch); the launchers then launch a kernel on the
+    card (chip_smoke.py WIDENED, tests/test_torch_kernels_cuda.py)."""
+    WIDE_SHAPES[which]()
+
+
+@pytest.mark.parametrize("D", [384, 512])
+def test_head_dims_past_256_stay_refused(D):
+    """Past 256 values a row needs more than a warp's 32 lanes of 8 (K1, K4,
+    K7b, K7c) and K2's bf16 query tile would outgrow shared memory: refused,
+    as ROADMAP.md Queue 3 records."""
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.check_decode_args(*_decode_args(8, 2, D))
+    with pytest.raises(ValueError, match="head_dim"):
+        pf.check_prefill_args(*_prefill_args(8, 2, D))

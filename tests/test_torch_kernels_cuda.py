@@ -1,12 +1,14 @@
 """The CUDA kernels K1 (paged decode), K2 (chunked-prefill flash), K3a / K3b
-(their folded variants for a head_dim that is a multiple of 8 below 128),
+(their folded variants for a head_dim below 256 other than 128),
 K4a / K4b (the chunked and grouped decode variants), K5 (MLA latent
 decode), K6 (MLA latent prefill) and the instruments K7a / K7b (load-only
 twins of K2 / K1) and K7c (K1's function one page an iteration, with and
 without rounded probabilities) against their plain PyTorch versions on the
 card, K1-K3 and K7a also over int8 pools (``QuantizedPages``), at the
 reference's head geometries: GQA groups of any size (G 3, 6, 7, and past 8
-and 16), folded head dims 8, 24, 80 and 96, and MLA at 4 and 20 heads. Marked ``cuda``: every test skips
+and 16), head_dim 256, folded head dims 8, 24, 80, 96, 192, and 100 and 20
+(no multiple of 8), and MLA at 4, 16 and 20 heads and at a latent row of
+d_c 1024 + d_r 64. Marked ``cuda``: every test skips
 where no CUDA device is visible (a CUDA kernel has no CPU mode). On a
 machine with an H100 and nvcc (``--noconftest``: tests/conftest.py imports
 jax, which the port does not need):
@@ -110,10 +112,10 @@ def _decode_tables(rng, B, P, ps, max_pages, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (128, 128, 16, 2), (128, 16, 28, 4),
-                                         (128, 16, 12, 2), (128, 16, 3, 1), (64, 16, 36, 2)])
+                                         (128, 16, 12, 2), (128, 16, 3, 1), (64, 16, 36, 2), (256, 16, 8, 2)])
 def test_decode_kernel_matches_plain(cuda, dtype, D, ps, Hq, Hkv):
     """G 4, 1 and 2, and G 7, 6, 3 and 18 (three blocks of 6 heads a kv
-    head)."""
+    head); head_dim 256."""
     rng = np.random.default_rng(D + ps + Hq)
     B, max_pages = 12, 8
     P = B * max_pages + 1
@@ -142,7 +144,7 @@ def test_decode_kernel_matches_plain(cuda, dtype, D, ps, Hq, Hkv):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (128, 16, 16, 2), (128, 16, 28, 4),
-                                         (128, 16, 12, 2)])
+                                         (128, 16, 12, 2), (256, 16, 8, 2)])
 def test_prefill_kernel_matches_plain_per_lane(cuda, dtype, D, ps, Hq, Hkv):
     """Three lanes in one launch: a chunk from position 0 with pad rows, a
     chunk after a cached prefix, and a pad lane (n=0, all-zero table); G 7
@@ -175,7 +177,7 @@ def test_prefill_kernel_matches_plain_per_lane(cuda, dtype, D, ps, Hq, Hkv):
 
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES[2:], ids=MIX_IDS[2:])
-@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8)])
+@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (256, 16, 8, 2)])
 def test_decode_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
     rng = np.random.default_rng(D + ps + 7)
     B, max_pages = 12, 8
@@ -191,7 +193,7 @@ def test_decode_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
 
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES[2:], ids=MIX_IDS[2:])
-@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 16, 8, 2), (128, 16, 28, 4)])
+@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 16, 8, 2), (128, 16, 28, 4), (256, 16, 8, 2)])
 def test_prefill_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
     rng = np.random.default_rng(D + ps + 8)
     T, max_pages = 96, 16
@@ -210,9 +212,12 @@ def test_prefill_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
 # (D, Hkv, Hq): TinyLlama's fold, G 1 and 4 at D 16 / 32 / 64, and the
 # widened geometries: D 96 at G 3, D 80, D 8 over 16 kv heads, D 24 (tiles
 # padded to 32 columns; over 3 kv heads an int8 row starts off 16 bytes, so
-# it arrives in 8-byte copies) and G 40 (three 16-head tiles a kv head)
+# it arrives in 8-byte copies), G 40 (three 16-head tiles a kv head), D 192
+# (K3b: the tensor-core body at 256 columns; K3a: the FMA body), and D 100
+# and 20, no multiple of 8, whose rows start off 16 and off 8 bytes (the FMA
+# bodies, every mix)
 FOLDED = [(16, 8, 16), (32, 4, 32), (64, 4, 32), (64, 2, 16), (96, 4, 12), (80, 8, 16), (8, 16, 32), (24, 4, 8), (24, 3, 9),
-          (64, 1, 40)]
+          (64, 1, 40), (192, 2, 8), (100, 2, 8), (20, 4, 16)]
 
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES, ids=MIX_IDS)
@@ -319,12 +324,15 @@ def test_launchers_raise_on_what_the_kernels_do_not_take(cuda):
     rng = np.random.default_rng(11)
     pt = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
     pos = torch.zeros(2, dtype=torch.int32, device=cuda)
-    q100 = torch.zeros((2, 8, 100), device=cuda)  # no multiple of 8 (96 launches)
-    k100, v100 = _pools(rng, 5, 16, 2, 100, torch.float32, cuda)
+    q264 = torch.zeros((2, 8, 264), device=cuda)  # past the FMA body's 256 columns (100 launches)
+    k264, v264 = _pools(rng, 5, 16, 2, 264, torch.float32, cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        paged_decode_attention_folded_kernel(q100, k100, v100, pt, pos)
+        paged_decode_attention_folded_kernel(q264, k264, v264, pt, pos)
     with pytest.raises(ValueError, match="head_dim"):
-        tatt.dispatch_paged_decode_attention(q100, k100, v100, pt, pos)
+        tatt.dispatch_paged_decode_attention(q264, k264, v264, pt, pos)
+    with pytest.raises(ValueError, match="head_dim"):  # 512: past a warp's 32 lanes of 8 values
+        paged_decode_attention_kernel(torch.zeros((2, 8, 512), device=cuda),
+                                      *_pools(rng, 5, 16, 2, 512, torch.float32, cuda), pt, pos)
     q = torch.zeros((2, 8, 64), device=cuda, dtype=torch.float16)
     k, v = _pools(rng, 5, 16, 2, 64, torch.float16, cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -391,7 +399,7 @@ ROUNDED = {
 @pytest.mark.parametrize("which", list(ROUNDED))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 16), (128, 16, 8, 128), (128, 28, 4, 16),
-                                         (128, 48, 2, 16), (64, 12, 4, 24)])
+                                         (128, 48, 2, 16), (64, 12, 4, 24), (256, 8, 2, 16)])
 @pytest.mark.parametrize("B", [1, 6, 16])
 def test_decode_variant_matches_plain(cuda, which, dtype, D, Hq, Hkv, ps, B):
     """K4a (two or more 256-row chunks), K4b (splits of whole pages, 256
@@ -425,7 +433,7 @@ def _exact_queries(rng, B, Hq, D, dtype, device):
 @pytest.mark.parametrize("which", ["K4a", "K4b", "K7c"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 16), (128, 16, 8, 128), (128, 28, 4, 16),
-                                         (128, 48, 2, 16), (64, 12, 4, 24)])
+                                         (128, 48, 2, 16), (64, 12, 4, 24), (256, 8, 2, 16)])
 def test_rounded_variants_at_the_serve_batch(cuda, which, dtype, D, Hq, Hkv, ps):
     """K4a, K4b and K7c (rounded probabilities) at B 64 over exact inputs.
     Over random inputs a probability whose f32 value lies within the dot
@@ -448,7 +456,7 @@ def test_rounded_variants_at_the_serve_batch(cuda, which, dtype, D, Hq, Hkv, ps)
 
 @pytest.mark.parametrize("which", ["K4a", "K4b", "K7c"])
 @pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 16), (128, 16, 8, 128), (128, 28, 4, 16),
-                                         (128, 48, 2, 16), (64, 12, 4, 24)])
+                                         (128, 48, 2, 16), (64, 12, 4, 24), (256, 8, 2, 16)])
 def test_rounded_variants_at_the_serve_batch_over_random_inputs(cuda, which, D, Hq, Hkv, ps):
     """K4a, K4b and K7c at B 64 over random bf16 inputs (contexts up to 2048
     rows, an inactive slot, a row at -1), held to TOL plus
@@ -476,7 +484,7 @@ def test_rounded_variants_at_the_serve_batch_over_random_inputs(cuda, which, D, 
         f"{float(((got - ref).abs() - limit).max()):.3g}")
 
 
-@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128)])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128), (256, 8, 2, 16)])
 def test_grouped_decode_gives_the_same_bits_twice(cuda, D, Hq, Hkv, ps):
     """K4b merges its splits in fixed order, without atomics: two launches
     on the same inputs (B 64: ragged contexts, an inactive slot, a row at
@@ -493,8 +501,23 @@ def test_grouped_decode_gives_the_same_bits_twice(cuda, D, Hq, Hkv, ps):
                                **TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128), (256, 8, 2, 16)])
+def test_chunked_decode_gives_the_same_bits_twice(cuda, D, Hq, Hkv, ps):
+    """K4a on K4b's passes merges its splits in fixed order too: two
+    launches on the same inputs (B 64) give the same bits."""
+    rng = np.random.default_rng(D + Hq + ps + 14)
+    P, pt, pos = _variant_tables(rng, 64, ps, 2048 // ps, cuda)
+    k, v = _pools(rng, P, ps, Hkv, D, torch.bfloat16, cuda)
+    q = torch.from_numpy(rng.standard_normal((64, Hq, D)).astype(np.float32)).to(cuda, torch.bfloat16)
+    first = paged_decode_attention_chunked_kernel(q, k, v, pt, pos)
+    second = paged_decode_attention_chunked_kernel(q, k, v, pt, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 128), (128, 16, 8, 128), (128, 28, 4, 16)])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 128), (128, 16, 8, 128), (128, 28, 4, 16),
+                                         (256, 8, 2, 16)])
 @pytest.mark.parametrize("B", [1, 6, 16])
 def test_decode_dmaonly_checksum(cuda, dtype, D, Hq, Hkv, ps, B):
     rng = np.random.default_rng(D + B + 3)
@@ -511,7 +534,7 @@ def test_decode_dmaonly_checksum(cuda, dtype, D, Hq, Hkv, ps, B):
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES, ids=MIX_IDS)
 @pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128), (128, 12, 2, 16),
-                                         (128, 28, 4, 16)])
+                                         (128, 28, 4, 16), (256, 8, 2, 16)])
 def test_prefill_dmaonly_checksum(cuda, qdt, kvdt, D, Hq, Hkv, ps):
     """K7a over three lanes in one launch (from 0 with an odd length, after a
     cached prefix, a pad lane), K2's block partition; G 4 at ps 16, the
@@ -535,7 +558,8 @@ def test_prefill_dmaonly_checksum(cuda, qdt, kvdt, D, Hq, Hkv, ps):
 
 def test_decode_variants_raise_on_what_they_do_not_take(cuda):
     """An int8 cache, a folded head_dim, a mixed dtype and an oversized
-    chunk raise; nothing falls back."""
+    split raise; nothing falls back. K4a at page size 2048, which its FMA
+    body refused (48 KB of scores), now runs on K4b's passes."""
     rng = np.random.default_rng(12)
     pt = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
     pos = torch.zeros(2, dtype=torch.int32, device=cuda)
@@ -553,8 +577,12 @@ def test_decode_variants_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="dtype"):
         paged_decode_attention_chunked_kernel(q.float(), kb, vb, pt, pos)
     kbig, vbig = _pools(rng, 3, 2048, 1, 128, torch.bfloat16, cuda)
+    got = paged_decode_attention_chunked_kernel(q, kbig, vbig, pt[:, :1] + 1, pos + 2000)
+    torch.testing.assert_close(got.float(), tatt.paged_decode_attention_chunked(
+        q, kbig, vbig, pt[:, :1] + 1, pos + 2000).float(), **TOL[torch.bfloat16])
+    khuge, vhuge = _pools(rng, 2, 4096, 1, 128, torch.bfloat16, cuda)  # a split's scores past 227 KB
     with pytest.raises(ValueError, match="shared memory"):
-        paged_decode_attention_chunked_kernel(q, kbig, vbig, pt, pos)
+        paged_decode_attention_chunked_kernel(q, khuge, vhuge, pt[:, :1], pos)
 
 
 MLA_H, MLA_LATENT, MLA_DC = 16, 576, 512  # DeepSeek-V2(-Lite) geometry
@@ -642,4 +670,48 @@ def test_mla_kernels_take_any_head_count(cuda, dtype, H):
     got = paged_mla_prefill_attention_kernel(qp, pages, pt[1], pos_p, MLA_DC)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, tatt.paged_mla_prefill_attention(qp, pages, pt[1], pos_p, MLA_DC),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("H", [4, 16, 20])
+@pytest.mark.parametrize("T,start", [(37, 0), (512, 1536), (200, 701)], ids=["ragged", "check-shape", "mid-page"])
+def test_mla_prefill_tensor_core_body_matches_plain(cuda, H, T, start):
+    """K6 over bf16 pages (the tensor-core body: 64-row tiles of flattened
+    (position, head) pairs, q and P split into bf16 hi + lo) at 4, 16 and 20
+    heads, ragged chunk lengths (T H not a multiple of 64) and prefixes that
+    start mid-page, held to TOL["f32"]."""
+    rng = np.random.default_rng(H + T + start)
+    ps, max_pages = 16, (start + T + 15) // 16
+    P = max_pages + 1
+    pages = torch.from_numpy(rng.standard_normal((P, ps, MLA_LATENT)).astype(np.float32)).to(cuda, torch.bfloat16)
+    pt = torch.from_numpy(rng.permutation(np.arange(1, P)).astype(np.int32)).to(cuda)
+    q = torch.from_numpy((rng.standard_normal((T, H, MLA_LATENT)) / np.sqrt(MLA_LATENT)).astype(np.float32)).to(cuda)
+    pos = torch.arange(start, start + T, dtype=torch.int32, device=cuda)
+    before = paged_mla_prefill_attention_kernel.launches
+    got = paged_mla_prefill_attention_kernel(q, pages, pt, pos, MLA_DC)
+    torch.cuda.synchronize()
+    assert paged_mla_prefill_attention_kernel.launches == before + 1
+    assert got.shape == (T, H, MLA_DC) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, tatt.paged_mla_prefill_attention(q, pages, pt, pos, MLA_DC), **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32-pages", "bf16-pages"])
+def test_mla_kernels_take_wide_latent_rows(cuda, dtype):
+    """K5 and K6 at d_c 1024 + d_r 64 (L 1088): the FMA body scores the row
+    in 512-column chunks and slices d_c over two blocks."""
+    rng = np.random.default_rng(1088 + (dtype == torch.bfloat16))
+    H, L, dc, B, ps, max_pages = 4, 1088, 1024, 6, 16, 24
+    P = B * max_pages + 1
+    pages = torch.from_numpy(rng.standard_normal((P, ps, L)).astype(np.float32)).to(cuda, dtype)
+    q = torch.from_numpy((rng.standard_normal((B, H, L)) / np.sqrt(L)).astype(np.float32)).to(cuda)
+    pt, pos = _decode_tables(rng, B, P, ps, max_pages, cuda)
+    got = paged_mla_decode_attention_kernel(q, pages, pt, pos, dc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tatt.paged_mla_decode_attention(q, pages, pt, pos, dc), **TOL[torch.float32])
+    T, start = 75, 200
+    qp = torch.from_numpy((rng.standard_normal((T, H, L)) / np.sqrt(L)).astype(np.float32)).to(cuda)
+    pos_p = torch.arange(start, start + T, dtype=torch.int32, device=cuda)
+    got = paged_mla_prefill_attention_kernel(qp, pages, pt[1], pos_p, dc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tatt.paged_mla_prefill_attention(qp, pages, pt[1], pos_p, dc),
                                **TOL[torch.float32])

@@ -143,8 +143,12 @@ def test_mla_kernel_arg_checks_raise_on_shapes_the_kernels_do_not_take():
         check_mla_args(q[..., :504], pages[..., :504], pt, pos, 508, decode=True)
     check_mla_args(q[:, :4], pages, pt, pos, dc, decode=True)  # any H: tiny-mla's 4 heads
     check_mla_args(q[:, :5], pages, pt[0], pos, dc, decode=False)
-    with pytest.raises(ValueError, match="at most 768"):  # the kernels' shared-memory budget
-        check_mla_args(torch.zeros((B, Hs, 776)), torch.zeros((P, ps, 776)), pt, pos, dc, decode=True)
+    # rows past 768 (scored in column chunks) and d_c past 512 (sliced over
+    # blocks) launch: d_c 1024 + d_r 64
+    check_mla_args(torch.zeros((B, Hs, 1088)), torch.zeros((P, ps, 1088)), pt, pos, 1024, decode=True)
+    check_mla_args(torch.zeros((B, Hs, 776)), torch.zeros((P, ps, 776)), pt[0], pos, dc, decode=False)
+    with pytest.raises(ValueError, match="d_c"):  # values past the latent row
+        check_mla_args(q, pages, pt, pos, 584, decode=True)
     with pytest.raises(ValueError, match="float32 q_cat"):
         check_mla_args(q.bfloat16(), pages, pt, pos, dc, decode=True)
     with pytest.raises(ValueError, match="int32"):

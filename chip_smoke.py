@@ -12,9 +12,11 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      PyTorch versions (B 64, ps 16, ragged contexts 1..2048, inactive slots,
      a row at position -1; K1 at Hq 32 / Hkv 8 / D 128, K3a at TinyLlama's
      Hq 32 / Hkv 4 / D 64) in three mixes: f32, bf16, and bf16 queries over
-     the int8 cache; kernel / plain / SDPA times and the bound; the SASS of
-     the mma.sync bodies (K3a, K4a / K4b's passes, K6's bf16 body) must hold
-     HMMA and no local memory (the cuobjdump runs side by side)
+     the int8 cache; K1's bf16-query launches (its split body and merge)
+     twice for the same bits; kernel / plain / SDPA times and the bound; the
+     SASS of the mma.sync bodies (K1's split body, which K3a shares, K4a /
+     K4b's passes, K6's bf16 body) must hold HMMA and no local memory (the cuobjdump runs
+     side by side)
   4. K2 chunked-prefill flash and K3b the same way (512-row lanes at cached
      prefixes 0 and 1024, plus a pad lane, in one launch), with achieved
      TFLOP/s and share of the bound; the SASS of their bf16-query instances
@@ -32,16 +34,17 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      bf16: K4a (chunked) and K4b (grouped), each launched twice for the same
      bits, and
      K7c without cast_f32 against their plain versions, K7c with cast_f32
-     against K1's; the load-only
+     against K1's (in bf16 K7c's toggles must give K4b's and K1's bits on
+     the same inputs: each runs on that body); the load-only
      twins K7b (at both) and K7a (at K2's shapes and at profile_prefill's
      512-row chunk after a 2560-row prefix, also over int8) against the
      checksums of their plain versions, exactly (pools of multiples of 1/8,
      whose f32 sums are exact in any order); kernel / plain / SDPA times and
      the bound over the rows each sequence reads; then the widened head
-     geometries at small sizes (WIDENED: K1 / K2 at G 7 and 6; D 256 on K1,
-     K2, K4a, K4b, K7a-c; K3a / K3b at D 96 with G 3, D 80, 8, 192, 100 and
-     20; K5 / K6 at 4 and 20 heads and at L 1088 / d_c 1024), each held to
-     its plain version in every mix it takes
+     geometries at small sizes (WIDENED: K1 / K2 at G 7 and 6; D 256, 384
+     and 512 on K1, K2, K4a, K4b, K7a-c; K3a / K3b at D 96 with G 3, D 80,
+     8, 192, 100, 20, 264 and 320; K5 / K6 at 4 and 20 heads and at L 1088 /
+     d_c 1024), each held to its plain version in every mix it takes
   8. serve paths (tools/workload.py: 16 concurrent greedy requests of
      64-2048 prompt tokens and 64 output tokens, bf16, seeded random
      weights, full width and depth); every stream must finish with exactly
@@ -53,8 +56,8 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
        chunked serve / grouped serve: Llama-3-8B geometry, bf16 KV, with
        DYNTPU_DECODE_KERNEL=chunked / grouped: K4a / K4b decode (as many
        launches as K1 in serve) and K2; no K1, K3 or other K4 launch
-  9. refusals: an int8 cache on tiny-mla and on K4a, K1 at head_dim 512 and
-     K3a at 264 (past their budgets), K3b over float16 and K4b at a folded
+  9. refusals: an int8 cache on tiny-mla and on K4a, K1 at head_dim 640 and
+     K3a at 520 (past their budgets), K3b over float16 and K4b at a folded
      head dim raise on the card
  10. 2-layer f32 greedy parity: the engine's tokens must equal a dense
      no-paging forward's on Llama-3-8B geometry, on TinyLlama geometry with
@@ -306,12 +309,8 @@ def check_decode(torch, dev, rng, which: str) -> dict:
     kernel = {"K1": pa.paged_decode_attention_kernel, "K3a": pa.paged_decode_attention_folded_kernel}[which]
     Hq, Hkv, D = GEOMETRY[which]
     case = decode_case(torch, dev, rng, Hq, Hkv, D)
-    B, pt_t, pos_t, live_len = case["B"], case["pt_t"], case["pos_t"], case["live_len"]
+    pt_t, pos_t = case["pt_t"], case["pos_t"]
     k32, v32, q32 = case["k32"], case["v32"], case["q32"]
-    extra = ""
-    if which == "K3a":
-        blocks = sum(-(-int(n) // pa.SPLIT_ROWS) for n in live_len)
-        extra = f"; {blocks} split blocks + {B * -(-Hq // 8)} merge blocks"
     res = {}
     for name, qdt_name, kind in MIXES:
         qdt = getattr(torch, qdt_name)
@@ -321,6 +320,8 @@ def check_decode(torch, dev, rng, which: str) -> dict:
         ref = plain.paged_decode_attention(q, k, v, pt_t, pos_t)
         tol = "f32" if qdt == torch.float32 else "bf16"
         held = held_to_plain(f"{which} paged decode", name, got, ref, tol)
+        if which == "K1" and qdt == torch.bfloat16 and not torch.equal(got, kernel(q, k, v, pt_t, pos_t)):
+            raise AssertionError(f"K1 paged decode {name}: two launches on the same inputs differ")
         kt = timed(lambda: kernel(q, k, v, pt_t, pos_t), 50)
         plain_ms = cuda_ms(lambda: plain.paged_decode_attention(q, k, v, pt_t, pos_t), 5)
         lt = sdpa_decode_times(torch, plain, case, q, kd, vd)
@@ -329,7 +330,7 @@ def check_decode(torch, dev, rng, which: str) -> dict:
         note = " (SDPA over the dequantized bf16 context, dequantization untimed)" if kind == "int8" else ""
         log(f"{which} paged decode {name}: kernel {ms:.4f} ms (back to back {kt['b2b_ms']:.4f}, host "
             f"{kt['host_ms']:.4f}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (back to back "
-            f"{lt['library_b2b_ms']:.4f}){note}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB){extra}")
+            f"{lt['library_b2b_ms']:.4f}){note}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB)")
         res[name] = dict(**held, **kt, plain_ms=plain_ms, **lt, bound_ms=b_ms, bound_by=b_by)
     return res
 
@@ -430,16 +431,18 @@ def sass_counts(jobs) -> list[dict]:
 def check_sass() -> dict:
     """The tensor-core bodies' SASS: K2 / K3b's bf16-query instances
     (tc_prefill_kernel, bf16 and int8 pools, DP 16..128 and 256) hold HGMMA
-    (wgmma), the f32 FMA bodies none; K3a's (folded_decode_tc<bf16 | int8, DP
-    16..128>), K4a's and K4b's (grouped_scores and grouped_pv at D 64, 128,
-    256) and K6's bf16 body (mla_prefill_tc) hold HMMA (mma.sync) and no
+    (wgmma), the f32 FMA bodies none; K1's split body, which K3a shares
+    (paged_decode_tc<bf16 | int8, D 16, 32, ..., 128, 256, 384, 512>),
+    K4a's and K4b's (grouped_scores and grouped_pv at D 64, 128, 256, 384,
+    512) and K6's bf16 body (mla_prefill_tc) hold HMMA (mma.sync) and no
     local memory (LDL / STL: no spills). Returns {instance: count}."""
     from dynamo_tpu_torch.ops.kernels import _build
 
-    mma = (("paged_attention", "folded_decode_tc", 16), ("decode_variants", "grouped_", 6),
+    mma = (("paged_attention", "paged_decode_tc", 22), ("decode_variants", "grouped_", 10),
            ("mla_attention", "mla_prefill_tc", 1))
+    libs = list(dict.fromkeys(lib for lib, _, _ in mma))  # each library disassembled once a pattern
     jobs = [(_build.library_path("prefill_attention"), r"\bHGMMA\b")]
-    for lib, _, _ in mma:
+    for lib in libs:
         jobs += [(_build.library_path(lib), r"\bHMMA\b"), (_build.library_path(lib), r"\b(LDL|STL)\b")]
     counts = sass_counts(jobs)
     tc = {fn: n for fn, n in counts[0].items() if "tc_prefill_kernel" in fn}
@@ -450,7 +453,8 @@ def check_sass() -> dict:
     if len(tc) != 18 or min(tc.values()) <= 0 or any(fma.values()):
         raise AssertionError(f"prefill SASS: tensor-core instances {tc}, FMA instances {fma}")
     found = dict(tc)
-    for i, (lib, mark, want) in enumerate(mma):
+    for lib, mark, want in mma:
+        i = libs.index(lib)
         hmma = {fn: n for fn, n in counts[1 + 2 * i].items() if mark in fn}
         local = {fn: n for fn, n in counts[2 + 2 * i].items() if mark in fn and n}
         log(f"{lib} SASS: HMMA in " + ", ".join(f"{fn} {n}" for fn, n in sorted(hmma.items()))
@@ -507,11 +511,16 @@ def check_decode_variants(torch, dev, rng, geometry: str) -> dict:
         lt = sdpa_decode_times(torch, plain, case, q, k, v)
         lib_ms = lt["library_ms"]
         b_ms, b_by, nbytes = decode_bound(case, q, Hkv, k.element_size(), 0, name)
+        same_as = {"K7c": pa.paged_decode_attention_grouped_kernel, "K7c cast_f32": pa.paged_decode_attention_kernel}
         for which, (kernel, ref_fn) in kernels.items():
             got = kernel(q, k, v, pt_t, pos_t)
             held = held_to_plain(f"{which} {at}", name, got, ref_fn(q, k, v, pt_t, pos_t), name)
             if which in ("K4a", "K4b") and not torch.equal(got, kernel(q, k, v, pt_t, pos_t)):
                 raise AssertionError(f"{which} {at} {name}: two launches on the same inputs differ")
+            # each bf16 toggle of K7c runs on the body that computes its function
+            body = same_as.get(which) if qdt == torch.bfloat16 else None
+            if body is not None and not torch.equal(got, body(q, k, v, pt_t, pos_t)):
+                raise AssertionError(f"{which} {at} {name}: not the bits of {body.__name__}")
             kt = timed(lambda: kernel(q, k, v, pt_t, pos_t), 50)
             plain_ms = cuda_ms(lambda: ref_fn(q, k, v, pt_t, pos_t), 3)
             log(f"{which} decode {at} {name}: kernel {kt['ms']:.4f} ms (back to back {kt['b2b_ms']:.4f}, host "
@@ -713,23 +722,25 @@ def check_mla_prefill(torch, dev, rng) -> dict:
 
 # The head geometries the launchers were widened to, at small sizes: GQA
 # groups of 7 (Qwen2-VL's 28 / 4) and 6 (12 / 2) on K1 and K2; head_dim 256
-# (Gemma's) on K1, K2, K4a, K4b, K7a, K7b and K7c; folded head dims 96 (G 3),
-# 80, 8, 192 (over 2 kv heads), and 100 / 20 (no multiple of 8: rows start off
-# 16 bytes) on K3a and K3b; MLA at 4 heads (the reference's tiny-mla), 20
+# (Gemma's), 384 and 512 (no public family; the reference serves a tiny
+# model at them) on K1, K2, K4a, K4b, K7a, K7b and K7c; folded head dims 96
+# (G 3), 80, 8, 192, 264 and 320 (over 2 kv heads), and 100 / 20 (no
+# multiple of 8: rows start off 16 bytes) on K3a and K3b; MLA at 4 heads (the reference's tiny-mla), 20
 # heads, and a latent row of d_c 1024 + d_r 64 on K5 and K6. (name, Hq, Hkv,
 # D) or, for MLA, (name, H, latent, d_c).
+WIDE_D = (("D256", 8, 2, 256), ("D384", 8, 2, 384), ("D512", 8, 2, 512))
 WIDENED = {
-    "K1": (("G7", 28, 4, 128), ("G6", 12, 2, 128), ("D256", 8, 2, 256)),
-    "K2": (("G7", 28, 4, 128), ("G6", 12, 2, 128), ("D256", 8, 2, 256)),
+    "K1": (("G7", 28, 4, 128), ("G6", 12, 2, 128), *WIDE_D),
+    "K2": (("G7", 28, 4, 128), ("G6", 12, 2, 128), *WIDE_D),
     "K3a": (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8), ("D192", 8, 2, 192),
-            ("D100", 8, 2, 100), ("D20", 16, 4, 20)),
+            ("D100", 8, 2, 100), ("D20", 16, 4, 20), ("D264", 8, 2, 264), ("D320", 8, 2, 320)),
     "K3b": (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8), ("D192", 8, 2, 192),
-            ("D100", 8, 2, 100), ("D20", 16, 4, 20)),
-    "K4a": (("D256", 8, 2, 256),),
-    "K4b": (("D256", 8, 2, 256),),
-    "K7c": (("D256", 8, 2, 256),),
-    "K7b": (("D256", 8, 2, 256),),
-    "K7a": (("D256", 8, 2, 256),),
+            ("D100", 8, 2, 100), ("D20", 16, 4, 20), ("D264", 8, 2, 264), ("D320", 8, 2, 320)),
+    "K4a": WIDE_D,
+    "K4b": WIDE_D,
+    "K7c": WIDE_D,
+    "K7b": WIDE_D,
+    "K7a": WIDE_D,
     "K5": (("H4", 4, MLA_LATENT, MLA_DC), ("H20", 20, MLA_LATENT, MLA_DC), ("L1088", 4, 1088, 1024)),
     "K6": (("H4", 4, MLA_LATENT, MLA_DC), ("H20", 20, MLA_LATENT, MLA_DC), ("L1088", 4, 1088, 1024)),
 }
@@ -863,7 +874,7 @@ def phase_refusals(torch, dev) -> None:
     """What the port does not take raises on the card and falls back to
     nothing: an int8 cache on the MLA family and on K4a, a float16 query on
     K3b, K4b at a head dim it does not take, and head dims past the launchers'
-    budgets (K1 at 512, K3a at 264)."""
+    budgets (K1 at 640, K3a at 520)."""
     from dynamo_tpu_torch.models.registry import load_model
     from dynamo_tpu_torch.ops import attention as att
 
@@ -871,10 +882,10 @@ def phase_refusals(torch, dev) -> None:
     pos = torch.zeros(2, dtype=torch.int32, device=dev)
     cases = {
         "tiny-mla with an int8 KV cache": lambda: load_model("tiny-mla", device="cuda", kv_cache_dtype="int8"),
-        "K1 at head_dim 512": lambda: att.dispatch_paged_decode_attention(
-            torch.zeros((2, 8, 512), device=dev), *[torch.zeros((5, 16, 2, 512), device=dev)] * 2, pt, pos),
-        "K3a at head_dim 264": lambda: att.dispatch_paged_decode_attention(
-            torch.zeros((2, 8, 264), device=dev), *[torch.zeros((5, 16, 2, 264), device=dev)] * 2, pt, pos),
+        "K1 at head_dim 640": lambda: att.dispatch_paged_decode_attention(
+            torch.zeros((2, 8, 640), device=dev), *[torch.zeros((5, 16, 2, 640), device=dev)] * 2, pt, pos),
+        "K3a at head_dim 520": lambda: att.dispatch_paged_decode_attention(
+            torch.zeros((2, 8, 520), device=dev), *[torch.zeros((5, 16, 2, 520), device=dev)] * 2, pt, pos),
         "K3b over float16": lambda: att.dispatch_paged_prefill_attention(
             torch.zeros((16, 32, 64), device=dev, dtype=torch.float16),
             *[torch.zeros((5, 16, 4, 64), device=dev, dtype=torch.float16)] * 2, pt[0], pos.repeat(8)),
@@ -1332,11 +1343,13 @@ def main() -> int:
         if key in bench:
             entry["check_shapes" if key in on_bench else "bench_shapes"] = other[key]
         # checked here, not on a path: K7a over the int8 cache (the profiler
-        # runs bf16 pools) and K7c's cast_f32 instance (K1's function)
+        # runs bf16 pools) and K7c's cast_f32 toggle (K1's function) at the
+        # profiler's shape and at K1's
         if key == "K7a":
             entry["int8"] = dict(bench["K7a"]["int8"])
         if key == "K7c":
             entry["cast_f32"] = dict(bench["K7c cast_f32"]["bf16"])
+            entry["check_shapes_cast_f32"] = checks["K7c cast_f32"]
         kernels.append(entry)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

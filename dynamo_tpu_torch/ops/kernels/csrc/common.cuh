@@ -47,29 +47,48 @@ template <> struct RowVec<int8_t> {
   using Raw = int2;
 };
 
-// f32 rows wider than 128 values: 8 values a lane (two 16-byte loads), so
-// that a 256-value row still fits a warp's 32 lanes, as a bf16 or int8 row
-// of 256 does with RowVec's 8.
-struct __align__(16) Float8 {
-  float4 lo, hi;
+// Rows wider than one RowVec a lane fits in a warp's 32 lanes (f32 past 128
+// values, bf16 and int8 past 256): D / 32 values a lane, in C pieces of 4
+// or 8 values (f32 D 256: two 16-byte loads; bf16 D 384: three 8-byte
+// loads; int8 D 384: three 4-byte loads), so a row still fits a warp.
+template <typename Piece> struct PieceN;  // values a piece
+template <> struct PieceN<float4> { static constexpr int N = 4; };
+template <> struct PieceN<uint4> { static constexpr int N = 8; };  // bf16
+template <> struct PieceN<uint2> { static constexpr int N = 4; };  // bf16
+template <> struct PieceN<int2> { static constexpr int N = 8; };   // int8
+template <> struct PieceN<char4> { static constexpr int N = 4; };  // int8
+
+template <typename Piece, int C>
+struct Pack {
+  Piece v[C];
 };
-struct RowVecF32Wide {
-  static constexpr int N = 8;
-  using Raw = Float8;
+
+template <typename Piece, int C>
+struct RowPack {
+  static constexpr int N = C * PieceN<Piece>::N;
+  using Raw = Pack<Piece, C>;
+};
+
+template <typename T, int D>
+struct LaneVecSel {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr bool kWide = D > (kF32 ? 128 : 256);
+  using Piece = typename std::conditional<
+      kF32, float4,
+      typename std::conditional<kBf16, typename std::conditional<D % 256 == 0, uint4, uint2>::type,
+                                typename std::conditional<D % 256 == 0, int2, char4>::type>::type>::type;
+  static constexpr int C = D / 32 / PieceN<Piece>::N > 0 ? D / 32 / PieceN<Piece>::N : 1;
+  using type = typename std::conditional<kWide, RowPack<Piece, C>, RowVec<T>>::type;
 };
 
 // The lane slice of a D-value row of T in the register-resident decode
-// kernels (K1, K4a, K7b, K7c).
+// kernels (K1's f32 body, K4a / K4b / K7c's f32 chunk body, K7b).
 template <typename T, int D>
-using LaneVec = typename std::conditional<std::is_same<T, float>::value && (D > 128), RowVecF32Wide, RowVec<T>>::type;
+using LaneVec = typename LaneVecSel<T, D>::type;
 
 __device__ __forceinline__ void to_float(const float4& r, float* f) {
   f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
-}
-
-__device__ __forceinline__ void to_float(const Float8& r, float* f) {
-  to_float(r.lo, f);
-  to_float(r.hi, f + 4);
 }
 
 __device__ __forceinline__ void to_float(const uint4& r, float* f) {
@@ -102,6 +121,29 @@ __device__ __forceinline__ void to_float(const int2& r, float* f) {
     f[4 * i + 2] = c[i].z;
     f[4 * i + 3] = c[i].w;
   }
+}
+
+__device__ __forceinline__ void to_float(const uint2& r, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ void to_float(const char4& c, float* f) {
+  f[0] = c.x;
+  f[1] = c.y;
+  f[2] = c.z;
+  f[3] = c.w;
+}
+
+template <typename Piece, int C>
+__device__ __forceinline__ void to_float(const Pack<Piece, C>& r, float* f) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) to_float(r.v[c], f + c * PieceN<Piece>::N);
 }
 
 template <typename T, typename RV = RowVec<T>>
@@ -188,16 +230,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// wait until at most n (0..3, block-uniform) cp.async groups are in flight
-__device__ __forceinline__ void cp_async_wait_upto(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    default: cp_async_wait<3>(); break;
-  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

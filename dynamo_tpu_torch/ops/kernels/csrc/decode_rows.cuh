@@ -150,33 +150,56 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The largest of 8..1 that divides G: the query heads a decode block of K1,
-// K4a or K7c holds (G <= 8: all of them). For G > 8 the kv head's G / sub
-// sub-groups go to blocks of their own, each of which re-reads the kv head's
-// rows.
-__host__ __device__ inline int head_subgroup(int G) {
-  for (int sg = 8; sg > 1; --sg)
+// The largest of cap..1 that divides G: the query heads a decode block of
+// K1's f32 body, K4a / K4b / K7c's f32 chunk body holds (G <= cap: all of
+// them). For G > cap the kv head's G / sub sub-groups go to blocks of their
+// own, each of which re-reads the kv head's rows. The cap keeps a lane's
+// query and accumulator registers (2 x sub x VEC) beside its rows in flight
+// under 255 without spills (ptxas -v on an H100 build): 8 heads at 8 values
+// a lane, 4 at 12 (D 384), 3 at 16 (D 512).
+__host__ __device__ constexpr int subgroup_cap(int vec) { return vec <= 8 ? 8 : 48 / vec; }
+
+__host__ __device__ inline int head_subgroup(int G, int cap = 8) {
+  for (int sg = cap; sg > 1; --sg)
     if (G % sg == 0) return sg;
   return 1;
 }
 
+// F<SG>::run(args...) for SG = head_subgroup(G, Cap); the sub-groups past
+// Cap are never instantiated.
+template <int Cap, template <int> class F, typename... Args>
+int with_head_subgroup(int G, Args&&... args) {
+  switch (head_subgroup(G, Cap)) {
+    case 1: return F<1>::run(args...);
+    case 2: if constexpr (Cap >= 2) return F<2>::run(args...); break;
+    case 3: if constexpr (Cap >= 3) return F<3>::run(args...); break;
+    case 4: if constexpr (Cap >= 4) return F<4>::run(args...); break;
+    case 5: if constexpr (Cap >= 5) return F<5>::run(args...); break;
+    case 6: if constexpr (Cap >= 6) return F<6>::run(args...); break;
+    case 7: if constexpr (Cap >= 7) return F<7>::run(args...); break;
+    case 8: if constexpr (Cap >= 8) return F<8>::run(args...); break;
+    default: break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // The split-K merge of the decode kernels that split a sequence's context
-// over blocks (K3a, K4b): split s of sequence b wrote m (a log2-domain
+// over blocks (K1's and K3a's split bodies, K4a / K4b): split s of sequence b wrote m (a log2-domain
 // running max), l and acc [D] for every head to m_part, l_part [B, n_split,
 // Hq] and acc_part [B, n_split, Hq, D]; the sequence's ceil(ctx /
 // split_rows) splits combine as out = sum 2^(m_s - M) acc_s / max(sum 2^(m_s
 // - M) l_s, 1e-20), M their max. Block (8 heads, sequence), one warp a head:
 // lane j computes split s0 + j's weight once, and the lanes of a column
 // take it by shuffle. Fixed loops, no atomics: two launches give the same
-// bits.
+// bits. kCols output columns a lane: D <= 32 kCols (8 up to 256, 16 up to
+// 512; launch_merge_splits picks).
 constexpr int kMergeHeads = 8;
 
-template <typename TQ>
+template <typename TQ, int kCols>
 __global__ void __launch_bounds__(32 * kMergeHeads)
 merge_splits(const float* __restrict__ m_part, const float* __restrict__ l_part,
              const float* __restrict__ acc_part, const int* __restrict__ positions,
              TQ* __restrict__ out, int Hq, int D, int cap, int split_rows, int n_split) {
-  constexpr int kCols = 8;  // output columns a lane: D <= 256
   const int h = blockIdx.x * kMergeHeads + (threadIdx.x >> 5);
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
@@ -208,6 +231,24 @@ merge_splits(const float* __restrict__ m_part, const float* __restrict__ l_part,
     const int d = lane + 32 * c;
     if (d < D) store1(out + ((size_t)b * Hq + h) * D + d, a[c] / denom);
   }
+}
+
+// merge_splits over B sequences of Hq heads of D <= 512 columns; returns
+// cudaGetLastError().
+template <typename TQ>
+int launch_merge_splits(const float* m_part, const float* l_part, const float* acc_part, const int* positions,
+                        TQ* out, int B, int Hq, int D, int cap, int split_rows, int n_split, cudaStream_t stream) {
+  const dim3 grid((Hq + kMergeHeads - 1) / kMergeHeads, B);
+  if (D <= 256) {
+    merge_splits<TQ, 8><<<grid, 32 * kMergeHeads, 0, stream>>>(m_part, l_part, acc_part, positions, out, Hq, D, cap,
+                                                               split_rows, n_split);
+  } else if (D <= 512) {
+    merge_splits<TQ, 16><<<grid, 32 * kMergeHeads, 0, stream>>>(m_part, l_part, acc_part, positions, out, Hq, D,
+                                                                cap, split_rows, n_split);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dtt

@@ -8,7 +8,11 @@
 // probabilities rounded per page; see its design below. K7c
 // replaces tools/profile_attn.py make_perseq_variant (_perseq_variant_kernel):
 // the reference perseq kernel's one-page-an-iteration schedule with its f32
-// casts toggled. K7b replaces tools/profile_attn.py paged_decode_dmaonly
+// casts toggled; each toggle computes a function another body here already
+// computes, so the launcher routes it there (paged_attention.py): without
+// cast_f32, K4b's split at one page a unit; with it, K1's split tensor-core
+// body; over f32 pools, where rounding is the identity, the chunk body
+// below. K7b replaces tools/profile_attn.py paged_decode_dmaonly
 // (_null_kernel): K1's grid and page stream with no math, an instrument.
 //
 // Contract of K4a, K4b and K7c: K1's (paged_attention.cu) over f32 or bf16
@@ -32,7 +36,8 @@
 // What bounds all four on an H100: bytes, as K1: each sequence's pages of K
 // and V are read once, at 4 FLOP an element (K7b: 1 add).
 //
-// K7c design, and K4a / K4b over f32 pools (chunk_softmax_decode): one
+// The chunk body, K4a / K4b / K7c over f32 pools (chunk_softmax_decode;
+// the rounding is the identity there): one
 // block per (sequence, kv head), K1's four warps and row groups of D / VEC
 // lanes, so the G query heads of a GQA group share every K/V row the block
 // loads. A 256-row chunk of bf16 K and V at D 128 is 128 KB, 256 KB
@@ -42,14 +47,15 @@
 // memory (G x chunk rows f32, 8 KB at G 8 and 256 rows); (2) warp w takes
 // heads w, w + 4: the chunk max, each probability once (one exp a (head,
 // row), where K1 repeats its softmax update on every lane of a row group),
-// the sum, and the rounded probabilities back into shared memory; (3) the
+// the sum, and the probabilities back into shared memory; (3) the
 // row groups rescale their accumulators once and stream the chunk's V rows
 // into them. The row groups share the chunk's max, so at the end their
 // accumulators merge by a plain sum (shuffles within a warp, shared memory
 // across warps). The chunk boundary is the reference's: that is where the
-// rounded probabilities take their running max. As in K1, a block holds
-// head_subgroup(G) <= 8 of the G query heads, the rest of a larger G in
-// blocks of their own along a third grid dimension.
+// rounded probabilities take their running max. As in K1's f32 body, a
+// block holds head_subgroup(G, cap) of the G query heads (8 up to D 256, 4
+// at 384, 3 at 512), the rest of a larger G in blocks of their own along a
+// third grid dimension.
 //
 // K4b and K4a over bf16 pools (grouped_scores, grouped_pv, merge_splits):
 // an exact split over the context. The reference groups sequences per
@@ -86,9 +92,13 @@
 // f32 pools (the checks and the f32 parity phases) take chunk_softmax_decode
 // at one unit a chunk: rounding to f32 is the identity.
 //
-// Head dims: 64, 128 and 256 (f32 rows of 256 in two 16-byte loads a lane,
-// LaneVec; K4b's pass 2 holds 128 accumulators a thread at 256). A wider row
-// needs more than a warp's 32 lanes of 8 values.
+// Head dims: 64, 128, 256, 384 and 512. The register-resident bodies give a
+// lane D / 32 values past a RowVec a lane (LaneVec: f32 rows of 256 in two
+// 16-byte loads, of 512 in four). Pass 1 holds the 16 head rows' query
+// fragments in registers (128 at D 512); pass 2 holds an accumulator of D / 2
+// registers a thread up to D 256 and, past it, one column slice of D / 2
+// (128 registers at 512), the slices over blocks (each reads its slice of V
+// and all of the split's scores).
 
 // K7b design (decode_load_twin): K1's block, row groups and load_rows; each
 // row group sums its K + V slices in f32, the row groups merge by shuffles
@@ -109,17 +119,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 4;
 constexpr int kSmemBudget = 227 * 1024;  // the dynamic shared memory a block may have
 
-// p rounded to the pool dtype TK and back (round to nearest even, as the
-// reference's astype and torch's .to).
-template <typename TK>
-__device__ __forceinline__ float round_to(float p) {
-  if constexpr (std::is_same<TK, __nv_bfloat16>::value) {
-    return __bfloat162float(__float2bfloat16_rn(p));
-  } else {
-    return p;
-  }
-}
-
 // Sum each lane's N values over the row groups of its warp (lanes that
 // differ in the bits at and above LPR); every lane ends with the sum.
 template <int LPR, int N>
@@ -138,7 +137,7 @@ __device__ __forceinline__ void load_queries(float (&qf)[G][VEC], const TQ* __re
   for (int g = 0; g < G; ++g) dtt::load_floats<TQ, VEC>(q + (head0 + g) * D + d0, qf[g]);
 }
 
-// ---------------------------------------------------------------- K4a / K7c
+// ---------------------------------------------------------------- f32 chunk body
 
 size_t chunk_smem_bytes(int SG, int D, int chunk_rows) {
   return ((size_t)SG * chunk_rows + 3 * SG + (size_t)kWarps * SG * D) * sizeof(float);
@@ -146,12 +145,14 @@ size_t chunk_smem_bytes(int SG, int D, int chunk_rows) {
 
 // Block (kv head, sequence, sub-group): the SG query heads kvh * G +
 // blockIdx.z * SG + g of the kv head's G.
-template <typename TQ, typename TK, int D, int SG, bool kRound>
+template <int D, int SG>
 __global__ void __launch_bounds__(kThreads)
-chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
-                     const TK* __restrict__ v_pool, const int* __restrict__ page_tables,
-                     const int* __restrict__ positions, TQ* __restrict__ out, int Hkv, int G,
+chunk_softmax_decode(const float* __restrict__ q, const float* __restrict__ k_pool,
+                     const float* __restrict__ v_pool, const int* __restrict__ page_tables,
+                     const int* __restrict__ positions, float* __restrict__ out, int Hkv, int G,
                      int page_size, int max_pages, int chunk_rows, float scale) {
+  using TQ = float;
+  using TK = float;
   using RV = dtt::LaneVec<TK, D>;
   constexpr int VEC = RV::N;
   constexpr int LPR = D / VEC;  // lanes per K/V row
@@ -225,7 +226,7 @@ chunk_softmax_decode(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
       for (int j = lane; j < nv; j += 32) {
         const float p = expf(sp[j] - new_m);
         sum += p;
-        sp[j] = kRound ? round_to<TK>(p) : p;
+        sp[j] = p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -294,6 +295,7 @@ constexpr int kScoreStride = kGrpTile + 8;  // pass 2's score tile row (floats):
 // A K4b launch's shapes (host-computed).
 struct GroupedArgs {
   int Hkv, G, page_size, max_pages, split_rows, n_split, n_ht, s_pad;
+  int n_cs;        // pass 2's column slices (pass 1: 1)
   int unit_pages;  // the rounding unit: K4b 1 page, K4a chunk_pages(ps, max_pages)
   float scale;     // 1 / sqrt(D)
 };
@@ -303,27 +305,32 @@ struct GroupedArgs {
 // maxima (16 x the pages through the end of the split's last unit).
 template <int D>
 struct GrpSmem {
-  static constexpr int kRowBytes = (D / 8 + 1) * 16;  // an odd number of 16-byte chunks
+  static constexpr int DO = D <= 256 ? D : D / 2;       // pass 2's output columns a block (a column slice)
+  static constexpr int kSlices = D / DO;
+  static constexpr int kRowBytes = (D / 8 + 1) * 16;    // an odd number of 16-byte chunks
+  static constexpr int kVRowBytes = (DO / 8 + 1) * 16;  // pass 2's V slice rows
   static constexpr int kKTile = kGrpTile * kRowBytes;
+  static constexpr int kVTile = kGrpTile * kVRowBytes;
   static constexpr int kScoreTile = 16 * kScoreStride * 4;
   static size_t scores(int split_rows) { return (size_t)kGrpStages * kKTile + split_rows * 4 + 16 * (split_rows + 4) * 4; }
   static size_t pv(int split_rows, int page_size, int unit_pages) {
-    return (size_t)kGrpStages * (kKTile + kScoreTile) + split_rows * 4 +
+    return (size_t)kGrpStages * (kVTile + kScoreTile) + split_rows * 4 +
            16 * ((split_rows + page_size - 1) / page_size + unit_pages + 1) * 4;
   }
 };
 
 // The block's item: kv head kvh, 16-head tile ht (heads ht * 16 .. of its G),
-// Gt of those heads real; the split's rows [r0, r1); npc, the pages of the
-// sequence's context.
+// Gt of those heads real, column slice cs (pass 2); the split's rows [r0,
+// r1); npc, the pages of the sequence's context.
 struct GrpBlock {
-  int b, split, kvh, ht, Gt, r0, r1, npc;
+  int b, split, kvh, ht, cs, Gt, r0, r1, npc;
 };
 
 __device__ __forceinline__ bool grp_block(GrpBlock& k, const GroupedArgs& f, const int* positions) {
   k.split = blockIdx.x;
-  k.kvh = blockIdx.y / f.n_ht;
-  k.ht = blockIdx.y % f.n_ht;
+  k.cs = blockIdx.y % f.n_cs;
+  k.kvh = blockIdx.y / f.n_cs / f.n_ht;
+  k.ht = blockIdx.y / f.n_cs % f.n_ht;
   k.b = blockIdx.z;
   k.Gt = min(16, f.G - 16 * k.ht);
   const int ctx = dtt::decode_ctx(positions, k.b, f.max_pages * f.page_size);
@@ -340,19 +347,19 @@ __device__ __forceinline__ void grp_rows(int* tok, const GrpBlock& k, const int*
   __syncthreads();
 }
 
-// cp.async copies of context rows [t0, t0 + kGrpTile) of kv head kvh (rows
-// at or past r1, and each row's pad chunk, zero-filled) into a tile of
-// GrpSmem<D>::kRowBytes a row.
-template <int D>
+// cp.async copies of columns [col0, col0 + W) of context rows [t0, t0 +
+// kGrpTile) of kv head kvh (rows at or past r1, and each row's pad chunk,
+// zero-filled) into a tile of (W / 8 + 1) 16-byte chunks a row.
+template <int D, int W = D>
 __device__ __forceinline__ void grp_rows_tile(uint32_t dst, const __nv_bfloat16* __restrict__ pool, const int* tok,
-                                              int t0, const GrpBlock& k, const GroupedArgs& f) {
-  constexpr int RC = D / 8 + 1;
+                                              int t0, const GrpBlock& k, const GroupedArgs& f, int col0 = 0) {
+  constexpr int RC = W / 8 + 1;
   for (int idx = threadIdx.x; idx < kGrpTile * RC; idx += kThreads) {
     const int r = idx / RC;
     const int c = idx % RC;
     const int j = t0 + r;
-    const bool ok = j < k.r1 && c < D / 8;
-    const size_t off = ok ? ((size_t)tok[j - k.r0] * f.Hkv + k.kvh) * D + c * 8 : 0;
+    const bool ok = j < k.r1 && c < W / 8;
+    const size_t off = ok ? ((size_t)tok[j - k.r0] * f.Hkv + k.kvh) * D + col0 + c * 8 : 0;
     dtt::cp_async16(dst + idx * 16, pool + off, ok);
   }
 }
@@ -459,7 +466,8 @@ grouped_scores(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 // max over every page through the end of the unit of unit_pages pages that
 // holds it); warp w takes rows 16 w .. 16 w + 15 of every 64-row tile, so
 // each probability is formed once, and the warps' states merge at the end.
-// Writes (M of the split's last page, l, acc) to the partials.
+// Writes (M of the split's last page, l, acc of its column slice) to the
+// partials.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ page_tables,
@@ -467,9 +475,10 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
            float* __restrict__ m_part, float* __restrict__ l_part, float* __restrict__ acc_part,
            const GroupedArgs f) {
   using L = GrpSmem<D>;
-  constexpr int NB = D / 8;  // 8-column blocks of the output
-  constexpr int kStage = L::kKTile + L::kScoreTile;
-  static_assert(kGrpStages * kStage >= (2 + D) * kWarps * 16 * 4, "the warps' merge reuses the ring");
+  constexpr int DO = L::DO;
+  constexpr int NB = DO / 8;  // 8-column blocks of the block's output slice
+  constexpr int kStage = L::kVTile + L::kScoreTile;
+  static_assert(kGrpStages * kStage >= (2 + DO) * kWarps * 16 * 4, "the warps' merge reuses the ring");
   extern __shared__ __align__(16) uint8_t grp_smem[];
   GrpBlock k;
   if (!grp_block(k, f, positions)) return;
@@ -494,12 +503,12 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
   auto start = [&](int ti) {
     const uint32_t st = ring + (ti % kGrpStages) * kStage;
     const int t0 = k.r0 + ti * kGrpTile;
-    grp_rows_tile<D>(st, v_pool, tok, t0, k, f);
+    grp_rows_tile<D, DO>(st, v_pool, tok, t0, k, f, k.cs * DO);
     for (int idx = threadIdx.x; idx < 16 * kGrpTile; idx += kThreads) {
       const int h = idx / kGrpTile;
       const int r = idx % kGrpTile;
       const bool ok = h < k.Gt && t0 + r < k.r1;
-      dtt::cp_async4(st + L::kKTile + (h * kScoreStride + r) * 4, scores + (ok ? (head0 + h) * f.s_pad + t0 + r : 0),
+      dtt::cp_async4(st + L::kVTile + (h * kScoreStride + r) * 4, scores + (ok ? (head0 + h) * f.s_pad + t0 + r : 0),
                      ok);
     }
   };
@@ -566,8 +575,8 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
     const uint8_t* st = grp_smem + (ti % kGrpStages) * kStage;
     const int lo = k.r0 + ti * kGrpTile + 16 * warp;
     if (lo < k.r1) {  // warp-uniform
-      const uint32_t vt = dtt::smem_u32(st) + 16 * warp * L::kRowBytes;
-      const float* sc = reinterpret_cast<const float*>(st + L::kKTile) + 16 * warp + 2 * t;
+      const uint32_t vt = dtt::smem_u32(st) + 16 * warp * L::kVRowBytes;
+      const float* sc = reinterpret_cast<const float*>(st + L::kVTile) + 16 * warp + 2 * t;
       float sv[2][4];  // (head row g / g + 8) x rows 2t, 2t + 1, 2t + 8, 2t + 9 of the k-step
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -618,7 +627,7 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
 #pragma unroll
         for (int n = 0; n < NB; ++n) {
           uint32_t b0, b1;
-          dtt::ldsm_x2_trans(b0, b1, vt + (lane & 15) * L::kRowBytes + n * 16);
+          dtt::ldsm_x2_trans(b0, b1, vt + (lane & 15) * L::kVRowBytes + n * 16);
           dtt::mma_bf16_16816(acc[n], a, b0, b1);
         }
       }
@@ -636,7 +645,7 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
   }
   float* red_m = reinterpret_cast<float*>(grp_smem);  // [kWarps][16]
   float* red_l = red_m + kWarps * 16;                  // [kWarps][16]
-  float* red_acc = red_l + kWarps * 16;                // [kWarps][16][D]
+  float* red_acc = red_l + kWarps * 16;                // [kWarps][16][DO]
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = g + 8 * h;
@@ -646,15 +655,15 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
     }
 #pragma unroll
     for (int n = 0; n < NB; ++n)
-      *reinterpret_cast<float2*>(red_acc + (warp * 16 + row) * D + n * 8 + 2 * t) =
+      *reinterpret_cast<float2*>(red_acc + (warp * 16 + row) * DO + n * 8 + 2 * t) =
           make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
   }
   __syncthreads();
   const size_t Hq = (size_t)f.Hkv * f.G;
   const size_t part = (size_t)k.b * f.n_split + k.split;
-  for (int idx = threadIdx.x; idx < k.Gt * D; idx += kThreads) {
-    const int row = idx / D;
-    const int d = idx % D;
+  for (int idx = threadIdx.x; idx < k.Gt * DO; idx += kThreads) {
+    const int row = idx / DO;
+    const int d = idx % DO;
     float M = dtt::kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) M = fmaxf(M, red_m[w * 16 + row]);
@@ -662,12 +671,12 @@ grouped_pv(const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pag
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float wt = expf(red_m[w * 16 + row] - M);
-      A = fmaf(red_acc[(w * 16 + row) * D + d], wt, A);
+      A = fmaf(red_acc[(w * 16 + row) * DO + d], wt, A);
       Lsum = fmaf(red_l[w * 16 + row], wt, Lsum);
     }
     const size_t hq = part * Hq + (size_t)k.kvh * f.G + 16 * k.ht + row;
-    acc_part[hq * D + d] = A;
-    if (d == 0) {
+    acc_part[hq * D + k.cs * DO + d] = A;
+    if (k.cs == 0 && d == 0) {
       m_part[hq] = M * 1.4426950408889634f;  // merge_splits takes log2 units
       l_part[hq] = Lsum;
     }
@@ -743,59 +752,41 @@ struct VariantArgs {
   const int* pos;
   void* out;
   int B, Hq, Hkv, D, ps, max_pages;
-  int chunk_rows;  // K4a, K7c, and K4a / K4b over f32 pools: unit_pages * ps
-  bool round;
+  int chunk_rows;  // the f32 chunk body: unit_pages * ps
   cudaStream_t stream;
 };
 
-template <typename T, int D, int SG>
+template <int D>
 struct ChunkLaunch {
-  static int run(const VariantArgs& a) {
-    const size_t smem = chunk_smem_bytes(SG, D, a.chunk_rows);
-    if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
-    static std::atomic<bool> raised[2][dtt::kMaxDevices];
-    const cudaError_t err = a.round ? dtt::raise_smem_limit_once(chunk_softmax_decode<T, T, D, SG, true>, raised[1], kSmemBudget)
-                                    : dtt::raise_smem_limit_once(chunk_softmax_decode<T, T, D, SG, false>, raised[0], kSmemBudget);
-    if (err != cudaSuccess) return (int)err;
-    const int G = a.Hq / a.Hkv;
-    const dim3 grid(a.Hkv, a.B, G / SG);
-    const float scale = (float)(1.0 / sqrt((double)D));  // the plain version's f32 scale
-    const T* q = static_cast<const T*>(a.q);
-    const T* k = static_cast<const T*>(a.k);
-    const T* v = static_cast<const T*>(a.v);
-    T* out = static_cast<T*>(a.out);
-    if (a.round) {
-      chunk_softmax_decode<T, T, D, SG, true><<<grid, kThreads, smem, a.stream>>>(
-          q, k, v, a.pt, a.pos, out, a.Hkv, G, a.ps, a.max_pages, a.chunk_rows, scale);
-    } else {
-      chunk_softmax_decode<T, T, D, SG, false><<<grid, kThreads, smem, a.stream>>>(
-          q, k, v, a.pt, a.pos, out, a.Hkv, G, a.ps, a.max_pages, a.chunk_rows, scale);
+  template <int SG>
+  struct At {
+    static int run(const VariantArgs& a) {
+      const size_t smem = chunk_smem_bytes(SG, D, a.chunk_rows);
+      if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
+      static std::atomic<bool> raised[dtt::kMaxDevices];
+      const cudaError_t err = dtt::raise_smem_limit_once(chunk_softmax_decode<D, SG>, raised, kSmemBudget);
+      if (err != cudaSuccess) return (int)err;
+      const int G = a.Hq / a.Hkv;
+      chunk_softmax_decode<D, SG><<<dim3(a.Hkv, a.B, G / SG), kThreads, smem, a.stream>>>(
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v), a.pt,
+          a.pos, static_cast<float*>(a.out), a.Hkv, G, a.ps, a.max_pages, a.chunk_rows,
+          (float)(1.0 / sqrt((double)D)));  // the plain version's f32 scale
+      return (int)cudaGetLastError();
     }
-    return (int)cudaGetLastError();
+  };
+  static int run(const VariantArgs& a) {
+    constexpr int kCap = dtt::subgroup_cap(dtt::LaneVec<float, D>::N);
+    return dtt::with_head_subgroup<kCap, At>(a.Hq / a.Hkv, a);
   }
 };
 
-template <typename T, int D>
-int chunk_subgroup(const VariantArgs& a) {
-  switch (dtt::head_subgroup(a.Hq / a.Hkv)) {
-    case 1: return ChunkLaunch<T, D, 1>::run(a);
-    case 2: return ChunkLaunch<T, D, 2>::run(a);
-    case 3: return ChunkLaunch<T, D, 3>::run(a);
-    case 4: return ChunkLaunch<T, D, 4>::run(a);
-    case 5: return ChunkLaunch<T, D, 5>::run(a);
-    case 6: return ChunkLaunch<T, D, 6>::run(a);
-    case 7: return ChunkLaunch<T, D, 7>::run(a);
-    case 8: return ChunkLaunch<T, D, 8>::run(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
 int chunk_head_dim(const VariantArgs& a) {
   switch (a.D) {
-    case 64: return chunk_subgroup<T, 64>(a);
-    case 128: return chunk_subgroup<T, 128>(a);
-    case 256: return chunk_subgroup<T, 256>(a);
+    case 64: return ChunkLaunch<64>::run(a);
+    case 128: return ChunkLaunch<128>::run(a);
+    case 256: return ChunkLaunch<256>::run(a);
+    case 384: return ChunkLaunch<384>::run(a);
+    case 512: return ChunkLaunch<512>::run(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -807,7 +798,7 @@ int launch_grouped(const VariantArgs& a, float* scores, float* pmax, float* m_pa
   using L = GrpSmem<D>;
   static std::atomic<bool> raised_scores[dtt::kMaxDevices], raised_pv[dtt::kMaxDevices];
   // the plain version's scale: 1 / sqrt(D) in double, rounded once to f32
-  GroupedArgs f{a.Hkv, a.Hq / a.Hkv, a.ps, a.max_pages, split_rows, n_split, 0, s_pad, unit_pages,
+  GroupedArgs f{a.Hkv, a.Hq / a.Hkv, a.ps, a.max_pages, split_rows, n_split, 0, s_pad, 1, unit_pages,
                 (float)(1.0 / sqrt((double)D))};
   f.n_ht = (f.G + 15) / 16;
   const size_t smem1 = L::scores(split_rows);
@@ -816,21 +807,18 @@ int launch_grouped(const VariantArgs& a, float* scores, float* pmax, float* m_pa
   cudaError_t err = dtt::raise_smem_limit_once(grouped_scores<D>, raised_scores, 227 * 1024);
   if (err == cudaSuccess) err = dtt::raise_smem_limit_once(grouped_pv<D>, raised_pv, 227 * 1024);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_split, a.Hkv * f.n_ht, a.B);
   const auto* q = static_cast<const __nv_bfloat16*>(a.q);
-  grouped_scores<D><<<grid, kThreads, smem1, a.stream>>>(q, static_cast<const __nv_bfloat16*>(a.k), a.pt, a.pos,
-                                                         scores, pmax, f);
+  grouped_scores<D><<<dim3(n_split, a.Hkv * f.n_ht, a.B), kThreads, smem1, a.stream>>>(
+      q, static_cast<const __nv_bfloat16*>(a.k), a.pt, a.pos, scores, pmax, f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  grouped_pv<D><<<grid, kThreads, smem2, a.stream>>>(static_cast<const __nv_bfloat16*>(a.v), a.pt, a.pos, scores,
-                                                     pmax, m_part, l_part, acc_part, f);
+  f.n_cs = L::kSlices;
+  grouped_pv<D><<<dim3(n_split, a.Hkv * f.n_ht * f.n_cs, a.B), kThreads, smem2, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.v), a.pt, a.pos, scores, pmax, m_part, l_part, acc_part, f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dtt::merge_splits<__nv_bfloat16><<<dim3((a.Hq + dtt::kMergeHeads - 1) / dtt::kMergeHeads, a.B),
-                                     32 * dtt::kMergeHeads, 0, a.stream>>>(
-      m_part, l_part, acc_part, a.pos, static_cast<__nv_bfloat16*>(a.out), a.Hq, D, a.max_pages * a.ps, split_rows,
-      n_split);
-  return (int)cudaGetLastError();
+  return dtt::launch_merge_splits(m_part, l_part, acc_part, a.pos, static_cast<__nv_bfloat16*>(a.out), a.B, a.Hq, D,
+                                  a.max_pages * a.ps, split_rows, n_split, a.stream);
 }
 
 template <typename T, int D>
@@ -847,6 +835,8 @@ int twin_head_dim(const VariantArgs& a) {
     case 64: return launch_twin<T, 64>(a);
     case 128: return launch_twin<T, 128>(a);
     case 256: return launch_twin<T, 256>(a);
+    case 384: return launch_twin<T, 384>(a);
+    case 512: return launch_twin<T, 512>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -857,24 +847,20 @@ bool shapes_ok(const VariantArgs& a) {
 
 }  // namespace
 
-// K4a and K7c: chunks of chunk_rows context rows (K4a: C * ps; K7c: ps);
-// round_probs = 1 rounds the probabilities to the pool dtype before P.V (K4a,
-// K7c without cast_f32). dtype: 0 = float32, 1 = bfloat16 (q and both
-// pools). Each entry point returns cudaGetLastError() after its launches (0
-// = launched); shapes the kernel does not take return cudaErrorInvalidValue
-// without launching.
+// The f32 chunk body (K7c over f32 pools): chunks of chunk_rows context rows
+// (K7c: ps). dtype must be 0 (float32 q and pools). Each entry point returns
+// cudaGetLastError() after its launches (0 = launched); shapes the kernel
+// does not take return cudaErrorInvalidValue without launching.
 extern "C" int chunk_softmax_decode(const void* q, const void* k_pool, const void* v_pool,
                                     const void* page_tables, const void* positions, void* out,
                                     int B, int Hq, int Hkv, int D, int page_size, int max_pages,
-                                    int chunk_rows, int round_probs, int dtype, void* stream) {
+                                    int chunk_rows, int dtype, void* stream) {
   const VariantArgs a{q, k_pool, v_pool, static_cast<const int*>(page_tables),
                       static_cast<const int*>(positions), out, B, Hq, Hkv, D, page_size, max_pages,
-                      chunk_rows, round_probs != 0, static_cast<cudaStream_t>(stream)};
+                      chunk_rows, static_cast<cudaStream_t>(stream)};
   if (B <= 0) return 0;
-  if (!shapes_ok(a) || chunk_rows <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return chunk_head_dim<float>(a);
-  if (dtype == 1) return chunk_head_dim<__nv_bfloat16>(a);
-  return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(a) || chunk_rows <= 0 || dtype != 0) return (int)cudaErrorInvalidValue;
+  return chunk_head_dim(a);
 }
 
 // K4b (unit_pages 1) and K4a (unit_pages = its chunk's pages): the
@@ -883,7 +869,7 @@ extern "C" int chunk_softmax_decode(const void* q, const void* k_pool, const voi
 // multiple of 4), pmax [B, Hq, max_pages] and the partials m_part, l_part
 // [B, n_split, Hq], acc_part [B, n_split, Hq, D] f32, splits of split_rows
 // rows (a multiple of ps), n_split >= ceil(max_pages * ps / split_rows).
-// f32: K7c's body at a unit a chunk (the scratch is not read).
+// f32: the chunk body at a unit a chunk (the scratch is not read).
 extern "C" int paged_decode_attention_grouped(const void* q, const void* k_pool, const void* v_pool,
                                               const void* page_tables, const void* positions, void* out, int B,
                                               int Hq, int Hkv, int D, int page_size, int max_pages, void* scores,
@@ -894,9 +880,9 @@ extern "C" int paged_decode_attention_grouped(const void* q, const void* k_pool,
   if (unit_pages <= 0 || (long long)unit_pages * page_size > INT_MAX) return (int)cudaErrorInvalidValue;
   const VariantArgs a{q, k_pool, v_pool, static_cast<const int*>(page_tables),
                       static_cast<const int*>(positions), out, B, Hq, Hkv, D, page_size, max_pages,
-                      unit_pages * page_size, false, static_cast<cudaStream_t>(stream)};
+                      unit_pages * page_size, static_cast<cudaStream_t>(stream)};
   if (!shapes_ok(a)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return chunk_head_dim<float>(a);
+  if (dtype == 0) return chunk_head_dim(a);
   if (dtype != 1 || split_rows <= 0 || split_rows % page_size || s_pad % 4 ||
       (long long)s_pad < (long long)max_pages * page_size ||
       (long long)n_split * split_rows < (long long)max_pages * page_size)
@@ -910,6 +896,8 @@ extern "C" int paged_decode_attention_grouped(const void* q, const void* k_pool,
     case 64: return launch_grouped<64>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad, unit_pages);
     case 128: return launch_grouped<128>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad, unit_pages);
     case 256: return launch_grouped<256>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad, unit_pages);
+    case 384: return launch_grouped<384>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad, unit_pages);
+    case 512: return launch_grouped<512>(a, sc, pm, mp, lp, ap, split_rows, n_split, s_pad, unit_pages);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -921,7 +909,7 @@ extern "C" int paged_decode_dmaonly(const void* k_pool, const void* v_pool,
                                     int dtype, void* stream) {
   const VariantArgs a{nullptr, k_pool, v_pool, static_cast<const int*>(page_tables),
                       static_cast<const int*>(positions), out, B, Hq, Hkv, D, page_size, max_pages,
-                      0, false, static_cast<cudaStream_t>(stream)};
+                      0, static_cast<cudaStream_t>(stream)};
   if (B <= 0) return 0;
   if (!shapes_ok(a)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return twin_head_dim<float>(a);

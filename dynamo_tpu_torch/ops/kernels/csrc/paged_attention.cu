@@ -1,21 +1,22 @@
 // K1 and K3a: paged decode attention for Hopper (sm_90a).
 //
-// K1 replaces the TPU kernels dynamo_tpu/ops/pallas/paged_attention.py
-// paged_decode_attention_pallas_lookahead (_kernel_lookahead) and
-// paged_decode_attention_pallas (_kernel). Both compute the same function and
-// differ only in how the TPU schedules its page DMAs (the lookahead variant
-// prefetches the NEXT grid program's pages into scratch that persists across
-// the serial TPU grid); one kernel here stands for both. Nothing carries
-// between CUDA blocks, so no cross-block prefetch is attempted.
+// K1 replaces the TPU kernels dynamo_tpu/ops/pallas/paged_attention.py:536
+// paged_decode_attention_pallas_lookahead (_kernel_lookahead, pallas_call at
+// :587) and :952 paged_decode_attention_pallas (_kernel, pallas_call at
+// :988). Both compute the same function and differ only in how the TPU
+// schedules its page DMAs (the lookahead variant prefetches the NEXT grid
+// program's pages into scratch that persists across the serial TPU grid);
+// one kernel here stands for both. Nothing carries between CUDA blocks, so
+// no cross-block prefetch is attempted.
 //
 // K3a replaces paged_decode_attention_pallas_folded (_kernel_folded): the
 // same function for head dims that are not a multiple of 128 (TinyLlama's
-// 64; here any head dim below 256 but 128), which the TPU reads from pools with
-// the kv heads folded into the lane dim. Its zero-placed folded queries and
-// one-hot output selection are a Mosaic lane workaround and are not carried
-// over; see K3a below. The reference's folded kernel rounds its
-// probabilities to the pool dtype before P.V; K3a keeps them f32, as K1 and
-// the reference's plain version do.
+// 64; here any head dim below 512 that is no multiple of 128), which the TPU
+// reads from pools with the kv heads folded into the lane dim. Its
+// zero-placed folded queries and one-hot output selection are a Mosaic lane
+// workaround and are not carried over; see K3a below. The reference's folded
+// kernel rounds its probabilities to the pool dtype before P.V; K3a keeps
+// them f32, as K1 and the reference's plain version do.
 //
 // Contract (both): q [B, Hq, D] f32 or bf16; k/v pools [P, ps, Hkv, D] (the
 // folded [P, ps, Hkv*D] is the same memory) of q's dtype, or int8 with f32
@@ -31,67 +32,64 @@
 // What bounds both on an H100: bytes. Every sequence reads its ceil(len/ps)
 // pages of K and V once (int8: one byte a value plus 4 bytes of scale a row);
 // the arithmetic is 4 FLOP per K/V element, far below the card's ~295
-// FLOP/byte ridge.
+// FLOP/byte ridge. At the serve batch (B 64, contexts 1..2048, Llama-3-8B's
+// 8 kv heads of D 128) that is ~0.07 ms of bytes (int8 ~0.04).
 //
-// K1 design: one block per (sequence, kv head) so the G = Hq/Hkv query heads
-// of a GQA group share every K/V row the block loads; each K/V row is read
-// straight from HBM into registers by a group of lanes (16 bytes a lane for
-// f32 and bf16, 8 int8 values a lane, so an int8 lane keeps as many query and
-// accumulator registers as a bf16 lane: 16 values would need 256 of them at
-// G = 8), several tokens in flight per row group (kUnroll) to keep loads
-// outstanding; each row group keeps its own online-softmax state and the
-// groups merge through shared memory at the end. Inactive slots (page tables
-// of trash page 0, arbitrary positions) read only in-bounds pages and produce
-// finite output. Later work: split-K over long contexts, cp.async/TMA staging.
+// K1 design, bf16 queries over bf16 or int8 pools (paged_decode_tc; D 64,
+// 128, 256, 384 and 512, and K3a's multiples of 16 below 128). A first K1
+// gave each (sequence, kv head) one block that streamed its rows from HBM
+// into registers, row groups of lanes doing an online-softmax update on
+// every lane for every row and head: its longest sequences set the tail, its loads did not overlap its math, and it reached
+// 0.39 of the byte bound. So:
+// - The context splits over blocks in fixed units of split_rows rows (the
+//   launcher's k1_split_rows: 512 at the serve batches of 64 and 16):
+//   grid (split, kv head x 16-head tile x column slice, sequence), so the
+//   (sequence, split) items of a batch of ragged contexts balance over the
+//   132 SMs. The splits merge in merge_splits
+//   (decode_rows.cuh), a second launch with fixed loops: two launches give
+//   the same bits.
+// - K and V rows of the block's kv head reach shared memory through a
+//   cp.async ring (3 stages of 64 rows at D <= 128, 32 rows above), the
+//   split's pool rows computed once; tile t + stages - 1 loads while tile t
+//   is computed. Rows are an odd number of 16-byte chunks (conflict-free
+//   ldmatrix); rows past the context are zero-filled. Int8 codes land raw
+//   with their row scales and become bf16 fragments in registers (exact:
+//   |code| <= 127).
+// - S = Q . K^T and P . V by mma.sync m16n8k16, bf16 in, f32 sums: the G
+//   heads zero-padded to 16 rows (G > 16 in tiles of 16 over blocks), Q
+//   staged once in shared memory and read by ldmatrix. Warp w takes rows 16 w
+//   .. 16 w + 15 of every stage with a softmax state of its own (exp2, the
+//   scale folded into log2(e) / sqrt(D)), so each probability is formed once;
+//   the warps' states merge in the freed ring at the end. P is split into
+//   bf16 hi + lo (two products), so the probabilities stay f32-exact under
+//   TOL["bf16"]: one rounding of P leaves it. Int8: the K scale multiplies
+//   S's columns, the V scale P after l took it.
+// - Head dims past 256: a block holds the output columns of one slice of D /
+//   2 (an accumulator of 128 registers a thread at 512), the column slices
+//   over blocks: each reads the kv head's whole K rows and its slice of V.
+// f32 queries (f32 or int8 pools: the f32 parity phases and the checks)
+// keep an FMA body (paged_decode_kernel): one block per (kv head, sequence,
+// head sub-group), the K/V rows read straight into registers by row groups
+// of lanes (16 bytes a lane, 8 int8 values; past a RowVec a lane, D / 32
+// values in 4- to 16-byte pieces, LaneVec), kUnroll rows in flight; a block
+// holds head_subgroup(G, cap) query heads, the cap keeping a lane's query,
+// accumulator and in-flight row registers under 255 (8 heads up to D 256, 4
+// at 384, 3 at 512), the rest of G over a third grid dimension.
 //
-// G = Hq / Hkv may be any value: a block holds sub = head_subgroup(G) <= 8
-// of the kv head's query heads (all of them when G <= 8) and the G / sub
-// sub-groups run as a third grid dimension; each re-reads the kv head's rows.
-//
-// K1 takes D 64, 128 and 256 (f32 rows of 256 in two 16-byte loads a lane,
-// LaneVec). A wider row needs more than a warp's 32 lanes of 8 values (and
-// 16 values a lane would need 256 query and accumulator registers at G 8).
-//
-// K3a design (bf16 queries over bf16 or int8 pools, any D that is a multiple
-// of 8 below 128, any G and Hkv): bound by the live rows' bytes like K1. A
-// warp a 512-byte TinyLlama row with an online-softmax update on every lane
-// of every row, and a merge launch of B * Hq blocks, reach 0.7 TB/s on an
-// H100; so:
-// - Grid (context split, kv-head chunk, sequence): each block covers
-//   split_rows context rows of one sequence for the kv heads of its chunk
-//   (all Hkv when they fit: TinyLlama's whole folded row), so a staged row
-//   serves every query head of those kv heads. One warp a (kv head, 16-head
-//   tile) item, at most 8 items a block; G > 16 spreads a kv head's tiles
-//   over blocks.
-// - Staging: 32-row tiles of K and V (the chunk's slice of each token row,
-//   padded to an odd number of 16-byte chunks so ldmatrix is conflict-free)
-//   in a cp.async ring of 2-4 stages through the page table, the token
-//   rows' pool offsets computed once a block; tile t + stages - 1 loads while
-//   tile t is computed. Int8 codes land raw with their row scales (rows 16
-//   bytes longer than the codes, so the fragment reads are conflict-free)
-//   and become bf16 fragments in registers as they are read (exact); a
-//   conversion pass through shared memory cost the int8 kernel twice the
-//   bf16 one's time on an H100.
-// - Scores on the tensor cores: S = Q . K^T by mma.sync m16n8k16 (bf16 in,
-//   f32 sums: bf16 x bf16 products are exact), the G heads zero-padded to
-//   16 rows and D to a multiple of 16 (zero query columns; a row's pad
-//   chunk is zero-filled), K fragments by ldmatrix. One max / sum update
-//   per head per tile instead of per row; exp2 with the scale folded in.
-// - P . V by mma.sync with V fragments by ldmatrix.trans and P split into
-//   bf16 hi + lo (two products, as K2 / K3b do), so the probabilities stay
-//   f32-exact under TOL["bf16"] (one rounding of P leaves it). Int8: the K
-//   scale multiplies S's columns, the V scale P after l took it.
-// - Split-K as before (split_rows 128 fills the card at the serve batch);
-//   the splits merge in merge_splits (decode_rows.cuh), a launch of B *
-//   ceil(Hq / 8) blocks of 8 warps, one head a warp.
-// f32 queries (f32 or int8 pools: the f32 parity phases and the checks),
-// and bf16 queries at the head dims the tensor-core body does not take (D
-// 136..248, and any D that is no multiple of 8, whose rows start off 16 and
-// off 8 bytes: D 100 over 2 kv heads, which the reference runs in plain XLA,
-// or D 20 over 4), take an FMA body in the same split partition: block
-// (split, kv head, sequence), a warp a query head, a lane a row for the
-// score and an output column for P . V, rows read an element at a time.
-// Every shuffle loop has a warp-uniform trip count.
+// K3a design. Its function is K1's over the same unfolded memory, so bf16
+// queries over bf16 or int8 pools at a head dim that is a multiple of 16
+// below 128 (TinyLlama's 64) run K1's body above, paged_decode_tc<TK, D>,
+// with K1's split rows. (A body of K3a's own, which staged several kv heads'
+// rows a block with a warp a kv head, was slower at TinyLlama's shape than
+// K1's body on an H100, and went.) f32 queries (f32 or int8 pools: the f32
+// parity phases and the checks), and bf16 queries at the head dims K1's
+// body does not take (D 136..504, and any D that is no multiple of 16: rows
+// that start off 16 bytes, as D 100 over 2 kv heads, which the reference
+// runs in plain XLA, or D 20 over 4), take an FMA body in the same split
+// partition: block (split, kv head, sequence), a warp a query head, a lane
+// a row for the score and up to 16 output columns for P . V (D below 512),
+// rows read an element at a time. Every shuffle loop has a warp-uniform
+// trip count.
 
 #include <algorithm>
 #include <type_traits>
@@ -109,7 +107,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 4;
 
-// ---------------------------------------------------------------- K1
+// ---------------------------------------------------------------- K1, f32 queries
 
 // Block (kv head, sequence, sub-group): the SG query heads kvh * G +
 // blockIdx.z * SG + g, g < SG, of the kv head's G.
@@ -196,174 +194,131 @@ paged_decode_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool,
   }
 }
 
-// ---------------------------------------------------------------- K3a
-
-constexpr int kFoldRows = 32;   // token rows a ring stage
-constexpr int kFoldItems = 8;   // (kv head, 16-head tile) items a block at most: one warp each
-constexpr int kFoldRing = 100 * 1024;  // the ring's budget: two blocks an SM
-constexpr int kFoldFmaWarps = 4;
-constexpr int kFoldMaxD = 256;  // the FMA body's head dims: below this
-
-// A K3a launch's partition and shared-memory layout (host-computed).
-struct FoldArgs {
-  int Hkv, G, D, page_size, max_pages, split_rows, n_split;
-  int n_ht;    // 16-head tiles of a kv head, ceil(G / 16)
-  int hb;      // kv heads a block stages (n_ht == 1), else 1
-  int tpb;     // head tiles a block (n_ht > 1)
-  int rs;      // a bf16 tile row, in 16-byte chunks (odd: conflict-free ldmatrix)
-  int rsr;     // an int8 raw row, in bytes (a multiple of 16)
-  int stages;  // ring stages
-  float scale_log2;  // log2(e) / sqrt(D)
-};
-
-// The block's kv heads [kv_lo, kv_lo + kv_n) and this warp's item (kvh, ht).
-struct FoldItem {
-  int kv_lo, kv_n, kvh, ht;
-  bool active;
-};
-
-__device__ __forceinline__ FoldItem fold_item(const FoldArgs& f, int chunk, int warp) {
-  FoldItem it;
-  if (f.n_ht == 1) {
-    it.kv_lo = chunk * f.hb;
-    it.kv_n = min(f.hb, f.Hkv - it.kv_lo);
-    it.kvh = it.kv_lo + warp;
-    it.ht = 0;
-    it.active = warp < it.kv_n;
-  } else {
-    const int bpk = (f.n_ht + f.tpb - 1) / f.tpb;
-    it.kvh = chunk / bpk;
-    it.kv_lo = it.kvh;
-    it.kv_n = 1;
-    it.ht = (chunk % bpk) * f.tpb + warp;
-    it.active = it.ht < f.n_ht;
-  }
-  return it;
-}
-
-template <typename TK>
-__host__ __device__ inline int fold_stage_bytes(const FoldArgs& f) {
-  return std::is_same<TK, int8_t>::value ? 2 * kFoldRows * f.rsr + 2 * kFoldRows * 4
-                                         : 2 * kFoldRows * f.rs * 16;
-}
-
-// Start the cp.async copies of context rows [t0, t0 + kFoldRows) (rows at or
-// past r1 zero-filled) of the block's kv heads into a ring stage: K then V
-// (bf16: tiles of f.rs chunks a row, pad chunks zero; int8: raw rows of
-// f.rsr bytes, then the K and V row scales). tok[] holds the split's rows'
-// pool rows.
-template <typename TK>
-__device__ __forceinline__ void fold_start_tile(uint8_t* stage, const TK* __restrict__ k_pool,
-                                                const TK* __restrict__ v_pool,
-                                                const float* __restrict__ k_scale,
-                                                const float* __restrict__ v_scale, const int* tok,
-                                                int t0, int r0, int r1, int W, size_t token_stride,
-                                                size_t col0, const FoldArgs& f) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  const uint32_t s = dtt::smem_u32(stage);
-  if constexpr (std::is_same<TK, int8_t>::value) {
-    const int half = f.rsr * kFoldRows;  // the V rows follow the K rows
-    // 16-byte copies where every row piece starts on 16 bytes, else 8-byte
-    // ones (W, the token stride and col0 are multiples of 8)
-    const bool wide = W % 16 == 0 && token_stride % 16 == 0 && col0 % 16 == 0;
-    const int units = wide ? W / 16 : W / 8;
-    for (int r = warp; r < kFoldRows; r += nw) {
-      const int j = t0 + r;
-      const bool ok = j < r1;
-      const size_t off = ok ? (size_t)tok[j - r0] * token_stride + col0 : 0;
-      for (int u = lane; u < units; u += 32) {
-        if (wide) {
-          dtt::cp_async16(s + r * f.rsr + u * 16, k_pool + off + u * 16, ok);
-          dtt::cp_async16(s + half + r * f.rsr + u * 16, v_pool + off + u * 16, ok);
-        } else {
-          dtt::cp_async8(s + r * f.rsr + u * 8, k_pool + off + u * 8, ok);
-          dtt::cp_async8(s + half + r * f.rsr + u * 8, v_pool + off + u * 8, ok);
-        }
-      }
-    }
-    if (threadIdx.x < 2 * kFoldRows) {
-      const int r = threadIdx.x % kFoldRows;
-      const int j = t0 + r;
-      const bool ok = j < r1;
-      const float* src = threadIdx.x < kFoldRows ? k_scale : v_scale;
-      dtt::cp_async4(s + 2 * half + threadIdx.x * 4, src + (ok ? tok[j - r0] : 0), ok);
-    }
-  } else {
-    const int half = f.rs * 16 * kFoldRows;
-    for (int r = warp; r < kFoldRows; r += nw) {
-      const int j = t0 + r;
-      const size_t off = j < r1 ? (size_t)tok[j - r0] * token_stride + col0 : 0;
-      for (int c = lane; c < f.rs; c += 32) {
-        const bool ok = j < r1 && c * 8 < W;
-        dtt::cp_async16(s + (r * f.rs + c) * 16, k_pool + off + c * 8, ok);
-        dtt::cp_async16(s + half + (r * f.rs + c) * 16, v_pool + off + c * 8, ok);
-      }
-    }
-  }
-}
-
 // Int8: two codes as a bf16 pair (exact: |code| <= 127).
 __device__ __forceinline__ uint32_t codes_bf16(int lo, int hi) { return dtt::pack_bf16((float)lo, (float)hi); }
 
-template <typename TK, int DP>
-__global__ void __launch_bounds__(32 * kFoldItems, 1)
-folded_decode_tc(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_pool,
-                 const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
-                 const float* __restrict__ v_scale, const int* __restrict__ page_tables,
-                 const int* __restrict__ positions, float* __restrict__ m_part,
-                 float* __restrict__ l_part, float* __restrict__ acc_part, const FoldArgs f) {
-  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-  constexpr int KS = DP / 16;  // k-steps of Q . K^T
-  constexpr int NB = DP / 8;   // 8-column blocks of the output
-  static_assert(DP % 16 == 0 && DP <= 128, "unsupported head_dim");
+// ---------------------------------------------------------------- K1, bf16 queries
+
+// A K1 tensor-core launch's shapes (host-computed).
+struct SplitArgs {
+  int Hkv, G, page_size, max_pages, split_rows, n_split;
+  int n_ht;          // 16-head tiles of a kv head, ceil(G / 16)
+  float scale_log2;  // log2(e) / sqrt(D)
+};
+
+// paged_decode_tc's layout at head dim D (a multiple of 16; bytes).
+template <typename TK, int D>
+struct SplitTc {
+  static constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  static constexpr int kRows = D <= 128 ? 64 : 32;  // context rows a ring stage
+  static constexpr int kWarps = kRows / 16;         // warp w: rows 16 w .. 16 w + 15 of each stage
+  static constexpr int DO = D <= 256 ? D : D / 2;   // output columns a block (a column slice)
+  static constexpr int kSlices = D / DO;
+  static constexpr int kQRow = (D / 8 + 1) * 16;  // an odd number of 16-byte chunks: conflict-free ldmatrix
+  // int8 raw rows 16 bytes past the codes, so consecutive rows fall 4 banks
+  // apart for the fragment reads
+  static constexpr int kKRow = kQuant ? D + 16 : (D / 8 + 1) * 16;
+  static constexpr int kVRow = kQuant ? DO + 16 : (DO / 8 + 1) * 16;
+  static constexpr int kStage = kRows * (kKRow + kVRow) + (kQuant ? 2 * kRows * 4 : 0);  // K, V, (scales)
+  static constexpr int kStages = 3 * kStage <= 112 * 1024 ? 3 : 2;
+  static constexpr int kMerge = kWarps * 16 * (DO + 2) * 4;  // the warps' states, merged in the ring
+  static constexpr int kRing = kStages * kStage > kMerge ? kStages * kStage : kMerge;
+  static constexpr int kQBytes = 16 * kQRow;
+  static size_t smem(int split_rows) { return (size_t)kRing + kQBytes + (size_t)split_rows * 4; }
+};
+
+// Block (split, (kv head, 16-head tile ht, column slice cs), sequence): the
+// split's rows [r0, r1) of the heads 16 ht .. 16 ht + Gt - 1 of kv head kvh,
+// output columns cs * DO .. cs * DO + DO - 1. Writes (M in log2 units, l,
+// acc) of each head to the partials merge_splits reads.
+template <typename TK, int D>
+__global__ void __launch_bounds__(32 * SplitTc<TK, D>::kWarps, 1)
+paged_decode_tc(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_pool,
+                const TK* __restrict__ v_pool, const float* __restrict__ k_scale,
+                const float* __restrict__ v_scale, const int* __restrict__ page_tables,
+                const int* __restrict__ positions, float* __restrict__ m_part, float* __restrict__ l_part,
+                float* __restrict__ acc_part, const SplitArgs f) {
+  using L = SplitTc<TK, D>;
+  constexpr bool kQuant = L::kQuant;
+  constexpr int DO = L::DO;
+  constexpr int KS = D / 16;    // k-steps of Q . K^T
+  constexpr int NB = DO / 8;    // 8-column blocks of the block's output slice
+  constexpr int kThr = 32 * L::kWarps;
+  constexpr int EPC = 16 / sizeof(TK);              // pool values a 16-byte chunk
+  constexpr int KC = D / EPC, VC = DO / EPC;         // chunks of a K row, of a V slice row
+  static_assert(D % 16 == 0 && NB % 2 == 0, "unsupported head_dim");
   extern __shared__ __align__(16) uint8_t smem[];
 
   const int split = blockIdx.x;
   const int b = blockIdx.z;
+  const int cs = blockIdx.y % L::kSlices;
+  const int ht = (blockIdx.y / L::kSlices) % f.n_ht;
+  const int kvh = blockIdx.y / (L::kSlices * f.n_ht);
   const int ctx = decode_ctx(positions, b, f.max_pages * f.page_size);
   const int r0 = split * f.split_rows;
   if (r0 >= ctx) return;  // block-uniform: this split holds no context
   const int r1 = min(r0 + f.split_rows, ctx);
+  const int Gt = min(16, f.G - 16 * ht);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
   const int Hq = f.Hkv * f.G;
-  const FoldItem it = fold_item(f, blockIdx.y, warp);
-  const int W = it.kv_n * f.D;  // staged values of a row
-  const size_t token_stride = (size_t)f.Hkv * f.D;
+  const size_t head0 = (size_t)b * Hq + (size_t)kvh * f.G + 16 * ht;
+  const size_t token_stride = (size_t)f.Hkv * D;
+  const size_t kcol = (size_t)kvh * D;
+  const size_t vcol = kcol + (size_t)cs * DO;
 
-  const int stage_bytes = fold_stage_bytes<TK>(f);
-  int* tok = reinterpret_cast<int*>(smem + f.stages * stage_bytes);  // [split_rows]
+  uint8_t* ring = smem;
+  uint8_t* sq = smem + L::kRing;                             // [16][kQRow] bf16, head rows past Gt zero
+  int* tok = reinterpret_cast<int*>(sq + L::kQBytes);        // [split_rows] the split's pool rows
   const int* pt = page_tables + (size_t)b * f.max_pages;
-  for (int j = r0 + threadIdx.x; j < r1; j += blockDim.x) tok[j - r0] = (int)dtt::token_row(pt, j, f.page_size);
+  for (int j = r0 + threadIdx.x; j < r1; j += kThr) tok[j - r0] = (int)dtt::token_row(pt, j, f.page_size);
+  for (int idx = threadIdx.x; idx < 16 * (D / 8); idx += kThr) {
+    const int h = idx / (D / 8);
+    const int c = idx % (D / 8);
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (h < Gt) x = *reinterpret_cast<const uint4*>(q + (head0 + h) * D + c * 8);
+    *reinterpret_cast<uint4*>(sq + h * L::kQRow + c * 16) = x;
+  }
   __syncthreads();
 
-  const int n_tiles = (r1 - r0 + kFoldRows - 1) / kFoldRows;
-  for (int st = 0; st < f.stages - 1; ++st) {
-    if (st < n_tiles)
-      fold_start_tile<TK>(smem + st * stage_bytes, k_pool, v_pool, k_scale, v_scale, tok, r0 + st * kFoldRows,
-                          r0, r1, W, token_stride, (size_t)it.kv_lo * f.D, f);
+  // cp.async copies of the split's rows [t0, t0 + kRows) into a stage: K
+  // rows, V slice rows, then (int8) the K and V row scales; rows at or past
+  // r1 zero-filled
+  const int n_tiles = (r1 - r0 + L::kRows - 1) / L::kRows;
+  auto start = [&](int ti) {
+    const uint32_t s = dtt::smem_u32(ring + (ti % L::kStages) * L::kStage);
+    const int t0 = r0 + ti * L::kRows;
+    for (int idx = threadIdx.x; idx < L::kRows * (KC + VC); idx += kThr) {
+      const int r = idx / (KC + VC);
+      const int c = idx % (KC + VC);
+      const int j = t0 + r;
+      const bool ok = j < r1;
+      const size_t row = ok ? (size_t)tok[j - r0] * token_stride : 0;
+      if (c < KC) {
+        dtt::cp_async16(s + r * L::kKRow + c * 16, k_pool + row + kcol + c * EPC, ok);
+      } else {
+        dtt::cp_async16(s + L::kRows * L::kKRow + r * L::kVRow + (c - KC) * 16, v_pool + row + vcol + (c - KC) * EPC,
+                        ok);
+      }
+    }
+    if constexpr (kQuant) {
+      for (int idx = threadIdx.x; idx < 2 * L::kRows; idx += kThr) {
+        const int r = idx % L::kRows;
+        const int j = t0 + r;
+        const bool ok = j < r1;
+        const float* src = idx < L::kRows ? k_scale : v_scale;
+        dtt::cp_async4(s + L::kRows * (L::kKRow + L::kVRow) + idx * 4, src + (ok ? tok[j - r0] : 0), ok);
+      }
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < L::kStages - 1; ++st) {
+    if (st < n_tiles) start(st);
     dtt::cp_async_commit();
   }
 
-  // this warp's query fragments: heads ht * 16 + g and + 8 of kv head kvh
-  // (zero past G), columns past D zero
-  const int hA = it.ht * 16 + g;
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int h = hA + 8 * (i & 1);
-      const int col = 16 * ks + 2 * t + 8 * (i >> 1);
-      qa[ks][i] = 0u;
-      if (it.active && h < f.G && col < f.D)
-        qa[ks][i] = *reinterpret_cast<const uint32_t*>(q + ((size_t)b * Hq + it.kvh * f.G + h) * f.D + col);
-    }
-  }
   float m[2] = {dtt::kNegInf, dtt::kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's share of the row sums
   float acc[NB][4];
@@ -371,58 +326,61 @@ folded_decode_tc(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_p
   for (int n = 0; n < NB; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-  const uint32_t kofs = (uint32_t)(it.kvh - it.kv_lo) * f.D * 2;  // this kv head's bytes into a bf16 row
-  const uint32_t row_bytes = f.rs * 16;
+  // Q's A fragment of k-step ks: rows lane % 16, column chunk 2 ks + lane / 16
+  const uint32_t q_addr = dtt::smem_u32(sq) + (lane & 15) * L::kQRow + (lane >> 4) * 16;
 
   for (int ti = 0; ti < n_tiles; ++ti) {
-    const int nxt = ti + f.stages - 1;
-    if (nxt < n_tiles)
-      fold_start_tile<TK>(smem + (nxt % f.stages) * stage_bytes, k_pool, v_pool, k_scale, v_scale, tok,
-                          r0 + nxt * kFoldRows, r0, r1, W, token_stride, (size_t)it.kv_lo * f.D, f);
+    const int nxt = ti + L::kStages - 1;
+    if (nxt < n_tiles) start(nxt);
     dtt::cp_async_commit();
-    dtt::cp_async_wait_upto(f.stages - 1);
+    dtt::cp_async_wait<L::kStages - 1>();
     __syncthreads();
-    const uint8_t* stage = smem + (ti % f.stages) * stage_bytes;
-    // int8: the raw codes, converted to bf16 fragments in registers
-    const int8_t* kc = reinterpret_cast<const int8_t*>(stage) + (it.kvh - it.kv_lo) * f.D;
-    const int8_t* vc = kc + kFoldRows * f.rsr;
-    const float* sKs = reinterpret_cast<const float*>(stage + 2 * kFoldRows * f.rsr);
-    const float* sVs = sKs + kFoldRows;
-    const int t0 = r0 + ti * kFoldRows;
-    if (it.active) {  // warp-uniform
-      const uint32_t kt = dtt::smem_u32(stage) + kofs;
-      const uint32_t vt = kt + kFoldRows * row_bytes;
-      // S = Q . K^T over the tile's 4 blocks of 8 rows
-      float s[4][4];
+    const uint8_t* st = ring + (ti % L::kStages) * L::kStage;
+    const int lo = r0 + ti * L::kRows + 16 * warp;  // this warp's first row
+    if (lo < r1) {  // warp-uniform
+      const uint32_t kt = dtt::smem_u32(st) + 16 * warp * L::kKRow;
+      const uint32_t vt = dtt::smem_u32(st) + L::kRows * L::kKRow + 16 * warp * L::kVRow;
+      const int8_t* kc = reinterpret_cast<const int8_t*>(st) + 16 * warp * L::kKRow;
+      const int8_t* vc = reinterpret_cast<const int8_t*>(st) + L::kRows * L::kKRow + 16 * warp * L::kVRow;
+      const float* sKs = reinterpret_cast<const float*>(st + L::kRows * (L::kKRow + L::kVRow)) + 16 * warp;
+      const float* sVs = sKs + L::kRows;
+      // S = Q . K^T over the warp's 16 rows (two blocks of 8)
+      float s[2][4];
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
+      for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
         for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          uint32_t b0, b1;
-          if constexpr (kQuant) {
-            const int8_t* r = kc + (nb * 8 + g) * f.rsr + 16 * ks + 2 * t;
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4];
+        dtt::ldsm_x4(a, q_addr + ks * 32);
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb) {
+            const int8_t* r = kc + (nb * 8 + g) * L::kKRow + 16 * ks + 2 * t;
             const char2 x = *reinterpret_cast<const char2*>(r);
             const char2 y = *reinterpret_cast<const char2*>(r + 8);
-            b0 = codes_bf16(x.x, x.y);
-            b1 = codes_bf16(y.x, y.y);
-          } else {
-            dtt::ldsm_x2(b0, b1, kt + (nb * 8 + (lane & 7)) * row_bytes + ks * 32 + ((lane >> 3) & 1) * 16);
+            dtt::mma_bf16_16816(s[nb], a, codes_bf16(x.x, x.y), codes_bf16(y.x, y.y));
           }
-          dtt::mma_bf16_16816(s[nb], qa[ks], b0, b1);
+        } else {
+          // matrices: rows 0-7 / 8-15 of the warp's rows (lane / 16) x column
+          // chunks 2 ks, 2 ks + 1 ((lane / 8) % 2)
+          uint32_t bk[4];
+          dtt::ldsm_x4(bk, kt + ((lane >> 4) * 8 + (lane & 7)) * L::kKRow + ks * 32 + ((lane >> 3) & 1) * 16);
+          dtt::mma_bf16_16816(s[0], a, bk[0], bk[1]);
+          dtt::mma_bf16_16816(s[1], a, bk[2], bk[3]);
         }
       }
-      // online softmax; s[nb][i] is (head row g + 8 (i / 2), tile row 8 nb + 2t + i % 2)
+      // online softmax; s[nb][i] is (head row g + 8 (i / 2), row lo + 8 nb + 2t + i % 2)
       float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
+      for (int nb = 0; nb < 2; ++nb) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = nb * 8 + 2 * t + (i & 1);
           float v = s[nb][i] * f.scale_log2;
           if constexpr (kQuant) v *= sKs[r];
-          if (t0 + r >= r1) v = dtt::kNegInf;
+          if (lo + r >= r1) v = dtt::kNegInf;
           s[nb][i] = v;
           mx[i >> 1] = fmaxf(mx[i >> 1], v);
         }
@@ -436,9 +394,9 @@ folded_decode_tc(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_p
         m[h] = mx[h];
         l[h] *= corr[h];
       }
-      uint32_t ph[4][2], pl[4][2];  // P split into bf16 hi and lo: (block nb, head row g / g + 8)
+      uint32_t ph[2][2], pl[2][2];  // P split into bf16 hi and lo: (block nb, head row g / g + 8)
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
+      for (int nb = 0; nb < 2; ++nb) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float p0 = exp2f(s[nb][2 * h] - m[h]);
@@ -461,62 +419,96 @@ folded_decode_tc(const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k_p
         acc[n][2] *= corr[1];
         acc[n][3] *= corr[1];
       }
-      // O += P_hi . V + P_lo . V; k-step kk takes tile rows 16 kk .. 16 kk + 15
+      // O += P_hi . V + P_lo . V over the warp's 16 rows, two 8-column blocks a step
+      const uint32_t ah[4] = {ph[0][0], ph[0][1], ph[1][0], ph[1][1]};
+      const uint32_t al[4] = {pl[0][0], pl[0][1], pl[1][0], pl[1][1]};
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const uint32_t ah[4] = {ph[2 * kk][0], ph[2 * kk][1], ph[2 * kk + 1][0], ph[2 * kk + 1][1]};
-        const uint32_t al[4] = {pl[2 * kk][0], pl[2 * kk][1], pl[2 * kk + 1][0], pl[2 * kk + 1][1]};
+      for (int n = 0; n < NB; n += 2) {
+        uint32_t bv[4];
+        if constexpr (kQuant) {
 #pragma unroll
-        for (int n = 0; n < NB; ++n) {
-          if (n * 8 >= f.D) break;  // the pad columns' block: never written
-          uint32_t b0, b1;
-          if constexpr (kQuant) {
-            const int8_t* c = vc + (16 * kk + 2 * t) * f.rsr + 8 * n + g;
-            b0 = codes_bf16(c[0], c[f.rsr]);
-            b1 = codes_bf16(c[8 * f.rsr], c[9 * f.rsr]);
-          } else {
-            dtt::ldsm_x2_trans(b0, b1, vt + (16 * kk + (lane & 15)) * row_bytes + n * 16);
+          for (int j = 0; j < 2; ++j) {
+            const int8_t* c = vc + 2 * t * L::kVRow + 8 * (n + j) + g;
+            bv[2 * j] = codes_bf16(c[0], c[L::kVRow]);
+            bv[2 * j + 1] = codes_bf16(c[8 * L::kVRow], c[9 * L::kVRow]);
           }
-          dtt::mma_bf16_16816(acc[n], ah, b0, b1);
-          dtt::mma_bf16_16816(acc[n], al, b0, b1);
+        } else {
+          dtt::ldsm_x4_trans(bv, vt + (lane & 15) * L::kVRow + (n + (lane >> 4)) * 16);
         }
+        dtt::mma_bf16_16816(acc[n], ah, bv[0], bv[1]);
+        dtt::mma_bf16_16816(acc[n], al, bv[0], bv[1]);
+        dtt::mma_bf16_16816(acc[n + 1], ah, bv[2], bv[3]);
+        dtt::mma_bf16_16816(acc[n + 1], al, bv[2], bv[3]);
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  if (!it.active) return;
+  // merge the warps' states in the freed ring, in a fixed order
+  dtt::cp_async_wait<0>();
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
-  const size_t part = (size_t)b * f.n_split + split;
+  float* red_m = reinterpret_cast<float*>(ring);  // [kWarps][16]
+  float* red_l = red_m + L::kWarps * 16;          // [kWarps][16]
+  float* red_acc = red_l + L::kWarps * 16;        // [kWarps][16][DO]
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int head = hA + 8 * h;
-    if (head >= f.G) continue;
-    const size_t hq = part * Hq + (size_t)it.kvh * f.G + head;
+    const int row = g + 8 * h;
     if (t == 0) {
-      m_part[hq] = m[h];
-      l_part[hq] = l[h];
+      red_m[warp * 16 + row] = m[h];
+      red_l[warp * 16 + row] = l[h];
     }
 #pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      if (n * 8 >= f.D) break;
-      *reinterpret_cast<float2*>(acc_part + hq * f.D + n * 8 + 2 * t) = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<float2*>(red_acc + (warp * 16 + row) * DO + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+  __syncthreads();
+  const size_t part = (size_t)b * f.n_split + split;
+  for (int idx = threadIdx.x; idx < Gt * DO; idx += kThr) {
+    const int row = idx / DO;
+    const int d = idx % DO;
+    float M = dtt::kNegInf;
+#pragma unroll
+    for (int w = 0; w < L::kWarps; ++w) M = fmaxf(M, red_m[w * 16 + row]);
+    float A = 0.f, Lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < L::kWarps; ++w) {
+      const float wt = exp2f(red_m[w * 16 + row] - M);
+      A = fmaf(red_acc[(w * 16 + row) * DO + d], wt, A);
+      Lsum = fmaf(red_l[w * 16 + row], wt, Lsum);
+    }
+    const size_t hq = part * Hq + (size_t)kvh * f.G + 16 * ht + row;
+    acc_part[hq * D + (size_t)cs * DO + d] = A;
+    if (cs == 0 && d == 0) {
+      m_part[hq] = M;
+      l_part[hq] = Lsum;
     }
   }
 }
 
+// ---------------------------------------------------------------- K3a
+
+constexpr int kFoldFmaWarps = 4;
+constexpr int kFoldMaxD = 512;  // the FMA body's head dims: below this
+
+// A K3a launch's shapes (host-computed).
+struct FoldArgs {
+  int Hkv, G, D, page_size, max_pages, split_rows, n_split;
+  float scale_log2;  // log2(e) / sqrt(D)
+};
+
 // The FMA body: f32 queries over f32 or int8 pools, and bf16 queries at
-// the head dims the tensor-core body does not take (no multiple of 8, or
-// above 128), over bf16 or int8 pools. Block (split, kv head, sequence);
+// the head dims K1's tensor-core body does not take (no multiple of 16, or
+// above 128; below 512), over bf16 or int8 pools. Block (split, kv head, sequence);
 // warp w takes the kv head's query heads w, w + 4, ...; lane j scores row j
 // of each 32-row step against the head's query (in shared memory) and owns
 // output columns lane + 32 i. Rows are read an element at a time, so a row
 // may start at any offset (D 100 over 2 kv heads, D 20 over 4).
-template <typename TQ, typename TK>
+template <typename TQ, typename TK, int kCols>
 __global__ void __launch_bounds__(32 * kFoldFmaWarps)
 folded_decode_fma(const TQ* __restrict__ q, const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
                   const float* __restrict__ k_scale, const float* __restrict__ v_scale,
@@ -524,8 +516,8 @@ folded_decode_fma(const TQ* __restrict__ q, const TK* __restrict__ k_pool, const
                   float* __restrict__ m_part, float* __restrict__ l_part, float* __restrict__ acc_part,
                   const FoldArgs f) {
   constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-  constexpr int kCols = kFoldMaxD / 32;  // output columns a lane
-  __shared__ float sq[kFoldFmaWarps][kFoldMaxD];
+  static_assert(32 * kCols <= kFoldMaxD, "kCols output columns a lane: D <= 32 kCols");
+  __shared__ float sq[kFoldFmaWarps][32 * kCols];
   const int split = blockIdx.x;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -607,101 +599,74 @@ struct DecodeArgs {
   cudaStream_t stream;
 };
 
-template <typename TQ, typename TK, int D, int SG>
-struct K1Launch {
+// K1's f32-query body at head dim D, head sub-groups of SG.
+template <typename TK, int D>
+struct K1Fma {
+  template <int SG>
+  struct Launch {
+    static int run(const DecodeArgs& a) {
+      const int G = a.Hq / a.Hkv;
+      paged_decode_kernel<float, TK, D, SG><<<dim3(a.Hkv, a.B, G / SG), kThreads, 0, a.stream>>>(
+          static_cast<const float*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs,
+          a.pt, a.pos, static_cast<float*>(a.out), a.Hkv, G, a.ps, a.max_pages, 1.0f / sqrtf((float)D));
+      return (int)cudaGetLastError();
+    }
+  };
   static int run(const DecodeArgs& a) {
-    const int G = a.Hq / a.Hkv;
-    paged_decode_kernel<TQ, TK, D, SG><<<dim3(a.Hkv, a.B, G / SG), kThreads, 0, a.stream>>>(
-        static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks,
-        a.vs, a.pt, a.pos, static_cast<TQ*>(a.out), a.Hkv, G, a.ps, a.max_pages, 1.0f / sqrtf((float)D));
-    return (int)cudaGetLastError();
+    constexpr int kCap = dtt::subgroup_cap(dtt::LaneVec<TK, D>::N);
+    return dtt::with_head_subgroup<kCap, Launch>(a.Hq / a.Hkv, a);
   }
 };
 
-// Dispatch on the sub-group size head_subgroup(G) to F<TQ, TK, D, SG>::run.
-template <template <typename, typename, int, int> class F, typename TQ, typename TK, int D>
-int with_subgroup(const DecodeArgs& a) {
-  switch (dtt::head_subgroup(a.Hq / a.Hkv)) {
-    case 1: return F<TQ, TK, D, 1>::run(a);
-    case 2: return F<TQ, TK, D, 2>::run(a);
-    case 3: return F<TQ, TK, D, 3>::run(a);
-    case 4: return F<TQ, TK, D, 4>::run(a);
-    case 5: return F<TQ, TK, D, 5>::run(a);
-    case 6: return F<TQ, TK, D, 6>::run(a);
-    case 7: return F<TQ, TK, D, 7>::run(a);
-    case 8: return F<TQ, TK, D, 8>::run(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// K1's tensor-core body and the merge.
+template <typename TK, int D>
+int launch_split_tc(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
+  using L = SplitTc<TK, D>;
+  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
+  const size_t smem = L::smem(split_rows);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = dtt::raise_smem_limit_once(paged_decode_tc<TK, D>, smem_raised, 227 * 1024);
+  if (err != cudaSuccess) return (int)err;
+  const int G = a.Hq / a.Hkv;
+  const SplitArgs f{a.Hkv, G, a.ps, a.max_pages, split_rows, n_split, (G + 15) / 16,
+                    1.4426950408889634f / sqrtf((float)D)};
+  paged_decode_tc<TK, D><<<dim3(n_split, a.Hkv * f.n_ht * L::kSlices, a.B), 32 * L::kWarps, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs,
+      a.pt, a.pos, m, l, acc, f);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return (int)launched;
+  return dtt::launch_merge_splits(m, l, acc, a.pos, static_cast<__nv_bfloat16*>(a.out), a.B, a.Hq, a.D,
+                                  a.max_pages * a.ps, split_rows, n_split, a.stream);
 }
 
+// f32 queries take the FMA body, bf16 queries the tensor-core split body
 template <typename TQ, typename TK>
 struct K1Types {
-  static int run(const DecodeArgs& a) {
+  template <int D>
+  static int at(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
+    if constexpr (std::is_same<TQ, float>::value) {
+      return K1Fma<TK, D>::run(a);
+    } else {
+      return launch_split_tc<TK, D>(a, m, l, acc, split_rows, n_split);
+    }
+  }
+  static int run(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
     switch (a.D) {
-      case 64: return with_subgroup<K1Launch, TQ, TK, 64>(a);
-      case 128: return with_subgroup<K1Launch, TQ, TK, 128>(a);
-      case 256: return with_subgroup<K1Launch, TQ, TK, 256>(a);
+      case 64: return at<64>(a, m, l, acc, split_rows, n_split);
+      case 128: return at<128>(a, m, l, acc, split_rows, n_split);
+      case 256: return at<256>(a, m, l, acc, split_rows, n_split);
+      case 384: return at<384>(a, m, l, acc, split_rows, n_split);
+      case 512: return at<512>(a, m, l, acc, split_rows, n_split);
       default: return (int)cudaErrorInvalidValue;
     }
   }
 };
 
-// K3a's partition: the kv heads a block stages (as many as fit the ring's
-// budget at two stages, at most kFoldItems), the ring's stages and the
-// dynamic shared memory (ring, int8 conversion tiles, the split's pool rows).
-template <typename TK>
-FoldArgs fold_plan(const DecodeArgs& a, int split_rows, int n_split, size_t* smem, int* warps, int* chunks) {
-  FoldArgs f{};
-  f.Hkv = a.Hkv;
-  f.G = a.Hq / a.Hkv;
-  f.D = a.D;
-  f.page_size = a.ps;
-  f.max_pages = a.max_pages;
-  f.split_rows = split_rows;
-  f.n_split = n_split;
-  f.scale_log2 = 1.4426950408889634f / sqrtf((float)a.D);
-  f.n_ht = (f.G + 15) / 16;
-  f.tpb = std::min(f.n_ht, kFoldItems);
-  for (f.hb = f.n_ht == 1 ? std::min(a.Hkv, kFoldItems) : 1;; --f.hb) {
-    const int W = f.hb * a.D;
-    f.rs = W / 8 + (a.D % 16 ? 1 : 0);  // a pad chunk when D is no multiple of 16
-    f.rs |= 1;
-    // int8 rows: 16 bytes past the codes, so consecutive rows fall 4 banks
-    // apart for the fragment loads
-    f.rsr = (W + 15) / 16 * 16 + 16;
-    if (f.hb == 1 || 2 * fold_stage_bytes<TK>(f) <= kFoldRing) break;
-  }
-  const int stage = fold_stage_bytes<TK>(f);
-  f.stages = std::max(2, std::min(4, kFoldRing / stage));
-  *smem = (size_t)f.stages * stage + split_rows * sizeof(int);
-  *warps = f.n_ht == 1 ? f.hb : f.tpb;
-  *chunks = f.n_ht == 1 ? (a.Hkv + f.hb - 1) / f.hb : a.Hkv * ((f.n_ht + f.tpb - 1) / f.tpb);
-  return f;
-}
-
 template <typename TQ>
 int launch_merge(const DecodeArgs& a, const float* m, const float* l, const float* acc, int split_rows,
                  int n_split) {
-  dtt::merge_splits<TQ><<<dim3((a.Hq + dtt::kMergeHeads - 1) / dtt::kMergeHeads, a.B), 32 * dtt::kMergeHeads, 0,
-                          a.stream>>>(m, l, acc, a.pos, static_cast<TQ*>(a.out), a.Hq, a.D, a.max_pages * a.ps,
-                                      split_rows, n_split);
-  return (int)cudaGetLastError();
-}
-
-template <typename TK, int DP>
-int launch_fold_tc(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
-  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
-  size_t smem;
-  int warps, chunks;
-  const FoldArgs f = fold_plan<TK>(a, split_rows, n_split, &smem, &warps, &chunks);
-  const cudaError_t err = dtt::raise_smem_limit_once(folded_decode_tc<TK, DP>, smem_raised, 227 * 1024);
-  if (err != cudaSuccess) return (int)err;
-  folded_decode_tc<TK, DP><<<dim3(n_split, chunks, a.B), 32 * warps, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs,
-      a.pt, a.pos, m, l, acc, f);
-  const cudaError_t launched = cudaGetLastError();
-  if (launched != cudaSuccess) return (int)launched;
-  return launch_merge<__nv_bfloat16>(a, m, l, acc, split_rows, n_split);
+  return dtt::launch_merge_splits(m, l, acc, a.pos, static_cast<TQ*>(a.out), a.B, a.Hq, a.D, a.max_pages * a.ps,
+                                  split_rows, n_split, a.stream);
 }
 
 template <typename TQ, typename TK>
@@ -715,25 +680,33 @@ int launch_fold_fma(const DecodeArgs& a, float* m, float* l, float* acc, int spl
   f.split_rows = split_rows;
   f.n_split = n_split;
   f.scale_log2 = 1.4426950408889634f / sqrtf((float)a.D);
-  folded_decode_fma<TQ, TK><<<dim3(n_split, a.Hkv, a.B), 32 * kFoldFmaWarps, 0, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs, a.pt,
-      a.pos, m, l, acc, f);
+  const dim3 grid(n_split, a.Hkv, a.B);
+  const auto* q = static_cast<const TQ*>(a.q);
+  const auto* k = static_cast<const TK*>(a.k);
+  const auto* v = static_cast<const TK*>(a.v);
+  if (a.D <= 256) {  // 8 output columns a lane, 16 past 256
+    folded_decode_fma<TQ, TK, 8><<<grid, 32 * kFoldFmaWarps, 0, a.stream>>>(q, k, v, a.ks, a.vs, a.pt, a.pos, m, l,
+                                                                            acc, f);
+  } else {
+    folded_decode_fma<TQ, TK, 16><<<grid, 32 * kFoldFmaWarps, 0, a.stream>>>(q, k, v, a.ks, a.vs, a.pt, a.pos, m,
+                                                                             l, acc, f);
+  }
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
   return launch_merge<TQ>(a, m, l, acc, split_rows, n_split);
 }
 
+// K3a's head dims on K1's tensor-core body: multiples of 16 below 128
 template <typename TK>
 int fold_tc_dim(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
-  switch ((a.D + 15) / 16) {  // D padded to a multiple of 16
-    case 1: return launch_fold_tc<TK, 16>(a, m, l, acc, split_rows, n_split);
-    case 2: return launch_fold_tc<TK, 32>(a, m, l, acc, split_rows, n_split);
-    case 3: return launch_fold_tc<TK, 48>(a, m, l, acc, split_rows, n_split);
-    case 4: return launch_fold_tc<TK, 64>(a, m, l, acc, split_rows, n_split);
-    case 5: return launch_fold_tc<TK, 80>(a, m, l, acc, split_rows, n_split);
-    case 6: return launch_fold_tc<TK, 96>(a, m, l, acc, split_rows, n_split);
-    case 7: return launch_fold_tc<TK, 112>(a, m, l, acc, split_rows, n_split);
-    case 8: return launch_fold_tc<TK, 128>(a, m, l, acc, split_rows, n_split);
+  switch (a.D) {
+    case 16: return launch_split_tc<TK, 16>(a, m, l, acc, split_rows, n_split);
+    case 32: return launch_split_tc<TK, 32>(a, m, l, acc, split_rows, n_split);
+    case 48: return launch_split_tc<TK, 48>(a, m, l, acc, split_rows, n_split);
+    case 64: return launch_split_tc<TK, 64>(a, m, l, acc, split_rows, n_split);
+    case 80: return launch_split_tc<TK, 80>(a, m, l, acc, split_rows, n_split);
+    case 96: return launch_split_tc<TK, 96>(a, m, l, acc, split_rows, n_split);
+    case 112: return launch_split_tc<TK, 112>(a, m, l, acc, split_rows, n_split);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -749,14 +722,14 @@ int with_types(int q_dtype, int kv_dtype, Args&&... args) {
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16 queries at a head dim that is a multiple of 8 below 128 take the
+// bf16 queries at a head dim that is a multiple of 16 below 128 take K1's
 // tensor-core body; f32 queries, and bf16 queries at other head dims (no
-// multiple of 8, or 136..248), the FMA body
+// multiple of 16, or 136..504), the FMA body
 template <typename TQ, typename TK>
 struct K3aTypes {
   static int run(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
     if constexpr (std::is_same<TQ, __nv_bfloat16>::value) {
-      if (a.D % 8 == 0 && a.D < 128) return fold_tc_dim<TK>(a, m, l, acc, split_rows, n_split);
+      if (a.D % 16 == 0 && a.D < 128) return fold_tc_dim<TK>(a, m, l, acc, split_rows, n_split);
     }
     return launch_fold_fma<TQ, TK>(a, m, l, acc, split_rows, n_split);
   }
@@ -769,12 +742,18 @@ bool decode_shapes_ok(const DecodeArgs& a, int kv_dtype) {
 
 }  // namespace
 
-// K1. Returns cudaGetLastError() after the launch (0 = launched); shapes the
-// kernel does not take return cudaErrorInvalidValue without launching.
+// K1: head_dim 64, 128, 256, 384 or 512, any Hq a multiple of Hkv. bf16
+// queries write split partials m_part, l_part [B, n_split, Hq] and acc_part
+// [B, n_split, Hq, D] f32 (n_split >= ceil(max_pages * page_size /
+// split_rows), split_rows a positive multiple of 64); f32 queries read none
+// of them. Returns cudaGetLastError() after the launches (0 = launched);
+// shapes the kernel does not take return cudaErrorInvalidValue without
+// launching.
 extern "C" int paged_decode_attention(const void* q, const void* k_pool, const void* v_pool,
                                       const void* k_scale, const void* v_scale,
-                                      const void* page_tables, const void* positions, void* out,
-                                      int B, int Hq, int Hkv, int D, int page_size, int max_pages,
+                                      const void* page_tables, const void* positions, void* m_part,
+                                      void* l_part, void* acc_part, void* out, int B, int Hq, int Hkv, int D,
+                                      int page_size, int max_pages, int split_rows, int n_split,
                                       int q_dtype, int kv_dtype, void* stream) {
   const DecodeArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
                      static_cast<const float*>(v_scale), static_cast<const int*>(page_tables),
@@ -782,12 +761,17 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool, const v
                      static_cast<cudaStream_t>(stream)};
   if (B <= 0) return 0;
   if (!decode_shapes_ok(a, kv_dtype)) return (int)cudaErrorInvalidValue;
-  return with_types<K1Types>(q_dtype, kv_dtype, a);
+  if (q_dtype == 1 && (split_rows <= 0 || split_rows % 64 ||
+                       (long long)n_split * split_rows < (long long)max_pages * page_size))
+    return (int)cudaErrorInvalidValue;
+  return with_types<K1Types>(q_dtype, kv_dtype, a, static_cast<float*>(m_part), static_cast<float*>(l_part),
+                             static_cast<float*>(acc_part), split_rows, n_split);
 }
 
-// K3a: head_dim 0 < D < 256, any Hq a multiple of Hkv.
+// K3a: head_dim 0 < D < 512, any Hq a multiple of Hkv.
 // Partial buffers m_part, l_part [B, n_split, Hq] and acc_part [B, n_split,
-// Hq, D] f32, n_split >= ceil(max_pages * page_size / split_rows).
+// Hq, D] f32, n_split >= ceil(max_pages * page_size / split_rows),
+// split_rows a positive multiple of 64.
 extern "C" int paged_decode_attention_folded(const void* q, const void* k_pool,
                                              const void* v_pool, const void* k_scale,
                                              const void* v_scale, const void* page_tables,
@@ -802,7 +786,7 @@ extern "C" int paged_decode_attention_folded(const void* q, const void* k_pool,
                      static_cast<cudaStream_t>(stream)};
   if (B <= 0) return 0;
   if (!decode_shapes_ok(a, kv_dtype) || D <= 0 || D >= kFoldMaxD || split_rows <= 0 ||
-      split_rows % kFoldRows || (long long)n_split * split_rows < (long long)max_pages * page_size)
+      split_rows % 64 || (long long)n_split * split_rows < (long long)max_pages * page_size)
     return (int)cudaErrorInvalidValue;
   return with_types<K3aTypes>(q_dtype, kv_dtype, a, static_cast<float*>(m_part),
                               static_cast<float*>(l_part), static_cast<float*>(acc_part),

@@ -6,7 +6,7 @@
 // _kernel, math in _flash_merge). K3b replaces :615
 // paged_prefill_attention_pallas_folded (pallas_call at :662,
 // _kernel_folded), the same function for head dims that are not a multiple
-// of 128 (TinyLlama's 64; here any head dim below 256), which the TPU reads from pools with the kv heads
+// of 128 (TinyLlama's 64; here any head dim below 512), which the TPU reads from pools with the kv heads
 // folded into the lane dim through zero-placed folded queries (a Mosaic lane
 // workaround, not carried over). The reference's folded kernel rounds its
 // probabilities to the pool dtype before P.V (:572); the port keeps f32
@@ -89,9 +89,16 @@
 // stages Q, K and V an element at a time with the columns past D zero, for
 // rows at any offset: K3b's head dims that are no multiple of 8 (D 100 over
 // 2 kv heads, which the reference runs in plain XLA; D 20 over 4), in every
-// mix, and its f32 queries above 128. Head dims above 256 are refused: K2's
-// bf16 Q tile alone would be 128 KB at D 512, and the FMA body's f32 tiles
-// (224 KB at 256) would not fit.
+// mix, and its f32 queries above 128.
+// Head dims past 256 (K2 at 384 and 512, K3b at 257..511), every mix:
+// wide_prefill_kernel, a simple FMA body in the same block partition that
+// holds neither a whole Q row tile (bf16 128 KB at D 512, f32 256 KB) nor a
+// 64 x D accumulator. A block owns one slice of 128 output columns (the
+// slices over the grid's y dimension, beside the kv head); each 32-key tile
+// scores Q . K^T in 64-column chunks of Q and K staged as f32 an element at
+// a time (rows at any offset), then stages the tile's V slice. Each slice
+// recomputes the scores and re-reads K and Q: at these shapes the body is
+// right and simple, not fast (its times stand in PERF.md).
 // Next steps, not done here: TMA loads (no per-thread address work),
 // warp specialisation (a producer warp, ping-pong consumer warpgroups so one
 // warpgroup's softmax overlaps the other's products), persistent blocks,
@@ -101,7 +108,8 @@
 // paged_prefill_dmaonly (pallas_call at :840, _kernel_dmaonly), the
 // null-hypothesis instrument of tools/profile_prefill.py: K2's grid, causal
 // tile bound and load stream (bf16 / int8: the cp.async ring and the int8
-// conversion; f32: the FMA body's staging) with no math. The reference's
+// conversion; f32, and every pool past D 256: the FMA body's staging, each
+// K/V row of the block's context read once) with no math. The reference's
 // twin writes 1e-6 x one row of the last tile, garbage by design; a load
 // that nothing reads is deleted by nvcc, so every row the block owns gets
 // instead the f32 column sums over the block's context j < min(last row's
@@ -797,21 +805,208 @@ fma_prefill_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool, cons
   }
 }
 
+// ---------------------------------------------------------------- wide head dims
+
+constexpr int kWideChunk = 64;   // score columns of Q and K staged at a time
+constexpr int kWideSlice = 128;  // output columns a block
+constexpr int kWideQS = kWideChunk + 4;
+
+constexpr size_t wide_smem_bytes() {
+  return ((size_t)kRows * kWideQS + kFmaKeys * kWideQS + kFmaKeys * kWideSlice + kRows * kPStride + 2 * kFmaKeys) *
+         sizeof(float);
+}
+
+__device__ __forceinline__ size_t wide_row(const int* __restrict__ pt, int j, int page_size) {
+  return (size_t)pt[j / page_size] * page_size + (j % page_size);
+}
+
+// The FMA body's partition and thread map (thread (ty, tx): rows ty + 16 i,
+// keys tx and tx + 16 of each tile, output columns c0 + tx + 16 c of the
+// block's slice), for any D: blockIdx.y = kv head * n_cs + column slice.
+template <typename TQ, typename TK>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_prefill_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
+                    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                    const int* __restrict__ page_tables, const int* __restrict__ positions, TQ* __restrict__ out,
+                    int T_len, int Hq, int Hkv, int D, int page_size, int max_pages, int n_cs, float scale) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  constexpr int CW = kWideSlice / 16;  // output columns a thread
+  extern __shared__ float4 smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // [kRows][kWideQS]: a chunk of Q
+  float* sK = sQ + kRows * kWideQS;                // [kFmaKeys][kWideQS]: a chunk of K
+  float* sV = sK + kFmaKeys * kWideQS;             // [kFmaKeys][kWideSlice]: the tile's V slice
+  float* sP = sV + kFmaKeys * kWideSlice;          // [kRows][kPStride]
+  float* sKs = sP + kRows * kPStride;              // [kFmaKeys]
+  float* sVs = sKs + kFmaKeys;                     // [kFmaKeys]
+
+  const Block b = block_of(positions, T_len, Hq, Hkv, page_size, max_pages);
+  const int kvh = blockIdx.y / n_cs;
+  const int c0 = (blockIdx.y % n_cs) * kWideSlice;
+  const int n = blockIdx.z;
+  const int* pt = page_tables + (size_t)n * max_pages;
+  const size_t token_stride = (size_t)Hkv * D;
+  const size_t col0 = (size_t)kvh * D;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+
+  float m[kFmaRPT], l[kFmaRPT], o[kFmaRPT][CW];
+  int qpos[kFmaRPT];
+#pragma unroll
+  for (int i = 0; i < kFmaRPT; ++i) {
+    m[i] = dtt::kNegInf;
+    l[i] = 0.f;
+    qpos[i] = b.pos0 + (ty + 16 * i) % b.BQ;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) o[i][c] = 0.f;
+  }
+
+  for (int kt0 = 0; kt0 < b.n_ctx; kt0 += kFmaKeys) {
+    float s[kFmaRPT][2];
+#pragma unroll
+    for (int i = 0; i < kFmaRPT; ++i) s[i][0] = s[i][1] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
+      __syncthreads();  // the previous readers of sQ, sK (and the last tile's of sV, sP) are done
+      for (int idx = tid; idx < kRows * kWideChunk; idx += kThreads) {
+        const int r = idx / kWideChunk;
+        const int c = idx % kWideChunk;
+        const int qi = r % b.BQ;
+        float x = 0.f;
+        if (qi < b.n_q && r / b.BQ < b.G && d0 + c < D)
+          x = dtt::to_f(q[(((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D + d0 + c]);
+        sQ[r * kWideQS + c] = x;
+      }
+      for (int idx = tid; idx < kFmaKeys * kWideChunk; idx += kThreads) {
+        const int kk = idx / kWideChunk;
+        const int c = idx % kWideChunk;
+        const int j = kt0 + kk;
+        float x = 0.f;
+        if (j < b.n_ctx && d0 + c < D)
+          x = dtt::to_f(k_pool[wide_row(pt, j, page_size) * token_stride + col0 + d0 + c]);
+        sK[kk * kWideQS + c] = x;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kWideChunk; d += 4) {
+        float4 kv[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) kv[jj] = *reinterpret_cast<const float4*>(sK + (tx + 16 * jj) * kWideQS + d);
+#pragma unroll
+        for (int i = 0; i < kFmaRPT; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * kWideQS + d);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            s[i][jj] = fmaf(qv.x, kv[jj].x, s[i][jj]);
+            s[i][jj] = fmaf(qv.y, kv[jj].y, s[i][jj]);
+            s[i][jj] = fmaf(qv.z, kv[jj].z, s[i][jj]);
+            s[i][jj] = fmaf(qv.w, kv[jj].w, s[i][jj]);
+          }
+        }
+      }
+    }
+    // the tile's V slice and (int8) row scales; keys at or past n_ctx zero
+    for (int idx = tid; idx < kFmaKeys * kWideSlice; idx += kThreads) {
+      const int kk = idx / kWideSlice;
+      const int c = idx % kWideSlice;
+      const int j = kt0 + kk;
+      float x = 0.f;
+      if (j < b.n_ctx && c0 + c < D)
+        x = dtt::to_f(v_pool[wide_row(pt, j, page_size) * token_stride + col0 + c0 + c]);
+      sV[kk * kWideSlice + c] = x;
+    }
+    if constexpr (kQuant) {
+      if (tid < kFmaKeys) {
+        const int j = kt0 + tid;
+        float ks = 0.f, vs = 0.f;
+        if (j < b.n_ctx) {
+          const size_t tok = wide_row(pt, j, page_size);
+          ks = k_scale[tok];
+          vs = v_scale[tok];
+        }
+        sKs[tid] = ks;
+        sVs[tid] = vs;
+      }
+    }
+    __syncthreads();
+
+    // online softmax for keys tx, tx + 16 of each row (a row's 16 tx lanes
+    // sit in one half-warp), as the FMA body
+#pragma unroll
+    for (int i = 0; i < kFmaRPT; ++i) {
+      float rmax = dtt::kNegInf;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = kt0 + tx + 16 * jj;
+        float v = s[i][jj] * scale;
+        if constexpr (kQuant) v *= sKs[tx + 16 * jj];
+        s[i][jj] = (j <= qpos[i] && j < b.n_ctx) ? v : dtt::kNegInf;
+        rmax = fmaxf(rmax, s[i][jj]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+      const float new_m = fmaxf(m[i], rmax);
+      const float corr = expf(m[i] - new_m);
+      float rsum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const float p = expf(s[i][jj] - new_m);
+        rsum += p;
+        sP[(ty + 16 * i) * kPStride + tx + 16 * jj] = kQuant ? p * sVs[tx + 16 * jj] : p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+      l[i] = l[i] * corr + rsum;
+      m[i] = new_m;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) o[i][c] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kFmaKeys; ++kk) {
+      float vv[CW];
+#pragma unroll
+      for (int c = 0; c < CW; ++c) vv[c] = sV[kk * kWideSlice + tx + 16 * c];  // past D: zero
+#pragma unroll
+      for (int i = 0; i < kFmaRPT; ++i) {
+        const float p = sP[(ty + 16 * i) * kPStride + kk];
+#pragma unroll
+        for (int c = 0; c < CW; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kFmaRPT; ++i) {
+    const int r = ty + 16 * i;
+    const int qi = r % b.BQ;
+    if (qi >= b.n_q || r / b.BQ >= b.G) continue;
+    const float denom = fmaxf(l[i], 1e-20f);
+    TQ* dst = out + (((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r / b.BQ) * D + c0 + tx;
+#pragma unroll
+    for (int c = 0; c < CW; ++c)
+      if (c0 + tx + 16 * c < D) dtt::store1(dst + 16 * c, o[i][c] / denom);
+  }
+}
+
 // ---------------------------------------------------------------- K7a
 
 // K2's load stream with no math: bf16 / int8 pools through the tensor-core
-// body's ring (int8 converted as there), f32 pools through the FMA body's
-// staging; every row of the block gets the column sums of its context.
+// body's ring (int8 converted as there), f32 pools and every pool past D 256
+// through the FMA body's staging; every row of the block gets the column
+// sums of its context.
 template <typename TK, int D>
 struct Twin {
-  static constexpr bool kF32 = std::is_same<TK, float>::value;
-  // partial column sums reduced at the end: f32, kThreads / D threads a
-  // column; the ring, one a (key in a group of 8, key group) of a chunk
-  // column, read as the tile's 16-byte chunks
-  static constexpr int kPartials = kF32 ? kThreads / D : kThreads / (D / 8);
+  static constexpr bool kStaged = std::is_same<TK, float>::value || D > 256;
+  // partial column sums reduced at the end: staged, kThreads / D threads a
+  // column (past kThreads columns, a thread a column or two); the ring, one a
+  // (key in a group of 8, key group) of a chunk column, read as the tile's
+  // 16-byte chunks
+  static constexpr int kPartials = kStaged ? (D <= kThreads ? kThreads / D : 1) : kThreads / (D / 8);
+  static constexpr int kCols = (D + kThreads - 1) / kThreads;  // staged: columns a thread
   static constexpr size_t kSmem =
-      (kF32 ? ((size_t)kFmaKeys * (D + 4) + kFmaKeys * D) * sizeof(float)
-            : (size_t)Ring<TK, D>::kStages * Ring<TK, D>::kStage + (Ring<TK, D>::kQuant ? 2 * Ring<TK, D>::kBf16Tile : 0)) +
+      (kStaged ? ((size_t)kFmaKeys * (D + 4) + kFmaKeys * D + 2 * kFmaKeys) * sizeof(float)
+               : (size_t)Ring<TK, D>::kStages * Ring<TK, D>::kStage + (Ring<TK, D>::kQuant ? 2 * Ring<TK, D>::kBf16Tile : 0)) +
       (size_t)kPartials * D * sizeof(float);
 };
 
@@ -822,7 +1017,7 @@ prefill_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool, 
                   const int* __restrict__ positions, float* __restrict__ out, int T_len, int Hq, int Hkv,
                   int page_size, int max_pages) {
   using R = Ring<TK, D>;
-  static_assert(kThreads % D == 0, "unsupported head_dim");
+  static_assert(kThreads % D == 0 || D % 128 == 0, "unsupported head_dim");
 
   extern __shared__ __align__(128) uint8_t smem[];
   const Block b = block_of(positions, T_len, Hq, Hkv, page_size, max_pages);
@@ -832,22 +1027,38 @@ prefill_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool, 
   const size_t token_stride = (size_t)Hkv * D;
   float* red;
 
-  if constexpr (Twin<TK, D>::kF32) {
+  if constexpr (Twin<TK, D>::kStaged) {
+    using T = Twin<TK, D>;
     constexpr int KS = D + 4;  // the FMA body's K-tile row stride
     float* sK = reinterpret_cast<float*>(smem);  // [kFmaKeys][KS]
     float* sV = sK + kFmaKeys * KS;              // [kFmaKeys][D]
-    red = sV + kFmaKeys * D;                     // [kPartials][D]
-    const int c = threadIdx.x % D;
-    const int part = threadIdx.x / D;
-    float sum = 0.f;
+    float* sKs = sV + kFmaKeys * D;              // [kFmaKeys] (int8)
+    float* sVs = sKs + kFmaKeys;                 // [kFmaKeys]
+    red = sVs + kFmaKeys;                        // [kPartials][D]
+    const int part = D <= kThreads ? threadIdx.x / D : 0;
+    const int c0 = D <= kThreads ? threadIdx.x % D : threadIdx.x;  // columns c0 + kThreads i
+    float sum[T::kCols] = {};
     for (int kt0 = 0; kt0 < b.n_ctx; kt0 += kFmaKeys) {
       __syncthreads();  // the previous tile's readers are done
-      stage_kv<TK>(sK, sV, nullptr, nullptr, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size, KS, D,
+      stage_kv<TK>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size, KS, D,
                    token_stride, kvh * D, D);
       __syncthreads();
-      for (int kk = part; kk < kFmaKeys; kk += kThreads / D) sum += sK[kk * KS + c] + sV[kk * D + c];
+#pragma unroll
+      for (int i = 0; i < T::kCols; ++i) {
+        const int c = c0 + kThreads * i;
+        if (c >= D) break;
+        for (int kk = part; kk < kFmaKeys; kk += T::kPartials) {
+          if constexpr (std::is_same<TK, int8_t>::value) {
+            sum[i] += sK[kk * KS + c] * sKs[kk] + sV[kk * D + c] * sVs[kk];
+          } else {
+            sum[i] += sK[kk * KS + c] + sV[kk * D + c];
+          }
+        }
+      }
     }
-    red[part * D + c] = sum;
+#pragma unroll
+    for (int i = 0; i < T::kCols; ++i)
+      if (c0 + kThreads * i < D) red[part * D + c0 + kThreads * i] = sum[i];
   } else {
     constexpr int CPR = D / 8;                      // bf16 chunks a row
     constexpr int GROUPS = kThreads / (8 * CPR);    // key groups summed side by side
@@ -969,6 +1180,23 @@ int launch_narrow(const PrefillArgs& a) {
   return (int)cudaGetLastError();
 }
 
+// Head dims past 256, every mix: the wide FMA body, slices of kWideSlice
+// output columns over the grid's y dimension beside the kv head.
+template <typename TQ, typename TK>
+int launch_wide(const PrefillArgs& a) {
+  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
+  constexpr size_t smem = wide_smem_bytes();
+  const cudaError_t err = dtt::raise_smem_limit_once(wide_prefill_kernel<TQ, TK>, smem_raised, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_cs = (a.D + kWideSlice - 1) / kWideSlice;
+  dim3 grid = prefill_grid(a);
+  grid.y *= n_cs;
+  wide_prefill_kernel<TQ, TK><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs, a.pt,
+      a.pos, static_cast<TQ*>(a.out), a.T_len, a.Hq, a.Hkv, a.D, a.ps, a.max_pages, n_cs, 1.0f / sqrtf((float)a.D));
+  return (int)cudaGetLastError();
+}
+
 template <typename TK, int D>
 int launch_k7a(const PrefillArgs& a) {
   static std::atomic<bool> smem_raised[dtt::kMaxDevices];
@@ -988,19 +1216,23 @@ struct K2Types {
       case 64: return launch_attention<TQ, TK, 64>(a);
       case 128: return launch_attention<TQ, TK, 128>(a);
       case 256: return launch_attention<TQ, TK, 256>(a);
+      case 384:
+      case 512: return launch_wide<TQ, TK>(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }
 };
 
-// K3b: any D below 256. A multiple of 8 below 128: the body of its mix in
+// K3b: any D below 512. A multiple of 8 below 128: the body of its mix in
 // tiles padded to 16; a multiple of 8 above 128: bf16 queries the
 // tensor-core body at 256 (K2's instance, the pad columns zero), f32 queries
-// the narrow FMA body; no multiple of 8: the narrow FMA body.
+// the narrow FMA body; no multiple of 8: the narrow FMA body; past 256: the
+// wide FMA body.
 template <typename TQ, typename TK>
 struct K3bTypes {
   static int run(const PrefillArgs& a) {
-    if (a.D <= 0 || a.D >= 256) return (int)cudaErrorInvalidValue;
+    if (a.D <= 0 || a.D >= 512) return (int)cudaErrorInvalidValue;
+    if (a.D > 256) return launch_wide<TQ, TK>(a);
     constexpr bool kBf16 = std::is_same<TQ, __nv_bfloat16>::value;
     if (a.D % 8 || (a.D > 128 && !kBf16))
       return a.D < 128 ? launch_narrow<TQ, TK, 128>(a) : launch_narrow<TQ, TK, 256>(a);
@@ -1027,6 +1259,8 @@ struct K7aTypes {
       case 64: return launch_k7a<TK, 64>(a);
       case 128: return launch_k7a<TK, 128>(a);
       case 256: return launch_k7a<TK, 256>(a);
+      case 384: return launch_k7a<TK, 384>(a);
+      case 512: return launch_k7a<TK, 512>(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -6,32 +6,36 @@ K1 replaces ``dynamo_tpu/ops/pallas/paged_attention.py``
 ``paged_decode_attention_pallas`` (``_kernel``): the two TPU kernels compute
 the same function and differ only in TPU DMA scheduling, so this one kernel
 stands for both. K3a replaces ``paged_decode_attention_pallas_folded``
-(``_kernel_folded``), the same function at a head_dim below 256 that is not
-128 (:func:`folded_head_dim`; TinyLlama's 64). Both take any GQA group G =
-Hq / Hkv, as the reference does. K1 takes head_dim 64, 128 and 256 (a wider
-row needs more than a warp's 32 lanes of 8 values).
+(``_kernel_folded``), the same function at a head_dim below 512 that is no
+multiple of 128 (:func:`folded_head_dim`; TinyLlama's 64). Both take any GQA
+group G = Hq / Hkv, as the reference does. K1 takes head_dim 64, 128, 256,
+384 and 512.
 
 Both take f32 or bf16 queries over pools of the query's dtype, or over an
 int8 cache (``quant/kv.py QuantizedPages``: int8 pools with one f32 scale a
 token row, applied to score and probability columns).
 
 Bound on an H100: memory bytes — each sequence's ``ceil(len/ps)`` pages of K
-and V are read once, at 4 FLOP per element. K1 gives each (sequence, kv head)
-one block whose GQA query heads (up to 8 of them; a larger G in sub-groups
-of blocks that re-read the rows) share every K/V row it loads. K3a (bf16
-queries) splits each sequence's context over blocks of ``SPLIT_ROWS`` rows
-that stage the token rows of several kv heads through a ``cp.async`` ring,
-compute Q.Kᵀ and P.V on the tensor cores (``mma.sync``, P split into bf16 hi
-+ lo so the probabilities stay f32-exact), and merge in a second launch;
-f32 queries, and bf16 queries at a head_dim above 128 or no multiple of 8
-(rows that start off 16 bytes), take an FMA body in the same partition that
-reads rows an element at a time (see the source note). Plain version: ``ops/attention.py
+and V are read once, at 4 FLOP per element. K1 over bf16 queries (bf16 or
+int8 pools) splits each sequence's context over blocks of
+:func:`k1_split_rows` rows, one block a (split, kv head, 16-head tile,
+column slice): the kv head's rows stream through a ``cp.async`` ring, Q.Kᵀ and P.V run on the
+tensor cores (``mma.sync``, P split into bf16 hi + lo so the probabilities
+stay f32-exact), and the splits merge in a second launch in a fixed order;
+past D 256 a block holds half the output columns. K1 over f32 queries keeps
+an FMA body: one block a (sequence, kv head, head sub-group) reading rows
+straight into registers. K3a over bf16 queries at a head_dim below 128
+that is a multiple of 16 runs K1's split tensor-core body
+(:func:`folded_on_k1_body`); f32 queries, and bf16 queries at a head_dim
+above 128 or no multiple of 16 (rows that start off 16 bytes), take an FMA
+body split over ``SPLIT_ROWS`` rows that reads rows an element at a time
+(see the source note). Plain version: ``ops/attention.py
 paged_decode_attention``; the dispatcher there picks the plain version for
 CPU tensors and, for CUDA tensors, K3a when ``head_dim % 128 != 0``, else K1
 (or K4a / K4b, below, as ``DYNTPU_DECODE_KERNEL`` asks).
 
 The decode variants, CUDA C++ in ``csrc/decode_variants.cu`` (f32 and bf16
-pools of q's dtype, head_dim 64, 128 or 256; no int8 cache, as on the TPU):
+pools of q's dtype, K1's head dims; no int8 cache, as on the TPU):
 
 - K4a (:func:`paged_decode_attention_chunked_kernel`) replaces
   ``paged_decode_attention_pallas_chunked``: K1's function walked in chunks
@@ -45,10 +49,13 @@ pools of q's dtype, head_dim 64, 128 or 256; no int8 cache, as on the TPU):
   :func:`chunk_pages` pages for K4a): a score pass with each page's max, a
   P.V pass that rounds each probability at its unit's prefix max, a merge
   (:func:`grouped_split_rows`). Over f32 pools (rounding is the identity)
-  both take K7c's FMA body at one unit a chunk.
+  both take an FMA chunk body at one unit a chunk.
 - K7c (:func:`paged_decode_perseq_variant_kernel`) replaces
   ``tools/profile_attn.py make_perseq_variant``: one page an iteration, with
-  the probabilities rounded unless ``cast_f32`` (then K1's function).
+  the probabilities rounded unless ``cast_f32`` (then K1's function). Each
+  toggle runs on the body that computes its function: over bf16 pools,
+  without ``cast_f32`` K4b's split at one page a unit, with it K1's split
+  tensor-core body; over f32 pools the FMA chunk body at a page a chunk.
 - K7b (:func:`paged_decode_dmaonly_kernel`) replaces ``tools/profile_attn.py
   paged_decode_dmaonly``: K1's grid and loads with no math, an instrument.
   The reference's twin writes garbage by design; a load nothing reads is
@@ -68,20 +75,25 @@ import torch
 from dynamo_tpu_torch.ops.kernels import _build
 from dynamo_tpu_torch.quant.kv import QuantizedPages
 
-HEAD_DIMS = (64, 128, 256)  # K1, K4a, K4b, K7b, K7c
+HEAD_DIMS = (64, 128, 256, 384, 512)  # K1, K4a, K4b, K7b, K7c
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 INT8 = 2  # the C entry points' kv dtype code for int8 pools
-# K3a: context rows a block. At 128 rows a decode batch of 16 TinyLlama
-# sequences of up to 2048 rows spreads over about 130 blocks.
+# K3a's FMA body: context rows a block.
 SPLIT_ROWS = 128
+# K1 over bf16 queries (and K3a's head dims on its body): context rows a
+# split (a multiple of 64), the largest of these whose splits at the
+# table's capacity give at least K1_SPLIT_BLOCKS blocks at head_dim 128 and
+# up (about two an SM of an H100's 132), 128 / D times as many below, else
+# the smallest (k1_split_rows)
+K1_SPLIT_CHOICES = (512, 256, 128)
+K1_SPLIT_BLOCKS = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
-_FOLDED_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]
+_SPLIT_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]  # K1 and K3a
 CHUNK_ROWS = 256  # K4a: context rows a chunk, at least (the reference's target)
 GROUPED_SPLIT_ROWS = 256  # K4b: context rows a split, at least (whole pages)
-_CHUNK_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
+_CHUNK_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
 _GROUPED_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P] * 5 + [_I] * 5 + [_P]
 _DMAONLY_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
 
@@ -152,11 +164,12 @@ def check_decode_args(q, k_pages, v_pages, page_tables, positions, name: str = "
 
 
 def folded_head_dim(D: int) -> bool:
-    """K3a's and K3b's head dims: every head dim below 256 but 128 (which
-    K1 / K2 take), as the reference folds (or, for a folded row that is no
-    multiple of 128, runs in plain XLA) every head_dim % 128 != 0. Above 256
-    they are refused: the FMA bodies hold at most 256 columns."""
-    return 0 < D < 256 and D != 128
+    """K3a's and K3b's head dims: every head dim below 512 that is no
+    multiple of 128 (K1 / K2 take those), as the reference folds (or, for a
+    folded row that is no multiple of 128, runs in plain XLA) every head_dim
+    % 128 != 0. Past 512 they are refused: K3a's FMA body holds at most 16
+    output columns a lane, 512 a warp."""
+    return 0 < D < 512 and D % 128 != 0
 
 
 def folded_geometry(q, k) -> tuple[int, int]:
@@ -180,7 +193,7 @@ def check_folded_decode_args(q, k_pages, v_pages, page_tables, positions):
     k, v = pools[:2]
     B, Hq, D = q.shape
     if not folded_head_dim(D):
-        raise ValueError(f"K3a takes a head_dim below 256 other than 128; got {D}")
+        raise ValueError(f"K3a takes a head_dim below 512 that is no multiple of 128; got {D}")
     Hkv, _ = folded_geometry(q, k)
     if Hq % Hkv:
         raise ValueError(f"K3a takes Hq a multiple of Hkv; got Hq={Hq}, Hkv={Hkv}")
@@ -194,8 +207,8 @@ def _ptr(t) -> int | None:
 
 
 def split_partials(B: int, n_split: int, Hq: int, D: int, device, extra: int = 0):
-    """One f32 scratch allocation a launch for the split-K partials of K3a
-    and K4b: (the tensor, which the caller holds until it has launched, and
+    """One f32 scratch allocation a launch for the split-K partials of K1,
+    K3a and K4b: (the tensor, which the caller holds until it has launched, and
     pointers to m, l [B, n_split, Hq], acc [B, n_split, Hq, D] and ``extra``
     more floats: K4b's scores and page maxima), each part on 16 bytes."""
     ml = -(-B * n_split * Hq // 4) * 4
@@ -205,58 +218,91 @@ def split_partials(B: int, n_split: int, Hq: int, D: int, device, extra: int = 0
     return ws, base, base + 4 * ml, base + 8 * ml, base + 4 * (2 * ml + acc)
 
 
-def paged_decode_attention_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """q [B, Hq, D], pools [P, ps, Hkv, D] of q's dtype or int8
-    QuantizedPages, page_tables [B, max_pages] int32 (layer offset added),
-    positions [B] int32 -> [B, Hq, D] in q's dtype.
-
-    Launches K1 or raises: CUDA tensors only (``ops/attention.py
-    dispatch_paged_decode_attention`` sends CPU tensors to the plain
-    version)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA tensors; got {q.device}")
-    k, v, ks, vs, code = check_decode_args(q, k_pages, v_pages, page_tables, positions)
-    q = _build.aligned16(q)
-    page_tables = page_tables.contiguous()
-    positions = positions.contiguous()
-    B, Hq, D = q.shape
-    _, ps, Hkv, _ = k.shape
-    out = torch.empty_like(q)
-    err = _build.entry("paged_attention", "paged_decode_attention", _ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs), page_tables.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, ps, page_tables.shape[1],
-        Q_DTYPES[q.dtype], code, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "paged_decode_attention")
-    paged_decode_attention_kernel.launches += 1
-    return out
-
-
-def paged_decode_attention_folded_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """K3a: K1's contract at a head_dim below 256 other than 128;
-    the pools may also be given folded, [P, ps, Hkv*D] (the same memory).
-
-    Launches K3a (a split pass and a merge pass) or raises: CUDA tensors
-    only."""
-    if q.device.type != "cuda":
-        raise ValueError(f"K3a runs on CUDA tensors; got {q.device}")
-    k, v, ks, vs, code = check_folded_decode_args(q, k_pages, v_pages, page_tables, positions)
+def _split_launch(symbol: str, q, pools, page_tables, positions, split_rows: int,
+                  partials: bool = True) -> torch.Tensor:
+    """Launch K1's or K3a's entry ``symbol`` on checked inputs: splits of
+    ``split_rows`` context rows and their f32 partials (``partials``; K1's
+    f32 body reads none), then the merge."""
+    k, v, ks, vs, code = pools
     q = _build.aligned16(q)
     page_tables = page_tables.contiguous()
     positions = positions.contiguous()
     B, Hq, D = q.shape
     Hkv, _ = folded_geometry(q, k)
     ps, mp = k.shape[1], page_tables.shape[1]
-    n_split = -(-mp * ps // SPLIT_ROWS)
-    dev = q.device
-    ws, m_part, l_part, acc_part, _ = split_partials(B, n_split, Hq, D, dev)  # ws: alive past the launch
+    n_split = -(-mp * ps // split_rows)
+    ws, m_part, l_part, acc_part = None, None, None, None
+    if partials:  # ws: alive past the launch
+        ws, m_part, l_part, acc_part, _ = split_partials(B, n_split, Hq, D, q.device)
     out = torch.empty_like(q)
-    err = _build.entry("paged_attention", "paged_decode_attention_folded", _FOLDED_ARGTYPES)(
+    err = _build.entry("paged_attention", symbol, _SPLIT_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs), page_tables.data_ptr(),
-        positions.data_ptr(), m_part, l_part, acc_part, out.data_ptr(), B, Hq, Hkv, D, ps, mp, SPLIT_ROWS,
-        n_split, Q_DTYPES[q.dtype], code, torch.cuda.current_stream(dev).cuda_stream,
+        positions.data_ptr(), m_part, l_part, acc_part, out.data_ptr(), B, Hq, Hkv, D, ps, mp, split_rows,
+        n_split, Q_DTYPES[q.dtype], code, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "paged_decode_attention_folded")
+    _build.check(err, symbol)
+    return out
+
+
+def _k1_rows(q, k, page_tables) -> int:
+    Hkv, _ = folded_geometry(q, k)
+    return k1_split_rows(q.shape[0], Hkv, q.shape[1] // Hkv, q.shape[2], page_tables.shape[1] * k.shape[1])
+
+
+def k1_split_rows(B: int, Hkv: int, G: int, D: int, capacity: int) -> int:
+    """K1's split rows for B sequences of ``capacity`` context rows at most
+    (max_pages * ps), Hkv kv heads of G query heads of head_dim D: blocks of
+    longer splits pay the fixed costs (the split's page rows, Q, the warps'
+    merge) fewer times, shorter ones fill the card, and a block below D 128
+    holds a smaller ring, so more of them fit an SM. On an H100
+    (``tools/time_decode.py``, PERF.md) this picks the fastest of the three
+    (or one within 1% of it) at K1's geometry at B 64 and 16 over contexts
+    1..2048, at B 8, 4 and 1 over 2048-row contexts and at B 64 in a 256-row
+    table, and at K3a's TinyLlama geometry (D 64 over 4 kv heads) at B 16
+    and 64; past D 128 it is not measured. The host sees the table's
+    capacity, not the contexts (they are on the device)."""
+    need = K1_SPLIT_BLOCKS * 128 // min(D, 128)
+    for rows in K1_SPLIT_CHOICES:
+        if B * Hkv * -(-G // 16) * (2 if D > 256 else 1) * -(-capacity // rows) >= need:
+            return rows
+    return K1_SPLIT_CHOICES[-1]
+
+
+def paged_decode_attention_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
+    """q [B, Hq, D], pools [P, ps, Hkv, D] of q's dtype or int8
+    QuantizedPages, page_tables [B, max_pages] int32 (layer offset added),
+    positions [B] int32 -> [B, Hq, D] in q's dtype.
+
+    Launches K1 (bf16 queries: a split pass and a merge) or raises: CUDA
+    tensors only (``ops/attention.py dispatch_paged_decode_attention``
+    sends CPU tensors to the plain version)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA tensors; got {q.device}")
+    pools = check_decode_args(q, k_pages, v_pages, page_tables, positions)
+    out = _split_launch("paged_decode_attention", q, pools, page_tables, positions, _k1_rows(q, pools[0], page_tables),
+                        q.dtype == torch.bfloat16)
+    paged_decode_attention_kernel.launches += 1
+    return out
+
+
+def folded_on_k1_body(q) -> bool:
+    """Whether K3a runs K1's split tensor-core body on ``q``: bf16 queries
+    at a head dim that is a multiple of 16 below 128 (K1's split rows);
+    else its FMA body (``SPLIT_ROWS``)."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0 and q.shape[-1] < 128
+
+
+def paged_decode_attention_folded_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
+    """K3a: K1's contract at a head_dim below 512 that is no multiple of 128;
+    the pools may also be given folded, [P, ps, Hkv*D] (the same memory).
+
+    Launches K3a (a split pass and a merge pass) or raises: CUDA tensors
+    only."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K3a runs on CUDA tensors; got {q.device}")
+    pools = check_folded_decode_args(q, k_pages, v_pages, page_tables, positions)
+    rows = _k1_rows(q, pools[0], page_tables) if folded_on_k1_body(q) else SPLIT_ROWS
+    out = _split_launch("paged_decode_attention_folded", q, pools, page_tables, positions, rows)
     paged_decode_attention_folded_kernel.launches += 1
     return out
 
@@ -320,18 +366,28 @@ def paged_decode_perseq_variant_kernel(q, k_pages, v_pages, page_tables, positio
                                        cast_f32: bool = False) -> torch.Tensor:
     """K7c: K1's contract walked one page an iteration (the reference perseq
     kernel's schedule); without ``cast_f32`` the probabilities are rounded to
-    the pool dtype before P.V, with it this is K1's function.
+    the pool dtype before P.V, with it this is K1's function. Over bf16
+    pools each toggle runs on the body that computes its function: K4b's
+    exact split at one page a unit (:func:`_rounded_split`), or K1's split
+    tensor-core body; over f32 pools (rounding is the identity) the FMA chunk
+    body at a page a chunk.
 
     Launches K7c or raises: CUDA tensors only, no int8 cache."""
     if q.device.type != "cuda":
         raise ValueError(f"K7c runs on CUDA tensors; got {q.device}")
     check_variant_args(q, k_pages, v_pages, page_tables, positions, "K7c")
-    G, D, ps = q.shape[1] // k_pages.shape[2], q.shape[2], k_pages.shape[1]
-    refused = (f"{ps}-row chunks at G={G}, D={D} need more shared memory than a block's 227 KB "
-               f"(the chunk's scores, the running state and the final merge)")
-    q = _build.aligned16(q)
-    out = _variant_launch("K7c", "chunk_softmax_decode", _CHUNK_ARGTYPES, refused, q, k_pages, v_pages, page_tables,
-                          positions, torch.empty_like(q), ps, int(not cast_f32))
+    if q.dtype == torch.bfloat16 and cast_f32:
+        out = _split_launch("paged_decode_attention", q, (k_pages, v_pages, None, None, Q_DTYPES[q.dtype]),
+                            page_tables, positions, _k1_rows(q, k_pages, page_tables))
+    elif q.dtype == torch.bfloat16:
+        out = _rounded_split("K7c", q, k_pages, v_pages, page_tables, positions, 1)
+    else:
+        G, D, ps = q.shape[1] // k_pages.shape[2], q.shape[2], k_pages.shape[1]
+        refused = (f"{ps}-row chunks at G={G}, D={D} need more shared memory than a block's 227 KB "
+                   f"(the chunk's scores, the running state and the final merge)")
+        q = _build.aligned16(q)
+        out = _variant_launch("K7c", "chunk_softmax_decode", _CHUNK_ARGTYPES, refused, q, k_pages, v_pages,
+                              page_tables, positions, torch.empty_like(q), ps)
     paged_decode_perseq_variant_kernel.launches += 1
     return out
 
@@ -340,7 +396,7 @@ def _rounded_split(name: str, q, k_pages, v_pages, page_tables, positions, unit_
     """K4a's and K4b's launch: the probabilities rounded at the running max
     after each unit of ``unit_pages`` pages. bf16: splits of
     ``grouped_split_rows(ps)`` rows, scratch for the scores, the page maxima
-    and the splits' partial states; f32: K7c's body at one unit a chunk."""
+    and the splits' partial states; f32: the FMA chunk body at one unit a chunk."""
     B, Hq, D = q.shape
     ps, mp = k_pages.shape[1], page_tables.shape[1]
     split_rows = grouped_split_rows(ps)

@@ -12,7 +12,12 @@ Variants, the reference's set: ``perseq`` and ``lookahead`` (both K1, the
 kernel that stands for both TPU kernels), ``dmaonly`` (K7b: K1's grid and page
 stream with no math), ``perseq_bf16`` (K7c without cast_f32: one page an
 iteration, probabilities rounded to bf16), ``chunked`` (K4a) and ``grouped``
-(K4b). Before it is timed, every variant but ``dmaonly`` must agree with
+(K4b). On this card each K7c toggle runs on the body that computes its
+function: ``perseq_bf16`` on K4b's exact split at one page a unit (scores
+and page maxima, then one bf16 P.V product at the rounded P), ``perseq``
+(K1, the cast_f32 function) on K1's split body (P split into bf16 hi + lo,
+two products, one pass). Their difference is what f32-exact probabilities
+cost against rounded ones on these two designs. Before it is timed, every variant but ``dmaonly`` must agree with
 ``perseq`` within 0.05 (the reference's gate) and with its own plain version
 (``ops/attention.py``) within ``tools/checks.py TOL["bf16"]`` elementwise, on
 these inputs; ``dmaonly``'s checksum must equal its plain version's exactly

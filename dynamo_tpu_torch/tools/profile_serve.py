@@ -56,28 +56,31 @@ WORKLOADS = {
                     TINYLLAMA_1_1B["num_layers"], None),
     "grouped": (serve_config, serve_requests, LLAMA3_8B["num_layers"], "grouped"),
 }
-# kernel class by a mark in its name; K3a, K4b and K5 count all of their
-# launches (K3a's split body, folded_decode_tc or _fma, and its merge,
-# merge_splits; K4b's grouped_scores, grouped_pv and the same merge: a
-# window where grouped_scores runs gives merge_splits to K4b). K2 and K3b
-# share their kernel bodies (tc_prefill_kernel, fma_prefill_kernel): a
-# folded workload's prefill kernels are K3b's launches
+# kernel class by a mark in its name; K1, K3a, K4b and K5 count all of their
+# launches (K1's bodies, paged_decode_tc (bf16 queries) or
+# paged_decode_kernel (f32), and its merge, merge_splits; K3a's FMA body,
+# folded_decode_fma, and the same merge; K4b's grouped_scores, grouped_pv
+# and the same merge: a window where grouped_scores runs gives merge_splits
+# to K4b, else K1 or K3a take it as the workload's decode kernel). K2 and
+# K3b share their kernel bodies (tc_prefill_kernel, fma_prefill_kernel), and
+# K1 and K3a share paged_decode_tc: a folded workload's prefill kernels are
+# K3b's launches and its decode kernels K3a's
 KERNEL_MARKS = (
-    ("K1", "paged_decode_kernel"), ("K2", "_prefill_kernel"),
+    ("K1", "paged_decode_"), ("K2", "_prefill_kernel"),
     ("K3a", "folded_decode_"), ("K3a", "merge_splits"), ("K4b", "grouped_"), ("K5", "mla_decode_"),
     ("K6", "mla_prefill"),
 )
 PREFILL_CLASSES = ("K2", "K3b", "K6")
-DECODE_STEP_KERNEL = {"K1": "paged_decode_kernel", "K3a": "folded_decode_", "K4b": "grouped_scores",
+DECODE_STEP_KERNEL = {"K1": "paged_decode_", "K3a": "folded_decode_", "K4b": "grouped_scores",
                       "K5": "mla_decode_partial"}
 
 
 def kernel_class(name: str, folded: bool = False) -> str:
     """The class of a kernel by its name; ``folded``: the workload's prefill
-    bodies are K3b's."""
+    bodies are K3b's and its decode bodies K3a's."""
     for cls, mark in KERNEL_MARKS:
         if mark in name:
-            return "K3b" if folded and cls == "K2" else cls
+            return {"K2": "K3b", "K1": "K3a"}.get(cls, cls) if folded else cls
     if any(m in name for m in GEMM_MARKS):
         return "gemm"
     return "other"
@@ -100,7 +103,9 @@ def window_stats(kernels: list, lo: float, hi: float, top: int = 8, folded: bool
         busy += cur_e - cur_s
     by_class: dict = {}
     by_name: dict = {}
-    merge = "K4b" if any("grouped_scores" in k["name"] for k in inside) else "K3a"
+    names = {k["name"] for k in inside}
+    merge = ("K4b" if any("grouped_scores" in n for n in names)
+             else "K1" if not folded and any("paged_decode_tc" in n for n in names) else "K3a")
     for k in inside:
         c = merge if "merge_splits" in k["name"] else kernel_class(k["name"], folded)
         by_class[c] = by_class.get(c, 0.0) + k["dur"]

@@ -1,20 +1,22 @@
 """The attention launchers timed three ways, for an A/B of two trees on one
-card: K1, K3a (bf16 and int8), K4a and K4b (bf16, at K1's check geometry and
-at the reference bench's G 2 / page 128), and K6 (MLA prefill over bf16
-pages at chip_smoke.py's check shape), each beside one SDPA call over the
-same context, with ``tools/timing.py launch_times``: device time (the host's
-enqueueing hidden behind a sleep kernel), back-to-back time (the host's
-enqueueing counts where it is the longer) and the host's time to enqueue one
-call.
+card: K1 (bf16, int8 and f32), K3a (bf16 and int8, at batch 64 and at the
+serve engine's 16), K4a, K4b and K7c's two toggles (bf16, at K1's check
+geometry and at the reference bench's G 2 / page 128), K1's bf16 body at
+each split size ``k1_split_rows`` chooses from (``SPLIT_SHAPES``), and K6
+(MLA prefill over bf16 pages at chip_smoke.py's check shape), each beside
+one SDPA call over the same context, with ``tools/timing.py
+launch_times``: device time (the host's enqueueing hidden behind a sleep
+kernel), back-to-back time (the host's enqueueing counts where it is the
+longer) and the host's time to enqueue one call.
 
     python -m dynamo_tpu_torch.tools.time_decode
 
-The decode inputs are chip_smoke.py's decode check shapes: batch 64,
-contexts 1..2048 rows in distinct pages, every case drawn from seed 0 (so
-cases of one geometry, K1, K4a and K4b at K1's, read the same inputs), bf16
-queries and
-pools (int8: the pools quantized by row, SDPA over their bf16
-dequantization). K6's are its check shape: DeepSeek-V2-Lite's 16 heads,
+The decode inputs are chip_smoke.py's decode check shapes unless a case
+says otherwise: batch 64, contexts 1..2048 rows in distinct pages, every
+case drawn from seed 0 (so cases of one shape, K1, K4a and K4b at K1's,
+read the same inputs), bf16 queries and pools (int8: the pools quantized by
+row, SDPA over their bf16 dequantization; f32: f32 queries and pools, SDPA
+in f32). K6's are its check shape: DeepSeek-V2-Lite's 16 heads,
 latent rows of 576 (d_c 512), two 512-row chunks of one sequence at
 prefixes 0 and 1536, f32 pre-scaled queries over bf16 pages, both chunks a
 call; SDPA takes the bf16 queries over the gathered context with the causal
@@ -27,6 +29,7 @@ every tree since K4b was ported. Prints one JSON line. Needs one CUDA device.
 
 from __future__ import annotations
 
+import functools
 import json
 
 import numpy as np
@@ -39,25 +42,69 @@ from dynamo_tpu_torch.quant.kv import QuantizedPages, dequantize_rows, quantize_
 from dynamo_tpu_torch.tools.timing import card, launch_times
 
 B, ROWS, ITERS = 64, 2048, 50
-# name: (launcher, Hq, Hkv, D, page size, pools)
+K7C = functools.partial(pa.paged_decode_perseq_variant_kernel, cast_f32=False)
+K7C_CAST = functools.partial(pa.paged_decode_perseq_variant_kernel, cast_f32=True)
+
+
+def case(launcher, Hq: int, Hkv: int, D: int, ps: int, pools: str, batch: int = B, rows: int = ROWS,
+         full: bool = False) -> tuple:
+    """A case: the launcher, its geometry, pools ("bf16", "int8" or "f32"),
+    the batch, the table's capacity in rows, and whether every context
+    fills it (else contexts 1..rows)."""
+    return launcher, Hq, Hkv, D, ps, pools, batch, rows, full
+
+
 CASES = {
-    "K1 bf16": (pa.paged_decode_attention_kernel, 32, 8, 128, 16, "bf16"),
-    "K3a bf16": (pa.paged_decode_attention_folded_kernel, 32, 4, 64, 16, "bf16"),
-    "K3a int8": (pa.paged_decode_attention_folded_kernel, 32, 4, 64, 16, "int8"),
-    "K4b bf16": (pa.paged_decode_attention_grouped_kernel, 32, 8, 128, 16, "bf16"),
-    "K4b bf16 G2 ps128": (pa.paged_decode_attention_grouped_kernel, 16, 8, 128, 128, "bf16"),
-    "K4a bf16": (pa.paged_decode_attention_chunked_kernel, 32, 8, 128, 16, "bf16"),
-    "K4a bf16 G2 ps128": (pa.paged_decode_attention_chunked_kernel, 16, 8, 128, 128, "bf16"),
+    "K1 bf16": case(pa.paged_decode_attention_kernel, 32, 8, 128, 16, "bf16"),
+    "K1 int8": case(pa.paged_decode_attention_kernel, 32, 8, 128, 16, "int8"),
+    "K1 f32": case(pa.paged_decode_attention_kernel, 32, 8, 128, 16, "f32"),
+    "K3a bf16": case(pa.paged_decode_attention_folded_kernel, 32, 4, 64, 16, "bf16"),
+    "K3a int8": case(pa.paged_decode_attention_folded_kernel, 32, 4, 64, 16, "int8"),
+    "K3a bf16 B 16": case(pa.paged_decode_attention_folded_kernel, 32, 4, 64, 16, "bf16", 16),
+    "K3a int8 B 16": case(pa.paged_decode_attention_folded_kernel, 32, 4, 64, 16, "int8", 16),
+    "K4b bf16": case(pa.paged_decode_attention_grouped_kernel, 32, 8, 128, 16, "bf16"),
+    "K4b bf16 G2 ps128": case(pa.paged_decode_attention_grouped_kernel, 16, 8, 128, 128, "bf16"),
+    "K4a bf16": case(pa.paged_decode_attention_chunked_kernel, 32, 8, 128, 16, "bf16"),
+    "K4a bf16 G2 ps128": case(pa.paged_decode_attention_chunked_kernel, 16, 8, 128, 128, "bf16"),
+    "K7c bf16": case(K7C, 32, 8, 128, 16, "bf16"),
+    "K7c cast_f32 bf16": case(K7C_CAST, 32, 8, 128, 16, "bf16"),
+    "K7c bf16 G2 ps128": case(K7C, 16, 8, 128, 128, "bf16"),
+    "K7c cast_f32 bf16 G2 ps128": case(K7C_CAST, 16, 8, 128, 128, "bf16"),
 }
+
+
+def k1_at_split(rows: int):
+    """K1's bf16 launch at a fixed split of ``rows`` context rows, in place
+    of ``k1_split_rows``' choice: the split sizes the rule picks between."""
+    def launch(q, k, v, page_tables, positions):
+        return pa._split_launch("paged_decode_attention", q, (k, v, None, None, pa.Q_DTYPES[q.dtype]),
+                                page_tables, positions, rows)
+    return launch
+
+
+# K1's bf16 body at each split size: K1's geometry at batch 64 and 16 over
+# contexts 1..2048, at batch 8, 4 and 1 with every context 2048 rows, at
+# batch 64 in a 256-row table; K3a's TinyLlama geometry at batch 16 and 64
+SPLIT_SHAPES = {"B 64": (32, 8, 128, 64, ROWS, False), "B 16": (32, 8, 128, 16, ROWS, False),
+                "B 8 full": (32, 8, 128, 8, ROWS, True), "B 4 full": (32, 8, 128, 4, ROWS, True),
+                "B 1 full": (32, 8, 128, 1, ROWS, True), "B 64 table 256": (32, 8, 128, 64, 256, False),
+                "K3a's shape B 16": (32, 4, 64, 16, ROWS, False),
+                "K3a's shape B 64": (32, 4, 64, 64, ROWS, False)}
+if hasattr(pa, "K1_SPLIT_CHOICES"):  # trees since K1's split body
+    for shape, (Hq, Hkv, D, batch, rows, full) in SPLIT_SHAPES.items():
+        for split in pa.K1_SPLIT_CHOICES:
+            CASES[f"K1 bf16 {shape} split {split}"] = case(k1_at_split(split), Hq, Hkv, D, 16, "bf16", batch,
+                                                           rows, full)
 # K6's check shape: (T, H, latent, d_c, page size, prefixes)
 MLA_PREFILL = (512, 16, 576, 512, 16, (0, 1536))
 
 
-def case_inputs(rng, Hq: int, Hkv: int, D: int, ps: int, pools: str, dev) -> dict:
-    """Queries, pools (bf16 or int8 QuantizedPages), tables, positions, and
-    the dense bf16 context and mask SDPA reads."""
-    max_pages = ROWS // ps
-    lengths = rng.integers(1, ROWS + 1, B)
+def case_inputs(rng, Hq: int, Hkv: int, D: int, ps: int, pools: str, dev, B: int = B, rows: int = ROWS,
+                full: bool = False) -> dict:
+    """Queries, pools (bf16, f32 or int8 QuantizedPages), tables, positions,
+    and the dense context (bf16; f32 for f32 pools) and mask SDPA reads."""
+    max_pages = rows // ps
+    lengths = np.full(B, rows) if full else rng.integers(1, rows + 1, B)
     need = [-(-int(n) // ps) for n in lengths]
     P = 1 + sum(need)
     perm = 1 + rng.permutation(P - 1)
@@ -68,8 +115,11 @@ def case_inputs(rng, Hq: int, Hkv: int, D: int, ps: int, pools: str, dev) -> dic
         off += need[b]
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
     k32, v32 = (torch.randn((P, ps, Hkv, D), device=dev, generator=gen) for _ in range(2))
-    q = torch.randn((B, Hq, D), device=dev, generator=gen).bfloat16()
-    if pools == "int8":
+    q = torch.randn((B, Hq, D), device=dev, generator=gen)
+    q = q if pools == "f32" else q.bfloat16()
+    if pools == "f32":
+        k, v = kd, vd = k32, v32
+    elif pools == "int8":
         qs = [quantize_kv_rows(x.reshape(P * ps, Hkv, D)) for x in (k32, v32)]
         k, v = (QuantizedPages(c.reshape(P, ps, Hkv, D), s.reshape(P, ps)) for c, s in qs)
         kd, vd = (dequantize_rows(p.q, p.s, torch.bfloat16) for p in (k, v))
@@ -117,8 +167,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {"device": card()}
-    for name, (launcher, Hq, Hkv, D, ps, pools) in CASES.items():
-        x = case_inputs(np.random.default_rng(0), Hq, Hkv, D, ps, pools, dev)
+    for name, (launcher, Hq, Hkv, D, ps, pools, batch, rows, full) in CASES.items():
+        x = case_inputs(np.random.default_rng(0), Hq, Hkv, D, ps, pools, dev, batch, rows, full)
         qs = x["q"][:, :, None, :]
         kernel = times(lambda: launcher(x["q"], x["k"], x["v"], x["pt"], x["pos"]))
         library = times(lambda: sdpa(qs, x["kc"], x["vc"], attn_mask=x["mask"], enable_gqa=True))

@@ -11,6 +11,11 @@
 - The routing function, the launchers' refusals, the chunk and split
   choices, and a torch model of K4b's exact split over the context (splits
   combined by the prefix-max formula) against the sequential walk.
+- The head dims past 256 that the launchers take (K1, K2, K4a, K4b at 384
+  and 512; K3a, K3b at 264 and 320 over 2 kv heads): each argument check
+  passes, and each plain version holds the reference's kernel in interpret
+  mode (or, for a folded row that is no multiple of 128, the reference's
+  plain XLA version, as the reference routes it).
 - The K7a / K7b checksums against numpy sums over the same partition.
 - The engine's greedy tokens with ``chunked`` and with ``grouped`` against
   ``AsyncJaxEngine``'s on tiny f32 weights at head_dim 128.
@@ -40,9 +45,16 @@ from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
 from dynamo_tpu.engine.engine import AsyncJaxEngine
 from dynamo_tpu.engine.sampling import SamplingParams as JaxSamplingParams
 from dynamo_tpu.engine.scheduler import EngineRequest as JaxEngineRequest
+from dynamo_tpu.ops import attention as jref
 from dynamo_tpu.ops.pallas.paged_attention import (
+    paged_decode_attention_pallas,
     paged_decode_attention_pallas_chunked,
+    paged_decode_attention_pallas_folded,
     paged_decode_attention_pallas_grouped,
+)
+from dynamo_tpu.ops.pallas.prefill_attention import (
+    paged_prefill_attention_pallas,
+    paged_prefill_attention_pallas_folded,
 )
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
@@ -469,7 +481,8 @@ def _prefill_args(Hq, Hkv, D, dtype=torch.float32):
 
 
 # the shapes the reference serves that the launchers refused before: head_dim
-# 256 on K1, K2, K4a, K4b, K7a-c; folded 192, 100 and 20 on K3a and K3b
+# 256, 384 and 512 on K1, K2, K4a, K4b, K7a-c; folded 192, 100, 20, 264 and
+# 320 on K3a and K3b
 WIDE_SHAPES = {
     "K1-D256": lambda: pa.check_decode_args(*_decode_args(8, 2, 256)),
     "K4a-D256": lambda: pa.check_variant_args(*_decode_args(8, 2, 256, torch.bfloat16), "K4a"),
@@ -484,6 +497,21 @@ WIDE_SHAPES = {
     "K3b-D192": lambda: pf.check_folded_prefill_args(*_prefill_args(8, 2, 192)),
     "K3b-D100": lambda: pf.check_folded_prefill_args(*_prefill_args(8, 2, 100, torch.bfloat16)),
     "K3b-D20": lambda: pf.check_folded_prefill_args(*_prefill_args(16, 4, 20)),
+    **{f"{name}-D{D}": (lambda check, D=D: lambda: check(D))(check)
+       for D in (384, 512) for name, check in {
+           "K1": lambda D: pa.check_decode_args(*_decode_args(8, 2, D, torch.bfloat16)),
+           "K4a": lambda D: pa.check_variant_args(*_decode_args(8, 2, D, torch.bfloat16), "K4a"),
+           "K4b": lambda D: pa.check_variant_args(*_decode_args(8, 2, D), "K4b"),
+           "K7b": lambda D: pa.check_variant_args(*_decode_args(8, 2, D), "K7b"),
+           "K7c": lambda D: pa.check_variant_args(*_decode_args(8, 2, D, torch.bfloat16), "K7c"),
+           "K2": lambda D: pf.check_prefill_args(*_prefill_args(8, 2, D)),
+           "K7a": lambda D: pf.check_prefill_args(*_prefill_args(8, 2, D, torch.bfloat16), "K7a"),
+       }.items()},
+    **{f"{name}-D{D}": (lambda check, D=D: lambda: check(D))(check)
+       for D in (264, 320) for name, check in {
+           "K3a": lambda D: pa.check_folded_decode_args(*_decode_args(8, 2, D, torch.bfloat16)),
+           "K3b": lambda D: pf.check_folded_prefill_args(*_prefill_args(8, 2, D)),
+       }.items()},
 }
 
 
@@ -495,12 +523,83 @@ def test_launcher_checks_take_the_reference_head_geometries(which):
     WIDE_SHAPES[which]()
 
 
-@pytest.mark.parametrize("D", [384, 512])
-def test_head_dims_past_256_stay_refused(D):
-    """Past 256 values a row needs more than a warp's 32 lanes of 8 (K1, K4,
-    K7b, K7c) and K2's bf16 query tile would outgrow shared memory: refused,
-    as ROADMAP.md Queue 3 records."""
-    with pytest.raises(ValueError, match="head_dim"):
-        pa.check_decode_args(*_decode_args(8, 2, D))
-    with pytest.raises(ValueError, match="head_dim"):
-        pf.check_prefill_args(*_prefill_args(8, 2, D))
+def _wide_decode(which, D, dtype):
+    """(port output, reference output) of one decode launcher's plain
+    version at D over 2 kv heads (G 2; K4a over two 256-row chunks)."""
+    Hkv = 2
+    case = variant_case(3, 2 * Hkv, Hkv, D, seed=D + len(which), max_pages=20)
+    if which == "K3a":  # the reference reads the folded pools: its kernel where a row is lane-aligned
+        q, k, v, pt, pos = case
+        fold = lambda x: jnp.asarray(x.reshape(*x.shape[:2], Hkv * D))  # noqa: E731
+        jargs = (jnp.asarray(q), fold(k), fold(v), jnp.asarray(pt), jnp.asarray(pos))
+        ref = (paged_decode_attention_pallas_folded(*jargs, interpret=True) if Hkv * D % 128 == 0
+               else jref.paged_decode_attention(*jargs))
+        t = [torch.from_numpy(x) for x in case]
+        pa.check_folded_decode_args(*t)
+        return tatt.dispatch_paged_decode_attention(*t), np.asarray(ref, np.float32)
+    pallas_fn, plain_fn = {
+        "K1": (paged_decode_attention_pallas, tatt.paged_decode_attention),
+        "K4a": K4["chunked"],
+        "K4b": K4["grouped"],
+    }[which]
+    got, ref, args = run_both(case, dtype, pallas_fn, plain_fn, interpret=True)
+    if which == "K1":
+        pa.check_decode_args(*args)
+    else:
+        pa.check_variant_args(*args, which)
+    return got, ref
+
+
+def _wide_prefill(which, D):
+    """(port output, reference output) of K2's or K3b's plain version: a
+    64-row chunk after a 37-row prefix over 2 kv heads (G 2)."""
+    Hkv, T, start, ps, mp = 2, 64, 37, 16, 8
+    rng = np.random.default_rng(D + len(which))
+    P = mp + 1
+    q = rng.standard_normal((T, 2 * Hkv, D)).astype(np.float32)
+    k = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    pt = (1 + rng.permutation(mp)).astype(np.int32)
+    pos = (start + np.arange(T)).astype(np.int32)
+    t = [torch.from_numpy(x) for x in (q, k, v, pt, pos)]
+    if which == "K2":
+        pf.check_prefill_args(t[0], t[1], t[2], t[3][None], t[4][None])
+        jargs = [jnp.asarray(x) for x in (q, k, v, pt, pos)]
+        ref = paged_prefill_attention_pallas(*jargs, block_q=64, interpret=True, lookahead=False)
+    else:
+        pf.check_folded_prefill_args(t[0], t[1], t[2], t[3][None], t[4][None])
+        fold = lambda x: jnp.asarray(x.reshape(*x.shape[:2], Hkv * D))  # noqa: E731
+        jargs = (jnp.asarray(q), fold(k), fold(v), jnp.asarray(pt), jnp.asarray(pos))
+        ref = (paged_prefill_attention_pallas_folded(*jargs, block_q=64, interpret=True) if Hkv * D % 128 == 0
+               else jref.paged_prefill_attention(*jargs))
+    return tatt.dispatch_paged_prefill_attention(*t), np.asarray(ref, np.float32)
+
+
+@pytest.mark.parametrize("which,D", [(w, D) for w in ("K1", "K2", "K4a", "K4b") for D in (384, 512)]
+                         + [(w, D) for w in ("K3a", "K3b") for D in (264, 320)])
+def test_head_dims_past_256_match_the_reference(which, D):
+    """The launchers take head_dim 384 and 512 (K1, K2, K4a, K4b) and the
+    folded 264 and 320 over 2 kv heads (K3a, K3b): each argument check
+    passes, and each plain version, the function the kernel is held to on
+    the card, equals the reference's. K4a and K4b in bf16 (their rounding at
+    work), the others in f32."""
+    if which in ("K2", "K3b"):
+        got, ref = _wide_prefill(which, D)
+        np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=0)
+        return
+    dtype = "bf16" if which in ("K4a", "K4b") else "f32"
+    got, ref = _wide_decode(which, D, dtype)
+    assert_within(got.float().numpy(), ref, dtype)
+
+
+@pytest.mark.parametrize("D", [520, 640])
+def test_head_dims_past_512_stay_refused(D):
+    """Past 512 the launchers refuse: K1 / K4 / K7b / K7c rows past a warp's
+    32 lanes of 16 values, K2's wide body and K3a / K3b past 16 output
+    columns a lane (ROADMAP.md Queue 3 records the budgets)."""
+    for check in (lambda: pa.check_decode_args(*_decode_args(8, 2, D)),
+                  lambda: pf.check_prefill_args(*_prefill_args(8, 2, D)),
+                  lambda: pa.check_folded_decode_args(*_decode_args(8, 2, D)),
+                  lambda: pf.check_folded_prefill_args(*_prefill_args(8, 2, D))):
+        with pytest.raises(ValueError, match="head_dim"):
+            check()

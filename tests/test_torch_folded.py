@@ -139,13 +139,16 @@ def test_folded_launchers_refuse_cpu_and_unsupported_shapes():
         paged_decode_attention_folded_kernel(q, k, k, pt, pos)
     with pytest.raises(ValueError, match="head_dim"):
         check_folded_decode_args(q.repeat(1, 1, 2), k.repeat(1, 1, 1, 2), k.repeat(1, 1, 1, 2), pt, pos)
-    # 100 (no multiple of 8: rows start off 16 bytes), 20 over 4 kv heads and
-    # 192 (above 128) launch; past 256 columns the FMA body has no room
+    # 100 (no multiple of 8: rows start off 16 bytes), 20 over 4 kv heads,
+    # 192 (above 128) and 264 (past 256) launch; past 512 columns the FMA
+    # body has no room, and 384 (a multiple of 128) is K1's
     check_folded_decode_args(q[..., :50].repeat(1, 1, 2), *[torch.zeros((5, 4, 2, 100))] * 2, pt, pos)
     check_folded_decode_args(q[..., :20].repeat(1, 2, 1), *[torch.zeros((5, 4, 4, 20))] * 2, pt, pos)
     check_folded_decode_args(q.repeat(1, 1, 3), *[torch.zeros((5, 4, 2, 192))] * 2, pt, pos)
-    with pytest.raises(ValueError, match="head_dim"):
-        check_folded_decode_args(q[..., :33].repeat(1, 1, 8), *[torch.zeros((5, 4, 2, 264))] * 2, pt, pos)
+    check_folded_decode_args(q[..., :33].repeat(1, 1, 8), *[torch.zeros((5, 4, 2, 264))] * 2, pt, pos)
+    for D in (384, 520):
+        with pytest.raises(ValueError, match="head_dim"):
+            check_folded_decode_args(q[..., :D // 8].repeat(1, 1, 8), *[torch.zeros((5, 4, 2, D))] * 2, pt, pos)
     with pytest.raises(ValueError, match="dtype"):
         check_folded_decode_args(q, k.bfloat16(), k.bfloat16(), pt, pos)
     check_folded_decode_args(q.repeat(1, 4, 1), k, k, pt, pos)  # G 16: any group launches

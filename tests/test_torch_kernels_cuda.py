@@ -1,14 +1,16 @@
 """The CUDA kernels K1 (paged decode), K2 (chunked-prefill flash), K3a / K3b
-(their folded variants for a head_dim below 256 other than 128),
+(their folded variants for a head_dim below 512 that is no multiple of 128),
 K4a / K4b (the chunked and grouped decode variants), K5 (MLA latent
 decode), K6 (MLA latent prefill) and the instruments K7a / K7b (load-only
 twins of K2 / K1) and K7c (K1's function one page an iteration, with and
 without rounded probabilities) against their plain PyTorch versions on the
 card, K1-K3 and K7a also over int8 pools (``QuantizedPages``), at the
 reference's head geometries: GQA groups of any size (G 3, 6, 7, and past 8
-and 16), head_dim 256, folded head dims 8, 24, 80, 96, 192, and 100 and 20
-(no multiple of 8), and MLA at 4, 16 and 20 heads and at a latent row of
-d_c 1024 + d_r 64. Marked ``cuda``: every test skips
+and 16), head_dim 256, 384 and 512, folded head dims 8, 24, 80, 96, 192, 264
+and 320, and 100 and 20 (no multiple of 8), and MLA at 4, 16 and 20 heads
+and at a latent row of d_c 1024 + d_r 64. K1 over bf16 queries (its split
+tensor-core body and merge) and K4a / K4b give the same bits twice; K7c's
+two toggles give K4b's and K1's bits on the same inputs. Marked ``cuda``: every test skips
 where no CUDA device is visible (a CUDA kernel has no CPU mode). On a
 machine with an H100 and nvcc (``--noconftest``: tests/conftest.py imports
 jax, which the port does not need):
@@ -112,10 +114,12 @@ def _decode_tables(rng, B, P, ps, max_pages, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (128, 128, 16, 2), (128, 16, 28, 4),
-                                         (128, 16, 12, 2), (128, 16, 3, 1), (64, 16, 36, 2), (256, 16, 8, 2)])
+                                         (128, 16, 12, 2), (128, 16, 3, 1), (64, 16, 36, 2), (256, 16, 8, 2),
+                                         (384, 16, 8, 2), (512, 16, 8, 2), (512, 16, 40, 2)])
 def test_decode_kernel_matches_plain(cuda, dtype, D, ps, Hq, Hkv):
     """G 4, 1 and 2, and G 7, 6, 3 and 18 (three blocks of 6 heads a kv
-    head); head_dim 256."""
+    head); head_dim 256, 384 and 512 (bf16: two column slices; G 20 at 512:
+    two 16-head tiles, f32 five sub-groups of 4)."""
     rng = np.random.default_rng(D + ps + Hq)
     B, max_pages = 12, 8
     P = B * max_pages + 1
@@ -144,7 +148,7 @@ def test_decode_kernel_matches_plain(cuda, dtype, D, ps, Hq, Hkv):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (128, 16, 16, 2), (128, 16, 28, 4),
-                                         (128, 16, 12, 2), (256, 16, 8, 2)])
+                                         (128, 16, 12, 2), (256, 16, 8, 2), (384, 16, 8, 2), (512, 16, 8, 2)])
 def test_prefill_kernel_matches_plain_per_lane(cuda, dtype, D, ps, Hq, Hkv):
     """Three lanes in one launch: a chunk from position 0 with pad rows, a
     chunk after a cached prefix, and a pad lane (n=0, all-zero table); G 7
@@ -177,7 +181,8 @@ def test_prefill_kernel_matches_plain_per_lane(cuda, dtype, D, ps, Hq, Hkv):
 
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES[2:], ids=MIX_IDS[2:])
-@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (256, 16, 8, 2)])
+@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 128, 8, 8), (256, 16, 8, 2), (384, 16, 8, 2),
+                                         (512, 16, 8, 2)])
 def test_decode_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
     rng = np.random.default_rng(D + ps + 7)
     B, max_pages = 12, 8
@@ -193,7 +198,8 @@ def test_decode_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
 
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES[2:], ids=MIX_IDS[2:])
-@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 16, 8, 2), (128, 16, 28, 4), (256, 16, 8, 2)])
+@pytest.mark.parametrize("D,ps,Hq,Hkv", [(128, 16, 32, 8), (64, 16, 8, 2), (128, 16, 28, 4), (256, 16, 8, 2),
+                                         (384, 16, 8, 2), (512, 16, 8, 2)])
 def test_prefill_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
     rng = np.random.default_rng(D + ps + 8)
     T, max_pages = 96, 16
@@ -210,14 +216,17 @@ def test_prefill_kernel_int8_matches_plain(cuda, qdt, kvdt, D, ps, Hq, Hkv):
 
 
 # (D, Hkv, Hq): TinyLlama's fold, G 1 and 4 at D 16 / 32 / 64, and the
-# widened geometries: D 96 at G 3, D 80, D 8 over 16 kv heads, D 24 (tiles
-# padded to 32 columns; over 3 kv heads an int8 row starts off 16 bytes, so
-# it arrives in 8-byte copies), G 40 (three 16-head tiles a kv head), D 192
-# (K3b: the tensor-core body at 256 columns; K3a: the FMA body), and D 100
-# and 20, no multiple of 8, whose rows start off 16 and off 8 bytes (the FMA
-# bodies, every mix)
+# widened geometries: D 96 at G 3, D 80, D 8 over 16 kv heads, D 24 (K3b:
+# tiles padded to 32 columns, over 3 kv heads an int8 row starts off 16
+# bytes and arrives in 8-byte copies; K3a: D 8 and 24 are no multiple of 16,
+# the FMA body), G 40 (three 16-head tiles a kv head), D 192 (K3b: the
+# tensor-core body at 256 columns; K3a: the FMA body), D 100 and 20, no
+# multiple of 8, whose rows start off 16 and off 8 bytes (the FMA bodies,
+# every mix), and D 264 and 320 past 256 (K3a: the FMA body at 16 columns a
+# lane; K3b: the wide body). K3a's bf16 queries at the other head dims below
+# 128 run K1's split tensor-core body.
 FOLDED = [(16, 8, 16), (32, 4, 32), (64, 4, 32), (64, 2, 16), (96, 4, 12), (80, 8, 16), (8, 16, 32), (24, 4, 8), (24, 3, 9),
-          (64, 1, 40), (192, 2, 8), (100, 2, 8), (20, 4, 16)]
+          (64, 1, 40), (192, 2, 8), (100, 2, 8), (20, 4, 16), (264, 2, 8), (320, 2, 8)]
 
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES, ids=MIX_IDS)
@@ -324,15 +333,15 @@ def test_launchers_raise_on_what_the_kernels_do_not_take(cuda):
     rng = np.random.default_rng(11)
     pt = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
     pos = torch.zeros(2, dtype=torch.int32, device=cuda)
-    q264 = torch.zeros((2, 8, 264), device=cuda)  # past the FMA body's 256 columns (100 launches)
-    k264, v264 = _pools(rng, 5, 16, 2, 264, torch.float32, cuda)
+    q520 = torch.zeros((2, 8, 520), device=cuda)  # past the FMA body's 512 columns
+    k520, v520 = _pools(rng, 5, 16, 2, 520, torch.float32, cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        paged_decode_attention_folded_kernel(q264, k264, v264, pt, pos)
+        paged_decode_attention_folded_kernel(q520, k520, v520, pt, pos)
     with pytest.raises(ValueError, match="head_dim"):
-        tatt.dispatch_paged_decode_attention(q264, k264, v264, pt, pos)
-    with pytest.raises(ValueError, match="head_dim"):  # 512: past a warp's 32 lanes of 8 values
-        paged_decode_attention_kernel(torch.zeros((2, 8, 512), device=cuda),
-                                      *_pools(rng, 5, 16, 2, 512, torch.float32, cuda), pt, pos)
+        tatt.dispatch_paged_decode_attention(q520, k520, v520, pt, pos)
+    with pytest.raises(ValueError, match="head_dim"):  # 640: past a warp's 32 lanes of 16 values
+        paged_decode_attention_kernel(torch.zeros((2, 8, 640), device=cuda),
+                                      *_pools(rng, 5, 16, 2, 640, torch.float32, cuda), pt, pos)
     q = torch.zeros((2, 8, 64), device=cuda, dtype=torch.float16)
     k, v = _pools(rng, 5, 16, 2, 64, torch.float16, cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -351,6 +360,71 @@ def test_launchers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="Hq"):
         paged_decode_attention_kernel(torch.zeros((2, 25, 128), device=cuda), *_pools(rng, 5, 16, 2, 128,
                                                                                        torch.float32, cuda), pt, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_launchers_take_head_dims_past_256(cuda, dtype):
+    """What the launchers refused before: K3a at head_dim 264 (through its
+    launcher and the dispatcher) and K1 at 512 launch and hold their plain
+    versions."""
+    rng = np.random.default_rng(11)
+    pt = torch.tensor([[1, 2, 0, 0], [3, 0, 0, 0]], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([20, 5], dtype=torch.int32, device=cuda)
+    for D, kernel in ((264, paged_decode_attention_folded_kernel), (512, paged_decode_attention_kernel)):
+        q = torch.from_numpy(rng.standard_normal((2, 8, D)).astype(np.float32)).to(cuda, dtype)
+        k, v = _pools(rng, 5, 16, 2, D, dtype, cuda)
+        ref = tatt.paged_decode_attention(q, k, v, pt, pos).float()
+        for call in (kernel, tatt.dispatch_paged_decode_attention):
+            before = kernel.launches
+            got = call(q, k, v, pt, pos)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            torch.testing.assert_close(got.float(), ref, **TOL[dtype])
+
+
+@pytest.mark.parametrize("kvdt", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (256, 8, 2, 16), (512, 8, 2, 16)])
+def test_decode_kernel_gives_the_same_bits_twice(cuda, kvdt, D, Hq, Hkv, ps):
+    """K1 over bf16 queries merges its splits in fixed order, without
+    atomics: two launches on the same inputs (B 64: ragged contexts up to
+    2048 rows, an inactive slot, a row at -1) give the same bits."""
+    rng = np.random.default_rng(D + Hq + ps + 15)
+    P, pt, pos = _variant_tables(rng, 64, ps, 2048 // ps, cuda)
+    k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
+    q = torch.from_numpy(rng.standard_normal((64, Hq, D)).astype(np.float32)).to(cuda, torch.bfloat16)
+    first = paged_decode_attention_kernel(q, k, v, pt, pos)
+    second = paged_decode_attention_kernel(q, k, v, pt, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.float(), tatt.paged_decode_attention(q, k, v, pt, pos).float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (128, 16, 8, 128), (512, 8, 2, 16)])
+def test_perseq_variant_routes_each_toggle_to_its_body(cuda, D, Hq, Hkv, ps):
+    """K7c over bf16 pools at B 64: without cast_f32 it gives K4b's bits (one
+    page a unit) and holds its rounded plain version within TOL plus
+    ``rounding_slack``; with cast_f32 it gives K1's bits and holds K1's plain
+    version. Each toggle counts one K7c launch and none of the other
+    kernel."""
+    rng = np.random.default_rng(D + Hq + ps + 16)
+    P, pt, pos = _variant_tables(rng, 64, ps, 2048 // ps, cuda)
+    k, v = _pools(rng, P, ps, Hkv, D, torch.bfloat16, cuda)
+    q = torch.from_numpy(rng.standard_normal((64, Hq, D)).astype(np.float32)).to(cuda, torch.bfloat16)
+    counts = [paged_decode_perseq_variant_kernel.launches, paged_decode_attention_grouped_kernel.launches,
+              paged_decode_attention_kernel.launches]
+    rounded = paged_decode_perseq_variant_kernel(q, k, v, pt, pos, cast_f32=False)
+    exact = paged_decode_perseq_variant_kernel(q, k, v, pt, pos, cast_f32=True)
+    assert [paged_decode_perseq_variant_kernel.launches, paged_decode_attention_grouped_kernel.launches,
+            paged_decode_attention_kernel.launches] == [counts[0] + 2, counts[1], counts[2]]
+    assert torch.equal(rounded, paged_decode_attention_grouped_kernel(q, k, v, pt, pos))
+    assert torch.equal(exact, paged_decode_attention_kernel(q, k, v, pt, pos))
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]
+    ref = tatt.paged_decode_perseq_variant(q, k, v, pt, pos).float()
+    limit = tol["atol"] + tol["rtol"] * ref.abs() + rounding_slack(q, k, v, pt, pos, ps)
+    assert not ((rounded.float() - ref).abs() > limit).any()
+    torch.testing.assert_close(exact.float(), tatt.paged_decode_attention(q, k, v, pt, pos).float(), **tol)
 
 
 def _variant_tables(rng, B, ps, max_pages, device):
@@ -433,9 +507,14 @@ def _exact_queries(rng, B, Hq, D, dtype, device):
 @pytest.mark.parametrize("which", ["K4a", "K4b", "K7c"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 16), (128, 16, 8, 128), (128, 28, 4, 16),
-                                         (128, 48, 2, 16), (64, 12, 4, 24), (256, 8, 2, 16)])
+                                         (128, 48, 2, 16), (64, 12, 4, 24), (256, 8, 2, 16), (384, 8, 2, 16),
+                                         (512, 8, 2, 16)])
 def test_rounded_variants_at_the_serve_batch(cuda, which, dtype, D, Hq, Hkv, ps):
-    """K4a, K4b and K7c (rounded probabilities) at B 64 over exact inputs.
+    """K4a, K4b and K7c (rounded probabilities) at B 64 over exact inputs
+    (head dims 384 and 512 here and in the next test, where random inputs
+    are held with ``rounding_slack``: at D 512, K4b over random B 16 inputs
+    rounds 11 of 65536 probabilities at a bf16 boundary the other way on an
+    H100, by <= 4.9e-4).
     Over random inputs a probability whose f32 value lies within the dot
     products' summation-order noise of a bf16 rounding boundary rounds one
     way in the kernel and the other in the plain version: one bf16 step of
@@ -456,7 +535,8 @@ def test_rounded_variants_at_the_serve_batch(cuda, which, dtype, D, Hq, Hkv, ps)
 
 @pytest.mark.parametrize("which", ["K4a", "K4b", "K7c"])
 @pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 16), (128, 16, 8, 128), (128, 28, 4, 16),
-                                         (128, 48, 2, 16), (64, 12, 4, 24), (256, 8, 2, 16)])
+                                         (128, 48, 2, 16), (64, 12, 4, 24), (256, 8, 2, 16), (384, 8, 2, 16),
+                                         (512, 8, 2, 16)])
 def test_rounded_variants_at_the_serve_batch_over_random_inputs(cuda, which, D, Hq, Hkv, ps):
     """K4a, K4b and K7c at B 64 over random bf16 inputs (contexts up to 2048
     rows, an inactive slot, a row at -1), held to TOL plus
@@ -484,7 +564,8 @@ def test_rounded_variants_at_the_serve_batch_over_random_inputs(cuda, which, D, 
         f"{float(((got - ref).abs() - limit).max()):.3g}")
 
 
-@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128), (256, 8, 2, 16)])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128), (256, 8, 2, 16),
+                                         (512, 8, 2, 16)])
 def test_grouped_decode_gives_the_same_bits_twice(cuda, D, Hq, Hkv, ps):
     """K4b merges its splits in fixed order, without atomics: two launches
     on the same inputs (B 64: ragged contexts, an inactive slot, a row at
@@ -501,7 +582,8 @@ def test_grouped_decode_gives_the_same_bits_twice(cuda, D, Hq, Hkv, ps):
                                **TOL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128), (256, 8, 2, 16)])
+@pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128), (256, 8, 2, 16),
+                                         (384, 8, 2, 16)])
 def test_chunked_decode_gives_the_same_bits_twice(cuda, D, Hq, Hkv, ps):
     """K4a on K4b's passes merges its splits in fixed order too: two
     launches on the same inputs (B 64) give the same bits."""
@@ -517,7 +599,7 @@ def test_chunked_decode_gives_the_same_bits_twice(cuda, D, Hq, Hkv, ps):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 8, 128), (128, 16, 8, 128), (128, 28, 4, 16),
-                                         (256, 8, 2, 16)])
+                                         (256, 8, 2, 16), (384, 8, 2, 16), (512, 8, 2, 16)])
 @pytest.mark.parametrize("B", [1, 6, 16])
 def test_decode_dmaonly_checksum(cuda, dtype, D, Hq, Hkv, ps, B):
     rng = np.random.default_rng(D + B + 3)
@@ -534,7 +616,7 @@ def test_decode_dmaonly_checksum(cuda, dtype, D, Hq, Hkv, ps, B):
 
 @pytest.mark.parametrize("qdt,kvdt", MIXES, ids=MIX_IDS)
 @pytest.mark.parametrize("D,Hq,Hkv,ps", [(128, 32, 8, 16), (64, 8, 2, 16), (128, 16, 8, 128), (128, 12, 2, 16),
-                                         (128, 28, 4, 16), (256, 8, 2, 16)])
+                                         (128, 28, 4, 16), (256, 8, 2, 16), (384, 8, 2, 16), (512, 8, 2, 16)])
 def test_prefill_dmaonly_checksum(cuda, qdt, kvdt, D, Hq, Hkv, ps):
     """K7a over three lanes in one launch (from 0 with an odd length, after a
     cached prefix, a pad lane), K2's block partition; G 4 at ps 16, the

@@ -166,8 +166,8 @@ def test_profile_serve_classes_the_shared_prefill_bodies(body):
     kernels = [dict(name=name, ts=0.0, dur=10.0)]
     assert window_stats(kernels, 0.0, 20.0, folded=True)["device_ms_by_class"] == {"K3b": 0.01}
     assert {"K2", "K3b"} <= set(PREFILL_CLASSES)
-    # K3a's split bodies and its merge are K3a's, in any workload
-    for k3a in ("folded_decode_tc<signed char, 64>", "folded_decode_fma<float>", "merge_splits<__nv_bfloat16>"):
+    # K3a's split bodies (K1's tensor-core body in a folded workload) and its merge are K3a's
+    for k3a in ("paged_decode_tc<signed char, 64>", "folded_decode_fma<float>", "merge_splits<__nv_bfloat16>"):
         assert kernel_class(f"void (anonymous namespace)::{k3a}(...)", folded=True) == "K3a"
     # K4b's passes; the merge it shares with K3a is K4b's in a window where K4b's scores run
     for k4b in ("grouped_scores<128>", "grouped_pv<128>"):
@@ -176,3 +176,19 @@ def test_profile_serve_classes_the_shared_prefill_bodies(body):
     scores = dict(name="void (anonymous namespace)::grouped_scores<128>(...)", ts=0.0, dur=4.0)
     assert window_stats([scores, merge], 0.0, 20.0)["device_ms_by_class"] == {"K4b": 0.006}
     assert window_stats([merge], 0.0, 20.0)["device_ms_by_class"] == {"K3a": 0.002}
+
+
+def test_profile_serve_gives_k1_its_split_body_and_merge():
+    """K1's bf16 body (paged_decode_tc) and f32 body are K1's; the merge it
+    shares with K3a and K4b is K1's in a window where paged_decode_tc runs,
+    and a decode step is counted by K1's split body, not by its merge."""
+    from dynamo_tpu_torch.tools.profile_serve import DECODE_STEP_KERNEL, kernel_class, window_stats
+
+    body = dict(name="void (anonymous namespace)::paged_decode_tc<__nv_bfloat16, 128>(...)", ts=0.0, dur=4.0)
+    merge = dict(name="void dtt::merge_splits<__nv_bfloat16, 8>(...)", ts=5.0, dur=1.0)
+    assert kernel_class(body["name"]) == "K1"
+    assert kernel_class("void (anonymous namespace)::paged_decode_kernel<float, float, 512, 4>(...)") == "K1"
+    assert window_stats([body, merge], 0.0, 20.0)["device_ms_by_class"] == {"K1": 0.005}
+    # K3a runs the same body at TinyLlama's head dim: in a folded workload, body and merge are K3a's
+    assert window_stats([body, merge], 0.0, 20.0, folded=True)["device_ms_by_class"] == {"K3a": 0.005}
+    assert DECODE_STEP_KERNEL["K1"] in body["name"] and DECODE_STEP_KERNEL["K1"] not in merge["name"]

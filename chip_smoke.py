@@ -15,16 +15,17 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      the int8 cache; K1's bf16-query launches (its split body and merge)
      twice for the same bits; kernel / plain / SDPA times and the bound; the
      SASS of the mma.sync bodies (K1's split body, which K3a shares, K4a /
-     K4b's passes, K6's bf16 body) must hold HMMA and no local memory (the cuobjdump runs
-     side by side)
+     K4b's passes, K5's and K6's bf16 bodies) must hold HMMA and no local
+     memory (the cuobjdump runs side by side)
   4. K2 chunked-prefill flash and K3b the same way (512-row lanes at cached
      prefixes 0 and 1024, plus a pad lane, in one launch), with achieved
      TFLOP/s and share of the bound; the SASS of their bf16-query instances
      must hold HGMMA (wgmma on the tensor cores)
   5. K5 MLA latent decode against its plain version (B 16, H 16, latent
      576, d_c 512, ps 16, ragged contexts 1..2048, inactive slots, a row at
-     position -1), f32 queries over f32 and over bf16 pages; kernel / plain /
-     SDPA times and the SDPA backends that take the inputs
+     position -1), f32 queries over f32 pages (the FMA body) and over bf16
+     pages (the tensor-core body), each launched twice for the same bits;
+     kernel / plain / SDPA times and the SDPA backends that take the inputs
   6. K6 MLA latent prefill the same way (512-row chunks at cached prefixes 0
      and 1536); K5 and K6 bounded over the function's own operations, 2 H
      (L + d_c) a (row, key) pair, at the pages' rate (bf16 pages: the bf16
@@ -41,24 +42,27 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      checksums of their plain versions, exactly (pools of multiples of 1/8,
      whose f32 sums are exact in any order); kernel / plain / SDPA times and
      the bound over the rows each sequence reads; then the widened head
-     geometries at small sizes (WIDENED: K1 / K2 at G 7 and 6; D 256, 384
-     and 512 on K1, K2, K4a, K4b, K7a-c; K3a / K3b at D 96 with G 3, D 80,
-     8, 192, 100, 20, 264 and 320; K5 / K6 at 4 and 20 heads and at L 1088 /
-     d_c 1024), each held to its plain version in every mix it takes
+     geometries at small sizes (WIDENED: K1 / K2 at G 7 and 6; D 256, 384,
+     512, 640, 768 and 1024 on K1, K2, K4a, K4b, K7a-c; K3a / K3b at D 96
+     with G 3, D 80, 8, 192, 100, 20, 264, 320, 520 and 1000; K5 / K6 at 4
+     and 20 heads, at L 1088 / d_c 1024 and at L 36 / d_c 30), each held to
+     its plain version in every mix it takes
   8. serve paths (tools/workload.py: 16 concurrent greedy requests of
      64-2048 prompt tokens and 64 output tokens, bf16, seeded random
      weights, full width and depth); every stream must finish with exactly
      64 tokens, the path's kernels must launch and the others' must not:
        serve / int8 serve: Llama-3-8B geometry, bf16 / int8 KV cache, K1 K2;
-       MLA serve: DeepSeek-V2-Lite geometry (MLA + 64-expert MoE), K5 K6;
+       MLA serve: DeepSeek-V2-Lite geometry (MLA + 64-expert MoE), K5 (its
+       tensor-core body, mla_decode_tc, for every call) K6;
        folded serve / folded int8 serve: TinyLlama-1.1B geometry (head_dim
        64, prompts clipped to 1984), bf16 / int8 KV cache, K3a K3b;
        chunked serve / grouped serve: Llama-3-8B geometry, bf16 KV, with
        DYNTPU_DECODE_KERNEL=chunked / grouped: K4a / K4b decode (as many
        launches as K1 in serve) and K2; no K1, K3 or other K4 launch
-  9. refusals: an int8 cache on tiny-mla and on K4a, K1 at head_dim 640 and
-     K3a at 520 (past their budgets), K3b over float16 and K4b at a folded
-     head dim raise on the card
+  9. refusals: an int8 cache on tiny-mla and on K4a, K3b over float16 and
+     K4b at a folded head dim raise on the card; K1 at head_dim 640 and K3a
+     at 520, which the launchers refused before, launch and hold their plain
+     versions
  10. 2-layer f32 greedy parity: the engine's tokens must equal a dense
      no-paging forward's on Llama-3-8B geometry, on TinyLlama geometry with
      an f32 and with an int8 KV cache (the dense forward quantizes and
@@ -434,12 +438,13 @@ def check_sass() -> dict:
     (wgmma), the f32 FMA bodies none; K1's split body, which K3a shares
     (paged_decode_tc<bf16 | int8, D 16, 32, ..., 128, 256, 384, 512>),
     K4a's and K4b's (grouped_scores and grouped_pv at D 64, 128, 256, 384,
-    512) and K6's bf16 body (mla_prefill_tc) hold HMMA (mma.sync) and no
-    local memory (LDL / STL: no spills). Returns {instance: count}."""
+    512) and K5's and K6's bf16 bodies (mla_decode_tc, mla_prefill_tc) hold
+    HMMA (mma.sync) and no local memory (LDL / STL: no spills). Returns
+    {instance: count}."""
     from dynamo_tpu_torch.ops.kernels import _build
 
     mma = (("paged_attention", "paged_decode_tc", 22), ("decode_variants", "grouped_", 10),
-           ("mla_attention", "mla_prefill_tc", 1))
+           ("mla_attention", "mla_prefill_tc", 1), ("mla_attention", "mla_decode_tc", 1))
     libs = list(dict.fromkeys(lib for lib, _, _ in mma))  # each library disassembled once a pattern
     jobs = [(_build.library_path("prefill_attention"), r"\bHGMMA\b")]
     for lib in libs:
@@ -641,6 +646,8 @@ def check_mla_decode(torch, dev, rng) -> dict:
         got = k5(q, pages, pt_t, pos_t, dc)
         ref = plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc)
         held = held_to_plain("K5 MLA decode", f"f32 q / {name} pages", got, ref, tol="f32")
+        if not torch.equal(got, k5(q, pages, pt_t, pos_t, dc)):
+            raise AssertionError(f"K5 MLA decode {name} pages: two launches on the same inputs differ")
         kt = timed(lambda: k5(q, pages, pt_t, pos_t, dc), 50)
         ms = kt["ms"]
         plain_ms = cuda_ms(lambda: plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc), 5)
@@ -722,27 +729,33 @@ def check_mla_prefill(torch, dev, rng) -> dict:
 
 # The head geometries the launchers were widened to, at small sizes: GQA
 # groups of 7 (Qwen2-VL's 28 / 4) and 6 (12 / 2) on K1 and K2; head_dim 256
-# (Gemma's), 384 and 512 (no public family; the reference serves a tiny
-# model at them) on K1, K2, K4a, K4b, K7a, K7b and K7c; folded head dims 96
-# (G 3), 80, 8, 192, 264 and 320 (over 2 kv heads), and 100 / 20 (no
-# multiple of 8: rows start off 16 bytes) on K3a and K3b; MLA at 4 heads (the reference's tiny-mla), 20
-# heads, and a latent row of d_c 1024 + d_r 64 on K5 and K6. (name, Hq, Hkv,
-# D) or, for MLA, (name, H, latent, d_c).
-WIDE_D = (("D256", 8, 2, 256), ("D384", 8, 2, 384), ("D512", 8, 2, 512))
+# (Gemma's) and 384 to 1024 (no public family; the reference serves a tiny
+# model at any multiple of 128) on K1, K2, K4a, K4b, K7a, K7b and K7c, past
+# 512 on the runtime-D bodies; folded head dims 96 (G 3), 80, 8, 192, 264,
+# 320, 520 and 1000 (over 2 kv heads), and 100 / 20 (no multiple of 8: rows
+# start off 16 bytes) on K3a and K3b; MLA at 4 heads (the reference's
+# tiny-mla), 20 heads, a latent row of d_c 1024 + d_r 64, and one of d_c 30
+# + d_r 6 (rows that start off 16 bytes) on K5 and K6. (name, Hq, Hkv, D)
+# or, for MLA, (name, H, latent, d_c).
+WIDE_D = (("D256", 8, 2, 256), ("D384", 8, 2, 384), ("D512", 8, 2, 512), ("D640", 8, 2, 640),
+          ("D768", 8, 2, 768), ("D1024", 8, 2, 1024))
+FOLDED_D = (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8), ("D192", 8, 2, 192),
+            ("D100", 8, 2, 100), ("D20", 16, 4, 20), ("D264", 8, 2, 264), ("D320", 8, 2, 320),
+            ("D520", 8, 2, 520), ("D1000", 8, 2, 1000))
+MLA_WIDE = (("H4", 4, MLA_LATENT, MLA_DC), ("H20", 20, MLA_LATENT, MLA_DC), ("L1088", 4, 1088, 1024),
+            ("L36", 4, 36, 30))
 WIDENED = {
     "K1": (("G7", 28, 4, 128), ("G6", 12, 2, 128), *WIDE_D),
     "K2": (("G7", 28, 4, 128), ("G6", 12, 2, 128), *WIDE_D),
-    "K3a": (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8), ("D192", 8, 2, 192),
-            ("D100", 8, 2, 100), ("D20", 16, 4, 20), ("D264", 8, 2, 264), ("D320", 8, 2, 320)),
-    "K3b": (("D96 G3", 12, 4, 96), ("D80", 16, 8, 80), ("D8", 32, 16, 8), ("D192", 8, 2, 192),
-            ("D100", 8, 2, 100), ("D20", 16, 4, 20), ("D264", 8, 2, 264), ("D320", 8, 2, 320)),
+    "K3a": FOLDED_D,
+    "K3b": FOLDED_D,
     "K4a": WIDE_D,
     "K4b": WIDE_D,
     "K7c": WIDE_D,
     "K7b": WIDE_D,
     "K7a": WIDE_D,
-    "K5": (("H4", 4, MLA_LATENT, MLA_DC), ("H20", 20, MLA_LATENT, MLA_DC), ("L1088", 4, 1088, 1024)),
-    "K6": (("H4", 4, MLA_LATENT, MLA_DC), ("H20", 20, MLA_LATENT, MLA_DC), ("L1088", 4, 1088, 1024)),
+    "K5": MLA_WIDE,
+    "K6": MLA_WIDE,
 }
 
 
@@ -873,19 +886,21 @@ def check_widened(torch, dev, rng) -> dict:
 def phase_refusals(torch, dev) -> None:
     """What the port does not take raises on the card and falls back to
     nothing: an int8 cache on the MLA family and on K4a, a float16 query on
-    K3b, K4b at a head dim it does not take, and head dims past the launchers'
-    budgets (K1 at 640, K3a at 520)."""
+    K3b, K4b at a head dim it does not take. K1 at head_dim 640 and K3a at
+    520, refused before, launch through the dispatcher and hold their plain
+    versions."""
     from dynamo_tpu_torch.models.registry import load_model
     from dynamo_tpu_torch.ops import attention as att
 
-    pt = torch.zeros((2, 4), dtype=torch.int32, device=dev)
-    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    pt = torch.tensor([[1, 2, 0, 0], [3, 0, 0, 0]], dtype=torch.int32, device=dev)
+    pos = torch.tensor([20, 5], dtype=torch.int32, device=dev)
+    for what, D in (("K1 at head_dim 640", 640), ("K3a at head_dim 520", 520)):
+        q = torch.randn((2, 8, D), device=dev)
+        k, v = (torch.randn((5, 16, 2, D), device=dev) for _ in range(2))
+        held_to_plain(f"formerly refused: {what}", "f32", att.dispatch_paged_decode_attention(q, k, v, pt, pos),
+                      att.paged_decode_attention(q, k, v, pt, pos))
     cases = {
         "tiny-mla with an int8 KV cache": lambda: load_model("tiny-mla", device="cuda", kv_cache_dtype="int8"),
-        "K1 at head_dim 640": lambda: att.dispatch_paged_decode_attention(
-            torch.zeros((2, 8, 640), device=dev), *[torch.zeros((5, 16, 2, 640), device=dev)] * 2, pt, pos),
-        "K3a at head_dim 520": lambda: att.dispatch_paged_decode_attention(
-            torch.zeros((2, 8, 520), device=dev), *[torch.zeros((5, 16, 2, 520), device=dev)] * 2, pt, pos),
         "K3b over float16": lambda: att.dispatch_paged_prefill_attention(
             torch.zeros((16, 32, 64), device=dev, dtype=torch.float16),
             *[torch.zeros((5, 16, 4, 64), device=dev, dtype=torch.float16)] * 2, pt[0], pos.repeat(8)),
@@ -984,6 +999,13 @@ def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict
     quantized = any(isinstance(pool, QuantizedPages) for pool in engine.runner.kv_cache.values())
     if quantized != (config.kv_cache_dtype == "int8"):
         raise AssertionError(f"{what}: kv_cache_dtype {config.kv_cache_dtype!r} but int8 pools: {quantized}")
+    if "K5" in kernels:  # the body is chosen by the pool's dtype and widths alone: every K5 call ran it
+        from dynamo_tpu_torch.ops.kernels.mla_attention import decode_on_tensor_cores
+
+        pool, d_c = engine.runner.kv_cache["ckv"], engine.model.config.kv_lora_rank
+        if not decode_on_tensor_cores(pool.shape[-1], d_c, pool.dtype):
+            raise AssertionError(f"{what}: K5 ran its FMA body (pool {pool.dtype}, latent {pool.shape[-1]}, d_c {d_c})")
+        log(f"{what}: every K5 call ran mla_decode_tc (latent pool {pool.dtype}, width {pool.shape[-1]}, d_c {d_c})")
     n_out = sum(len(t) for t, _, _ in results.values())
     ttfts = sorted(t for _, _, t in results.values())
     log(f"{what}: {len(results)}/{len(requests)} streams finished with {max_tokens} tokens; prompts "
@@ -1345,6 +1367,8 @@ def main() -> int:
         # checked here, not on a path: K7a over the int8 cache (the profiler
         # runs bf16 pools) and K7c's cast_f32 toggle (K1's function) at the
         # profiler's shape and at K1's
+        if key == "K5":  # phase_serve checked that the MLA serve pool takes this body
+            entry["body"] = "mla_decode_tc"
         if key == "K7a":
             entry["int8"] = dict(bench["K7a"]["int8"])
         if key == "K7c":

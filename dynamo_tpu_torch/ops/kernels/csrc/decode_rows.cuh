@@ -6,7 +6,7 @@
 // states. One copy of the paged-row addressing (token_row) and of the score
 // reduction (head_scores) serves them all. Also shared by the decode
 // kernels: warp reductions, the head sub-group rule of K1 / K4a / K7c, and
-// merge_splits, the split-K merge of K3a and K4b.
+// merge_splits, the split-K merge of the split bodies (K1, K3a, K4a, K4b, K5).
 #pragma once
 
 #include <type_traits>
@@ -184,18 +184,20 @@ int with_head_subgroup(int G, Args&&... args) {
 }
 
 // The split-K merge of the decode kernels that split a sequence's context
-// over blocks (K1's and K3a's split bodies, K4a / K4b): split s of sequence b wrote m (a log2-domain
+// over blocks (K1's and K3a's split bodies, K4a / K4b, the wide body past
+// head_dim 512; K5, with d_c for D): split s of sequence b wrote m (a log2-domain
 // running max), l and acc [D] for every head to m_part, l_part [B, n_split,
 // Hq] and acc_part [B, n_split, Hq, D]; the sequence's ceil(ctx /
 // split_rows) splits combine as out = sum 2^(m_s - M) acc_s / max(sum 2^(m_s
-// - M) l_s, 1e-20), M their max. Block (8 heads, sequence), one warp a head:
-// lane j computes split s0 + j's weight once, and the lanes of a column
-// take it by shuffle. Fixed loops, no atomics: two launches give the same
-// bits. kCols output columns a lane: D <= 32 kCols (8 up to 256, 16 up to
-// 512; launch_merge_splits picks).
+// - M) l_s, 1e-20), M their max. Block (8 heads, sequence, column slice of
+// 32 kMergeCols), one warp a head: lane j computes split s0 + j's weight
+// once, and the lanes of a column take it by shuffle; the rows of four
+// splits load together (their sums still taken in split order). Fixed
+// loops, no atomics: two launches give the same bits.
 constexpr int kMergeHeads = 8;
+constexpr int kMergeCols = 4;  // output columns a lane: slices of 128 columns over the grid's z dimension
 
-template <typename TQ, int kCols>
+template <typename TQ>
 __global__ void __launch_bounds__(32 * kMergeHeads)
 merge_splits(const float* __restrict__ m_part, const float* __restrict__ l_part,
              const float* __restrict__ acc_part, const int* __restrict__ positions,
@@ -203,51 +205,52 @@ merge_splits(const float* __restrict__ m_part, const float* __restrict__ l_part,
   const int h = blockIdx.x * kMergeHeads + (threadIdx.x >> 5);
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
+  const int d0 = blockIdx.z * 32 * kMergeCols + lane;  // this lane's columns d0 + 32 c
   if (h >= Hq) return;  // warp-uniform
   const int n = (decode_ctx(positions, b, cap) + split_rows - 1) / split_rows;
   const size_t base = (size_t)b * n_split;
   float mx = kNegInf;
   for (int s = lane; s < n; s += 32) mx = fmaxf(mx, m_part[(base + s) * Hq + h]);
   mx = warp_max(mx);
-  float tot = 0.f, a[kCols] = {};
+  float tot = 0.f, a[kMergeCols] = {};
   for (int s0 = 0; s0 < n; s0 += 32) {  // warp-uniform
     const int s = s0 + lane;
     const float w = s < n ? exp2f(m_part[(base + s) * Hq + h] - mx) : 0.f;
     if (s < n) tot = fmaf(l_part[(base + s) * Hq + h], w, tot);
     const int cnt = min(32, n - s0);
-    for (int j = 0; j < cnt; ++j) {
-      const float wj = __shfl_sync(0xffffffffu, w, j);
-      const float* row = acc_part + ((base + s0 + j) * Hq + h) * D;
+    for (int j = 0; j < cnt; j += 4) {  // warp-uniform
+      float x[4][kMergeCols], wj[4];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) a[c] = fmaf(row[d], wj, a[c]);
+      for (int u = 0; u < 4; ++u) {
+        wj[u] = __shfl_sync(0xffffffffu, w, min(j + u, cnt - 1));
+        const float* row = acc_part + ((base + s0 + min(j + u, cnt - 1)) * Hq + h) * D;
+#pragma unroll
+        for (int c = 0; c < kMergeCols; ++c) x[u][c] = d0 + 32 * c < D ? row[d0 + 32 * c] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (j + u >= cnt) break;
+#pragma unroll
+        for (int c = 0; c < kMergeCols; ++c) a[c] = fmaf(x[u][c], wj[u], a[c]);
       }
     }
   }
   const float denom = fmaxf(warp_sum(tot), 1e-20f);
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int d = lane + 32 * c;
+  for (int c = 0; c < kMergeCols; ++c) {
+    const int d = d0 + 32 * c;
     if (d < D) store1(out + ((size_t)b * Hq + h) * D + d, a[c] / denom);
   }
 }
 
-// merge_splits over B sequences of Hq heads of D <= 512 columns; returns
+// merge_splits over B sequences of Hq heads of D columns; returns
 // cudaGetLastError().
 template <typename TQ>
 int launch_merge_splits(const float* m_part, const float* l_part, const float* acc_part, const int* positions,
                         TQ* out, int B, int Hq, int D, int cap, int split_rows, int n_split, cudaStream_t stream) {
-  const dim3 grid((Hq + kMergeHeads - 1) / kMergeHeads, B);
-  if (D <= 256) {
-    merge_splits<TQ, 8><<<grid, 32 * kMergeHeads, 0, stream>>>(m_part, l_part, acc_part, positions, out, Hq, D, cap,
-                                                               split_rows, n_split);
-  } else if (D <= 512) {
-    merge_splits<TQ, 16><<<grid, 32 * kMergeHeads, 0, stream>>>(m_part, l_part, acc_part, positions, out, Hq, D,
-                                                                cap, split_rows, n_split);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const dim3 grid((Hq + kMergeHeads - 1) / kMergeHeads, B, (D + 32 * kMergeCols - 1) / (32 * kMergeCols));
+  merge_splits<TQ><<<grid, 32 * kMergeHeads, 0, stream>>>(m_part, l_part, acc_part, positions, out, Hq, D, cap,
+                                                          split_rows, n_split);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,8 @@
 // the reference perseq kernel's one-page-an-iteration schedule with its f32
 // casts toggled; each toggle computes a function another body here already
 // computes, so the launcher routes it there (paged_attention.py): without
-// cast_f32, K4b's split at one page a unit; with it, K1's split tensor-core
-// body; over f32 pools, where rounding is the identity, the chunk body
-// below. K7b replaces tools/profile_attn.py paged_decode_dmaonly
+// cast_f32, K4b's launch at one page a unit (over f32 pools, where rounding
+// is the identity, the chunk body below); with it, K1's. K7b replaces tools/profile_attn.py paged_decode_dmaonly
 // (_null_kernel): K1's grid and page stream with no math, an instrument.
 //
 // Contract of K4a, K4b and K7c: K1's (paged_attention.cu) over f32 or bf16
@@ -36,7 +35,7 @@
 // What bounds all four on an H100: bytes, as K1: each sequence's pages of K
 // and V are read once, at 4 FLOP an element (K7b: 1 add).
 //
-// The chunk body, K4a / K4b / K7c over f32 pools (chunk_softmax_decode;
+// The chunk body, K4a / K4b (and so K7c) over f32 pools (chunk_softmax_decode;
 // the rounding is the identity there): one
 // block per (sequence, kv head), K1's four warps and row groups of D / VEC
 // lanes, so the G query heads of a GQA group share every K/V row the block
@@ -92,7 +91,9 @@
 // f32 pools (the checks and the f32 parity phases) take chunk_softmax_decode
 // at one unit a chunk: rounding to f32 is the identity.
 //
-// Head dims: 64, 128, 256, 384 and 512. The register-resident bodies give a
+// Head dims: 64, 128, 256, 384 and 512 (past 512 the launchers of K4a, K4b
+// and K7c take the runtime-D body of paged_attention.cu, and K7b the twin
+// below). The register-resident bodies give a
 // lane D / 32 values past a RowVec a lane (LaneVec: f32 rows of 256 in two
 // 16-byte loads, of 512 in four). Pass 1 holds the 16 head rows' query
 // fragments in registers (128 at D 512); pass 2 holds an accumulator of D / 2
@@ -102,7 +103,9 @@
 
 // K7b design (decode_load_twin): K1's block, row groups and load_rows; each
 // row group sums its K + V slices in f32, the row groups merge by shuffles
-// and shared memory, and every query head of the kv head gets the sum.
+// and shared memory, and every query head of the kv head gets the sum. Past
+// head_dim 512, decode_load_twin_wide: the runtime-D body's pages, each
+// value read once, in column slices of 512 over the grid.
 
 #include <algorithm>
 #include <climits>
@@ -742,6 +745,41 @@ decode_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
   }
 }
 
+// K7b past head_dim 512: the wide body's pages (decode_attention_wide in
+// paged_attention.cu), each K and V value of the context read once, a kv
+// head's row in column slices of kTwinSlice over the grid's x dimension;
+// thread c sums columns c, c + kThreads, .. of its slice over the rows.
+constexpr int kTwinSlice = 512;
+
+template <typename TK>
+__global__ void __launch_bounds__(kThreads)
+decode_load_twin_wide(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
+                      const int* __restrict__ page_tables, const int* __restrict__ positions,
+                      float* __restrict__ out, int Hkv, int G, int D, int page_size, int max_pages, int n_cs) {
+  constexpr int kCols = kTwinSlice / kThreads;
+  const int kvh = blockIdx.x / n_cs;
+  const int c0 = blockIdx.x % n_cs * kTwinSlice;
+  const int b = blockIdx.y;
+  const int ctx = dtt::decode_ctx(positions, b, max_pages * page_size);
+  const int* pt = page_tables + (size_t)b * max_pages;
+  float sum[kCols] = {};
+  for (int j = 0; j < ctx; ++j) {
+    const size_t row = dtt::token_row(pt, j, page_size) * Hkv * D + (size_t)kvh * D + c0;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int c = threadIdx.x + kThreads * i;
+      if (c0 + c < D) sum[i] += dtt::to_f(k_pool[row + c]) + dtt::to_f(v_pool[row + c]);
+    }
+  }
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int c = threadIdx.x + kThreads * i;
+      if (c0 + c < D) out[(((size_t)b * Hkv + kvh) * G + g) * D + c0 + c] = sum[i];
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 struct VariantArgs {
@@ -837,8 +875,14 @@ int twin_head_dim(const VariantArgs& a) {
     case 256: return launch_twin<T, 256>(a);
     case 384: return launch_twin<T, 384>(a);
     case 512: return launch_twin<T, 512>(a);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  if (a.D % 128 || a.D < 512) return (int)cudaErrorInvalidValue;
+  const int n_cs = (a.D + kTwinSlice - 1) / kTwinSlice;
+  decode_load_twin_wide<T><<<dim3(a.Hkv * n_cs, a.B), kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.pt, a.pos, static_cast<float*>(a.out), a.Hkv,
+      a.Hq / a.Hkv, a.D, a.ps, a.max_pages, n_cs);
+  return (int)cudaGetLastError();
 }
 
 bool shapes_ok(const VariantArgs& a) {
@@ -847,29 +891,16 @@ bool shapes_ok(const VariantArgs& a) {
 
 }  // namespace
 
-// The f32 chunk body (K7c over f32 pools): chunks of chunk_rows context rows
-// (K7c: ps). dtype must be 0 (float32 q and pools). Each entry point returns
-// cudaGetLastError() after its launches (0 = launched); shapes the kernel
-// does not take return cudaErrorInvalidValue without launching.
-extern "C" int chunk_softmax_decode(const void* q, const void* k_pool, const void* v_pool,
-                                    const void* page_tables, const void* positions, void* out,
-                                    int B, int Hq, int Hkv, int D, int page_size, int max_pages,
-                                    int chunk_rows, int dtype, void* stream) {
-  const VariantArgs a{q, k_pool, v_pool, static_cast<const int*>(page_tables),
-                      static_cast<const int*>(positions), out, B, Hq, Hkv, D, page_size, max_pages,
-                      chunk_rows, static_cast<cudaStream_t>(stream)};
-  if (B <= 0) return 0;
-  if (!shapes_ok(a) || chunk_rows <= 0 || dtype != 0) return (int)cudaErrorInvalidValue;
-  return chunk_head_dim(a);
-}
-
 // K4b (unit_pages 1) and K4a (unit_pages = its chunk's pages): the
 // probabilities rounded at the running max after each unit of unit_pages
 // pages. bf16: scratch scores [B, Hq, s_pad] (s_pad >= max_pages * ps, a
 // multiple of 4), pmax [B, Hq, max_pages] and the partials m_part, l_part
 // [B, n_split, Hq], acc_part [B, n_split, Hq, D] f32, splits of split_rows
 // rows (a multiple of ps), n_split >= ceil(max_pages * ps / split_rows).
-// f32: the chunk body at a unit a chunk (the scratch is not read).
+// f32: the chunk body at a unit a chunk (the scratch is not read). Each
+// entry point returns cudaGetLastError() after its launches (0 = launched);
+// shapes the kernel does not take return cudaErrorInvalidValue without
+// launching.
 extern "C" int paged_decode_attention_grouped(const void* q, const void* k_pool, const void* v_pool,
                                               const void* page_tables, const void* positions, void* out, int B,
                                               int Hq, int Hkv, int D, int page_size, int max_pages, void* scores,

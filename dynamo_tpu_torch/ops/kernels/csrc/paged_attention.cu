@@ -11,7 +11,7 @@
 //
 // K3a replaces paged_decode_attention_pallas_folded (_kernel_folded): the
 // same function for head dims that are not a multiple of 128 (TinyLlama's
-// 64; here any head dim below 512 that is no multiple of 128), which the TPU
+// 64; here any head dim that is no multiple of 128), which the TPU
 // reads from pools with the kv heads folded into the lane dim. Its
 // zero-placed folded queries and one-hot output selection are a Mosaic lane
 // workaround and are not carried over; see K3a below. The reference's folded
@@ -90,6 +90,21 @@
 // a row for the score and up to 16 output columns for P . V (D below 512),
 // rows read an element at a time. Every shuffle loop has a warp-uniform
 // trip count.
+//
+// Past head_dim 512 (K1 in every mix and K3a, and K4a, K4b and K7c, whose
+// launchers route here): one runtime-D body, right and simple rather than
+// fast (its times stand in PERF.md), two passes and merge_splits over splits
+// of whole pages. wide_scores: warp w scores the kv head's query heads w, w
+// + 4, .. against lane j's row, over D an element at a time (no compiled
+// cap), into global scratch, then each page's max. wide_pv: each block owns
+// a column slice of 512 (16 a lane) over the grid's y dimension and
+// recomputes the split's weights: page i's rounding point M_i is the prefix
+// max of the page maxima through the end of its unit of unit_pages pages, M
+// the split's last page's, and row j weighs e^(M_i - M) R(e^(s - M_i)), R the
+// variant's rounding (none for K1 and K3a; bf16 at each page for K4b and K7c,
+// at a unit of C pages for K4a: where their TPU kernels round). At f32 P this
+// is K1's function with another max; the rounded sums are K4b's split
+// algebra (decode_variants.cu) a row at a time.
 
 #include <algorithm>
 #include <type_traits>
@@ -584,6 +599,159 @@ folded_decode_fma(const TQ* __restrict__ q, const TK* __restrict__ k_pool, const
   }
 }
 
+// ---------------------------------------------------------------- head dims past 512
+
+constexpr int kWideWarps = 4;
+constexpr int kWideCols = 16;                 // output columns a lane
+constexpr int kWideSlice = 32 * kWideCols;    // a block's column slice
+
+// A wide launch's shapes (host-computed).
+struct WideArgs {
+  int Hkv, G, D, page_size, max_pages, split_rows, n_split, s_pad, n_cs;
+  int unit_pages;  // the rounding unit in pages (K4a: chunk_pages; K4b, K7c: 1; K1, K3a: 1, nothing rounded)
+  float scale;     // 1 / sqrt(D): natural units, as the plain versions
+};
+
+// Pass 1: block (split of whole pages, kv head, sequence); warp w takes the
+// kv head's query heads w, w + 4, ...; lane j scores row j of each 32-row
+// step over all D columns, an element at a time (rows at any offset), s = q
+// . k / sqrt(D) (int8: times the row's K scale), into scores [B, Hq, s_pad];
+// then each page's max over the split to pmax [B, Hq, max_pages].
+template <typename TQ, typename TK>
+__global__ void __launch_bounds__(32 * kWideWarps)
+wide_scores(const TQ* __restrict__ q, const TK* __restrict__ k_pool, const float* __restrict__ k_scale,
+            const int* __restrict__ page_tables, const int* __restrict__ positions, float* __restrict__ scores,
+            float* __restrict__ pmax, const WideArgs f) {
+  const int split = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int ctx = decode_ctx(positions, b, f.max_pages * f.page_size);
+  const int r0 = split * f.split_rows;
+  if (r0 >= ctx) return;  // block-uniform: this split holds no context
+  const int r1 = min(r0 + f.split_rows, ctx);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t token_stride = (size_t)f.Hkv * f.D;
+  const int* pt = page_tables + (size_t)b * f.max_pages;
+  for (int h = warp; h < f.G; h += kWideWarps) {  // warp-uniform
+    const size_t hq = ((size_t)b * f.Hkv + kvh) * f.G + h;
+    const TQ* qr = q + hq * f.D;
+    float* srow = scores + hq * f.s_pad;
+    for (int j = r0 + lane; j < r1; j += 32) {
+      const size_t tk = dtt::token_row(pt, j, f.page_size);
+      const TK* kr = k_pool + tk * token_stride + (size_t)kvh * f.D;
+      float dot = 0.f;
+      for (int d = 0; d < f.D; ++d) dot = fmaf(dtt::to_f(qr[d]), dtt::to_f(kr[d]), dot);
+      float sc = dot * f.scale;
+      if constexpr (std::is_same<TK, int8_t>::value) sc *= k_scale[tk];
+      srow[j] = sc;
+    }
+    __syncwarp();  // the lanes' scores are visible to the warp
+    for (int p = r0 / f.page_size; p * f.page_size < r1; ++p) {  // warp-uniform
+      float mx = dtt::kNegInf;
+      for (int j = p * f.page_size + lane; j < min((p + 1) * f.page_size, r1); j += 32) mx = fmaxf(mx, srow[j]);
+      mx = dtt::warp_max(mx);
+      if (lane == 0) pmax[hq * f.max_pages + p] = mx;
+    }
+  }
+}
+
+// Pass 2: block (split, kv head x column slice, sequence); warp w takes
+// heads w, w + 4, ...: page i's rounding point M_i is the max of the page
+// maxima through the last page of its unit of unit_pages pages (clipped to
+// the context; an inclusive scan into shared memory), M the split's last
+// page's. Lane j weighs row j of each 32-row step by e^(M_i - M) R(e^(s -
+// M_i)), R rounding to bf16 (kRound: K4a, K4b, K7c over bf16 pools, where
+// their TPU kernels round) or none, int8 rows times their V scale, after l
+// took e^(M_i - M) e^(s - M_i); every lane folds the step's rows into its 16
+// columns of the slice, rows read an element at a time. Writes (M in log2
+// units, l, acc of the slice) to the partials merge_splits reads.
+template <typename TK, bool kRound>
+__global__ void __launch_bounds__(32 * kWideWarps)
+wide_pv(const TK* __restrict__ v_pool, const float* __restrict__ v_scale, const int* __restrict__ page_tables,
+        const int* __restrict__ positions, const float* __restrict__ scores, const float* __restrict__ pmax,
+        float* __restrict__ m_part, float* __restrict__ l_part, float* __restrict__ acc_part, const WideArgs f) {
+  extern __shared__ float wide_smem[];  // [kWideWarps][split pages + unit_pages]: the rounding points
+  const int split = blockIdx.x;
+  const int kvh = blockIdx.y / f.n_cs;
+  const int c0 = blockIdx.y % f.n_cs * kWideSlice;
+  const int b = blockIdx.z;
+  const int ps = f.page_size;
+  const int ctx = decode_ctx(positions, b, f.max_pages * ps);
+  const int r0 = split * f.split_rows;
+  if (r0 >= ctx) return;
+  const int r1 = min(r0 + f.split_rows, ctx);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int U = f.unit_pages;
+  const int npc = (ctx + ps - 1) / ps;  // the context's pages
+  const int p0 = r0 / ps;
+  const int ns = min(((r1 - 1) / ps / U + 1) * U, npc) - p0;  // pages through the end of the last page's unit
+  float* sM = wide_smem + warp * (f.split_rows / ps + U);
+  const size_t token_stride = (size_t)f.Hkv * f.D;
+  const int* pt = page_tables + (size_t)b * f.max_pages;
+  for (int h = warp; h < f.G; h += kWideWarps) {  // warp-uniform
+    const size_t hq = ((size_t)b * f.Hkv + kvh) * f.G + h;
+    const float* pm = pmax + hq * f.max_pages;
+    float run = dtt::kNegInf;  // the max before the split
+    for (int p = lane; p < p0; p += 32) run = fmaxf(run, pm[p]);
+    run = dtt::warp_max(run);
+    for (int i0 = 0; i0 < ns; i0 += 32) {  // warp-uniform: inclusive max-scans, 32 pages a step
+      float v = i0 + lane < ns ? pm[p0 + i0 + lane] : dtt::kNegInf;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v = fmaxf(v, u);
+      }
+      v = fmaxf(v, run);
+      if (i0 + lane < ns) sM[i0 + lane] = v;
+      run = __shfl_sync(0xffffffffu, v, 31);
+    }
+    __syncwarp();
+    const float M = sM[ns - 1];
+    const float* srow = scores + hq * f.s_pad;
+    float l = 0.f, acc[kWideCols] = {};
+    for (int j0 = r0; j0 < r1; j0 += 32) {  // warp-uniform
+      const int j = j0 + lane;
+      float c = 0.f;
+      long long tk = 0;
+      if (j < r1) {
+        const int p = j / ps;
+        const float Mi = sM[min((p / U + 1) * U, npc) - 1 - p0];
+        const float e = expf(srow[j] - Mi);
+        const float w = expf(Mi - M);
+        l = fmaf(w, e, l);
+        c = w * (kRound ? __bfloat162float(__float2bfloat16_rn(e)) : e);
+        tk = (long long)dtt::token_row(pt, j, ps);
+        if constexpr (std::is_same<TK, int8_t>::value) c *= v_scale[tk];
+      }
+      const int n = min(32, r1 - j0);
+      for (int r = 0; r < n; ++r) {  // warp-uniform
+        const float cr = __shfl_sync(0xffffffffu, c, r);
+        const long long tr = __shfl_sync(0xffffffffu, tk, r);
+        const TK* vr = v_pool + tr * token_stride + (size_t)kvh * f.D + c0;
+#pragma unroll
+        for (int i = 0; i < kWideCols; ++i) {
+          const int d = lane + 32 * i;
+          if (c0 + d < f.D) acc[i] = fmaf(cr, dtt::to_f(vr[d]), acc[i]);
+        }
+      }
+    }
+    l = dtt::warp_sum(l);
+    const size_t part = ((size_t)b * f.n_split + split) * f.Hkv * f.G + (size_t)kvh * f.G + h;
+    if (lane == 0 && c0 == 0) {
+      m_part[part] = M * 1.4426950408889634f;  // merge_splits takes log2 units
+      l_part[part] = l;
+    }
+#pragma unroll
+    for (int i = 0; i < kWideCols; ++i) {
+      const int d = lane + 32 * i;
+      if (c0 + d < f.D) acc_part[part * f.D + c0 + d] = acc[i];
+    }
+    __syncwarp();  // sM is rewritten for the warp's next head
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 struct DecodeArgs {
@@ -696,6 +864,47 @@ int launch_fold_fma(const DecodeArgs& a, float* m, float* l, float* acc, int spl
   return launch_merge<TQ>(a, m, l, acc, split_rows, n_split);
 }
 
+// The wide body's scratch: scores [B, Hq, s_pad], page maxima [B, Hq,
+// max_pages] and the partials.
+struct WideBufs {
+  float *scores, *pmax, *m, *l, *acc;
+  int split_rows, n_split, s_pad, unit_pages;
+  bool round;
+};
+
+// Past head_dim 512, every mix and variant: wide_scores, wide_pv, the merge.
+template <typename TQ, typename TK>
+struct WideTypes {
+  static int run(const DecodeArgs& a, const WideBufs& w) {
+    const WideArgs f{a.Hkv, a.Hq / a.Hkv, a.D, a.ps, a.max_pages, w.split_rows, w.n_split, w.s_pad,
+                     (a.D + kWideSlice - 1) / kWideSlice, w.unit_pages, (float)(1.0 / sqrt((double)a.D))};
+    const dim3 grid(w.n_split, a.Hkv, a.B);
+    wide_scores<TQ, TK><<<grid, 32 * kWideWarps, 0, a.stream>>>(static_cast<const TQ*>(a.q),
+                                                                 static_cast<const TK*>(a.k), a.ks, a.pt, a.pos,
+                                                                 w.scores, w.pmax, f);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = (size_t)kWideWarps * (w.split_rows / a.ps + w.unit_pages) * sizeof(float);
+    const dim3 grid2(w.n_split, a.Hkv * f.n_cs, a.B);
+    const auto* v = static_cast<const TK*>(a.v);
+    if constexpr (std::is_same<TK, __nv_bfloat16>::value) {
+      if (w.round) {
+        wide_pv<TK, true><<<grid2, 32 * kWideWarps, smem, a.stream>>>(v, a.vs, a.pt, a.pos, w.scores, w.pmax, w.m,
+                                                                       w.l, w.acc, f);
+      } else {
+        wide_pv<TK, false><<<grid2, 32 * kWideWarps, smem, a.stream>>>(v, a.vs, a.pt, a.pos, w.scores, w.pmax, w.m,
+                                                                        w.l, w.acc, f);
+      }
+    } else {
+      wide_pv<TK, false><<<grid2, 32 * kWideWarps, smem, a.stream>>>(v, a.vs, a.pt, a.pos, w.scores, w.pmax, w.m,
+                                                                      w.l, w.acc, f);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return launch_merge<TQ>(a, w.m, w.l, w.acc, w.split_rows, w.n_split);
+  }
+};
+
 // K3a's head dims on K1's tensor-core body: multiples of 16 below 128
 template <typename TK>
 int fold_tc_dim(const DecodeArgs& a, float* m, float* l, float* acc, int split_rows, int n_split) {
@@ -742,7 +951,8 @@ bool decode_shapes_ok(const DecodeArgs& a, int kv_dtype) {
 
 }  // namespace
 
-// K1: head_dim 64, 128, 256, 384 or 512, any Hq a multiple of Hkv. bf16
+// K1: head_dim 64, 128, 256, 384 or 512 (the launcher sends larger
+// multiples of 128 to paged_decode_attention_wide), any Hq a multiple of Hkv. bf16
 // queries write split partials m_part, l_part [B, n_split, Hq] and acc_part
 // [B, n_split, Hq, D] f32 (n_split >= ceil(max_pages * page_size /
 // split_rows), split_rows a positive multiple of 64); f32 queries read none
@@ -768,7 +978,8 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool, const v
                              static_cast<float*>(acc_part), split_rows, n_split);
 }
 
-// K3a: head_dim 0 < D < 512, any Hq a multiple of Hkv.
+// K3a: head_dim 0 < D < 512 (the launcher sends larger ones to
+// paged_decode_attention_wide), any Hq a multiple of Hkv.
 // Partial buffers m_part, l_part [B, n_split, Hq] and acc_part [B, n_split,
 // Hq, D] f32, n_split >= ceil(max_pages * page_size / split_rows),
 // split_rows a positive multiple of 64.
@@ -791,4 +1002,32 @@ extern "C" int paged_decode_attention_folded(const void* q, const void* k_pool,
   return with_types<K3aTypes>(q_dtype, kv_dtype, a, static_cast<float*>(m_part),
                               static_cast<float*>(l_part), static_cast<float*>(acc_part),
                               split_rows, n_split);
+}
+
+// Past head_dim 512 (K1 and K4a, K4b, K7c at D % 128 == 0, K3a at any other
+// D): scores [B, Hq, s_pad] and pmax [B, Hq, max_pages] scratch (s_pad >=
+// max_pages * page_size), the partials as paged_decode_attention's, splits
+// of split_rows rows (a multiple of page_size, n_split >= ceil(max_pages *
+// page_size / split_rows)); unit_pages the rounding unit, round 1 to round
+// the probabilities to bf16 over bf16 pools (K4a, K4b, K7c), 0 for f32
+// probabilities (K1, K3a; and every f32 or int8 pool).
+extern "C" int paged_decode_attention_wide(const void* q, const void* k_pool, const void* v_pool,
+                                           const void* k_scale, const void* v_scale, const void* page_tables,
+                                           const void* positions, void* scores, void* pmax, void* m_part,
+                                           void* l_part, void* acc_part, void* out, int B, int Hq, int Hkv, int D,
+                                           int page_size, int max_pages, int split_rows, int n_split, int s_pad,
+                                           int unit_pages, int round, int q_dtype, int kv_dtype, void* stream) {
+  const DecodeArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+                     static_cast<const float*>(v_scale), static_cast<const int*>(page_tables),
+                     static_cast<const int*>(positions), out, B, Hq, Hkv, D, page_size, max_pages,
+                     static_cast<cudaStream_t>(stream)};
+  if (B <= 0) return 0;
+  if (!decode_shapes_ok(a, kv_dtype) || D <= 0 || split_rows <= 0 || split_rows % page_size || unit_pages <= 0 ||
+      (long long)s_pad < (long long)max_pages * page_size ||
+      (long long)n_split * split_rows < (long long)max_pages * page_size)
+    return (int)cudaErrorInvalidValue;
+  const WideBufs w{static_cast<float*>(scores), static_cast<float*>(pmax), static_cast<float*>(m_part),
+                   static_cast<float*>(l_part), static_cast<float*>(acc_part), split_rows, n_split, s_pad,
+                   unit_pages, round != 0};
+  return with_types<WideTypes>(q_dtype, kv_dtype, a, w);
 }

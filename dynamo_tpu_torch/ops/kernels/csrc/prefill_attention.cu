@@ -6,7 +6,7 @@
 // _kernel, math in _flash_merge). K3b replaces :615
 // paged_prefill_attention_pallas_folded (pallas_call at :662,
 // _kernel_folded), the same function for head dims that are not a multiple
-// of 128 (TinyLlama's 64; here any head dim below 512), which the TPU reads from pools with the kv heads
+// of 128 (TinyLlama's 64; here any such head dim), which the TPU reads from pools with the kv heads
 // folded into the lane dim through zero-placed folded queries (a Mosaic lane
 // workaround, not carried over). The reference's folded kernel rounds its
 // probabilities to the pool dtype before P.V (:572); the port keeps f32
@@ -90,7 +90,8 @@
 // rows at any offset: K3b's head dims that are no multiple of 8 (D 100 over
 // 2 kv heads, which the reference runs in plain XLA; D 20 over 4), in every
 // mix, and its f32 queries above 128.
-// Head dims past 256 (K2 at 384 and 512, K3b at 257..511), every mix:
+// Head dims past 256 (K2 at every multiple of 128 from 384, K3b at every
+// other head dim from 257), every mix:
 // wide_prefill_kernel, a simple FMA body in the same block partition that
 // holds neither a whole Q row tile (bf16 128 KB at D 512, f32 256 KB) nor a
 // 64 x D accumulator. A block owns one slice of 128 output columns (the
@@ -108,8 +109,10 @@
 // paged_prefill_dmaonly (pallas_call at :840, _kernel_dmaonly), the
 // null-hypothesis instrument of tools/profile_prefill.py: K2's grid, causal
 // tile bound and load stream (bf16 / int8: the cp.async ring and the int8
-// conversion; f32, and every pool past D 256: the FMA body's staging, each
-// K/V row of the block's context read once) with no math. The reference's
+// conversion; f32: the FMA body's staging, each K/V row of the block's
+// context read once; past D 256, prefill_load_twin_wide: the wide FMA body's
+// grid and staging, K in 64-column chunks and V in 128-column slices) with
+// no math. The reference's
 // twin writes 1e-6 x one row of the last tile, garbage by design; a load
 // that nothing reads is deleted by nvcc, so every row the block owns gets
 // instead the f32 column sums over the block's context j < min(last row's
@@ -991,19 +994,18 @@ wide_prefill_kernel(const TQ* __restrict__ q, const TK* __restrict__ k_pool, con
 
 // ---------------------------------------------------------------- K7a
 
-// K2's load stream with no math: bf16 / int8 pools through the tensor-core
-// body's ring (int8 converted as there), f32 pools and every pool past D 256
-// through the FMA body's staging; every row of the block gets the column
-// sums of its context.
+// K2's load stream with no math up to D 256 (prefill_load_twin_wide takes
+// the wider rows): bf16 / int8 pools through the tensor-core body's ring
+// (int8 converted as there), f32 pools through the FMA body's staging; every
+// row of the block gets the column sums of its context.
 template <typename TK, int D>
 struct Twin {
-  static constexpr bool kStaged = std::is_same<TK, float>::value || D > 256;
+  static_assert(D <= kThreads && kThreads % D == 0, "up to D 256");
+  static constexpr bool kStaged = std::is_same<TK, float>::value;
   // partial column sums reduced at the end: staged, kThreads / D threads a
-  // column (past kThreads columns, a thread a column or two); the ring, one a
-  // (key in a group of 8, key group) of a chunk column, read as the tile's
-  // 16-byte chunks
-  static constexpr int kPartials = kStaged ? (D <= kThreads ? kThreads / D : 1) : kThreads / (D / 8);
-  static constexpr int kCols = (D + kThreads - 1) / kThreads;  // staged: columns a thread
+  // column; the ring, one a (key in a group of 8, key group) of a chunk
+  // column, read as the tile's 16-byte chunks
+  static constexpr int kPartials = kStaged ? kThreads / D : kThreads / (D / 8);
   static constexpr size_t kSmem =
       (kStaged ? ((size_t)kFmaKeys * (D + 4) + kFmaKeys * D + 2 * kFmaKeys) * sizeof(float)
                : (size_t)Ring<TK, D>::kStages * Ring<TK, D>::kStage + (Ring<TK, D>::kQuant ? 2 * Ring<TK, D>::kBf16Tile : 0)) +
@@ -1017,7 +1019,6 @@ prefill_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool, 
                   const int* __restrict__ positions, float* __restrict__ out, int T_len, int Hq, int Hkv,
                   int page_size, int max_pages) {
   using R = Ring<TK, D>;
-  static_assert(kThreads % D == 0 || D % 128 == 0, "unsupported head_dim");
 
   extern __shared__ __align__(128) uint8_t smem[];
   const Block b = block_of(positions, T_len, Hq, Hkv, page_size, max_pages);
@@ -1035,30 +1036,17 @@ prefill_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool, 
     float* sKs = sV + kFmaKeys * D;              // [kFmaKeys] (int8)
     float* sVs = sKs + kFmaKeys;                 // [kFmaKeys]
     red = sVs + kFmaKeys;                        // [kPartials][D]
-    const int part = D <= kThreads ? threadIdx.x / D : 0;
-    const int c0 = D <= kThreads ? threadIdx.x % D : threadIdx.x;  // columns c0 + kThreads i
-    float sum[T::kCols] = {};
+    const int part = threadIdx.x / D;
+    const int c = threadIdx.x % D;  // this thread's column
+    float sum = 0.f;
     for (int kt0 = 0; kt0 < b.n_ctx; kt0 += kFmaKeys) {
       __syncthreads();  // the previous tile's readers are done
       stage_kv<TK>(sK, sV, sKs, sVs, k_pool, v_pool, k_scale, v_scale, pt, kt0, b.n_ctx, page_size, KS, D,
                    token_stride, kvh * D, D);
       __syncthreads();
-#pragma unroll
-      for (int i = 0; i < T::kCols; ++i) {
-        const int c = c0 + kThreads * i;
-        if (c >= D) break;
-        for (int kk = part; kk < kFmaKeys; kk += T::kPartials) {
-          if constexpr (std::is_same<TK, int8_t>::value) {
-            sum[i] += sK[kk * KS + c] * sKs[kk] + sV[kk * D + c] * sVs[kk];
-          } else {
-            sum[i] += sK[kk * KS + c] + sV[kk * D + c];
-          }
-        }
-      }
+      for (int kk = part; kk < kFmaKeys; kk += T::kPartials) sum += sK[kk * KS + c] + sV[kk * D + c];
     }
-#pragma unroll
-    for (int i = 0; i < T::kCols; ++i)
-      if (c0 + kThreads * i < D) red[part * D + c0 + kThreads * i] = sum[i];
+    red[part * D + c] = sum;
   } else {
     constexpr int CPR = D / 8;                      // bf16 chunks a row
     constexpr int GROUPS = kThreads / (8 * CPR);    // key groups summed side by side
@@ -1120,6 +1108,91 @@ prefill_load_twin(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool, 
     const int qi = r / b.G;
     if (qi >= b.n_q) continue;
     out[(((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r % b.G) * D + idx % D] = red[idx % D];
+  }
+}
+
+// K7a past head_dim 256: wide_prefill_kernel's grid (kv head x column
+// slice), context bound and loads (per 32-key tile, K in kWideChunk-column
+// chunks of the whole row, then the tile's V slice, staged as f32 an element
+// at a time, int8 with the rows' scales) with no math but the sums: thread c
+// of a half of the block sums slice column c of the K chunk that holds it
+// and of V over its keys (half, half + 2, ..), int8 rows dequantized; every
+// row of the block gets the slice's column sums.
+constexpr size_t wide_twin_smem_bytes() {
+  return ((size_t)kFmaKeys * kWideQS + kFmaKeys * kWideSlice + 2 * kFmaKeys + 2 * kWideSlice) * sizeof(float);
+}
+
+template <typename TK>
+__global__ void __launch_bounds__(kThreads)
+prefill_load_twin_wide(const TK* __restrict__ k_pool, const TK* __restrict__ v_pool,
+                       const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                       const int* __restrict__ page_tables, const int* __restrict__ positions, float* __restrict__ out,
+                       int T_len, int Hq, int Hkv, int D, int page_size, int max_pages, int n_cs) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  static_assert(kThreads == 2 * kWideSlice, "two threads a slice column");
+  extern __shared__ float4 smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);  // [kFmaKeys][kWideQS]: a chunk of K
+  float* sV = sK + kFmaKeys * kWideQS;             // [kFmaKeys][kWideSlice]: the tile's V slice
+  float* sKs = sV + kFmaKeys * kWideSlice;         // [kFmaKeys]
+  float* sVs = sKs + kFmaKeys;                     // [kFmaKeys]
+  float* red = sVs + kFmaKeys;                     // [2][kWideSlice]
+
+  const Block b = block_of(positions, T_len, Hq, Hkv, page_size, max_pages);
+  const int kvh = blockIdx.y / n_cs;
+  const int c0 = (blockIdx.y % n_cs) * kWideSlice;
+  const int n = blockIdx.z;
+  const int* pt = page_tables + (size_t)n * max_pages;
+  const size_t token_stride = (size_t)Hkv * D;
+  const size_t col0 = (size_t)kvh * D;
+  const int tid = threadIdx.x;
+  const int c = tid % kWideSlice;  // this thread's slice column
+  const int half = tid / kWideSlice;
+  float sum = 0.f;
+  for (int kt0 = 0; kt0 < b.n_ctx; kt0 += kFmaKeys) {
+    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
+      __syncthreads();  // the previous readers of sK (and the last tile's of sV) are done
+      for (int idx = tid; idx < kFmaKeys * kWideChunk; idx += kThreads) {
+        const int kk = idx / kWideChunk;
+        const int cc = idx % kWideChunk;
+        const int j = kt0 + kk;
+        float x = 0.f;
+        if (j < b.n_ctx && d0 + cc < D)
+          x = dtt::to_f(k_pool[wide_row(pt, j, page_size) * token_stride + col0 + d0 + cc]);
+        sK[kk * kWideQS + cc] = x;
+      }
+      if (kQuant && d0 == 0 && tid < kFmaKeys) {
+        const int j = kt0 + tid;
+        const size_t tok = j < b.n_ctx ? wide_row(pt, j, page_size) : 0;
+        sKs[tid] = j < b.n_ctx ? k_scale[tok] : 0.f;
+        sVs[tid] = j < b.n_ctx ? v_scale[tok] : 0.f;
+      }
+      __syncthreads();
+      const int cc = c0 + c - d0;  // this thread's column in the chunk
+      if (cc >= 0 && cc < kWideChunk && c0 + c < D) {
+        for (int kk = half; kk < kFmaKeys; kk += 2) sum += kQuant ? sK[kk * kWideQS + cc] * sKs[kk] : sK[kk * kWideQS + cc];
+      }
+    }
+    for (int idx = tid; idx < kFmaKeys * kWideSlice; idx += kThreads) {
+      const int kk = idx / kWideSlice;
+      const int cc = idx % kWideSlice;
+      const int j = kt0 + kk;
+      float x = 0.f;
+      if (j < b.n_ctx && c0 + cc < D)
+        x = dtt::to_f(v_pool[wide_row(pt, j, page_size) * token_stride + col0 + c0 + cc]);
+      sV[kk * kWideSlice + cc] = x;
+    }
+    __syncthreads();
+    for (int kk = half; kk < kFmaKeys; kk += 2) sum += kQuant ? sV[kk * kWideSlice + c] * sVs[kk] : sV[kk * kWideSlice + c];
+  }
+  red[half * kWideSlice + c] = sum;
+  __syncthreads();
+  for (int idx = tid; idx < kRows * kWideSlice; idx += kThreads) {
+    const int r = idx / kWideSlice;
+    const int cc = idx % kWideSlice;
+    const int qi = r / b.G;
+    if (qi >= b.n_q || c0 + cc >= D) continue;
+    out[(((size_t)n * T_len + b.q_start + qi) * Hq + (size_t)kvh * b.G + r % b.G) * D + c0 + cc] =
+        red[cc] + red[kWideSlice + cc];
   }
 }
 
@@ -1209,6 +1282,23 @@ int launch_k7a(const PrefillArgs& a) {
   return (int)cudaGetLastError();
 }
 
+template <typename TK>
+int launch_k7a_wide(const PrefillArgs& a) {
+  static std::atomic<bool> smem_raised[dtt::kMaxDevices];
+  constexpr size_t smem = wide_twin_smem_bytes();
+  const cudaError_t err = dtt::raise_smem_limit_once(prefill_load_twin_wide<TK>, smem_raised, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_cs = (a.D + kWideSlice - 1) / kWideSlice;
+  dim3 grid = prefill_grid(a);
+  grid.y *= n_cs;
+  prefill_load_twin_wide<TK><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.ks, a.vs, a.pt, a.pos, static_cast<float*>(a.out),
+      a.T_len, a.Hq, a.Hkv, a.D, a.ps, a.max_pages, n_cs);
+  return (int)cudaGetLastError();
+}
+
+// K2: 64, 128 and 256 on the bodies of their mix; any larger multiple of
+// 128 on the wide FMA body.
 template <typename TQ, typename TK>
 struct K2Types {
   static int run(const PrefillArgs& a) {
@@ -1216,14 +1306,14 @@ struct K2Types {
       case 64: return launch_attention<TQ, TK, 64>(a);
       case 128: return launch_attention<TQ, TK, 128>(a);
       case 256: return launch_attention<TQ, TK, 256>(a);
-      case 384:
-      case 512: return launch_wide<TQ, TK>(a);
-      default: return (int)cudaErrorInvalidValue;
+      default: break;
     }
+    if (a.D % 128 || a.D < 384) return (int)cudaErrorInvalidValue;
+    return launch_wide<TQ, TK>(a);
   }
 };
 
-// K3b: any D below 512. A multiple of 8 below 128: the body of its mix in
+// K3b: any D > 0. A multiple of 8 below 128: the body of its mix in
 // tiles padded to 16; a multiple of 8 above 128: bf16 queries the
 // tensor-core body at 256 (K2's instance, the pad columns zero), f32 queries
 // the narrow FMA body; no multiple of 8: the narrow FMA body; past 256: the
@@ -1231,7 +1321,7 @@ struct K2Types {
 template <typename TQ, typename TK>
 struct K3bTypes {
   static int run(const PrefillArgs& a) {
-    if (a.D <= 0 || a.D >= 512) return (int)cudaErrorInvalidValue;
+    if (a.D <= 0) return (int)cudaErrorInvalidValue;
     if (a.D > 256) return launch_wide<TQ, TK>(a);
     constexpr bool kBf16 = std::is_same<TQ, __nv_bfloat16>::value;
     if (a.D % 8 || (a.D > 128 && !kBf16))
@@ -1251,7 +1341,8 @@ struct K3bTypes {
   }
 };
 
-// K7a reads no queries: TQ only selects the pool mix, as for K2
+// K7a reads no queries: TQ only selects the pool mix, as for K2. Past D 256
+// it shadows the wide FMA body.
 template <typename TQ, typename TK>
 struct K7aTypes {
   static int run(const PrefillArgs& a) {
@@ -1259,10 +1350,10 @@ struct K7aTypes {
       case 64: return launch_k7a<TK, 64>(a);
       case 128: return launch_k7a<TK, 128>(a);
       case 256: return launch_k7a<TK, 256>(a);
-      case 384: return launch_k7a<TK, 384>(a);
-      case 512: return launch_k7a<TK, 512>(a);
-      default: return (int)cudaErrorInvalidValue;
+      default: break;
     }
+    if (a.D % 128 || a.D < 384) return (int)cudaErrorInvalidValue;
+    return launch_k7a_wide<TK>(a);
   }
 };
 

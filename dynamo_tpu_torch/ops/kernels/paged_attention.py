@@ -6,10 +6,10 @@ K1 replaces ``dynamo_tpu/ops/pallas/paged_attention.py``
 ``paged_decode_attention_pallas`` (``_kernel``): the two TPU kernels compute
 the same function and differ only in TPU DMA scheduling, so this one kernel
 stands for both. K3a replaces ``paged_decode_attention_pallas_folded``
-(``_kernel_folded``), the same function at a head_dim below 512 that is no
-multiple of 128 (:func:`folded_head_dim`; TinyLlama's 64). Both take any GQA
-group G = Hq / Hkv, as the reference does. K1 takes head_dim 64, 128, 256,
-384 and 512.
+(``_kernel_folded``), the same function at a head_dim that is no multiple
+of 128 (:func:`folded_head_dim`; TinyLlama's 64). Both take any GQA group G
+= Hq / Hkv, as the reference does. K1 takes every head_dim that is a
+multiple of 128, and 64 (:func:`unfolded_head_dim`).
 
 Both take f32 or bf16 queries over pools of the query's dtype, or over an
 int8 cache (``quant/kv.py QuantizedPages``: int8 pools with one f32 scale a
@@ -29,7 +29,11 @@ that is a multiple of 16 runs K1's split tensor-core body
 (:func:`folded_on_k1_body`); f32 queries, and bf16 queries at a head_dim
 above 128 or no multiple of 16 (rows that start off 16 bytes), take an FMA
 body split over ``SPLIT_ROWS`` rows that reads rows an element at a time
-(see the source note). Plain version: ``ops/attention.py
+(see the source note). Past ``WIDE_HEAD_DIM`` (512) every decode launcher
+(K1 and K3a in every mix, K4a, K4b, K7c) runs one runtime-D body
+(:func:`_wide_launch`): a score pass, a P.V pass in column slices of 512
+that rounds the probabilities where the variant's TPU kernel rounds them,
+and the merge; K7b a runtime-D twin. Plain version: ``ops/attention.py
 paged_decode_attention``; the dispatcher there picks the plain version for
 CPU tensors and, for CUDA tensors, K3a when ``head_dim % 128 != 0``, else K1
 (or K4a / K4b, below, as ``DYNTPU_DECODE_KERNEL`` asks).
@@ -53,9 +57,9 @@ pools of q's dtype, K1's head dims; no int8 cache, as on the TPU):
 - K7c (:func:`paged_decode_perseq_variant_kernel`) replaces
   ``tools/profile_attn.py make_perseq_variant``: one page an iteration, with
   the probabilities rounded unless ``cast_f32`` (then K1's function). Each
-  toggle runs on the body that computes its function: over bf16 pools,
-  without ``cast_f32`` K4b's split at one page a unit, with it K1's split
-  tensor-core body; over f32 pools the FMA chunk body at a page a chunk.
+  toggle runs on the body that computes its function: without ``cast_f32``
+  K4b's launch at one page a unit (its split over bf16 pools, the FMA
+  chunk body over f32), with it K1's.
 - K7b (:func:`paged_decode_dmaonly_kernel`) replaces ``tools/profile_attn.py
   paged_decode_dmaonly``: K1's grid and loads with no math, an instrument.
   The reference's twin writes garbage by design; a load nothing reads is
@@ -75,7 +79,10 @@ import torch
 from dynamo_tpu_torch.ops.kernels import _build
 from dynamo_tpu_torch.quant.kv import QuantizedPages
 
-HEAD_DIMS = (64, 128, 256, 384, 512)  # K1, K4a, K4b, K7b, K7c
+# K1, K4a, K4b, K7b and K7c take every head_dim that is a multiple of 128
+# (and 64), K3a every one that is not; past WIDE_HEAD_DIM every decode launcher runs the
+# runtime-D body (``paged_decode_attention_wide`` in csrc/paged_attention.cu)
+WIDE_HEAD_DIM = 512
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 INT8 = 2  # the C entry points' kv dtype code for int8 pools
 # K3a's FMA body: context rows a block.
@@ -91,9 +98,9 @@ K1_SPLIT_BLOCKS = 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SPLIT_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]  # K1 and K3a
+_WIDE_ARGTYPES = [_P] * 13 + [_I] * 13 + [_P]
 CHUNK_ROWS = 256  # K4a: context rows a chunk, at least (the reference's target)
 GROUPED_SPLIT_ROWS = 256  # K4b: context rows a split, at least (whole pages)
-_CHUNK_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
 _GROUPED_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P] * 5 + [_I] * 5 + [_P]
 _DMAONLY_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
 
@@ -154,8 +161,8 @@ def check_decode_args(q, k_pages, v_pages, page_tables, positions, name: str = "
     k, v = pools[:2]
     B, Hq, D = q.shape
     _, ps, Hkv, Dk = k.shape
-    if Dk != D or D not in HEAD_DIMS:
-        raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}; got q D={D}, pool D={Dk}")
+    if Dk != D or not unfolded_head_dim(D):
+        raise ValueError(f"{name} takes head_dim 64 or a multiple of 128; got q D={D}, pool D={Dk}")
     if Hq % Hkv:
         raise ValueError(f"{name} takes Hq a multiple of Hkv; got Hq={Hq}, Hkv={Hkv}")
     _check_tables(B, ps, page_tables, positions)
@@ -163,13 +170,19 @@ def check_decode_args(q, k_pages, v_pages, page_tables, positions, name: str = "
     return pools
 
 
+def unfolded_head_dim(D: int) -> bool:
+    """K1's, K2's, K4a/b's and K7a-c's head dims: every multiple of 128, as
+    the reference sends them to its unfolded kernels, and 64, which their
+    bodies also take (the dispatchers send a model's 64 to K3a / K3b, as the
+    reference folds it)."""
+    return D == 64 or (D > 0 and D % 128 == 0)
+
+
 def folded_head_dim(D: int) -> bool:
-    """K3a's and K3b's head dims: every head dim below 512 that is no
-    multiple of 128 (K1 / K2 take those), as the reference folds (or, for a
-    folded row that is no multiple of 128, runs in plain XLA) every head_dim
-    % 128 != 0. Past 512 they are refused: K3a's FMA body holds at most 16
-    output columns a lane, 512 a warp."""
-    return 0 < D < 512 and D % 128 != 0
+    """K3a's and K3b's head dims: every head dim that is no multiple of 128
+    (K1 / K2 take those), as the reference folds (or, for a folded row that
+    is no multiple of 128, runs in plain XLA) every head_dim % 128 != 0."""
+    return D > 0 and D % 128 != 0
 
 
 def folded_geometry(q, k) -> tuple[int, int]:
@@ -193,7 +206,7 @@ def check_folded_decode_args(q, k_pages, v_pages, page_tables, positions):
     k, v = pools[:2]
     B, Hq, D = q.shape
     if not folded_head_dim(D):
-        raise ValueError(f"K3a takes a head_dim below 512 that is no multiple of 128; got {D}")
+        raise ValueError(f"K3a takes a head_dim that is no multiple of 128; got {D}")
     Hkv, _ = folded_geometry(q, k)
     if Hq % Hkv:
         raise ValueError(f"K3a takes Hq a multiple of Hkv; got Hq={Hq}, Hkv={Hkv}")
@@ -244,6 +257,36 @@ def _split_launch(symbol: str, q, pools, page_tables, positions, split_rows: int
     return out
 
 
+def _wide_launch(q, pools, page_tables, positions, unit_pages: int = 1, round_p: bool = False) -> torch.Tensor:
+    """Launch the runtime-D body past ``WIDE_HEAD_DIM`` on checked inputs
+    (K1 and K3a in every mix, K4a, K4b and K7c): a score pass with each
+    page's max, a P.V pass in column slices of 512 that weighs each row at
+    its unit's prefix max (``unit_pages`` pages a unit), rounding the
+    probabilities to the pool dtype where ``round_p`` (a no-op but over bf16
+    pools), and the merge; splits of ``grouped_split_rows(ps)`` rows."""
+    k, v, ks, vs, code = pools
+    q = _build.aligned16(q)
+    page_tables = page_tables.contiguous()
+    positions = positions.contiguous()
+    B, Hq, D = q.shape
+    Hkv, _ = folded_geometry(q, k)
+    ps, mp = k.shape[1], page_tables.shape[1]
+    split_rows = grouped_split_rows(ps)
+    n_split = -(-mp * ps // split_rows)
+    s_pad = -(-mp * ps // 4) * 4
+    # ws (alive past the launch): m, l, acc, then scores [B, Hq, s_pad] and page maxima [B, Hq, mp]
+    ws, m_part, l_part, acc_part, tail = split_partials(B, n_split, Hq, D, q.device, B * Hq * (s_pad + mp))
+    out = torch.empty_like(q)
+    err = _build.entry("paged_attention", "paged_decode_attention_wide", _WIDE_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs), page_tables.data_ptr(), positions.data_ptr(),
+        tail, tail + 4 * B * Hq * s_pad, m_part, l_part, acc_part, out.data_ptr(), B, Hq, Hkv, D, ps, mp,
+        split_rows, n_split, s_pad, unit_pages, int(round_p), Q_DTYPES[q.dtype], code,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "paged_decode_attention_wide")
+    return out
+
+
 def _k1_rows(q, k, page_tables) -> int:
     Hkv, _ = folded_geometry(q, k)
     return k1_split_rows(q.shape[0], Hkv, q.shape[1] // Hkv, q.shape[2], page_tables.shape[1] * k.shape[1])
@@ -278,11 +321,19 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, page_tables, positions) -
     sends CPU tensors to the plain version)."""
     if q.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors; got {q.device}")
-    pools = check_decode_args(q, k_pages, v_pages, page_tables, positions)
-    out = _split_launch("paged_decode_attention", q, pools, page_tables, positions, _k1_rows(q, pools[0], page_tables),
-                        q.dtype == torch.bfloat16)
+    out = _k1_launch(q, check_decode_args(q, k_pages, v_pages, page_tables, positions), page_tables, positions)
     paged_decode_attention_kernel.launches += 1
     return out
+
+
+def _k1_launch(q, pools, page_tables, positions) -> torch.Tensor:
+    """K1's launch on checked inputs: its split body and merge (bf16
+    queries), its FMA body (f32), or past ``WIDE_HEAD_DIM`` the runtime-D
+    body."""
+    if q.shape[-1] > WIDE_HEAD_DIM:
+        return _wide_launch(q, pools, page_tables, positions)
+    return _split_launch("paged_decode_attention", q, pools, page_tables, positions,
+                         _k1_rows(q, pools[0], page_tables), q.dtype == torch.bfloat16)
 
 
 def folded_on_k1_body(q) -> bool:
@@ -293,7 +344,7 @@ def folded_on_k1_body(q) -> bool:
 
 
 def paged_decode_attention_folded_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """K3a: K1's contract at a head_dim below 512 that is no multiple of 128;
+    """K3a: K1's contract at a head_dim that is no multiple of 128;
     the pools may also be given folded, [P, ps, Hkv*D] (the same memory).
 
     Launches K3a (a split pass and a merge pass) or raises: CUDA tensors
@@ -301,8 +352,11 @@ def paged_decode_attention_folded_kernel(q, k_pages, v_pages, page_tables, posit
     if q.device.type != "cuda":
         raise ValueError(f"K3a runs on CUDA tensors; got {q.device}")
     pools = check_folded_decode_args(q, k_pages, v_pages, page_tables, positions)
-    rows = _k1_rows(q, pools[0], page_tables) if folded_on_k1_body(q) else SPLIT_ROWS
-    out = _split_launch("paged_decode_attention_folded", q, pools, page_tables, positions, rows)
+    if q.shape[-1] > WIDE_HEAD_DIM:
+        out = _wide_launch(q, pools, page_tables, positions)
+    else:
+        rows = _k1_rows(q, pools[0], page_tables) if folded_on_k1_body(q) else SPLIT_ROWS
+        out = _split_launch("paged_decode_attention_folded", q, pools, page_tables, positions, rows)
     paged_decode_attention_folded_kernel.launches += 1
     return out
 
@@ -366,28 +420,20 @@ def paged_decode_perseq_variant_kernel(q, k_pages, v_pages, page_tables, positio
                                        cast_f32: bool = False) -> torch.Tensor:
     """K7c: K1's contract walked one page an iteration (the reference perseq
     kernel's schedule); without ``cast_f32`` the probabilities are rounded to
-    the pool dtype before P.V, with it this is K1's function. Over bf16
-    pools each toggle runs on the body that computes its function: K4b's
-    exact split at one page a unit (:func:`_rounded_split`), or K1's split
-    tensor-core body; over f32 pools (rounding is the identity) the FMA chunk
-    body at a page a chunk.
+    the pool dtype before P.V, with it this is K1's function. Each toggle
+    runs on the body that computes its function: K4b's launch at one page a
+    unit (:func:`_rounded_split`: over bf16 pools its exact split, over f32
+    pools, where rounding is the identity, the FMA chunk body), or K1's
+    (:func:`_k1_launch`).
 
     Launches K7c or raises: CUDA tensors only, no int8 cache."""
     if q.device.type != "cuda":
         raise ValueError(f"K7c runs on CUDA tensors; got {q.device}")
     check_variant_args(q, k_pages, v_pages, page_tables, positions, "K7c")
-    if q.dtype == torch.bfloat16 and cast_f32:
-        out = _split_launch("paged_decode_attention", q, (k_pages, v_pages, None, None, Q_DTYPES[q.dtype]),
-                            page_tables, positions, _k1_rows(q, k_pages, page_tables))
-    elif q.dtype == torch.bfloat16:
-        out = _rounded_split("K7c", q, k_pages, v_pages, page_tables, positions, 1)
+    if cast_f32:
+        out = _k1_launch(q, (k_pages, v_pages, None, None, Q_DTYPES[q.dtype]), page_tables, positions)
     else:
-        G, D, ps = q.shape[1] // k_pages.shape[2], q.shape[2], k_pages.shape[1]
-        refused = (f"{ps}-row chunks at G={G}, D={D} need more shared memory than a block's 227 KB "
-                   f"(the chunk's scores, the running state and the final merge)")
-        q = _build.aligned16(q)
-        out = _variant_launch("K7c", "chunk_softmax_decode", _CHUNK_ARGTYPES, refused, q, k_pages, v_pages,
-                              page_tables, positions, torch.empty_like(q), ps)
+        out = _rounded_split("K7c", q, k_pages, v_pages, page_tables, positions, 1)
     paged_decode_perseq_variant_kernel.launches += 1
     return out
 
@@ -396,7 +442,11 @@ def _rounded_split(name: str, q, k_pages, v_pages, page_tables, positions, unit_
     """K4a's and K4b's launch: the probabilities rounded at the running max
     after each unit of ``unit_pages`` pages. bf16: splits of
     ``grouped_split_rows(ps)`` rows, scratch for the scores, the page maxima
-    and the splits' partial states; f32: the FMA chunk body at one unit a chunk."""
+    and the splits' partial states; f32: the FMA chunk body at one unit a chunk.
+    Past ``WIDE_HEAD_DIM`` the runtime-D body, rounding at the same points."""
+    if q.shape[-1] > WIDE_HEAD_DIM:
+        return _wide_launch(q, (k_pages, v_pages, None, None, Q_DTYPES[q.dtype]), page_tables, positions,
+                            unit_pages, True)
     B, Hq, D = q.shape
     ps, mp = k_pages.shape[1], page_tables.shape[1]
     split_rows = grouped_split_rows(ps)

@@ -6,9 +6,9 @@ K2 replaces ``dynamo_tpu/ops/pallas/prefill_attention.py:686``
 ``paged_prefill_attention_pallas`` (``pallas_call`` at ``:783``;
 ``_kernel_lookahead`` / ``_kernel``, math in ``_flash_merge``); K3b replaces
 ``:615`` ``paged_prefill_attention_pallas_folded`` (``pallas_call`` at
-``:662``, ``_kernel_folded``), the same function at a head_dim below 512
-that is no multiple of 128 (TinyLlama's 64; tiles padded to 16 columns, or
-to 256 above 128). K2 takes head_dim 64, 128, 256, 384 and 512. One launch takes all N packed lanes
+``:662``, ``_kernel_folded``), the same function at a head_dim that is no
+multiple of 128 (TinyLlama's 64; tiles padded to 16 columns, or to 256
+above 128). K2 takes head_dim 64 and every multiple of 128. One launch takes all N packed lanes
 of a prefill call; the TPU path launches once per lane. Both take f32 or bf16 queries over pools of the
 query's dtype or over an int8 cache (``quant/kv.py QuantizedPages``, scales
 applied to score and probability columns).
@@ -28,9 +28,10 @@ K3b as for K3a. f32 queries keep an f32 FMA body in the same block
 partition (TF32 would break ``TOL["f32"]``); its narrow form, which reads
 rows an element at a time, takes K3b's head dims that are no multiple of 8
 (rows that start off 16 bytes) in every mix and K3b's f32 queries above
-128. Head dims past 256 (K2 at 384 and 512, K3b at 257..511), in every
-mix, take a simple wide FMA body in the same block partition: a block owns
-128 output columns and scores Q·Kᵀ in 64-column chunks. See the source
+128. Head dims past 256 (K2 at 384 and every larger multiple of 128, K3b at
+every other head dim from 257), in every mix, take a simple wide FMA body
+in the same block partition, D a runtime argument: a block owns 128 output
+columns and scores Q·Kᵀ in 64-column chunks. See the source
 note. Plain
 version: ``ops/attention.py paged_prefill_attention`` (per lane); the
 dispatcher there picks the plain version for CPU tensors and, for CUDA
@@ -40,8 +41,8 @@ K7a (:func:`paged_prefill_dmaonly_kernel`, the same source) replaces
 ``:797`` ``paged_prefill_dmaonly`` (``_kernel_dmaonly``), the
 null-hypothesis instrument of ``tools/profile_prefill.py``: K2's grid,
 causal tile bound and load stream (the ``cp.async`` ring and int8
-conversion; f32 pools and head dims past 256: the FMA body's staging) with
-no math. The
+conversion; f32 pools: the FMA body's staging; past head_dim 256, a
+runtime-D twin with the wide FMA body's grid and staging) with no math. The
 reference's output is garbage by design and is not matched: a load that
 nothing reads is deleted by nvcc, so K7a writes f32 checksums of every value
 it loads (plain version ``ops/attention.py paged_prefill_dmaonly``, which
@@ -59,10 +60,10 @@ from dynamo_tpu_torch.ops.kernels.paged_attention import (
     Q_DTYPES,
     folded_geometry,
     folded_head_dim,
+    unfolded_head_dim,
     unpack_pools,
 )
 
-HEAD_DIMS = (64, 128, 256, 384, 512)  # K2, K7a
 ROWS_PER_BLOCK = 128  # K2, K3b, K7a: (query, head) rows per block; Hq/Hkv at most this
 
 _P = ctypes.c_void_p
@@ -112,8 +113,8 @@ def check_prefill_args(q, k_pages, v_pages, page_tables, positions, name: str = 
     k, v = pools[:2]
     _, Hq, D = q.shape
     _, ps, Hkv, Dk = k.shape
-    if Dk != D or D not in HEAD_DIMS:
-        raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}; got q D={D}, pool D={Dk}")
+    if Dk != D or not unfolded_head_dim(D):
+        raise ValueError(f"{name} takes head_dim 64 or a multiple of 128; got q D={D}, pool D={Dk}")
     _check_group(Hq, Hkv, name)
     _check_common(q, k, v, page_tables, positions, name)
     return pools
@@ -129,7 +130,7 @@ def check_folded_prefill_args(q, k_pages, v_pages, page_tables, positions):
     k, v = pools[:2]
     _, Hq, D = q.shape
     if not folded_head_dim(D):
-        raise ValueError(f"K3b takes a head_dim below 512 that is no multiple of 128; got {D}")
+        raise ValueError(f"K3b takes a head_dim that is no multiple of 128; got {D}")
     Hkv, _ = folded_geometry(q, k)
     _check_group(Hq, Hkv, "K3b")
     _check_common(q, k, v, page_tables, positions, "K3b")
@@ -174,7 +175,7 @@ def paged_prefill_attention_kernel(q, k_pages, v_pages, page_tables, positions) 
 
 
 def paged_prefill_attention_folded_kernel(q, k_pages, v_pages, page_tables, positions) -> torch.Tensor:
-    """K3b: K2's contract at a head_dim below 512 that is no multiple of 128;
+    """K3b: K2's contract at a head_dim that is no multiple of 128;
     the pools may also be given folded, [P, ps, Hkv*D] (the same memory).
 
     Launches K3b or raises: CUDA tensors only."""

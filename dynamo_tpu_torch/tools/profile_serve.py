@@ -60,8 +60,10 @@ WORKLOADS = {
 # launches (K1's bodies, paged_decode_tc (bf16 queries) or
 # paged_decode_kernel (f32), and its merge, merge_splits; K3a's FMA body,
 # folded_decode_fma, and the same merge; K4b's grouped_scores, grouped_pv
-# and the same merge: a window where grouped_scores runs gives merge_splits
-# to K4b, else K1 or K3a take it as the workload's decode kernel). K2 and
+# and the same merge; K5's bodies, mla_decode_tc (bf16 pages) or
+# mla_decode_partial, and the same merge: a window where grouped_scores runs
+# gives merge_splits to K4b, one where a K5 body runs to K5, else K1 or K3a
+# take it as the workload's decode kernel). K2 and
 # K3b share their kernel bodies (tc_prefill_kernel, fma_prefill_kernel), and
 # K1 and K3a share paged_decode_tc: a folded workload's prefill kernels are
 # K3b's launches and its decode kernels K3a's
@@ -72,7 +74,7 @@ KERNEL_MARKS = (
 )
 PREFILL_CLASSES = ("K2", "K3b", "K6")
 DECODE_STEP_KERNEL = {"K1": "paged_decode_", "K3a": "folded_decode_", "K4b": "grouped_scores",
-                      "K5": "mla_decode_partial"}
+                      "K5": "mla_decode_"}
 
 
 def kernel_class(name: str, folded: bool = False) -> str:
@@ -105,6 +107,7 @@ def window_stats(kernels: list, lo: float, hi: float, top: int = 8, folded: bool
     by_name: dict = {}
     names = {k["name"] for k in inside}
     merge = ("K4b" if any("grouped_scores" in n for n in names)
+             else "K5" if any("mla_decode_" in n for n in names)
              else "K1" if not folded and any("paged_decode_tc" in n for n in names) else "K3a")
     for k in inside:
         c = merge if "merge_splits" in k["name"] else kernel_class(k["name"], folded)

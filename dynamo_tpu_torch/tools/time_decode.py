@@ -2,8 +2,10 @@
 card: K1 (bf16, int8 and f32), K3a (bf16 and int8, at batch 64 and at the
 serve engine's 16), K4a, K4b and K7c's two toggles (bf16, at K1's check
 geometry and at the reference bench's G 2 / page 128), K1's bf16 body at
-each split size ``k1_split_rows`` chooses from (``SPLIT_SHAPES``), and K6
-(MLA prefill over bf16 pages at chip_smoke.py's check shape), each beside
+each split size ``k1_split_rows`` chooses from (``SPLIT_SHAPES``), K5 (MLA
+decode over bf16 and over f32 pages at chip_smoke.py's check shape, and its
+tensor-core body at each candidate split length, ``MLA_SPLIT_SHAPES``) and
+K6 (MLA prefill over bf16 pages at chip_smoke.py's check shape), each beside
 one SDPA call over the same context, with ``tools/timing.py
 launch_times``: device time (the host's enqueueing hidden behind a sleep
 kernel), back-to-back time (the host's enqueueing counts where it is the
@@ -16,7 +18,12 @@ says otherwise: batch 64, contexts 1..2048 rows in distinct pages, every
 case drawn from seed 0 (so cases of one shape, K1, K4a and K4b at K1's,
 read the same inputs), bf16 queries and pools (int8: the pools quantized by
 row, SDPA over their bf16 dequantization; f32: f32 queries and pools, SDPA
-in f32). K6's are its check shape: DeepSeek-V2-Lite's 16 heads,
+in f32). K5's are its check shape: batch 16 of DeepSeek-V2-Lite's 16 heads
+over latent rows of 576 (d_c 512), contexts 1..2048 rows in distinct pages
+of 16, three inactive slots (trash tables, position 0) and a row at -1, f32
+pre-scaled queries; SDPA takes the queries in the pages' dtype over the
+gathered context, one kv head, values its first 512 columns. K6's are its
+check shape: DeepSeek-V2-Lite's 16 heads,
 latent rows of 576 (d_c 512), two 512-row chunks of one sequence at
 prefixes 0 and 1536, f32 pre-scaled queries over bf16 pages, both chunks a
 call; SDPA takes the bf16 queries over the gathered context with the causal
@@ -37,6 +44,7 @@ import torch
 
 from dynamo_tpu_torch.ops.attention import gather_pages
 from dynamo_tpu_torch.ops.kernels import paged_attention as pa
+from dynamo_tpu_torch.ops.kernels import mla_attention as mla
 from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_prefill_attention_kernel
 from dynamo_tpu_torch.quant.kv import QuantizedPages, dequantize_rows, quantize_kv_rows
 from dynamo_tpu_torch.tools.timing import card, launch_times
@@ -97,6 +105,14 @@ if hasattr(pa, "K1_SPLIT_CHOICES"):  # trees since K1's split body
                                                            rows, full)
 # K6's check shape: (T, H, latent, d_c, page size, prefixes)
 MLA_PREFILL = (512, 16, 576, 512, 16, (0, 1536))
+# K5's: (batch, H, latent, d_c, page size, table rows, every context full)
+MLA_DECODE = (16, 16, 576, 512, 16, 2048, False)
+# K5's tensor-core body at each candidate split length: the check (and
+# serve) shape, batch 4 and 1 with every context 2048 rows, batch 16 in a
+# 256-row table
+MLA_SPLIT_SHAPES = {"B 16": (16, 2048, False), "B 4 full": (4, 2048, True), "B 1 full": (1, 2048, True),
+                    "B 16 table 256": (16, 256, False)}
+MLA_SPLIT_CHOICES = (64, 128, 256)
 
 
 def case_inputs(rng, Hq: int, Hkv: int, D: int, ps: int, pools: str, dev, B: int = B, rows: int = ROWS,
@@ -156,6 +172,41 @@ def mla_prefill_inputs(rng, dev) -> dict:
     )
 
 
+def mla_decode_inputs(rng, dev, pages_dtype, batch: int, rows: int, full: bool) -> dict:
+    """K5's inputs at chip_smoke.py's check shape (``MLA_DECODE``, with
+    ``batch`` sequences in a table of ``rows`` rows, contexts 1..rows or
+    all ``rows`` long): distinct pages, three inactive slots and a row at -1
+    (batch 16), f32 pre-scaled queries, and
+    SDPA's queries, gathered context, values and mask."""
+    _, H, L, dc, ps, _, _ = MLA_DECODE
+    max_pages = rows // ps
+    lengths = np.full(batch, rows) if full else rng.integers(1, rows + 1, batch)
+    if not full:
+        lengths[: min(batch, 2)] = (1, rows)[: min(batch, 2)]
+    need = [-(-int(n) // ps) for n in lengths]
+    P = 1 + sum(need)
+    perm = 1 + rng.permutation(P - 1)
+    pt = np.zeros((batch, max_pages), np.int32)
+    off = 0
+    for b in range(batch):
+        pt[b, : need[b]] = perm[off : off + need[b]]
+        off += need[b]
+    pos = (lengths - 1).astype(np.int32)
+    if batch >= 10:
+        pt[[3, 5, 7]] = 0  # inactive slots: trash tables, position 0
+        pos[[3, 5, 7]] = 0
+        pos[9] = -1  # attends row 0 only
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    q = torch.randn((batch, H, L), device=dev, generator=gen) / L**0.5
+    pages = torch.randn((P, ps, L), device=dev, generator=gen).to(pages_dtype)
+    pt_t = torch.from_numpy(pt).to(dev)
+    pos_t = torch.from_numpy(pos).to(dev)
+    ctx = gather_pages(pages, pt_t)[:, None]  # [B, 1, S, L]
+    return dict(q=q, pages=pages, pt=pt_t, pos=pos_t, dc=dc, ctx=ctx, vc=ctx[..., :dc].contiguous(),
+                qs=q.to(pages_dtype)[:, :, None, :],
+                mask=(torch.arange(rows, device=dev)[None, :] <= pos_t[:, None].long().clamp(min=0))[:, None, None, :])
+
+
 def times(launch, iters: int = ITERS) -> dict:
     dev_us, b2b_us, host_us = launch_times(lambda i: launch(), iters)
     return {"ms": dev_us / 1e3, "b2b_ms": b2b_us / 1e3, "host_ms": host_us / 1e3}
@@ -174,6 +225,20 @@ def main() -> int:
         library = times(lambda: sdpa(qs, x["kc"], x["vc"], attn_mask=x["mask"], enable_gqa=True))
         res[name] = {"kernel": kernel, "sdpa": library}
         print(f"{name}: kernel {kernel}, sdpa {library}", flush=True)
+    batch, _, _, _, _, rows, full = MLA_DECODE
+    for name, dt in (("K5 bf16", torch.bfloat16), ("K5 f32", torch.float32)):
+        x = mla_decode_inputs(np.random.default_rng(0), dev, dt, batch, rows, full)
+        kernel = times(lambda: mla.paged_mla_decode_attention_kernel(x["q"], x["pages"], x["pt"], x["pos"], x["dc"]))
+        library = times(lambda: sdpa(x["qs"], x["ctx"], x["vc"], attn_mask=x["mask"], scale=1.0, enable_gqa=True), 10)
+        res[name] = {"kernel": kernel, "sdpa": library}
+        print(f"{name}: kernel {kernel}, sdpa {library}", flush=True)
+    if hasattr(mla, "TC_SPLIT_CHOICES"):  # trees since K5's tensor-core body
+        for shape, (batch, rows, full) in MLA_SPLIT_SHAPES.items():
+            x = mla_decode_inputs(np.random.default_rng(0), dev, torch.bfloat16, batch, rows, full)
+            for split in MLA_SPLIT_CHOICES:
+                kernel = times(lambda: mla._decode_launch(x["q"], x["pages"], x["pt"], x["pos"], x["dc"], split))
+                res[f"K5 bf16 {shape} split {split}"] = {"kernel": kernel}
+                print(f"K5 bf16 {shape} split {split}: kernel {kernel}", flush=True)
     x = mla_prefill_inputs(np.random.default_rng(0), dev)
     k6 = paged_mla_prefill_attention_kernel
     # 20 and 5 calls, as chip_smoke.py times K6 and SDPA: SDPA-math's host

@@ -11,11 +11,15 @@
 - The routing function, the launchers' refusals, the chunk and split
   choices, and a torch model of K4b's exact split over the context (splits
   combined by the prefix-max formula) against the sequential walk.
-- The head dims past 256 that the launchers take (K1, K2, K4a, K4b at 384
-  and 512; K3a, K3b at 264 and 320 over 2 kv heads): each argument check
-  passes, and each plain version holds the reference's kernel in interpret
-  mode (or, for a folded row that is no multiple of 128, the reference's
-  plain XLA version, as the reference routes it).
+- The head dims past 256 that the launchers take (K1, K2, K4a, K4b at 384,
+  512, 640 and 1024; K3a, K3b at 264, 320, 520 and 1000 over 2 kv heads):
+  each argument check passes, and each plain version holds the reference's
+  kernel in interpret mode (or, for a folded row that is no multiple of
+  128, the reference's plain XLA version, as the reference routes it); a
+  torch model of the runtime-D body the launchers run past 512 (a score
+  pass with page maxima, a P.V pass that weighs each row at its unit's
+  prefix max in column slices of 512, the merge) against the plain
+  versions, with the probabilities rounded as each variant rounds them.
 - The K7a / K7b checksums against numpy sums over the same partition.
 - The engine's greedy tokens with ``chunked`` and with ``grouped`` against
   ``AsyncJaxEngine``'s on tiny f32 weights at head_dim 128.
@@ -481,8 +485,8 @@ def _prefill_args(Hq, Hkv, D, dtype=torch.float32):
 
 
 # the shapes the reference serves that the launchers refused before: head_dim
-# 256, 384 and 512 on K1, K2, K4a, K4b, K7a-c; folded 192, 100, 20, 264 and
-# 320 on K3a and K3b
+# 256 and every larger multiple of 128 (384 up to 1024 here) on K1, K2, K4a,
+# K4b, K7a-c; folded 192, 100, 20, 264, 320, 520 and 1000 on K3a and K3b
 WIDE_SHAPES = {
     "K1-D256": lambda: pa.check_decode_args(*_decode_args(8, 2, 256)),
     "K4a-D256": lambda: pa.check_variant_args(*_decode_args(8, 2, 256, torch.bfloat16), "K4a"),
@@ -498,7 +502,7 @@ WIDE_SHAPES = {
     "K3b-D100": lambda: pf.check_folded_prefill_args(*_prefill_args(8, 2, 100, torch.bfloat16)),
     "K3b-D20": lambda: pf.check_folded_prefill_args(*_prefill_args(16, 4, 20)),
     **{f"{name}-D{D}": (lambda check, D=D: lambda: check(D))(check)
-       for D in (384, 512) for name, check in {
+       for D in (384, 512, 640, 768, 1024) for name, check in {
            "K1": lambda D: pa.check_decode_args(*_decode_args(8, 2, D, torch.bfloat16)),
            "K4a": lambda D: pa.check_variant_args(*_decode_args(8, 2, D, torch.bfloat16), "K4a"),
            "K4b": lambda D: pa.check_variant_args(*_decode_args(8, 2, D), "K4b"),
@@ -508,7 +512,7 @@ WIDE_SHAPES = {
            "K7a": lambda D: pf.check_prefill_args(*_prefill_args(8, 2, D, torch.bfloat16), "K7a"),
        }.items()},
     **{f"{name}-D{D}": (lambda check, D=D: lambda: check(D))(check)
-       for D in (264, 320) for name, check in {
+       for D in (264, 320, 520, 1000) for name, check in {
            "K3a": lambda D: pa.check_folded_decode_args(*_decode_args(8, 2, D, torch.bfloat16)),
            "K3b": lambda D: pf.check_folded_prefill_args(*_prefill_args(8, 2, D)),
        }.items()},
@@ -575,14 +579,14 @@ def _wide_prefill(which, D):
     return tatt.dispatch_paged_prefill_attention(*t), np.asarray(ref, np.float32)
 
 
-@pytest.mark.parametrize("which,D", [(w, D) for w in ("K1", "K2", "K4a", "K4b") for D in (384, 512)]
-                         + [(w, D) for w in ("K3a", "K3b") for D in (264, 320)])
+@pytest.mark.parametrize("which,D", [(w, D) for w in ("K1", "K2", "K4a", "K4b") for D in (384, 512, 640, 1024)]
+                         + [(w, D) for w in ("K3a", "K3b") for D in (264, 320, 520, 1000)])
 def test_head_dims_past_256_match_the_reference(which, D):
-    """The launchers take head_dim 384 and 512 (K1, K2, K4a, K4b) and the
-    folded 264 and 320 over 2 kv heads (K3a, K3b): each argument check
-    passes, and each plain version, the function the kernel is held to on
-    the card, equals the reference's. K4a and K4b in bf16 (their rounding at
-    work), the others in f32."""
+    """The launchers take head_dim 384, 512, 640 and 1024 (K1, K2, K4a,
+    K4b) and the folded 264, 320, 520 and 1000 over 2 kv heads (K3a, K3b):
+    each argument check passes, and each plain version, the function the
+    kernel is held to on the card, equals the reference's. K4a and K4b in
+    bf16 (their rounding at work), the others in f32."""
     if which in ("K2", "K3b"):
         got, ref = _wide_prefill(which, D)
         np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=0)
@@ -594,12 +598,101 @@ def test_head_dims_past_256_match_the_reference(which, D):
 
 @pytest.mark.parametrize("D", [520, 640])
 def test_head_dims_past_512_stay_refused(D):
-    """Past 512 the launchers refuse: K1 / K4 / K7b / K7c rows past a warp's
-    32 lanes of 16 values, K2's wide body and K3a / K3b past 16 output
-    columns a lane (ROADMAP.md Queue 3 records the budgets)."""
-    for check in (lambda: pa.check_decode_args(*_decode_args(8, 2, D)),
-                  lambda: pf.check_prefill_args(*_prefill_args(8, 2, D)),
-                  lambda: pa.check_folded_decode_args(*_decode_args(8, 2, D)),
-                  lambda: pf.check_folded_prefill_args(*_prefill_args(8, 2, D))):
-        with pytest.raises(ValueError, match="head_dim"):
-            check()
+    """Past 512 no launcher has a head_dim budget: each takes its own kind
+    of head_dim (K1 / K2 / K4 / K7 a multiple of 128, K3a / K3b any other)
+    and refuses only the other kind, which the reference routes to the other
+    kernels too."""
+    own = [(lambda D: pa.check_decode_args(*_decode_args(8, 2, D)), 640),
+           (lambda D: pf.check_prefill_args(*_prefill_args(8, 2, D)), 640),
+           (lambda D: pa.check_folded_decode_args(*_decode_args(8, 2, D)), 520),
+           (lambda D: pf.check_folded_prefill_args(*_prefill_args(8, 2, D)), 520)]
+    for check, takes in own:
+        if D == takes:
+            check(D)
+        else:
+            with pytest.raises(ValueError, match="head_dim"):
+                check(D)
+
+
+def wide_decode_model(q, k, v, pt, pos, unit: int, round_p: bool, ks=None, vs=None) -> torch.Tensor:
+    """The runtime-D body past head_dim 512 (``csrc/paged_attention.cu``
+    wide_scores, wide_pv, merge_splits) in torch: splits of
+    grouped_split_rows(ps) rows; pass 1 the scores s = q.k / sqrt(D) (int8:
+    times the row's K scale) and each page's max; pass 2 page i's rounding
+    point M_i, the max of the page maxima through the last page of its unit
+    of ``unit`` pages (clipped to the context), M the split's last page's,
+    each row weighed by e^(M_i - M) R(e^(s - M_i)) (R: bf16 rounding where
+    ``round_p``, else none; int8: times the V scale) with l summing e^(M_i -
+    M) e^(s - M_i), in column slices of 512; the splits merged in log2
+    units as merge_splits merges them."""
+    B, Hq, D = q.shape
+    ps, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kc = tatt.gather_pages(k, pt).float()  # [B, S, Hkv, D]
+    vc = tatt.gather_pages(v, pt).float()
+    S = kc.shape[1]
+    s_all = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(B, Hkv, G, D), kc) * float(np.float32(1 / np.sqrt(D)))
+    if ks is not None:
+        s_all = s_all * tatt.gather_pages(ks, pt).float()[:, None, None, :]
+    vscale = tatt.gather_pages(vs, pt).float() if vs is not None else torch.ones((B, S))
+    split_rows = pa.grouped_split_rows(ps)
+    out = torch.empty((B, Hkv, G, D))
+    for b in range(B):
+        n = min(max(int(pos[b]) + 1, 1), S)
+        npc = -(-n // ps)
+        s = s_all[b, ..., :n]
+        pmax = torch.stack([s[..., i * ps : (i + 1) * ps].amax(-1) for i in range(npc)], -1)
+        parts = []
+        for r0 in range(0, n, split_rows):
+            r1 = min(r0 + split_rows, n)
+            point = lambda p: torch.cummax(pmax, -1).values[..., min((p // unit + 1) * unit, npc) - 1]  # noqa: E731
+            M = point((r1 - 1) // ps)
+            l = torch.zeros((Hkv, G))
+            acc = torch.zeros((Hkv, G, D))
+            for c0 in range(0, D, 512):  # the column slices: each recomputes the weights
+                for j in range(r0, r1):
+                    Mi = point(j // ps)
+                    e = torch.exp(s[..., j] - Mi)
+                    w = torch.exp(Mi - M)
+                    if c0 == 0:
+                        l = l + w * e
+                    c = w * (e.bfloat16().float() if round_p else e) * vscale[b, j]
+                    acc[..., c0 : c0 + 512] += c[..., None] * vc[b, j, :, None, c0 : c0 + 512]
+            parts.append((M * 1.4426950408889634, l, acc))
+        Mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        wts = [torch.exp2(m - Mx) for m, _, _ in parts]
+        lsum = sum(wi * li for wi, (_, li, _) in zip(wts, parts))
+        out[b] = sum(wi[..., None] * ai for wi, (_, _, ai) in zip(wts, parts)) / lsum.clamp(min=1e-20)[..., None]
+    return out.reshape(B, Hq, D)
+
+
+@pytest.mark.parametrize("which,D", [("K1", 640), ("K1 int8", 640), ("K3a", 520), ("K4a", 640), ("K4b", 1024),
+                                     ("K7c", 640)])
+def test_wide_decode_model_matches_the_plain_versions(which, D):
+    """The runtime-D body's algebra at the variants' rounding: K1 and K3a
+    with f32 probabilities (K1 also over an int8 cache), K4a at a unit of
+    chunk_pages pages, K4b and K7c at one page, over bf16 pools with
+    bf16-valued f32 queries (an f32 output), against each plain version at
+    atol 2e-5; the contexts span several splits, end mid-page, sit at -1 and
+    fill the table."""
+    case = variant_case(4, 4, 2, D, seed=D + len(which), max_pages=36)
+    q, k, v, pt, pos = (torch.from_numpy(x) for x in case)
+    pos[2] = -1
+    ks = vs = None
+    if which == "K1 int8":
+        codes = [torch.from_numpy(np.random.default_rng(D).integers(-127, 128, k.shape).astype(np.int8)) for _ in "kv"]
+        scales = [torch.from_numpy(np.random.default_rng(D + i).uniform(0.005, 0.02, k.shape[:2]).astype(np.float32))
+                  for i in range(2)]
+        kq, vq = QuantizedPages(codes[0], scales[0]), QuantizedPages(codes[1], scales[1])
+        got = wide_decode_model(q, codes[0], codes[1], pt, pos, 1, False, *scales)
+        want = tatt.paged_decode_attention(q, kq, vq, pt, pos)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+        return
+    q, k, v = q.bfloat16().float(), k.bfloat16(), v.bfloat16()
+    unit = pa.chunk_pages(k.shape[1], pt.shape[1]) if which == "K4a" else 1
+    rounded = which in ("K4a", "K4b", "K7c")
+    plain_fn = {"K1": tatt.paged_decode_attention, "K3a": tatt.paged_decode_attention,
+                "K4a": tatt.paged_decode_attention_chunked, "K4b": tatt.paged_decode_attention_grouped,
+                "K7c": tatt.paged_decode_attention_grouped}[which]
+    got = wide_decode_model(q, k, v, pt, pos, unit, rounded)
+    torch.testing.assert_close(got, plain_fn(q, k, v, pt, pos), atol=2e-5, rtol=0)

@@ -31,6 +31,7 @@ from dynamo_tpu_torch.models.convert import kv_from_jax, params_from_jax
 from dynamo_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from dynamo_tpu_torch.ops import attention as tatt
 from dynamo_tpu_torch.ops.kernels.paged_attention import (
+    check_decode_args,
     paged_decode_attention_folded_kernel,
     paged_decode_attention_kernel,
 )
@@ -140,15 +141,18 @@ def test_folded_launchers_refuse_cpu_and_unsupported_shapes():
     with pytest.raises(ValueError, match="head_dim"):
         check_folded_decode_args(q.repeat(1, 1, 2), k.repeat(1, 1, 1, 2), k.repeat(1, 1, 1, 2), pt, pos)
     # 100 (no multiple of 8: rows start off 16 bytes), 20 over 4 kv heads,
-    # 192 (above 128) and 264 (past 256) launch; past 512 columns the FMA
-    # body has no room, and 384 (a multiple of 128) is K1's
+    # 192 (above 128), 264 (past 256) and 520 (past 512: the runtime-D body)
+    # launch; 384 and 640 (multiples of 128) are K1's: its check takes them
+    # and K3a's refuses them
     check_folded_decode_args(q[..., :50].repeat(1, 1, 2), *[torch.zeros((5, 4, 2, 100))] * 2, pt, pos)
     check_folded_decode_args(q[..., :20].repeat(1, 2, 1), *[torch.zeros((5, 4, 4, 20))] * 2, pt, pos)
     check_folded_decode_args(q.repeat(1, 1, 3), *[torch.zeros((5, 4, 2, 192))] * 2, pt, pos)
     check_folded_decode_args(q[..., :33].repeat(1, 1, 8), *[torch.zeros((5, 4, 2, 264))] * 2, pt, pos)
     for D in (384, 520):
+        args = (torch.zeros((2, 8, D)), *[torch.zeros((5, 4, 2, D))] * 2, pt, pos)
+        (check_decode_args if D % 128 == 0 else check_folded_decode_args)(*args)
         with pytest.raises(ValueError, match="head_dim"):
-            check_folded_decode_args(q[..., :D // 8].repeat(1, 1, 8), *[torch.zeros((5, 4, 2, D))] * 2, pt, pos)
+            (check_folded_decode_args if D % 128 == 0 else check_decode_args)(*args)
     with pytest.raises(ValueError, match="dtype"):
         check_folded_decode_args(q, k.bfloat16(), k.bfloat16(), pt, pos)
     check_folded_decode_args(q.repeat(1, 4, 1), k, k, pt, pos)  # G 16: any group launches

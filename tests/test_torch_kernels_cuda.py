@@ -1,15 +1,17 @@
 """The CUDA kernels K1 (paged decode), K2 (chunked-prefill flash), K3a / K3b
-(their folded variants for a head_dim below 512 that is no multiple of 128),
+(their folded variants for a head_dim that is no multiple of 128),
 K4a / K4b (the chunked and grouped decode variants), K5 (MLA latent
 decode), K6 (MLA latent prefill) and the instruments K7a / K7b (load-only
 twins of K2 / K1) and K7c (K1's function one page an iteration, with and
 without rounded probabilities) against their plain PyTorch versions on the
 card, K1-K3 and K7a also over int8 pools (``QuantizedPages``), at the
 reference's head geometries: GQA groups of any size (G 3, 6, 7, and past 8
-and 16), head_dim 256, 384 and 512, folded head dims 8, 24, 80, 96, 192, 264
-and 320, and 100 and 20 (no multiple of 8), and MLA at 4, 16 and 20 heads
-and at a latent row of d_c 1024 + d_r 64. K1 over bf16 queries (its split
-tensor-core body and merge) and K4a / K4b give the same bits twice; K7c's
+and 16), head_dim 256 to 1024 (past 512 on the runtime-D bodies), folded
+head dims 8, 24, 80, 96, 192, 264, 320, 520 and 1000, and 100 and 20 (no
+multiple of 8), and MLA at 4, 16 and 20 heads, at a latent row of d_c 1024
++ d_r 64 and at rows that start off 16 bytes (latent 36, d_c 30). K1 over
+bf16 queries (its split tensor-core body and merge), K4a / K4b and K5 (both
+bodies) give the same bits twice; K7c's
 two toggles give K4b's and K1's bits on the same inputs. Marked ``cuda``: every test skips
 where no CUDA device is visible (a CUDA kernel has no CPU mode). On a
 machine with an H100 and nvcc (``--noconftest``: tests/conftest.py imports
@@ -329,19 +331,27 @@ def test_prefill_partition_edges(cuda, qdt, kvdt, which, D, Hq, Hkv, ps, T, star
 
 def test_launchers_raise_on_what_the_kernels_do_not_take(cuda):
     """Unsupported head dims, dtypes and pool mixes raise on CUDA tensors;
-    nothing falls back to a plain version."""
+    nothing falls back to a plain version. Past head_dim 512 only the other
+    kind of head_dim raises: K3a at 520 (through its launcher and the
+    dispatcher) and K1 at 640 launch the runtime-D body and hold their plain
+    versions; K1 at 520 and K3a at 640 raise."""
     rng = np.random.default_rng(11)
     pt = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
     pos = torch.zeros(2, dtype=torch.int32, device=cuda)
-    q520 = torch.zeros((2, 8, 520), device=cuda)  # past the FMA body's 512 columns
+    q520 = torch.from_numpy(rng.standard_normal((2, 8, 520)).astype(np.float32)).to(cuda)
     k520, v520 = _pools(rng, 5, 16, 2, 520, torch.float32, cuda)
+    q640 = torch.from_numpy(rng.standard_normal((2, 8, 640)).astype(np.float32)).to(cuda)
+    k640, v640 = _pools(rng, 5, 16, 2, 640, torch.float32, cuda)
+    for call, args in ((paged_decode_attention_folded_kernel, (q520, k520, v520)),
+                       (tatt.dispatch_paged_decode_attention, (q520, k520, v520)),
+                       (paged_decode_attention_kernel, (q640, k640, v640))):
+        got = call(*args, pt, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, tatt.paged_decode_attention(*args, pt, pos), **TOL[torch.float32])
     with pytest.raises(ValueError, match="head_dim"):
-        paged_decode_attention_folded_kernel(q520, k520, v520, pt, pos)
+        paged_decode_attention_kernel(q520, k520, v520, pt, pos)
     with pytest.raises(ValueError, match="head_dim"):
-        tatt.dispatch_paged_decode_attention(q520, k520, v520, pt, pos)
-    with pytest.raises(ValueError, match="head_dim"):  # 640: past a warp's 32 lanes of 16 values
-        paged_decode_attention_kernel(torch.zeros((2, 8, 640), device=cuda),
-                                      *_pools(rng, 5, 16, 2, 640, torch.float32, cuda), pt, pos)
+        paged_decode_attention_folded_kernel(q640, k640, v640, pt, pos)
     q = torch.zeros((2, 8, 64), device=cuda, dtype=torch.float16)
     k, v = _pools(rng, 5, 16, 2, 64, torch.float16, cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -797,3 +807,126 @@ def test_mla_kernels_take_wide_latent_rows(cuda, dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, tatt.paged_mla_prefill_attention(qp, pages, pt[1], pos_p, dc),
                                **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("H", [4, 16, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32-pages", "bf16-pages"])
+def test_mla_decode_gives_the_same_bits_twice(cuda, dtype, H):
+    """K5 at DeepSeek-V2-Lite's latent width (bf16 pages: the tensor-core
+    body, mla_decode_tc; f32 pages: the FMA body) over B 16 ragged contexts
+    up to 2048 rows, an inactive slot and a row at -1: held to its plain
+    version at TOL["f32"], and two launches give the same bits (the splits
+    merge in a fixed order, without atomics)."""
+    from dynamo_tpu_torch.ops.kernels.mla_attention import decode_on_tensor_cores
+
+    rng = np.random.default_rng(H + 40 * (dtype == torch.bfloat16))
+    P, pt, pos = _variant_tables(rng, 16, 16, 128, cuda)
+    pages = torch.from_numpy(rng.standard_normal((P, 16, MLA_LATENT)).astype(np.float32)).to(cuda, dtype)
+    q = torch.from_numpy((rng.standard_normal((16, H, MLA_LATENT)) / np.sqrt(MLA_LATENT)).astype(np.float32)).to(cuda)
+    assert decode_on_tensor_cores(MLA_LATENT, MLA_DC, dtype) == (dtype == torch.bfloat16)
+    first = paged_mla_decode_attention_kernel(q, pages, pt, pos, MLA_DC)
+    second = paged_mla_decode_attention_kernel(q, pages, pt, pos, MLA_DC)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, tatt.paged_mla_decode_attention(q, pages, pt, pos, MLA_DC), **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("L,dc", [(36, 30), (37, 33), (40, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32-pages", "bf16-pages"])
+def test_mla_kernels_take_any_latent_width(cuda, dtype, L, dc):
+    """K5 and K6 at latent widths that are no multiple of 8 and d_c that is
+    no multiple of 4 or 8 (a tiny-mla config of kv_lora_rank 30 +
+    qk_rope_head_dim 6, and 33 + 4; rows that start off 16 bytes take the
+    FMA body), and at 40 / 24 (the tensor-core bodies' preconditions)."""
+    rng = np.random.default_rng(L + dc + (dtype == torch.bfloat16))
+    B, ps, max_pages, H = 6, 16, 24, 4
+    P = B * max_pages + 1
+    pages = torch.from_numpy(rng.standard_normal((P, ps, L)).astype(np.float32)).to(cuda, dtype)
+    q = torch.from_numpy((rng.standard_normal((B, H, L)) / np.sqrt(L)).astype(np.float32)).to(cuda)
+    pt, pos = _decode_tables(rng, B, P, ps, max_pages, cuda)
+    got = paged_mla_decode_attention_kernel(q, pages, pt, pos, dc)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, dc)
+    torch.testing.assert_close(got, tatt.paged_mla_decode_attention(q, pages, pt, pos, dc), **TOL[torch.float32])
+    T, start = 75, 200
+    qp = torch.from_numpy((rng.standard_normal((T, H, L)) / np.sqrt(L)).astype(np.float32)).to(cuda)
+    pos_p = torch.arange(start, start + T, dtype=torch.int32, device=cuda)
+    got = paged_mla_prefill_attention_kernel(qp, pages, pt[1], pos_p, dc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tatt.paged_mla_prefill_attention(qp, pages, pt[1], pos_p, dc),
+                               **TOL[torch.float32])
+
+
+WIDE_DECODE = {
+    "K1": (paged_decode_attention_kernel, tatt.paged_decode_attention, MIXES),
+    "K3a": (paged_decode_attention_folded_kernel, tatt.paged_decode_attention, MIXES),
+    "K4a": (paged_decode_attention_chunked_kernel, tatt.paged_decode_attention_chunked, MIXES[:2]),
+    "K4b": (paged_decode_attention_grouped_kernel, tatt.paged_decode_attention_grouped, MIXES[:2]),
+    "K7c": (paged_decode_perseq_variant_kernel, tatt.paged_decode_attention_grouped, MIXES[:2]),
+}
+
+
+@pytest.mark.parametrize("which,D", [(w, D) for w in ("K1", "K4a", "K4b", "K7c") for D in (640, 768, 1024)]
+                         + [("K3a", 520), ("K3a", 1000)])
+def test_decode_launchers_take_head_dims_past_512(cuda, which, D):
+    """Past 512 every decode launcher runs the runtime-D body in every mix
+    it takes (B 12 over contexts up to 512 rows, an inactive slot, a row at
+    -1) and holds its plain version; K4a, K4b and K7c round where their TPU
+    kernels round (with the rounding slack over random inputs)."""
+    kernel, plain, mixes = WIDE_DECODE[which]
+    rng = np.random.default_rng(D + len(which))
+    Hkv, ps = 2, 16
+    P, pt, pos = _variant_tables(rng, 12, ps, 32, cuda)
+    for qdt, kvdt in mixes:
+        k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
+        q = torch.from_numpy(rng.standard_normal((12, 4 * Hkv, D)).astype(np.float32)).to(cuda, qdt)
+        before = kernel.launches
+        got = kernel(q, k, v, pt, pos)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1 and got.dtype == qdt
+        ref = plain(q, k, v, pt, pos).float()
+        limit = TOL[qdt]["atol"] + TOL[qdt]["rtol"] * ref.abs()
+        if which in ("K4a", "K4b", "K7c"):
+            unit = chunk_pages(ps, pt.shape[1]) if which == "K4a" else 1
+            limit = limit + rounding_slack(q, k, v, pt, pos, unit * ps)
+        assert bool(((got.float() - ref).abs() <= limit).all()), f"{which} D {D} {qdt} / {kvdt}"
+
+
+@pytest.mark.parametrize("which,D", [("K2", 640), ("K2", 1024), ("K3b", 520), ("K3b", 1000), ("K7a", 640)])
+def test_prefill_launchers_take_head_dims_past_512(cuda, which, D):
+    """K2 and K3b past 512 on the wide FMA body, and K7a's runtime-D twin
+    (its checksums exactly, over exact pools), in every mix: a 96-row lane
+    after a 200-row prefix beside a lane from 0."""
+    rng = np.random.default_rng(D + len(which) + 7)
+    Hkv, ps, T, mp = 2, 16, 96, 24
+    P = 2 * mp + 1
+    pt = torch.from_numpy((1 + rng.permutation(P - 1)).reshape(2, mp).astype(np.int32)).to(cuda)
+    pos = torch.from_numpy(np.stack([s + np.arange(T) for s in (0, 200)]).astype(np.int32)).to(cuda)
+    kernel = {"K2": paged_prefill_attention_kernel, "K3b": paged_prefill_attention_folded_kernel,
+              "K7a": paged_prefill_dmaonly_kernel}[which]
+    for qdt, kvdt in MIXES:
+        q = torch.from_numpy(rng.standard_normal((2 * T, 4 * Hkv, D)).astype(np.float32)).to(cuda, qdt)
+        if which == "K7a":
+            k, v = _exact_pools(rng, P, ps, Hkv, D, kvdt, cuda)
+            got = kernel(q, k, v, pt, pos)
+            torch.cuda.synchronize()
+            assert torch.equal(got, tatt.paged_prefill_dmaonly(q, k, v, pt, pos))
+            continue
+        k, v = _pools(rng, P, ps, Hkv, D, kvdt, cuda)
+        got = kernel(q, k, v, pt, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), tatt.paged_prefill_attention_lanes(q, k, v, pt, pos).float(),
+                                   **TOL[qdt])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_dmaonly_takes_head_dims_past_512(cuda, dtype):
+    """K7b's runtime-D twin at 640 and 1024: its checksums exactly."""
+    rng = np.random.default_rng(64)
+    for D in (640, 1024):
+        P, pt, pos = _variant_tables(rng, 12, 16, 32, cuda)
+        k, v = _exact_pools(rng, P, 16, 2, D, dtype, cuda)
+        q = torch.zeros((12, 8, D), device=cuda, dtype=dtype)
+        got = paged_decode_dmaonly_kernel(q, k, v, pt, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tatt.paged_decode_dmaonly(q, k, v, pt, pos))

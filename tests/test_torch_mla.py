@@ -137,10 +137,13 @@ def test_mla_kernel_arg_checks_raise_on_shapes_the_kernels_do_not_take():
     pos = torch.zeros(B, dtype=torch.int32)
     check_mla_args(q, pages, pt, pos, dc, decode=True)  # the serving shapes pass
     check_mla_args(q, pages.float(), pt[0], pos, dc, decode=False)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        check_mla_args(q[..., :572], pages[..., :572], pt, pos, dc, decode=True)
+    # any latent width and any 0 < d_c <= latent launch (rows that start off
+    # 16 bytes take the FMA body, which reads them an element at a time): a
+    # width that is no multiple of 8, a d_c that is no multiple of 4
+    check_mla_args(q[..., :572], pages[..., :572].contiguous(), pt, pos, dc, decode=True)
+    check_mla_args(q[..., :504], pages[..., :504].contiguous(), pt, pos, 502, decode=True)
     with pytest.raises(ValueError, match="d_c"):
-        check_mla_args(q[..., :504], pages[..., :504], pt, pos, 508, decode=True)
+        check_mla_args(q, pages, pt, pos, 0, decode=True)
     check_mla_args(q[:, :4], pages, pt, pos, dc, decode=True)  # any H: tiny-mla's 4 heads
     check_mla_args(q[:, :5], pages, pt[0], pos, dc, decode=False)
     # rows past 768 (scored in column chunks) and d_c past 512 (sliced over
@@ -385,16 +388,66 @@ def test_greedy_tokens_equal_jax_engine_on_tiny_mla():
         assert toks == ref_toks and len(toks) == 10
 
 
+# a latent row that is no multiple of 8 and a d_c that is no multiple of 4
+# (kv_lora_rank 30 + qk_rope_head_dim 6 = 36): the reference pads the row to
+# 128 lanes, the port keeps the logical width and its FMA bodies read such
+# rows an element at a time on the card
+NARROW_LATENT = {"kv_lora_rank": 30, "qk_rope_head_dim": 6}
+
+
+def test_greedy_tokens_equal_jax_engine_at_a_narrow_latent_width():
+    """3 concurrent greedy requests on tiny-mla at latent width 36 (d_c 30):
+    the port's engine gives the JAX engine's tokens on its weights."""
+    model_id = "tiny-mla:" + json.dumps(NARROW_LATENT)
+
+    async def reference():
+        engine = AsyncJaxEngine(JaxEngineConfig(model_id=model_id, tp=1, **ENGINE))
+        await engine.start()
+        try:
+            outs = await asyncio.gather(*(
+                collect(engine, JaxEngineRequest(f"j{i}", p, JaxSamplingParams(max_tokens=10)))
+                for i, p in enumerate(PROMPTS)
+            ))
+            params = jax.tree.map(np.asarray, jax.device_get(engine.runner.params))
+        finally:
+            await engine.shutdown()
+        return outs, params
+
+    async def port(params):
+        model = port_model(params, NARROW_LATENT)
+        assert model.config.latent_dim == 36
+        engine = AsyncTorchEngine(EngineConfig(device="cpu", **ENGINE), model=model)
+        await engine.start()
+        try:
+            return await asyncio.gather(*(
+                collect(engine, EngineRequest(f"t{i}", p, SamplingParams(max_tokens=10)))
+                for i, p in enumerate(PROMPTS)
+            ))
+        finally:
+            await engine.shutdown()
+
+    ref_outs, params = asyncio.run(reference())
+    outs = asyncio.run(port(params))
+    for (toks, reason), (ref_toks, ref_reason) in zip(outs, ref_outs):
+        assert reason == ref_reason == "length"
+        assert toks == ref_toks and len(toks) == 10
+
+
 def test_profile_classes_mla_kernels():
-    """The profile tool classes K5's two launches as K5 and K6's as K6, and
-    counts decode steps by K5's first launch."""
-    from dynamo_tpu_torch.tools.profile_serve import DECODE_STEP_KERNEL, kernel_class
+    """The profile tool classes K5's launches as K5 (either body, and in a
+    window where a K5 body runs, the split merge they share with the paged
+    decode kernels) and K6's as K6, and counts decode steps by K5's first
+    launch."""
+    from dynamo_tpu_torch.tools.profile_serve import DECODE_STEP_KERNEL, kernel_class, window_stats
 
     names = [
+        "void (anonymous namespace)::mla_decode_tc<64>(float const*, ...)",
         "void (anonymous namespace)::mla_decode_partial<__nv_bfloat16>(float const*, ...)",
-        "(anonymous namespace)::mla_decode_merge(float const*, ...)",
+        "void dtt::merge_splits<float>(float const*, ...)",
         "void (anonymous namespace)::mla_prefill<__nv_bfloat16>(float const*, ...)",
         "void (anonymous namespace)::paged_prefill_kernel<__nv_bfloat16, 128>(...)",
     ]
-    assert [kernel_class(n) for n in names] == ["K5", "K5", "K6", "K2"]
-    assert DECODE_STEP_KERNEL["K5"] in names[0] and DECODE_STEP_KERNEL["K5"] not in names[1]
+    assert [kernel_class(n) for n in (names[0], names[1], names[3], names[4])] == ["K5", "K5", "K6", "K2"]
+    assert all(DECODE_STEP_KERNEL["K5"] in n for n in names[:2]) and DECODE_STEP_KERNEL["K5"] not in names[2]
+    window = [{"name": n, "ts": 10.0 * i, "dur": 5.0} for i, n in enumerate(names[:3])]
+    assert window_stats(window, 0.0, 100.0)["device_ms_by_class"] == {"K5": 0.015}

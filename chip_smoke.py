@@ -54,7 +54,15 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
   8. serve paths (tools/workload.py: 16 concurrent greedy requests of
      64-2048 prompt tokens and 64 output tokens, bf16, seeded random
      weights, full width and depth); every stream must finish with exactly
-     64 tokens, the path's kernels must launch and the others' must not:
+     64 tokens, the path's kernels must launch and the others' must not.
+     Each engine captures its step graphs before the timed serve
+     (EngineConfig.warmup=True; http serve: run's warmup="background",
+     waited for), every decode window and prefill call of the serve is a
+     graph replay (no capture inside it, by the capture monitor), the
+     launch counts are the replays' tallies, and each phase logs its
+     warmup seconds, captures, replays and graph pool bytes and its step
+     anatomy (host fraction, roofline fractions, prefill fixed ms, decode
+     dispatch gap) beside the card's name and power limit:
        serve / int8 serve: Llama-3-8B geometry, bf16 / int8 KV cache, K1 K2;
        MLA serve: DeepSeek-V2-Lite geometry (MLA + 64-expert MoE), K5 (its
        tensor-core body, mla_decode_tc, for every call) K6;
@@ -77,9 +85,14 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      no-paging forward's on Llama-3-8B geometry, on TinyLlama geometry with
      an f32 and with an int8 KV cache (the dense forward quantizes and
      dequantizes each K/V row), and on V2-Lite geometry (capacity factor 11,
-     nothing drops) against a dense non-absorbed forward; and on Llama-3-8B
-     geometry with DYNTPU_DECODE_KERNEL=chunked and =grouped (the rounding is
-     the identity at f32); then the CLI as a subprocess (`python -m
+     nothing drops) against a dense non-absorbed forward; graph against
+     eager: Llama-3-8B and DeepSeek-V2-Lite at full width, 2 layers, bf16,
+     one prefill and one 8-step decode window replayed from the runner's
+     graphs and run through its eager bodies from the same state, equal
+     greedy tokens and bit-equal written KV pages, last-step logits within
+     TOL["bf16"]; on Llama-3-8B geometry with DYNTPU_DECODE_KERNEL=chunked
+     and =grouped (the rounding is the identity at f32); then the CLI as a
+     subprocess (`python -m
      dynamo_tpu_torch.launch.run run 'tiny:{...}' --in http --out torch` on
      a 2-layer f32 Llama-3-8B-width model with the byte vocabulary, 256):
      three greedy completions' text equals naive_greedy's bytes, and SIGINT
@@ -993,18 +1006,50 @@ async def serve_on(engine, requests):
     return results, time.monotonic() - t0
 
 
-async def serve(config, requests, model=None):
-    """Run ``requests`` concurrently through a fresh AsyncTorchEngine; returns
-    ({rid: (tokens, finish_reason, ttft_s)}, wall_s, engine)."""
+async def serve(config, requests, model=None, before_serve=None):
+    """Run ``requests`` concurrently through a fresh AsyncTorchEngine, after
+    ``before_serve()`` (once the engine has started and warmed up); returns
+    ({rid: (tokens, finish_reason, ttft_s)}, wall_s, engine, graph captures
+    during the serve)."""
     from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
 
     engine = AsyncTorchEngine(config, model=model)
     await engine.start()
     try:
+        if before_serve is not None:
+            before_serve()
+        captures = engine.runner.compile_monitor.compiles
         results, wall = await serve_on(engine, requests)
+        captures = engine.runner.compile_monitor.compiles - captures
     finally:
         await engine.shutdown()
-    return results, wall, engine
+    return results, wall, engine, captures
+
+
+def graphs_line(engine) -> str:
+    """The engine's warmup seconds, graph captures and replays and the
+    graphs' memory pool."""
+    runner = engine.runner
+    snap = runner.compile_monitor.snapshot()
+    pool = runner.graphs.pool_bytes()
+    replays = sum(e.replays for e in runner.graphs.entries.values())
+    return (f"warmup {engine.warmup_s:.1f} s, {snap['compiles']} graph captures in {snap['compile_s']:.1f} s "
+            f"({json.dumps(snap['per_label'])}), {replays} replays, graph pool "
+            + ("not reported" if pool is None else f"{pool / 2**20:.1f} MiB"))
+
+
+def anatomy_line(anatomy) -> str:
+    """The step anatomy's host fraction, roofline fractions, prefill fixed
+    ms and decode dispatch gap (None: no such dispatch)."""
+
+    def f(v, nd=4):
+        return "None" if v is None else f"{v:.{nd}f}"
+
+    return (f"host fraction {f(anatomy.host_fraction())} (decode {f(anatomy.host_fraction(('decode_window',)))}, "
+            f"prefill {f(anatomy.host_fraction(('prefill_packed', 'prefill_chunk')))}), roofline fraction "
+            f"{f(anatomy.roofline_fraction())}, prefill roofline fraction {f(anatomy.prefill_roofline_fraction())}, "
+            f"prefill fixed {f(anatomy.prefill_fixed_ms(), 3)} ms, decode dispatch gap p50 "
+            f"{f(anatomy.dispatch_gap_ms(), 3)} ms, dispatches {json.dumps(anatomy.dispatch_counts)}")
 
 
 def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict,
@@ -1016,11 +1061,19 @@ def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict
     from dynamo_tpu_torch.quant.kv import QuantizedPages
     from dynamo_tpu_torch.tools.workload import MAX_TOKENS as max_tokens
 
+    import dataclasses
+
     forbidden = forbidden or {}
     lens = np.array([len(r.token_ids) for r in requests])
-    for fn in (*kernels.values(), *forbidden.values()):
-        fn.launches = 0
-    results, wall, engine = asyncio.run(serve(config, requests))
+    # every step graph captured before the timed serve, whose launches are
+    # then the replays' tallies: the counts start at 0 after the warmup
+    config = dataclasses.replace(config, warmup=True)
+
+    def zero_counts():
+        for fn in (*kernels.values(), *forbidden.values()):
+            fn.launches = 0
+
+    results, wall, engine, captures = asyncio.run(serve(config, requests, before_serve=zero_counts))
     launches = {name: fn.launches for name, fn in kernels.items()}
     stray = {name: fn.launches for name, fn in forbidden.items() if fn.launches}
     for rid, (toks, reason, _) in results.items():
@@ -1030,6 +1083,8 @@ def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict
         raise AssertionError(f"{what}: main path skipped a kernel: launches {launches}")
     if stray:
         raise AssertionError(f"{what}: kernels off this path launched: {stray}")
+    if captures:
+        raise AssertionError(f"{what}: {captures} graph captures inside the timed serve")
     quantized = any(isinstance(pool, QuantizedPages) for pool in engine.runner.kv_cache.values())
     if quantized != (config.kv_cache_dtype == "int8"):
         raise AssertionError(f"{what}: kv_cache_dtype {config.kv_cache_dtype!r} but int8 pools: {quantized}")
@@ -1053,6 +1108,8 @@ def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict
     n_after = n_out - len(results)
     log(f"{what} decode phase [{gpu_name}]: {n_after / (wall - ttfts[-1]):.1f} tok/s over "
         f"{wall - ttfts[-1]:.3f} s ({n_after} tokens, batch {len(results)})")
+    log(f"{what} graphs: {graphs_line(engine)}; no capture in the timed serve")
+    log(f"{what} step anatomy [{gpu_name}]: {anatomy_line(engine.scheduler.anatomy)}")
     del engine
     torch.cuda.empty_cache()
     return launches
@@ -1117,6 +1174,14 @@ def phase_http_serve(torch, gpu_name: str, kernels: dict, forbidden: dict) -> di
         engine, service, port = on_loop(boot())
         if engine.config.page_size != HTTP_PAGE_SIZE or engine.device.type != "cuda":
             raise AssertionError(f"http serve: engine at page size {engine.config.page_size} on {engine.device}")
+        if engine.config.warmup != "background":
+            raise AssertionError(f"http serve: run built its engine with warmup={engine.config.warmup!r}")
+        t_warm = time.monotonic()
+        on_loop(engine.wait_warmup())  # the background captures end before the timed requests
+        background_s = time.monotonic() - t_warm
+        captures = engine.runner.compile_monitor.compiles
+        anatomy = engine.scheduler.anatomy
+        http_anatomy = engine.scheduler.anatomy = type(anatomy)(roofline=anatomy.roofline)
         bodies = [{"prompt": r.token_ids, "stream": True, "temperature": 0, "max_tokens": MAX_TOKENS,
                    "ext": {"ignore_eos": True, "annotations": ["timing"]}} for r in requests]
         for fn in (*kernels.values(), *forbidden.values()):
@@ -1151,7 +1216,11 @@ def phase_http_serve(torch, gpu_name: str, kernels: dict, forbidden: dict) -> di
             raise AssertionError(f"http serve /metrics: {status}, stream counters {served}")
         # the same engine driven in process (engine.generate, no HTTP), for
         # the HTTP edge's share of the wall: one pair in one call
+        direct_anatomy = engine.scheduler.anatomy = type(anatomy)(roofline=anatomy.roofline)
         direct, direct_wall = on_loop(serve_on(engine, serve_requests()))
+        if engine.runner.compile_monitor.compiles != captures:
+            raise AssertionError(f"http serve: {engine.runner.compile_monitor.compiles - captures} graph captures "
+                                 "inside the timed requests")
         if any(len(toks) != MAX_TOKENS for toks, _, _ in direct.values()):
             raise AssertionError(f"http serve, in process: tokens {[len(t) for t, _, _ in direct.values()]}")
         status, body = http_call(port, "POST", "/v1/chat/completions", {
@@ -1181,9 +1250,58 @@ def phase_http_serve(torch, gpu_name: str, kernels: dict, forbidden: dict) -> di
     log(f"http serve, the same engine in process [{gpu_name}]: {n_out / direct_wall:.1f} output tok/s, wall "
         f"{direct_wall:.2f} s, TTFT p50 {np.median([t for _, _, t in direct.values()]) * 1e3:.1f} ms; HTTP wall / in-process "
         f"wall {wall / direct_wall:.3f} (one pair, HTTP first)")
+    log(f"http serve graphs (run's warmup=\"background\", its captures ended {background_s:.1f} s after start "
+        f"returned): {graphs_line(engine)}; no capture in the timed requests")
+    log(f"http serve step anatomy over HTTP [{gpu_name}]: {anatomy_line(http_anatomy)}")
+    log(f"http serve step anatomy in process [{gpu_name}]: {anatomy_line(direct_anatomy)}")
     del engine
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_graph_vs_eager(torch, rng, gpu_name: str) -> None:
+    """Llama-3-8B and DeepSeek-V2-Lite at full width, 2 layers, bf16: one
+    prefill (Llama: one packed call of three prompts; V2-Lite: a call a
+    prompt) and one 8-step decode window of those slots, replayed from the
+    runner's graphs (captured by its warmup first, so the calls capture
+    nothing) and run through its eager bodies from the same state
+    (``tools/checks.py graph_against_eager``): the greedy tokens and the
+    written KV pages must be equal, the window's last-step logits within
+    TOL["bf16"]."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.model_runner import ModelRunner
+    from dynamo_tpu_torch.models.registry import load_model
+    from dynamo_tpu_torch.tools.checks import graph_against_eager, tol_share
+    from dynamo_tpu_torch.tools.workload import DEEPSEEK_V2_LITE, LLAMA3_8B
+
+    for what, family, geometry in (("Llama-3-8B", "tiny", LLAMA3_8B), ("DeepSeek-V2-Lite", "tiny-mla",
+                                                                       DEEPSEEK_V2_LITE)):
+        model_id = f"{family}:" + json.dumps(dict(geometry, num_layers=2))
+        config = EngineConfig(model_id=model_id, device="cuda", page_size=16, num_pages=512, max_seqs=4,
+                              max_model_len=1024)
+        runner = ModelRunner(config, load_model(model_id, device="cuda"))
+        prompts = [rng.integers(0, geometry["vocab_size"], n).tolist() for n in (37, 100, 211)]
+        t0 = time.monotonic()
+        got = graph_against_eager(runner, prompts)
+        g, e = got["graph"], got["eager"]
+        if got["captures"]:
+            raise AssertionError(f"graph vs eager, {what}: {got['captures']} captures in the graph run")
+        if not np.array_equal(g["first"], e["first"]) or not np.array_equal(g["window"], e["window"]):
+            raise AssertionError(f"graph vs eager, {what}: tokens {g['first']} {g['window'].T.tolist()} != "
+                                 f"{e['first']} {e['window'].T.tolist()}")
+        for a, b in zip(g["pools"], e["pools"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"graph vs eager, {what}: KV pages differ in {int((a != b).sum())} values")
+        err, share = tol_share(g["logits"], e["logits"], "bf16")
+        if not share <= 1:
+            raise AssertionError(f"graph vs eager, {what}: last-step logits off by {err} (share {share} of TOL)")
+        n_pages = sum(-(-(len(p) + config.decode_steps) // config.page_size) for p in prompts)
+        log(f"graph vs eager, {what} (2 layers, full width, bf16) [{gpu_name}]: prefill tokens {g['first'].tolist()} "
+            f"and {g['window'].shape[0]}-step window tokens equal, {n_pages} written KV pages a layer bit-equal, "
+            f"last-step logits max |diff| {err:.3g} (share {share:.3f} of TOL bf16); "
+            f"{runner.compile_monitor.compiles} captures ({time.monotonic() - t0:.1f} s)")
+        del runner
+        torch.cuda.empty_cache()
 
 
 def phase_cli(torch, rng) -> None:
@@ -1312,7 +1430,7 @@ def phase_engine_vs_naive(torch, rng, what: str, geometry: dict, kv_cache_dtype:
     if launcher is not None:
         launcher.launches = 0
     with decode_kernel_env(decode_kernel):
-        results, _, _ = asyncio.run(serve(config, requests, model=model))
+        results, *_ = asyncio.run(serve(config, requests, model=model))
     if launcher is not None and launcher.launches <= 0:
         raise AssertionError(f"{what} with {decode_kernel}: the decode kernel never launched")
     for i, p in enumerate(prompts):
@@ -1404,7 +1522,7 @@ def phase_mla_vs_naive(torch, rng) -> None:
         EngineRequest(f"mla-naive-{i}", p, SamplingParams(temperature=0.0, max_tokens=steps))
         for i, p in enumerate(prompts)
     ]
-    results, _, _ = asyncio.run(serve(config, requests, model=model))
+    results, *_ = asyncio.run(serve(config, requests, model=model))
     with torch.no_grad():
         for i, p in enumerate(prompts):
             got = results[f"mla-naive-{i}"][0]
@@ -1559,9 +1677,10 @@ def main() -> int:
     phase_engine_vs_naive(torch, rng, "TinyLlama geometry", TINYLLAMA_1_1B)
     phase_engine_vs_naive(torch, rng, "TinyLlama geometry", TINYLLAMA_1_1B, kv_cache_dtype="int8")
     phase_mla_vs_naive(torch, rng)
+    phase_graph_vs_eager(torch, rng, smi)
     phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B, decode_kernel="chunked", launcher=k4a)
     phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B, decode_kernel="grouped", launcher=k4b)
-    t0 = lap("refusals and greedy parity", t0)
+    t0 = lap("refusals, greedy parity and graph vs eager", t0)
     phase_cli(torch, rng)
     t0 = lap("cli", t0)
     runs["instruments"] = phase_instruments(torch, {"K7a": k7a, "K7b": k7b, "K7c": k7c})["launches"]

@@ -45,8 +45,18 @@ class EngineConfig:
     # attention bytes and twice the pages at the same memory. Llama pools
     # only (the MLA latent cache raises)
     kv_cache_dtype: str | None = None
+    # capture the step graphs before serving (engine/graphs.py; on the CPU
+    # the same calls run the bodies eagerly):
+    #   False        - on first use (tests, short-lived engines)
+    #   True         - every shape, blocking, before start() returns
+    #   "background" - the shapes the first requests need blocking, the
+    #                  rest between serving steps after start()
+    warmup: bool | str = False
 
     def __post_init__(self) -> None:
+        if not isinstance(self.warmup, bool) and self.warmup != "background":
+            # any other string would silently mean the full blocking warmup
+            raise ValueError(f"warmup must be True, False, or 'background'; got {self.warmup!r}")
         if self.device not in ("cuda", "cpu") and not str(self.device).startswith("cuda:"):
             raise ValueError(f"device must be 'cuda', 'cuda:N' or 'cpu'; got {self.device!r}")
         if self.prefill_pipeline_depth < 1:

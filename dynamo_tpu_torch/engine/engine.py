@@ -7,13 +7,23 @@ into per-request asyncio queues. The engine runs on the card
 (``EngineConfig.device="cuda"``, the default) unless the caller asks for
 the CPU; with no card visible a CUDA engine raises at start.
 
-Not ported yet: the metric, SLO, goodput, events and health planes, the
-disaggregation/migration commands and background warmup.
+Warmup follows the reference: ``EngineConfig.warmup=True`` captures every
+step graph before ``start`` returns, ``"background"`` the ones the first
+requests need, then the rest one by one between serving steps
+(``run_on_engine``, on the engine thread, which owns the graphs' state). A
+capture that fails is an error: the engine raises, it does not go on
+eagerly. A finished stream cancels its own submission only (id and
+submission number), so a request that reuses the id of one that just ended
+is served (the reference cancels by id; ROADMAP "Known differences").
+
+Not ported yet: the metric, SLO, goodput, events and health planes and the
+disaggregation/migration commands.
 """
 
 from __future__ import annotations
 
 import asyncio
+import itertools
 import queue as thread_queue
 import threading
 import time
@@ -55,7 +65,11 @@ class AsyncTorchEngine:
         self._given_model = model
         self._inbox: thread_queue.Queue = thread_queue.Queue()
         self._cancel_box: thread_queue.Queue = thread_queue.Queue()
+        self._cmd_box: thread_queue.Queue = thread_queue.Queue()
         self._outputs: dict[str, tuple] = {}
+        self._submissions = itertools.count(1)
+        self._warmup_task: Optional[asyncio.Task] = None
+        self.warmup_s = 0.0  # seconds of warmup before start() returned
         self._thread: Optional[threading.Thread] = None
         self._stopping = threading.Event()
         self._started = False
@@ -74,6 +88,41 @@ class AsyncTorchEngine:
         self._thread = threading.Thread(target=self._run_loop, name="engine-loop", daemon=True)
         self._thread.start()
         self._started = True
+        if self.config.warmup == "background":
+            self._warmup_task = asyncio.get_running_loop().create_task(self._background_warmup())
+
+    async def _background_warmup(self) -> None:
+        """Capture the remaining step graphs on the engine thread, one per
+        idle gap: a request that arrives mid-warmup waits for at most one
+        capture. A capture that fails fails the task (``wait_warmup``
+        raises it) and the engine refuses new requests."""
+        t0 = time.monotonic()
+        for thunk in self.runner.warmup_extra_thunks():
+            while self.scheduler.has_work():
+                await asyncio.sleep(0.05)
+            if self._stopping.is_set():
+                return
+            try:
+                await self.run_on_engine(thunk)
+            except Exception:
+                log.error("background warmup failed: the engine takes no new requests")
+                raise
+        log.info("background warmup: %d captures in %.1fs", self.runner.compile_monitor.compiles,
+                 time.monotonic() - t0)
+
+    async def wait_warmup(self) -> None:
+        """Wait for the background warmup (if any) to end; raises what
+        failed it."""
+        if self._warmup_task is not None:
+            await asyncio.shield(self._warmup_task)
+
+    async def run_on_engine(self, fn):
+        """Run ``fn()`` on the engine thread between steps (it owns the KV
+        cache, the graphs and the scheduler); returns its value."""
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._cmd_box.put((fn, loop, fut))
+        return await fut
 
     def _initialize(self) -> None:
         from dynamo_tpu_torch.engine.model_runner import ModelRunner
@@ -98,6 +147,14 @@ class AsyncTorchEngine:
         self.runner = ModelRunner(self.config, self.model)
         self.allocator = PageAllocator(self.config.num_pages, self.config.page_size)
         self.scheduler = Scheduler(self.config, self.runner, self.allocator)
+        t_warm = time.monotonic()
+        if self.config.warmup == "background":
+            # readiness waits only for the shapes the first requests need;
+            # the rest are captured between serving steps (see start())
+            self.runner.warmup_core()
+        elif self.config.warmup:
+            self.runner.warmup()
+        self.warmup_s = time.monotonic() - t_warm
         log.info(
             "engine ready: model=%s device=%s pages=%d (%.1fs)",
             self.config.model_id, self.device, self.config.num_pages, time.monotonic() - t0,
@@ -105,6 +162,11 @@ class AsyncTorchEngine:
 
     async def shutdown(self, join_timeout: float = 120.0) -> None:
         self._stopping.set()
+        task = self._warmup_task
+        if task is not None:
+            task.cancel()  # a pending run_on_engine would never resolve; a no-op once done
+            if task.get_loop() is asyncio.get_running_loop():
+                await asyncio.gather(task, return_exceptions=True)  # retrieves its outcome
         if self._thread is not None:
             await asyncio.get_running_loop().run_in_executor(
                 None, lambda: self._thread.join(join_timeout)
@@ -125,20 +187,25 @@ class AsyncTorchEngine:
         reconciled window for this request)."""
         if not request.enqueue_ts:
             request.enqueue_ts = time.monotonic()
-        self._register_stream(request.request_id)
+        request.submission = next(self._submissions)
+        self._register_stream(request)
         self._inbox.put(request)
         async for batch in self._drain_stream_batched(request.request_id):
             yield batch
 
-    def _register_stream(self, request_id: str) -> None:
+    def _register_stream(self, request: EngineRequest) -> None:
         if not self._started:
             raise RuntimeError("engine not started")
+        task = self._warmup_task
+        if task is not None and task.done() and not task.cancelled() and task.exception() is not None:
+            raise RuntimeError("the engine's background warmup failed") from task.exception()
         # the caller's loop per request: generate() may run on another loop
         # than start(); each call_soon_threadsafe must target the queue's loop
-        self._outputs[request_id] = (asyncio.get_running_loop(), asyncio.Queue())
+        self._outputs[request.request_id] = (asyncio.get_running_loop(), asyncio.Queue(), request.submission)
 
     async def _drain_stream_batched(self, request_id: str) -> AsyncIterator[list[StepOutput]]:
-        _, out_q = self._outputs[request_id]
+        entry = self._outputs[request_id]
+        _, out_q, submission = entry
         try:
             while True:
                 item = await out_q.get()
@@ -154,8 +221,9 @@ class AsyncTorchEngine:
                 if done:
                     return
         finally:
-            self._outputs.pop(request_id, None)
-            self._cancel_box.put(request_id)
+            if self._outputs.get(request_id) is entry:
+                del self._outputs[request_id]
+            self._cancel_box.put((request_id, submission))
 
     # ---------------- engine thread ----------------
 
@@ -188,7 +256,22 @@ class AsyncTorchEngine:
                 break
         while True:
             try:
-                self.scheduler.cancel(self._cancel_box.get_nowait())
+                fn, loop, fut = self._cmd_box.get_nowait()
+            except thread_queue.Empty:
+                break
+            got = True
+            try:
+                result, exc = fn(), None
+            except Exception as e:
+                log.exception("engine command failed")
+                result, exc = None, e
+            try:
+                loop.call_soon_threadsafe(_resolve, fut, result, exc)
+            except RuntimeError:  # the caller's loop is gone
+                pass
+        while True:
+            try:
+                self.scheduler.cancel(*self._cancel_box.get_nowait())
             except thread_queue.Empty:
                 break
         return got
@@ -205,13 +288,13 @@ class AsyncTorchEngine:
         entry = self._outputs.get(request_id)
         if entry is None:
             return
-        loop, q = entry
+        loop, q, submission = entry
         try:
             loop.call_soon_threadsafe(q.put_nowait, item)
         except RuntimeError:
             # caller's loop is gone; treat as cancelled
             self._outputs.pop(request_id, None)
-            self._cancel_box.put(request_id)
+            self._cancel_box.put((request_id, submission))
 
     def _fail_all(self, exc: Exception) -> None:
         """Fail every request the scheduler knows about, waiting ones included."""
@@ -222,3 +305,12 @@ class AsyncTorchEngine:
         for rid in rids:
             sched.cancel(rid)
             self._post(rid, exc)
+
+
+def _resolve(fut: asyncio.Future, result, exc) -> None:
+    if fut.done():  # the waiter was cancelled
+        return
+    if exc is not None:
+        fut.set_exception(exc)
+    else:
+        fut.set_result(result)

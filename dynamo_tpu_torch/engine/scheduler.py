@@ -14,6 +14,12 @@ dispatch-ahead decode windows (port of ``dynamo_tpu/engine/scheduler.py``).
     Results reconcile in dispatch order; EOS is therefore found up to
     pipeline_depth * K steps late
 
+Every dispatch records its step anatomy (``utils/step_anatomy.py``) at the
+reference's seams: host prep and dispatch where a prefill call or a decode
+window is dispatched (a ``prefill_packed`` / ``prefill_chunk`` /
+``decode_window`` record, with its tokens and its roofline floor), the
+device wait and the reconcile where its results are read back.
+
 Scheduled-vs-materialized positions: ``seq.sched_len`` counts tokens in the
 *scheduled* timeline (the prefill's first token + every window step), while
 ``seq.generated`` holds materialized tokens only.
@@ -21,10 +27,12 @@ Scheduled-vs-materialized positions: ``seq.sched_len`` counts tokens in the
 The request dataclasses keep the reference's field names; fields of features
 this port does not run yet stay at their defaults, and requests that ask for
 them (penalties, logprobs, min_tokens, images, LoRA) are rejected at
-admission. Not ported yet: QoS, preemption (a sequence that cannot grow
-gets a shorter window, or finishes with "error" when it cannot advance),
-spec, LoRA, prefix fetch/migration, offload, metering and the stage/metric
-planes.
+admission. ``cancel`` takes the engine's submission number too, so an
+ended stream cannot cancel a later request that reuses its id (the
+reference cancels by id alone). Not ported yet: QoS, preemption (a sequence
+that cannot grow gets a shorter window, or finishes with "error" when it
+cannot advance), spec, LoRA, prefix fetch/migration, offload, metering and
+the stage/metric planes.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.page_table import PageAllocator
 from dynamo_tpu_torch.engine.sampling import SamplingParams, fold_seed
 from dynamo_tpu_torch.utils import get_logger
+from dynamo_tpu_torch.utils.step_anatomy import StepAnatomy, roofline_for_runner
 
 log = get_logger("engine.sched")
 
@@ -69,6 +78,9 @@ class EngineRequest:
     scenario: str = ""
     priority: str = ""
     cost_admitted: bool = False
+    # the engine's number for this submission (0: not submitted through an
+    # engine); a cancel that names it leaves other submissions of the id be
+    submission: int = 0
 
 
 @dataclass
@@ -125,6 +137,9 @@ class _InFlight:
     dev: object  # model_runner.HostResult
     # first_batch: [(seq, lane, cached_len)]; window: [(seq, slot_idx, steps)]
     seqs: list = field(default_factory=list)
+    # step-anatomy record of the dispatch: the reconcile's device wait and
+    # emission time attribute back to it
+    rec: object = None
 
 
 def _unsupported(req: EngineRequest) -> Optional[str]:
@@ -152,6 +167,8 @@ class Scheduler:
         self.slots: list[Optional[RunningSeq]] = [None] * config.max_seqs
         self.in_flight: deque[_InFlight] = deque()
         self._admit_counter = 0
+        # per-dispatch host/device phases and the live roofline
+        self.anatomy = StepAnatomy(roofline=roofline_for_runner(runner, config))
 
     # ---------------- queue ----------------
 
@@ -161,13 +178,19 @@ class Scheduler:
     def has_work(self) -> bool:
         return bool(self.waiting) or bool(self.in_flight) or any(s is not None for s in self.slots)
 
-    def cancel(self, request_id: str) -> bool:
+    def cancel(self, request_id: str, submission: int | None = None) -> bool:
+        """Cancel the request ``request_id`` (only its submission
+        ``submission`` when given)."""
+
+        def match(req: EngineRequest) -> bool:
+            return req.request_id == request_id and (submission is None or req.submission == submission)
+
         for s in self.slots:
-            if s is not None and s.req.request_id == request_id:
+            if s is not None and match(s.req):
                 self._release(s)
                 return True
         for req in list(self.waiting):
-            if req.request_id == request_id:
+            if match(req):
                 self.waiting.remove(req)
                 return True
         return False
@@ -290,6 +313,7 @@ class Scheduler:
                     if self._prefills_in_flight() < depth:
                         break
                 outputs.extend(self._reconcile(block=True))
+            t_prep = time.monotonic()
             pending = sorted(
                 (s for s in self.slots
                  if s is not None and not s.finished and s.prefill_pos is not None),
@@ -322,6 +346,10 @@ class Scheduler:
                 ))
                 if is_final:
                     finals.append((seq, j, seq.cached_len))
+            rows = sum(end - start for _, start, end in chunks)
+            rec = self.anatomy.begin("prefill_packed" if packed else "prefill_chunk", ts=t_prep)
+            t0 = time.monotonic()
+            self.anatomy.add_phase(rec, "host_prep", t0 - t_prep)
             try:
                 if packed:
                     # N rounds up to a power of two (at most log2(lanes) shapes per bucket)
@@ -339,9 +367,12 @@ class Scheduler:
                 for seq, _, _ in chunks:
                     outputs.extend(self._finish(seq, "error"))
                 continue
+            self.anatomy.add_phase(rec, "dispatch", time.monotonic() - t0)
+            self.anatomy.note_steps(rec, tokens=rows, participants=len(chunks))
+            self.anatomy.note_prefill_floor(rec, rows)
             for seq, start, end in chunks:
                 seq.prefill_pos = None if end == seq.prompt_len else end
-            self.in_flight.append(_InFlight(kind="first_batch", dev=result, seqs=finals))
+            self.in_flight.append(_InFlight(kind="first_batch", dev=result, seqs=finals, rec=rec))
             count += 1
 
     # ---------------- decode windows ----------------
@@ -366,6 +397,7 @@ class Scheduler:
         return self.allocator._seqs[seq.req.request_id].num_pages * self.config.page_size
 
     def _dispatch_one_window(self, outputs: list[StepOutput]) -> bool:
+        t_prep = time.monotonic()
         K = max(1, self.config.decode_steps)
 
         # capacity pass: every participant needs pages for its planned writes
@@ -427,11 +459,25 @@ class Scheduler:
             seeds[i] = fold_seed(sam.seed)
             snapshot.append((seq, i, steps))
             seq.sched_len += steps
+        # every step reads the weights and each participant's KV pages: the
+        # bytes-moved floor at this occupancy
+        live_pages = sum(
+            self.allocator._seqs[seq.req.request_id].num_pages
+            for seq, _ in participants if seq.req.request_id in self.allocator._seqs
+        )
+        rec = self.anatomy.begin("decode_window", ts=t_prep)
+        t0 = time.monotonic()
+        self.anatomy.add_phase(rec, "host_prep", t0 - t_prep)
         result = self.runner.dispatch_decode_window(
             positions, page_tables, active, limits, temps, top_ks, top_ps, K,
             min_ps=min_ps, seeds=seeds if np.any(seeds) else None,
         )
-        self.in_flight.append(_InFlight(kind="window", dev=result, seqs=snapshot))
+        self.anatomy.add_phase(rec, "dispatch", time.monotonic() - t0)
+        self.anatomy.note_steps(
+            rec, steps=K, tokens=sum(steps for _, _, steps in snapshot), participants=len(snapshot),
+            floor_bytes=self.anatomy.decode_floor_bytes(live_pages, K),
+        )
+        self.in_flight.append(_InFlight(kind="window", dev=result, seqs=snapshot, rec=rec))
         return True
 
     # ---------------- results ----------------
@@ -445,10 +491,15 @@ class Scheduler:
             entry = self.in_flight[0]
             # the reference's _is_ready: the CUDA event recorded after the
             # result's device-to-host copy (CPU results are always ready)
-            if not (block or drain) and not entry.dev.is_ready():
+            ready = entry.dev.is_ready()
+            if not (block or drain) and not ready:
                 break
             self.in_flight.popleft()
+            t0 = time.monotonic()
             data = entry.dev.numpy()
+            if not ready:  # the host blocked on the device
+                self.anatomy.add_phase(entry.rec, "device_wait", time.monotonic() - t0)
+            t_rec = time.monotonic()
             block = False
             if entry.kind == "first_batch":
                 for seq, lane, cached in entry.seqs:
@@ -460,6 +511,8 @@ class Scheduler:
                         if seq.finished:
                             break  # EOS/cancel discovered earlier; zombie tokens
                         outputs.extend(self._emit_token(seq, int(data[j, slot_idx])))
+            # emitting this entry's tokens attributes back to its dispatch
+            self.anatomy.add_phase(entry.rec, "reconcile", time.monotonic() - t_rec)
         return outputs
 
     def _emit_token(self, seq: RunningSeq, token: int, cached: int = 0) -> list[StepOutput]:

@@ -73,6 +73,10 @@ def engine_config_for(args):
         page_size=card.kv_block_size,
         max_model_len=card.context_length,
         kv_cache_dtype=getattr(args, "kv_cache_dtype", None),
+        # serve once the core shapes are captured, the rest between serving
+        # steps; the reference warms up so on its checkpoint path only, but
+        # the port's tiny card serves full-width models on the card too
+        warmup="background",
     )
     if is_tiny:
         return EngineConfig(

@@ -199,6 +199,13 @@ class DeepseekModel(nn.Module):
         shape = self.kv_cache_shape(num_pages, page_size)
         return {"ckv": torch.zeros(shape, dtype=self.config.dtype, device=self.device)}
 
+    def kv_page_bytes(self, page_size: int) -> int:
+        """Device bytes one allocator page costs across all layers: one
+        latent row a token (the reference's DeepseekModel prices no pages,
+        so its step anatomy has no roofline; ROADMAP "Known differences")."""
+        c = self.config
+        return c.num_layers * page_size * c.latent_dim * c.dtype.itemsize
+
     def _num_pages(self, kv_cache: dict) -> int:
         return kv_cache["ckv"].shape[0] // self.config.num_layers
 

@@ -1,8 +1,9 @@
 """Kernel-against-plain checks shared by ``chip_smoke.py``, the kernel
 profilers (``tools/profile_attn.py``, ``tools/profile_prefill.py``) and the
 card tests: the elementwise tolerance a kernel is held to, what probabilities
-rounded at a bf16 boundary may add to it, and pools whose checksums are
-exact.
+rounded at a bf16 boundary may add to it, pools whose checksums are exact,
+and a runner's graph replays run against its eager bodies
+(:func:`graph_against_eager`).
 
 Kernel vs plain, elementwise |got - ref| <= atol + rtol * |ref|. Both sides
 compute in f32 from the same inputs and differ there only in summation order
@@ -15,6 +16,7 @@ the ~1e-3 that one dropped page of keys moves them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dynamo_tpu_torch.ops.attention import gather_pages
@@ -88,3 +90,67 @@ def exact_pools(shape, kind: str, device, generator: torch.Generator | None = No
             x = torch.randint(-8, 9, shape, device=device, generator=generator).float() / 8
             out.append(x.to(getattr(torch, kind)))
     return out
+
+
+def graph_against_eager(runner, prompts: list) -> dict:
+    """One prefill of ``prompts`` (one call of all of them on the packed
+    path, a call each off it; prompt i into slot i, in pages 1 + ...) and
+    one decode window of those slots, run twice from the same state:
+    replayed from the runner's graphs (``runner.warmup()`` captures their
+    shapes first, with trash-page writes, so these calls capture nothing)
+    and through its eager bodies. Returns {"graph": run, "eager": run},
+    each run {"first": prefill tokens [n], "window": tokens [K, n],
+    "pools": the KV pools without each layer's trash page, "logits": the
+    window's last-step logits [n, V]}, and "captures": the graph run's
+    captures (0 when it replayed). Greedy; plain (not int8) pools."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+
+    cfg, n, ps, K = runner.config, len(prompts), runner.config.page_size, runner.config.decode_steps
+    greedy = SamplingParams()
+    tables, first_page = [], 1
+    for p in prompts:
+        used = -(-(len(p) + K) // ps)
+        table = np.zeros(cfg.table_bucket_for(used), np.int32)
+        table[:used] = first_page + np.arange(used)
+        first_page += used
+        tables.append(table)
+    W = max(len(t) for t in tables)
+    lanes = [(np.asarray(p, np.int32), 0, t, i, greedy, True) for i, (p, t) in enumerate(zip(prompts, tables))]
+    B = cfg.max_seqs
+    positions, limits = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    page_tables, active = np.zeros((B, W), np.int32), np.zeros(B, bool)
+    for i, (p, t) in enumerate(zip(prompts, tables)):
+        positions[i], limits[i], active[i] = len(p), len(p) + K - 1, True
+        page_tables[i, : len(t)] = t
+    runner.warmup()
+    start = {name: t.clone() for name, t in runner.kv_cache.items()}, runner.slot_state["tokens"].clone()
+    L = runner.model.config.num_layers
+
+    def run(eager: bool) -> dict:
+        for name, t in runner.kv_cache.items():
+            t.copy_(start[0][name])
+        runner.slot_state["tokens"].copy_(start[1])
+        graphs, compiles = runner.graphs, runner.compile_monitor.compiles
+        if eager:
+            runner.graphs = None
+        try:
+            if runner.packed_prefill_mode:
+                N = 1 << (n - 1).bit_length()
+                first = runner.prefill_chunk_batch(lanes, N=N).numpy()[:n]
+            else:
+                first = np.array([runner.prefill_chunk(*lane[:3], sample=True, sampling=greedy, slot=i).numpy()[0]
+                                  for i, lane in enumerate(lanes)])
+            window = runner.dispatch_decode_window(
+                positions, page_tables, active, limits, np.zeros(B, np.float32), np.zeros(B, np.int32),
+                np.ones(B, np.float32), K,
+            ).numpy()[:, :n]
+            logits = runner.last_logits[:n].float().clone()
+        finally:
+            runner.graphs = graphs
+        pools = [t.reshape(L, cfg.num_pages, -1)[:, 1:].clone() for t in runner.kv_cache.values()]
+        return {"first": first, "window": window, "pools": pools, "logits": logits,
+                "captures": runner.compile_monitor.compiles - compiles}
+
+    graph = run(False)
+    return {"graph": graph, "eager": run(True), "captures": graph.pop("captures")}
+

@@ -26,8 +26,11 @@ start-up included for http-proc) and at the engine (``engine_wall_s``, the
 first request's arrival to the last one's end), output tok/s over the
 latter, TTFT p50 and max (the first arrival to each request's first token
 out of the engine), the packed prefill calls
-(``runner.prefill_chunk_batch``) and the spread of the requests' arrival at
-the engine. Needs a card; prints one JSON line with the card's
+(``runner.prefill_chunk_batch``), the spread of the requests' arrival at
+the engine and, where the engine records it, the run's own step anatomy
+(``anatomy``: host fraction, prefill fixed ms, roofline fractions,
+dispatches). The engine's background warmup (where the tree has one) ends
+before the first run. Needs a card; prints one JSON line with the card's
 name and power limit, also written to ``--out``.
 """
 
@@ -133,6 +136,9 @@ def run_once(mode: str, engine, on_loop, port: int, requests, rec: dict) -> dict
     want = [r.sampling.max_tokens for r in requests]
     rec["requests"].clear()
     rec["prefill_calls"] = 0
+    anatomy = getattr(engine.scheduler, "anatomy", None)
+    if anatomy is not None:  # this run's own (the engine is idle between runs)
+        anatomy = engine.scheduler.anatomy = type(anatomy)(roofline=anatomy.roofline)
     t0 = time.monotonic()
     if mode == "direct":
         async def direct():
@@ -158,11 +164,17 @@ def run_once(mode: str, engine, on_loop, port: int, requests, rec: dict) -> dict
     start = min(e["arrive"] for e in rec["requests"])
     firsts = [e["first"] - start for e in rec["requests"]]
     engine_wall = max(e["done"] for e in rec["requests"]) - start
+    extra = {}
+    if anatomy is not None:
+        from dynamo_tpu_torch.tools.profile_serve import anatomy_summary
+
+        extra["anatomy"] = anatomy_summary(anatomy)
     return {
         "mode": mode, "wall_s": wall, "engine_wall_s": engine_wall, "output_tok_s": sum(want) / engine_wall,
         "ttft_p50_ms": float(np.median(firsts)) * 1e3, "ttft_max_ms": max(firsts) * 1e3,
         "prefill_calls": rec["prefill_calls"],
         "arrival_spread_ms": (max(e["arrive"] for e in rec["requests"]) - start) * 1e3,
+        **extra,
     }
 
 
@@ -170,7 +182,10 @@ def run_modes(engine, port: int, on_loop, requests, rounds: int) -> dict:
     """A warm-up run in process (not kept: a fresh engine's first calls pay
     its lazy set-up), then ``rounds`` runs of each mode, in turns (forward,
     then reversed, ...), each with fresh request ids; returns {"runs":
-    [...], "median": {mode: {metric: median}}}."""
+    [...], "median": {mode: {metric: median}}}. The engine's background
+    warmup, where it has one, ends first (its calls are no run's)."""
+    if hasattr(engine, "wait_warmup"):
+        on_loop(engine.wait_warmup())
     rec = instrument(engine)
     warm = requests()
     for req in warm:
@@ -185,7 +200,8 @@ def run_modes(engine, port: int, on_loop, requests, rounds: int) -> dict:
             runs.append(run_once(mode, engine, on_loop, port, reqs, rec))
             print(json.dumps(runs[-1]), flush=True)
     median = {
-        mode: {k: float(np.median([x[k] for x in runs if x["mode"] == mode])) for k in runs[0] if k != "mode"}
+        mode: {k: float(np.median([x[k] for x in runs if x["mode"] == mode])) for k in runs[0]
+               if k not in ("mode", "anatomy")}
         for mode in MODES
     }
     return {"runs": runs, "median": median}

@@ -11,7 +11,11 @@ into a prefill window and a decode window.
 For each workload and window it reports the wall time, the device's busy
 and idle share (union of kernel intervals), device time by kernel class
 (K1, K2, K3a, K3b, K4b, K5, K6, GEMM, other) and the top kernels; for the decode window
-also the time per decode step. Needs one CUDA device. The profiler adds
+also the time per decode step; and, where the engine records it, the
+profiled serve's step anatomy (host fraction, roofline fractions, prefill
+fixed ms, decode dispatch gap) and its graph captures. The engine warms up
+(``EngineConfig.warmup=True``, where the tree has it: every step graph is
+captured before the profile). Needs one CUDA device. The profiler adds
 host overhead, so walls here run longer than chip_smoke.py's unprofiled
 serve numbers; shares and device times are the point.
 """
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import os
 import tempfile
@@ -126,9 +131,27 @@ def window_stats(kernels: list, lo: float, hi: float, top: int = 8, folded: bool
     }
 
 
-async def profiled_serve(config, requests: list, trace_path: Path) -> tuple[float, int]:
+def anatomy_summary(anatomy) -> dict:
+    """The step anatomy's headline numbers (host fraction, roofline
+    fractions, prefill fixed ms, decode dispatch gap, dispatches)."""
+    return {
+        "host_fraction": anatomy.host_fraction(),
+        "decode_host_fraction": anatomy.host_fraction(("decode_window",)),
+        "roofline_fraction": anatomy.roofline_fraction(),
+        "prefill_roofline_fraction": anatomy.prefill_roofline_fraction(),
+        "prefill_fixed_ms": anatomy.prefill_fixed_ms(),
+        "dispatch_gap_ms": anatomy.dispatch_gap_ms(),
+        "dispatches": dict(anatomy.dispatch_counts),
+    }
+
+
+async def profiled_serve(config, requests: list, trace_path: Path) -> tuple[float, int, dict]:
     """Serve ``requests`` under the profiler; returns (wall seconds, bytes of
-    weights a decode step reads: every parameter but the embedding table)."""
+    weights a decode step reads: every parameter but the embedding table,
+    the profiled serve's step anatomy and captures where the engine has
+    them)."""
+    if any(f.name == "warmup" for f in dataclasses.fields(config)):
+        config = dataclasses.replace(config, warmup=True)
     engine = AsyncTorchEngine(config)
     await engine.start()
     step_bytes = sum(
@@ -143,6 +166,11 @@ async def profiled_serve(config, requests: list, trace_path: Path) -> tuple[floa
         # warm-up outside the trace: kernel build, cuBLAS handles, allocator
         await drain(EngineRequest("warm", list(range(1, 200)), SamplingParams(max_tokens=9)))
         torch.cuda.synchronize()
+        anatomy = getattr(engine.scheduler, "anatomy", None)
+        if anatomy is not None:  # the profiled serve's own
+            anatomy = engine.scheduler.anatomy = type(anatomy)(roofline=anatomy.roofline)
+        monitor = getattr(engine.runner, "compile_monitor", None)
+        captures = monitor.compiles if monitor is not None else None
         prof = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         )
@@ -155,7 +183,14 @@ async def profiled_serve(config, requests: list, trace_path: Path) -> tuple[floa
     finally:
         await engine.shutdown()
     prof.export_chrome_trace(str(trace_path))
-    return wall, step_bytes
+    extra = {}
+    if anatomy is not None:
+        extra["anatomy"] = anatomy_summary(anatomy)
+    if monitor is not None:
+        extra["captures_before"], extra["captures_during"] = captures, monitor.compiles - captures
+        extra["warmup_s"] = getattr(engine, "warmup_s", None)
+        extra["graph_pool_bytes"] = engine.runner.graphs.pool_bytes()
+    return wall, step_bytes, extra
 
 
 def profile_workload(name: str, smi: str) -> dict:
@@ -168,7 +203,7 @@ def profile_workload(name: str, smi: str) -> dict:
     try:
         with tempfile.TemporaryDirectory() as tmp:
             trace = Path(tmp) / "trace.json"
-            wall, step_bytes = asyncio.run(profiled_serve(make_config(), requests, trace))
+            wall, step_bytes, extra = asyncio.run(profiled_serve(make_config(), requests, trace))
             events = json.loads(trace.read_text())["traceEvents"]
     finally:
         os.environ.pop(DECODE_KERNEL_ENV, None)
@@ -198,6 +233,7 @@ def profile_workload(name: str, smi: str) -> dict:
         "profiled_wall_s": wall, "prefill_window": prefill, "decode_window": decode,
         # the decode step's floor: its weight bytes read once at the H100 SXM rate
         "decode_weight_bytes": step_bytes, "decode_floor_ms": step_bytes / HBM_BYTES_S * 1e3,
+        **extra,
     }
     print(f"profile_serve {name} [{smi}]: {len(requests)} requests, {summary['prompt_tokens']} "
           f"prompt tokens, profiled wall {wall:.3f} s", flush=True)
@@ -209,6 +245,11 @@ def profile_workload(name: str, smi: str) -> dict:
         print(f"  decode: {steps:.0f} steps, {decode['ms_per_step']:.2f} ms/step wall, "
               f"{decode['device_ms_per_step']:.2f} ms/step device busy; floor "
               f"{summary['decode_floor_ms']:.2f} ms ({step_bytes / 1e9:.2f} GB of weights)", flush=True)
+    if "anatomy" in extra:
+        print(f"  step anatomy: {json.dumps(extra['anatomy'])}", flush=True)
+    if "captures_during" in extra:
+        print(f"  graphs: {extra['captures_before']} captured before the profile ({extra['warmup_s']:.1f} s of "
+              f"warmup), {extra['captures_during']} during it; pool {extra['graph_pool_bytes']} bytes", flush=True)
     print(json.dumps(summary), flush=True)
     torch.cuda.empty_cache()
     return summary

@@ -63,6 +63,9 @@ BENCH_1_3B = dict(
     num_kv_heads=8, head_dim=128, dtype="bf16",
 )
 HEADLINE = (64, 128)
+# bench.py PROMPT_LEN / DECODE_TOKENS: the headline workload's prompt and
+# output lengths (tools/profile_decode.py decodes at the middle of the output)
+BENCH_PROMPT_LEN, BENCH_DECODE_TOKENS = 128, 128
 NUM_REQUESTS = 16
 MIN_PROMPT, MAX_PROMPT = 64, 2048
 MAX_TOKENS = 64

@@ -1,5 +1,5 @@
 """The port's profilers (``dynamo_tpu_torch/tools/profile_attn.py``,
-``profile_prefill.py``, ``profile_http.py``) on the CPU: they import without
+``profile_prefill.py``, ``profile_http.py``, ``profile_decode.py``) on the CPU: they import without
 a card and refuse to measure without one; ``profile_attn`` times the
 reference's variant set; their geometry is the reference bench's; the
 roofline copy (``utils/step_anatomy.py``) does the reference's arithmetic;
@@ -33,7 +33,7 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("name", ["profile_attn", "profile_prefill", "profile_http"])
+@pytest.mark.parametrize("name", ["profile_attn", "profile_prefill", "profile_http", "profile_decode"])
 def test_tools_import_and_refuse_without_a_card(monkeypatch, name):
     module = importlib.import_module(f"dynamo_tpu_torch.tools.{name}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -242,4 +242,40 @@ def test_profile_http_runs_each_mode_on_the_cpu():
         assert r["prefill_calls"] > 0 and 0 < r["ttft_p50_ms"] <= r["ttft_max_ms"] <= r["engine_wall_s"] * 1e3, r
         assert r["engine_wall_s"] <= r["wall_s"] and r["output_tok_s"] == pytest.approx(24 / r["engine_wall_s"])
         assert 0 <= r["arrival_spread_ms"] <= r["engine_wall_s"] * 1e3
+        # the run's own step anatomy: its packed prefill calls and their host cost
+        anatomy = r["anatomy"]
+        assert anatomy["dispatches"]["prefill_packed"] == r["prefill_calls"] and anatomy["prefill_fixed_ms"] > 0
+        assert 0 < anatomy["host_fraction"] <= 1
     assert set(result["median"]) == set(profile_http.MODES)
+
+
+def test_profile_decode_differences_windows_on_the_cpu():
+    """profile_decode's arithmetic at a tiny geometry on the CPU (eager
+    only: graphs need the card): the reference's page layout, per-step
+    costs by differencing two window lengths, sampling and feedback as the
+    window less the model alone, and the floor from roofline_for_runner,
+    which equals the reference estimator's on the same numbers."""
+    from dynamo_tpu_torch.tools import profile_decode
+
+    cfg = EngineConfig(device="cpu", model_id="tiny", page_size=4, num_pages=64, max_seqs=3, max_model_len=64)
+    runner = ModelRunner(cfg, load_model("tiny", device="cpu"))
+    st = profile_decode.decode_state(cfg, 3, 10)
+    assert st["page_tables"][:, :4].tolist() == [[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 11, 12]]
+    assert st["live_pages"] == 9 and st["limits"].tolist() == [14, 14, 14]
+    times = profile_decode.measure(runner, cfg, 3, 10, steps=(2, 6), reps=1)
+    assert list(times) == ["eager"] and all(t[1] > 0 and t[0] > 0 for t in times["eager"].values())
+    roof = roofline_for_runner(runner, cfg)
+    fake = {"graph": {"window": (0.010, 0.038), "model_only": (0.006, 0.026)},
+            "eager": {"window": (0.050, 0.250), "model_only": (0.040, 0.200)}}
+    out = profile_decode.summarize(fake, roof, 9, 3, steps=(2, 6))
+    assert out["per_step_ms"]["graph"] == pytest.approx({"window": 7.0, "model_only": 5.0,
+                                                         "sampling_and_feedback": 2.0})
+    assert out["per_step_ms"]["eager"] == pytest.approx({"window": 50.0, "model_only": 40.0,
+                                                         "sampling_and_feedback": 10.0})
+    assert out["window_tok_s"] == pytest.approx({"graph": 3 / 0.007, "eager": 3 / 0.05})
+    ref = JaxRooflineModel(param_bytes=roof.param_bytes, page_bytes=roof.page_bytes, page_size=4,
+                           hbm_bw=HBM_BYTES_S, param_count=roof.param_count, mxu_flops=BF16_FLOPS_S)
+    assert out["hbm_floor_ms"] == pytest.approx(ref.step_floor_seconds(9) * 1e3, rel=1e-12)
+    assert out["pct_of_roofline"]["graph"] == pytest.approx(100 * ref.step_floor_seconds(9) / 0.007)
+    assert out["kv_bytes_per_step"] == 9 * roof.page_bytes
+

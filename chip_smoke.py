@@ -76,7 +76,28 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
        its HTTP service on a background event loop, the 16 prompts as
        token-id streams to /v1/completions from 16 client threads; every
        stream ends with 64 tokens, "length" and [DONE], K1 and K2 launch and
-       no other kernel; /v1/models, /metrics and a unary chat answer
+       no other kernel; /v1/models, /metrics and a unary chat answer; the
+       in-process pair runs from a cold prefix cache; then, untimed, a
+       completion with logprobs 5, a chat with top_logprobs 3 and a
+       completion with repetition_penalty carry their fields, and a prompt
+       sent twice reports cached tokens in its second timing event;
+       prefix serve: Llama-3-8B geometry, 32 layers, bf16, page size 16,
+       4096 pages, 16 slots, warmup True; 16 prompts sharing a 1024-token
+       prefix with distinct tails of 64-960 tokens (tools/workload.py
+       prefix_serve_*), 64 tokens each, the features mixed by i % 4 (greedy +
+       logprobs 5; greedy + repetition 1.3, frequency 0.5, presence 0.5;
+       min_tokens 32 + Llama-3's EOS ids; sampled, seeded, penalties and
+       logprobs 3), in three timed rounds on one engine: (a) request 0
+       alone, (b) requests 1-15 at once, (c) all 16 again; gates: streams
+       end as their parameters say, logprobs finite and <= 0 with the
+       chosen equal to its alternative, cached_tokens exactly the
+       allocation rule's (64 prefix blocks in (b), every full block in (c)),
+       prefill rows = prompt tokens less cached, the stored KV events = the
+       cached blocks, no capture in a round, K1 and K2 launch and no other
+       kernel; prints each round's TTFT p50 and tok/s, the host time to hash
+       one 2048-token prompt at page sizes 4, 16 and 128, the warmup's
+       captures, seconds and pool, the share of round (c) streams whose
+       tokens equal round (b)'s, and the engine's ForwardPassMetrics
   9. refusals: an int8 cache on tiny-mla and on K4a, K3b over float16 and
      K4b at a folded head dim raise on the card; K1 at head_dim 640 and K3a
      at 520, which the launchers refused before, launch and hold their plain
@@ -96,7 +117,17 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      dynamo_tpu_torch.launch.run run 'tiny:{...}' --in http --out torch` on
      a 2-layer f32 Llama-3-8B-width model with the byte vocabulary, 256):
      three greedy completions' text equals naive_greedy's bytes, and SIGINT
-     ends it with exit code 0
+     ends it with exit code 0. The graph-against-eager check also runs a
+     prefill with penalties, min_tokens and logprobs, an extras window and a
+     logprobs window (tokens, logprobs and penalty state equal). Features
+     against the dense forward (2 layers, f32): three prompts sharing a
+     160-token prefix, the first alone, then the other two, then all three,
+     cached_tokens as the allocation rule gives and greedy tokens equal, on
+     Llama-3-8B geometry, on TinyLlama geometry with the int8 cache and on
+     V2-Lite geometry (non-absorbed forward); on Llama-3-8B geometry,
+     repetition / frequency / presence penalties (the formula written out
+     in naive_featured), min_tokens past an EOS id the plain stream emits
+     second, and logprobs 20 within 1e-4 of the log-softmax
  11. instruments: tools/profile_attn.py (K1, K7b, K7c, K4a, K4b at the
      reference bench's headline geometry, gated against perseq and each
      held to its plain version on the profiler's own inputs, K7b exactly
@@ -1115,6 +1146,151 @@ def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict
     return launches
 
 
+def hash_times_us(prompt_len: int = 2048, page_sizes=(4, 16, 128), reps: int = 20) -> dict:
+    """{page size: median host µs to hash one ``prompt_len``-token prompt}
+    (``TokenSequence``: every full block's hash and chained hash in one call
+    of the C library, and the block objects)."""
+    from dynamo_tpu_torch.llm.tokens import TokenSequence
+
+    prompt = np.random.default_rng(1).integers(0, 128256, prompt_len).tolist()
+    out = {}
+    for ps in page_sizes:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            TokenSequence(prompt, ps)
+            times.append(time.perf_counter() - t0)
+        out[ps] = float(np.median(times)) * 1e6
+    return out
+
+
+def check_featured_stream(rid: str, req, got: dict) -> None:
+    """A prefix-serve stream ends as its parameters say, and its logprobs
+    (where asked) are finite and <= 0, the chosen one equal to its entry
+    among the alternatives where it appears there."""
+    import math
+
+    from dynamo_tpu_torch.tools.workload import MAX_TOKENS
+
+    toks, finish, sam = got["tokens"], got["finish"], req.sampling
+    if req.eos_token_ids:
+        early = [t for t in toks[: sam.min_tokens] if t in req.eos_token_ids]
+        stop_ok = finish == "stop" and sam.min_tokens < len(toks) <= MAX_TOKENS and toks[-1] in req.eos_token_ids
+        if early or not (stop_ok or (finish == "length" and len(toks) == MAX_TOKENS)):
+            raise AssertionError(f"prefix serve {rid}: {len(toks)} tokens, finish {finish!r}, EOS before min_tokens "
+                                 f"{early}")
+    elif finish != "length" or len(toks) != MAX_TOKENS:
+        raise AssertionError(f"prefix serve {rid}: {len(toks)} tokens, finish {finish!r}")
+    if req.logprobs is None:
+        if any(v is not None for v in got["logprobs"]):
+            raise AssertionError(f"prefix serve {rid}: logprobs nobody asked for")
+        return
+    for tok, lp, top in zip(toks, got["logprobs"], got["top"]):
+        vals = [v for _, v in top or []]
+        if (lp is None or not math.isfinite(lp) or lp > 0 or len(vals) != req.logprobs
+                or not all(math.isfinite(v) and v <= 0 for v in vals) or vals != sorted(vals, reverse=True)):
+            raise AssertionError(f"prefix serve {rid}: logprob {lp}, alternatives {top}")
+        if tok in dict(top) and dict(top)[tok] != lp:
+            raise AssertionError(f"prefix serve {rid}: chosen {tok} logprob {lp} != its alternative {dict(top)[tok]}")
+
+
+def phase_prefix_serve(torch, gpu_name: str, kernels: dict, forbidden: dict) -> dict:
+    """The prefix workload (tools/workload.py prefix_serve_*: Llama-3-8B
+    geometry, 32 layers, bf16, page size 16, 4096 pages, 16 slots, warmup
+    True; 16 prompts sharing a 1024-token prefix with distinct tails of
+    64-960 tokens, 64 output tokens each, the feature mix by i % 4) in three
+    timed rounds on one engine: (a) request 0 alone; (b) requests 1-15 at
+    once, each hitting the 64 prefix blocks; (c) all 16 again, each hitting
+    every full block of its prompt (all but the last when the whole prompt
+    is cached). Gates: every stream ends as its parameters say, its
+    logprobs are sane (``check_featured_stream``); cached_tokens equal
+    ``expected_cached`` exactly; each round's prefill rows (step anatomy)
+    equal its prompt tokens less the cached ones; the stored events equal
+    the blocks the prefix cache holds (no eviction at this size); no graph
+    capture inside a round; K1 and K2 launch and none of ``forbidden``.
+    Returns {name: launches over the three rounds}."""
+    from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+    from dynamo_tpu_torch.tools.workload import MAX_TOKENS, NUM_REQUESTS, prefix_serve_config, prefix_serve_requests
+
+    config = prefix_serve_config()
+    config.warmup = True
+    events = []
+
+    async def run():
+        engine = AsyncTorchEngine(config, kv_event_sink=events.append)
+        await engine.start()
+        try:
+            for fn in (*kernels.values(), *forbidden.values()):
+                fn.launches = 0
+            served, rounds = [], []
+            for tag, idx in (("a", [0]), ("b", list(range(1, NUM_REQUESTS))), ("c", list(range(NUM_REQUESTS)))):
+                reqs = prefix_serve_requests(tag, idx)
+                expect = {r.request_id: expected_cached(config.page_size, served, r.token_ids) for r in reqs}
+                anatomy = engine.scheduler.anatomy = type(engine.scheduler.anatomy)(
+                    roofline=engine.scheduler.anatomy.roofline)
+                captures = engine.runner.compile_monitor.compiles
+                results, wall = await serve_outputs(engine, reqs)
+                if engine.runner.compile_monitor.compiles != captures:
+                    raise AssertionError(f"prefix serve round {tag}: "
+                                         f"{engine.runner.compile_monitor.compiles - captures} captures inside it")
+                for req in reqs:
+                    got = results[req.request_id]
+                    check_featured_stream(req.request_id, req, got)
+                    if got["cached"] != expect[req.request_id]:
+                        raise AssertionError(f"prefix serve {req.request_id}: cached_tokens {got['cached']}, the "
+                                             f"allocation rule gives {expect[req.request_id]}")
+                    served.append((req.token_ids, got["tokens"]))
+                rows = sum(r["tokens"] for r in anatomy.records(limit=100_000) if r["kind"].startswith("prefill"))
+                want_rows = sum(len(r.token_ids) - expect[r.request_id] for r in reqs)
+                if rows != want_rows:
+                    raise AssertionError(f"prefix serve round {tag}: {rows} prefill rows, prompts less cached "
+                                         f"{want_rows}")
+                rounds.append(dict(tag=tag, results=results, wall=wall, rows=rows, cached=expect))
+            return engine, rounds
+        finally:
+            await engine.shutdown()
+
+    engine, rounds = asyncio.run(run())
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    stray = {name: fn.launches for name, fn in forbidden.items() if fn.launches}
+    if min(launches.values()) <= 0 or stray:
+        raise AssertionError(f"prefix serve: launches {launches}, off this path {stray}")
+    alloc = engine.allocator
+    stored = [b.block_hash for e in events if e.kind == "stored" for b in e.blocks]
+    removed = [h for e in events if e.kind == "removed" for h in e.block_hashes]
+    if removed or len(stored) != len(set(stored)) or set(stored) != set(alloc._cache):
+        raise AssertionError(f"prefix serve: {len(stored)} stored events ({len(set(stored))} distinct), "
+                             f"{len(removed)} removed, {len(alloc._cache)} blocks cached")
+    a, b, c = rounds
+    same = sum(c["results"][f"prefix-c-{i}"]["tokens"] == b["results"][f"prefix-b-{i}"]["tokens"]
+               for i in range(1, NUM_REQUESTS))
+    hashes = hash_times_us()
+
+    def line(r):
+        n_out = sum(len(x["tokens"]) for x in r["results"].values())
+        ttft = np.median([x["ttft"] for x in r["results"].values()]) * 1e3
+        cached = sum(r["cached"].values())
+        return (f"{len(r['results'])} requests, {n_out / r['wall']:.1f} output tok/s, wall {r['wall']:.2f} s, TTFT p50 "
+                f"{ttft:.1f} ms, {cached} cached of {cached + r['rows']} prompt tokens, {r['rows']} prefill rows")
+
+    log(f"prefix serve: streams end as asked (greedy + logprobs 5, greedy + penalties, min_tokens "
+        f"32 + EOS ids, sampled + seeded + penalties + logprobs 3), logprobs finite <= 0 and the chosen equal to its "
+        f"alternative; cached_tokens as the allocation rule gives in every round; {len(stored)} stored events = the "
+        f"{len(alloc._cache)} cached blocks, none removed; launches "
+        + " ".join(f"{k} {v}" for k, v in launches.items()) + " (none of " + ", ".join(forbidden) + ")")
+    for r in rounds:
+        log(f"prefix serve round ({r['tag']}) [{gpu_name}]: {line(r)}")
+    log(f"prefix serve: {same}/{NUM_REQUESTS - 1} streams' round (c) tokens equal their round (b) tokens "
+        "(bf16; other packings may round otherwise)")
+    log(f"prefix serve hash of one 2048-token prompt on the host [{gpu_name}]: "
+        + ", ".join(f"page size {ps} {us:.1f} us" for ps, us in hashes.items()))
+    log(f"prefix serve graphs: {graphs_line(engine)}; no capture in the timed rounds")
+    log(f"prefix serve metrics: {json.dumps(engine.metrics().to_wire())}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- HTTP
 
 # the HTTP path's engine: `run` takes the tiny card's KV block size
@@ -1215,7 +1391,9 @@ def phase_http_serve(torch, gpu_name: str, kernels: dict, forbidden: dict) -> di
         if status != 200 or len(served) != 1 or not served[0].endswith(f" {len(requests)}"):
             raise AssertionError(f"http serve /metrics: {status}, stream counters {served}")
         # the same engine driven in process (engine.generate, no HTTP), for
-        # the HTTP edge's share of the wall: one pair in one call
+        # the HTTP edge's share of the wall: one pair in one call, the
+        # prefix cache emptied first so that both prefill every prompt
+        on_loop(engine.run_on_engine(engine.allocator.reset_prefix_cache))
         direct_anatomy = engine.scheduler.anatomy = type(anatomy)(roofline=anatomy.roofline)
         direct, direct_wall = on_loop(serve_on(engine, serve_requests()))
         if engine.runner.compile_monitor.compiles != captures:
@@ -1232,6 +1410,7 @@ def phase_http_serve(torch, gpu_name: str, kernels: dict, forbidden: dict) -> di
                 or not isinstance(choice["message"]["content"], str) or not 1 <= n <= 8
                 or choice["finish_reason"] != ("length" if n == 8 else "stop")):
             raise AssertionError(f"http serve chat: {status} {chat}")
+        features = http_features(port, requests[0].token_ids[:200])
     finally:
         if service is not None:
             on_loop(service.stop())
@@ -1250,6 +1429,7 @@ def phase_http_serve(torch, gpu_name: str, kernels: dict, forbidden: dict) -> di
     log(f"http serve, the same engine in process [{gpu_name}]: {n_out / direct_wall:.1f} output tok/s, wall "
         f"{direct_wall:.2f} s, TTFT p50 {np.median([t for _, _, t in direct.values()]) * 1e3:.1f} ms; HTTP wall / in-process "
         f"wall {wall / direct_wall:.3f} (one pair, HTTP first)")
+    log(f"http serve features (untimed): {features}")
     log(f"http serve graphs (run's warmup=\"background\", its captures ended {background_s:.1f} s after start "
         f"returned): {graphs_line(engine)}; no capture in the timed requests")
     log(f"http serve step anatomy over HTTP [{gpu_name}]: {anatomy_line(http_anatomy)}")
@@ -1257,6 +1437,45 @@ def phase_http_serve(torch, gpu_name: str, kernels: dict, forbidden: dict) -> di
     del engine
     torch.cuda.empty_cache()
     return launches
+
+
+def http_features(port: int, prompt: list[int]) -> str:
+    """Untimed requests to the http serve's service: a completion with
+    logprobs 5, a chat with logprobs and top_logprobs 3 and a completion with
+    repetition_penalty 1.3 must each carry their fields; then a fresh
+    token-id prompt streamed twice, whose second timing event must report
+    cached tokens."""
+    from dynamo_tpu_torch.tools.profile_http import http_call, http_stream
+
+    base = {"max_tokens": 8, "temperature": 0, "ext": {"ignore_eos": True}}
+    status, body = http_call(port, "POST", "/v1/completions", dict(base, prompt=prompt, logprobs=5))
+    lp = json.loads(body)["choices"][0].get("logprobs") if status == 200 else None
+    # the legacy API keys each step's alternatives by token text, and the
+    # tiny card's ByteTokenizer gives ids past 255 no text: they may collapse
+    if (not lp or len(lp["token_logprobs"]) != 8 or any(not 1 <= len(t) <= 5 for t in lp["top_logprobs"])
+            or not all(x <= 0 for x in lp["token_logprobs"])):
+        raise AssertionError(f"http serve completion with logprobs 5: {status} {body[:400]!r}")
+    status, body = http_call(port, "POST", "/v1/chat/completions", dict(
+        base, messages=[{"role": "user", "content": "Hello"}], logprobs=True, top_logprobs=3))
+    chat = json.loads(body) if status == 200 else {}
+    content = ((chat.get("choices") or [{}])[0].get("logprobs") or {}).get("content") or []
+    if (len(content) != chat.get("usage", {}).get("completion_tokens", -1)
+            or any(len(e["top_logprobs"]) != 3 for e in content)):
+        raise AssertionError(f"http serve chat with top_logprobs 3: {status} {body[:400]!r}")
+    status, body = http_call(port, "POST", "/v1/completions", dict(base, prompt=prompt, repetition_penalty=1.3))
+    if status != 200 or json.loads(body)["usage"]["completion_tokens"] != 8:
+        raise AssertionError(f"http serve completion with repetition_penalty: {status} {body[:400]!r}")
+    fresh = [(t * 7919 + 13) % 251 for t in prompt]  # ids every vocabulary holds
+    cached = []
+    for _ in range(2):
+        msgs, _ = http_stream(port, dict(base, prompt=fresh, stream=True,
+                                         ext={"ignore_eos": True, "annotations": ["timing"]}))
+        cached.append([m.json() for m in msgs if m.event == "timing"][0]["cached_tokens"])
+    if cached[1] <= 0:
+        raise AssertionError(f"http serve: the repeated prompt's cached_tokens {cached}")
+    return (f"logprobs 5 completion, top_logprobs 3 chat ({len(content)} entries) and repetition_penalty completion "
+            f"answered with their fields; a {len(fresh)}-token prompt twice: cached_tokens {cached[0]} then "
+            f"{cached[1]}")
 
 
 def phase_graph_vs_eager(torch, rng, gpu_name: str) -> None:
@@ -1271,7 +1490,7 @@ def phase_graph_vs_eager(torch, rng, gpu_name: str) -> None:
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.model_runner import ModelRunner
     from dynamo_tpu_torch.models.registry import load_model
-    from dynamo_tpu_torch.tools.checks import graph_against_eager, tol_share
+    from dynamo_tpu_torch.tools.checks import graph_against_eager, same_run, tol_share
     from dynamo_tpu_torch.tools.workload import DEEPSEEK_V2_LITE, LLAMA3_8B
 
     for what, family, geometry in (("Llama-3-8B", "tiny", LLAMA3_8B), ("DeepSeek-V2-Lite", "tiny-mla",
@@ -1286,18 +1505,18 @@ def phase_graph_vs_eager(torch, rng, gpu_name: str) -> None:
         g, e = got["graph"], got["eager"]
         if got["captures"]:
             raise AssertionError(f"graph vs eager, {what}: {got['captures']} captures in the graph run")
-        if not np.array_equal(g["first"], e["first"]) or not np.array_equal(g["window"], e["window"]):
-            raise AssertionError(f"graph vs eager, {what}: tokens {g['first']} {g['window'].T.tolist()} != "
-                                 f"{e['first']} {e['window'].T.tolist()}")
-        for a, b in zip(g["pools"], e["pools"]):
-            if not torch.equal(a, b):
-                raise AssertionError(f"graph vs eager, {what}: KV pages differ in {int((a != b).sum())} values")
+        differ = same_run(g, e)
+        if differ:
+            raise AssertionError(f"graph vs eager, {what}: {differ} differ; tokens {g['first']} "
+                                 f"{g['window'].T.tolist()} / {e['first']} {e['window'].T.tolist()}")
         err, share = tol_share(g["logits"], e["logits"], "bf16")
         if not share <= 1:
             raise AssertionError(f"graph vs eager, {what}: last-step logits off by {err} (share {share} of TOL)")
-        n_pages = sum(-(-(len(p) + config.decode_steps) // config.page_size) for p in prompts)
+        n_pages = sum(-(-(len(p) + 2 * config.decode_steps) // config.page_size) for p in prompts)
         log(f"graph vs eager, {what} (2 layers, full width, bf16) [{gpu_name}]: prefill tokens {g['first'].tolist()} "
-            f"and {g['window'].shape[0]}-step window tokens equal, {n_pages} written KV pages a layer bit-equal, "
+            f"and {g['window'].shape[0]}-step window tokens equal; the prefill with penalties, min_tokens and "
+            f"logprobs, the extras window and the logprobs window: tokens, logprobs and penalty state equal; "
+            f"{n_pages} written KV pages a layer bit-equal, "
             f"last-step logits max |diff| {err:.3g} (share {share:.3f} of TOL bf16); "
             f"{runner.compile_monitor.compiles} captures ({time.monotonic() - t0:.1f} s)")
         del runner
@@ -1370,10 +1589,10 @@ def phase_cli(torch, rng) -> None:
     torch.cuda.empty_cache()
 
 
-def naive_greedy(torch, model, prompt: list[int], steps: int) -> list[int]:
-    """Dense no-paging forward (attention_with_positions on the whole
-    sequence, recomputed every step) on the model's own weights. With an int8
-    KV cache in the model's config, every K/V row goes through the port's
+def naive_logits(torch, model, toks: list[int]):
+    """Last-row logits of a dense no-paging forward (attention_with_positions
+    on the whole sequence) on the model's own weights. With an int8 KV cache
+    in the model's config, every K/V row goes through the port's
     quantize_kv_rows and back before it is attended, as the pool stores it."""
     from dynamo_tpu_torch.ops.attention import attention_with_positions
     from dynamo_tpu_torch.ops.norms import rms_norm
@@ -1381,28 +1600,242 @@ def naive_greedy(torch, model, prompt: list[int], steps: int) -> list[int]:
     from dynamo_tpu_torch.quant.kv import dequantize_rows, quantize_kv_rows
 
     c = model.config
-    toks = list(prompt)
-    out = []
     with torch.no_grad():
-        for _ in range(steps):
-            ids = torch.tensor(toks, device=model.device)
-            pos = torch.arange(len(toks), device=model.device, dtype=torch.int32)
-            h = model.embed[ids]
-            for lp in model.layers:
-                x = rms_norm(h, lp.input_norm, c.rms_norm_eps)
-                q = apply_rope((x @ lp.wq).reshape(len(toks), -1, c.head_dim), pos, c.rope_theta)
-                k = apply_rope((x @ lp.wk).reshape(len(toks), -1, c.head_dim), pos, c.rope_theta)
-                v = (x @ lp.wv).reshape(len(toks), -1, c.head_dim)
-                if c.kv_quantized:
-                    k = dequantize_rows(*quantize_kv_rows(k))
-                    v = dequantize_rows(*quantize_kv_rows(v))
-                h = h + attention_with_positions(q, k, v, pos).reshape(len(toks), -1) @ lp.wo
-                x = rms_norm(h, lp.post_norm, c.rms_norm_eps)
-                h = h + (torch.nn.functional.silu(x @ lp.gate) * (x @ lp.up)) @ lp.down
-            nxt = int(model._unembed(h[-1:]).argmax(dim=-1)[0])
-            toks.append(nxt)
-            out.append(nxt)
+        ids = torch.tensor(toks, device=model.device)
+        pos = torch.arange(len(toks), device=model.device, dtype=torch.int32)
+        h = model.embed[ids]
+        for lp in model.layers:
+            x = rms_norm(h, lp.input_norm, c.rms_norm_eps)
+            q = apply_rope((x @ lp.wq).reshape(len(toks), -1, c.head_dim), pos, c.rope_theta)
+            k = apply_rope((x @ lp.wk).reshape(len(toks), -1, c.head_dim), pos, c.rope_theta)
+            v = (x @ lp.wv).reshape(len(toks), -1, c.head_dim)
+            if c.kv_quantized:
+                k = dequantize_rows(*quantize_kv_rows(k))
+                v = dequantize_rows(*quantize_kv_rows(v))
+            h = h + attention_with_positions(q, k, v, pos).reshape(len(toks), -1) @ lp.wo
+            x = rms_norm(h, lp.post_norm, c.rms_norm_eps)
+            h = h + (torch.nn.functional.silu(x @ lp.gate) * (x @ lp.up)) @ lp.down
+        return model._unembed(h[-1:])[0]
+
+
+def naive_greedy(torch, model, prompt: list[int], steps: int, logits_fn=None) -> list[int]:
+    """Greedy tokens of the dense forward (``naive_logits``, or
+    ``logits_fn(toks)``), recomputed on the whole sequence every step."""
+    logits_fn = logits_fn or (lambda toks: naive_logits(torch, model, toks))
+    toks, out = list(prompt), []
+    for _ in range(steps):
+        nxt = int(logits_fn(toks).argmax())
+        toks.append(nxt)
+        out.append(nxt)
     return out
+
+
+def naive_featured(torch, logits_fn, prompt: list[int], steps: int, penalties: dict | None = None,
+                   eos: tuple = (), min_tokens: int = 0) -> list[int]:
+    """The greedy loop of the dense forward with the reference's penalties
+    and min_tokens written out: repetition divides a positive / multiplies a
+    negative logit of every token seen in prompt or output, then each output
+    token's logit loses frequency x its count, then presence once; while
+    fewer than ``min_tokens`` tokens are out, the EOS ids get -1e30; EOS
+    stops the loop once more than ``min_tokens`` are out."""
+    toks, out, counts = list(prompt), [], {}
+    for _ in range(steps):
+        logits = logits_fn(toks).float().clone()
+        if penalties:
+            seen = torch.tensor(sorted(set(toks)), device=logits.device)
+            rep = penalties["repetition_penalty"]
+            raw = logits[seen]
+            logits[seen] = torch.where(raw > 0, raw / rep, raw * rep)
+            for t, n in counts.items():
+                logits[t] = logits[t] - penalties["frequency_penalty"] * n
+                logits[t] = logits[t] - penalties["presence_penalty"]
+        if len(out) < min_tokens:
+            for t in eos:
+                logits[t] = logits[t] + -1e30
+        nxt = int(logits.argmax())
+        out.append(nxt)
+        toks.append(nxt)
+        counts[nxt] = counts.get(nxt, 0) + 1
+        if nxt in eos and len(out) > min_tokens:
+            break
+    return out
+
+
+def expected_cached(page_size: int, served: list, prompt: list[int]) -> int:
+    """The prefix-cache hit the reference's allocation rule gives ``prompt``
+    after ``served`` [(prompt, generated tokens)]: each served sequence has
+    registered its prompt's full blocks and, one token late, the blocks its
+    decoding filled; the hit is the leading chain of registered blocks, less
+    the last when it would cover the whole prompt."""
+    from dynamo_tpu_torch.llm.tokens import TokenSequence
+
+    registered = set()
+    for p, gen in served:
+        blocks = TokenSequence(list(p) + list(gen), page_size).blocks
+        n = max(len(p) // page_size, (len(p) + len(gen) - 1) // page_size)
+        registered |= {b.sequence_hash for b in blocks[:n]}
+    hits = 0
+    for block in TokenSequence(prompt, page_size).blocks:
+        if block.sequence_hash not in registered:
+            break
+        hits += 1
+    if hits and hits * page_size >= len(prompt):
+        hits -= 1
+    return hits * page_size
+
+
+async def serve_outputs(engine, requests):
+    """Run ``requests`` concurrently through a started engine; returns
+    ({rid: {"tokens", "finish", "ttft", "cached", "logprobs", "top"}},
+    wall_s)."""
+
+    async def one(req):
+        t0 = time.monotonic()
+        got = dict(tokens=[], finish=None, ttft=None, cached=None, logprobs=[], top=[])
+        async for out in engine.generate(req):
+            if got["cached"] is None:
+                got["cached"] = out.cached_tokens
+            if out.token is not None:
+                if got["ttft"] is None:
+                    got["ttft"] = time.monotonic() - t0
+                got["tokens"].append(out.token)
+                got["logprobs"].append(out.logprob)
+                got["top"].append(out.top_logprobs)
+            got["finish"] = out.finish_reason
+        return req.request_id, got
+
+    t0 = time.monotonic()
+    results = dict(await asyncio.gather(*(one(r) for r in requests)))
+    return results, time.monotonic() - t0
+
+
+def prefix_rounds(torch, config, model, logits_fn, prompts: list, steps: int, what: str) -> str:
+    """Three prompts that share a prefix through one engine: the first
+    alone, then the other two, then all three. Every request's
+    ``cached_tokens`` must equal ``expected_cached`` (a zero where a hit is
+    due fails) and its greedy tokens the dense forward's. Returns a
+    summary."""
+    from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest
+
+    want = [naive_greedy(torch, model, p, steps, logits_fn) for p in prompts]
+
+    async def run():
+        engine = AsyncTorchEngine(config, model=model)
+        await engine.start()
+        try:
+            served, rounds = [], []
+            for r, idx in enumerate(([0], [1, 2], [0, 1, 2])):
+                expect = {i: expected_cached(config.page_size, served, prompts[i]) for i in idx}
+                reqs = [EngineRequest(f"pfx-{r}-{i}", prompts[i], SamplingParams(max_tokens=steps)) for i in idx]
+                results, _ = await serve_outputs(engine, reqs)
+                for i in idx:
+                    got = results[f"pfx-{r}-{i}"]
+                    if got["cached"] != expect[i]:
+                        raise AssertionError(f"{what} prefix round {r} request {i}: cached_tokens {got['cached']}, "
+                                             f"the allocation rule gives {expect[i]}")
+                    if got["tokens"] != want[i]:
+                        raise AssertionError(f"{what} prefix round {r} request {i}: engine {got['tokens']} != "
+                                             f"naive {want[i]}")
+                    served.append((prompts[i], got["tokens"]))
+                rounds.append([expect[i] for i in idx])
+            return rounds
+        finally:
+            await engine.shutdown()
+
+    rounds = asyncio.run(run())
+    return f"cached_tokens by round {rounds}"
+
+
+def phase_features_vs_naive(torch, rng) -> None:
+    """2 layers, f32, against the dense forward:
+
+      - prefix: three prompts sharing a 160-token prefix (``prefix_rounds``)
+        on Llama-3-8B geometry, on TinyLlama geometry with the int8 cache
+        (K3a / K3b over a cached prefix), and on V2-Lite geometry against
+        the non-absorbed forward (K5 / K6);
+      - on Llama-3-8B geometry, one batch of: repetition 1.3, frequency 0.5,
+        presence 0.5 (``naive_featured``); min_tokens 6 past an EOS id the
+        plain greedy stream emits second; and logprobs 20, whose chosen and
+        top-20 logprobs must lie within 1e-4 of the dense forward's
+        log-softmax (each returned id's, and the sorted values)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+    from dynamo_tpu_torch.engine.sampling import LOGPROBS_K, SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest
+    from dynamo_tpu_torch.models.registry import load_model
+    from dynamo_tpu_torch.tools.workload import DEEPSEEK_V2_LITE, LLAMA3_8B, PENALTIES, TINYLLAMA_1_1B
+
+    steps = 16
+    for what, family, geometry, kv in (("Llama-3-8B geometry", "tiny", LLAMA3_8B, None),
+                                       ("TinyLlama geometry, int8 KV", "tiny", TINYLLAMA_1_1B, "int8"),
+                                       ("V2-Lite geometry", "tiny-mla", DEEPSEEK_V2_LITE, None)):
+        cfg = dict(geometry, num_layers=2, dtype="f32")
+        if family == "tiny-mla":
+            cfg["moe_capacity_factor"] = 11.0  # every expert holds every token (phase_mla_vs_naive)
+        config = EngineConfig(model_id=f"{family}:" + json.dumps(cfg), device="cuda", page_size=16, num_pages=256,
+                              max_seqs=4, max_model_len=1024, decode_steps=4, kv_cache_dtype=kv)
+        model = load_model(config.model_id, device="cuda", kv_cache_dtype=kv)
+        shared = rng.integers(0, cfg["vocab_size"], 160).tolist()
+        prompts = [shared + rng.integers(0, cfg["vocab_size"], n).tolist() for n in (37, 64, 85)]
+        if family == "tiny-mla":
+            with torch.no_grad():
+                summary = prefix_rounds(torch, config, model, lambda t: mla_naive_logits(torch, model, t), prompts,
+                                        steps, what)
+        else:
+            summary = prefix_rounds(torch, config, model, None, prompts, steps, what)
+        log(f"{what} prefix vs naive forward (2 layers, f32): {summary}; greedy tokens identical")
+        if family != "tiny" or kv is not None:
+            del model
+            torch.cuda.empty_cache()
+            continue
+
+        def logits_fn(toks):
+            return naive_logits(torch, model, toks)
+
+        p_pen, p_min, p_lp = (rng.integers(0, cfg["vocab_size"], n).tolist() for n in (120, 57, 300))
+        eos = naive_greedy(torch, model, p_min, 2)[1]
+        want_pen = naive_featured(torch, logits_fn, p_pen, steps, penalties=PENALTIES)
+        want_min = naive_featured(torch, logits_fn, p_min, steps, eos=(eos,), min_tokens=6)
+        requests = [
+            EngineRequest("pen", p_pen, SamplingParams(max_tokens=steps, **PENALTIES)),
+            EngineRequest("min", p_min, SamplingParams(max_tokens=steps, min_tokens=6), eos_token_ids=(eos,)),
+            EngineRequest("lp", p_lp, SamplingParams(max_tokens=steps), logprobs=LOGPROBS_K),
+        ]
+
+        async def run():
+            engine = AsyncTorchEngine(config, model=model)
+            await engine.start()
+            try:
+                return (await serve_outputs(engine, requests))[0]
+            finally:
+                await engine.shutdown()
+
+        got = asyncio.run(run())
+        if got["pen"]["tokens"] != want_pen:
+            raise AssertionError(f"{what} penalties: engine {got['pen']['tokens']} != naive {want_pen}")
+        if got["min"]["tokens"] != want_min or eos in want_min[:6]:
+            raise AssertionError(f"{what} min_tokens: engine {got['min']['tokens']} != naive {want_min}")
+        lp, toks, worst = got["lp"], list(p_lp), 0.0
+        for k, tok in enumerate(lp["tokens"]):
+            ref = torch.log_softmax(naive_logits(torch, model, toks).float(), -1)
+            if tok != int(ref.argmax()):
+                raise AssertionError(f"{what} logprobs request step {k}: token {tok} != naive {int(ref.argmax())}")
+            ids = [i for i, _ in lp["top"][k]]
+            vals = torch.tensor([v for _, v in lp["top"][k]], device=ref.device)
+            errs = [abs(lp["logprobs"][k] - ref[tok].item()), (vals - ref[ids]).abs().max().item(),
+                    (vals - ref.topk(LOGPROBS_K).values).abs().max().item()]
+            worst = max(worst, *errs)
+            if len(ids) != LOGPROBS_K or max(errs) > 1e-4:
+                raise AssertionError(f"{what} logprobs step {k}: {len(ids)} alternatives, errors {errs}")
+            toks.append(tok)
+        log(f"{what} features vs naive forward (2 layers, f32): penalties (repetition 1.3, frequency 0.5, presence "
+            f"0.5) and min_tokens 6 past EOS id {eos} ({len(want_min)} tokens, "
+            f"{'stopped' if len(want_min) < steps else 'no stop'}) tokens identical; logprobs 20 x {steps} steps "
+            f"within {worst:.3g} of the log-softmax (limit 1e-4)")
+        del model
+        torch.cuda.empty_cache()
 
 
 def phase_engine_vs_naive(torch, rng, what: str, geometry: dict, kv_cache_dtype: str | None = None,
@@ -1526,10 +1959,7 @@ def phase_mla_vs_naive(torch, rng) -> None:
     with torch.no_grad():
         for i, p in enumerate(prompts):
             got = results[f"mla-naive-{i}"][0]
-            want, toks = [], list(p)
-            for _ in range(steps):
-                want.append(int(mla_naive_logits(torch, model, toks).argmax()))
-                toks.append(want[-1])
+            want = naive_greedy(torch, model, p, steps, lambda t: mla_naive_logits(torch, model, t))
             if got != want:
                 raise AssertionError(f"MLA request {i}: engine {got} != naive {want}")
     log(f"MLA engine vs naive non-absorbed forward (2 layers, f32, capacity factor 11): "
@@ -1672,6 +2102,10 @@ def main() -> int:
     runs["http serve"] = phase_http_serve(torch, smi, paged, {
         "K3a": k3a, "K3b": k3b, "K4a": k4a, "K4b": k4b, "K5": k5, "K6": k6, "K7a": k7a, "K7b": k7b, "K7c": k7c})
     t0 = lap("http serve", t0)
+    # the prefix cache and the request features at Llama-3-8B width and depth
+    runs["prefix serve"] = phase_prefix_serve(torch, smi, paged, {
+        "K3a": k3a, "K3b": k3b, "K4a": k4a, "K4b": k4b, "K5": k5, "K6": k6, "K7a": k7a, "K7b": k7b, "K7c": k7c})
+    t0 = lap("prefix serve", t0)
     phase_refusals(torch, dev)
     phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B)
     phase_engine_vs_naive(torch, rng, "TinyLlama geometry", TINYLLAMA_1_1B)
@@ -1680,7 +2114,9 @@ def main() -> int:
     phase_graph_vs_eager(torch, rng, smi)
     phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B, decode_kernel="chunked", launcher=k4a)
     phase_engine_vs_naive(torch, rng, "Llama-3-8B geometry", LLAMA3_8B, decode_kernel="grouped", launcher=k4b)
-    t0 = lap("refusals, greedy parity and graph vs eager", t0)
+    # its own seed: the inputs of the phases above and below stay as they were
+    phase_features_vs_naive(torch, np.random.default_rng(12))
+    t0 = lap("refusals, greedy parity, features and graph vs eager", t0)
     phase_cli(torch, rng)
     t0 = lap("cli", t0)
     runs["instruments"] = phase_instruments(torch, {"K7a": k7a, "K7b": k7b, "K7c": k7c})["launches"]
@@ -1724,6 +2160,8 @@ def main() -> int:
             entry["int8"] = dict(launches=runs[int8_path][key], **checks[key]["int8"])
         if key in ps4:  # the HTTP path: page size 4, its launches from the http serve run
             entry["ps4"] = dict(launches=runs["http serve"][key], **ps4[key]["bf16"])
+        if key in runs["prefix serve"]:  # the prefix serve's three rounds (prefill over cached prefixes)
+            entry["prefix_serve_launches"] = runs["prefix serve"][key]
         if key in widened:  # {shape: {tol_share: largest over the mixes, ms: {mix: device ms}}}
             entry["widened"] = widened[key]
         if key in bench:

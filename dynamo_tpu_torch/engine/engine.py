@@ -16,8 +16,13 @@ eagerly. A finished stream cancels its own submission only (id and
 submission number), so a request that reuses the id of one that just ended
 is served (the reference cancels by id; ROADMAP "Known differences").
 
-Not ported yet: the metric, SLO, goodput, events and health planes and the
-disaggregation/migration commands.
+The allocator's KV events (block ``stored`` / ``removed``) go to the
+``kv_event_sink`` the engine is given, and ``metrics()`` reports the
+reference's ``ForwardPassMetrics`` (slots, KV blocks, waiting requests,
+cache usage and the prefix-cache hit rate) for the KV router.
+
+Not ported yet: the SLO, goodput, events and health planes, the resource
+snapshot and the disaggregation/migration commands.
 """
 
 from __future__ import annotations
@@ -27,16 +32,35 @@ import itertools
 import queue as thread_queue
 import threading
 import time
-from typing import AsyncIterator, Optional
+from dataclasses import dataclass
+from typing import AsyncIterator, Callable, Optional
 
 import torch
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.page_table import PageAllocator
 from dynamo_tpu_torch.engine.scheduler import EngineRequest, Scheduler, StepOutput
+from dynamo_tpu_torch.llm.kv_events import KvCacheEvent
 from dynamo_tpu_torch.utils import get_logger
 
 log = get_logger("engine")
+
+
+@dataclass
+class ForwardPassMetrics:
+    """Worker load metrics for the KV router (the reference's fields and
+    names)."""
+
+    request_active_slots: int = 0
+    request_total_slots: int = 0
+    kv_active_blocks: int = 0
+    kv_total_blocks: int = 0
+    num_requests_waiting: int = 0
+    gpu_cache_usage_perc: float = 0.0
+    gpu_prefix_cache_hit_rate: float = 0.0
+
+    def to_wire(self) -> dict:
+        return self.__dict__.copy()
 
 
 def resolve_device(name: str) -> torch.device:
@@ -60,9 +84,11 @@ class AsyncTorchEngine:
     ``kv_cache_dtype`` in its config (tests load converted reference weights
     this way); otherwise ``config.model_id`` is built by the registry."""
 
-    def __init__(self, config: EngineConfig, model=None):
+    def __init__(self, config: EngineConfig, model=None,
+                 kv_event_sink: Optional[Callable[[KvCacheEvent], None]] = None):
         self.config = config
         self._given_model = model
+        self._extra_kv_sink = kv_event_sink
         self._inbox: thread_queue.Queue = thread_queue.Queue()
         self._cancel_box: thread_queue.Queue = thread_queue.Queue()
         self._cmd_box: thread_queue.Queue = thread_queue.Queue()
@@ -145,7 +171,11 @@ class AsyncTorchEngine:
                 self.config.model_id, device=self.device, kv_cache_dtype=self.config.kv_cache_dtype
             )
         self.runner = ModelRunner(self.config, self.model)
-        self.allocator = PageAllocator(self.config.num_pages, self.config.page_size)
+        # the sink itself, not a bound method of this engine (the reference's
+        # _on_kv_event): a cycle through the allocator would keep a dropped
+        # engine's weights and pools on the card until the cyclic GC ran
+        self.allocator = PageAllocator(self.config.num_pages, self.config.page_size,
+                                       event_sink=self._extra_kv_sink)
         self.scheduler = Scheduler(self.config, self.runner, self.allocator)
         t_warm = time.monotonic()
         if self.config.warmup == "background":
@@ -173,6 +203,28 @@ class AsyncTorchEngine:
             )
             if self._thread.is_alive():
                 log.error("engine loop did not exit within %.0fs; abandoning thread", join_timeout)
+
+    # ---------------- metrics / events / prefix ----------------
+
+    def metrics(self) -> ForwardPassMetrics:
+        alloc, sched = self.allocator, self.scheduler
+        if alloc is None or sched is None:
+            return ForwardPassMetrics()
+        hit_rate = alloc.cache_hit_blocks / alloc.cache_query_blocks if alloc.cache_query_blocks else 0.0
+        return ForwardPassMetrics(
+            request_active_slots=sched.num_running,
+            request_total_slots=self.config.max_seqs,
+            kv_active_blocks=alloc.active_pages,
+            kv_total_blocks=self.config.num_pages - 1,
+            num_requests_waiting=len(sched.waiting),
+            gpu_cache_usage_perc=alloc.used_pages / max(1, self.config.num_pages - 1),
+            gpu_prefix_cache_hit_rate=hit_rate,
+        )
+
+    def sync_lookup_prefix(self, token_ids: list[int], salt: int = 0) -> int:
+        """Leading tokens of ``token_ids`` the prefix cache holds (call on
+        the engine thread, e.g. through ``run_on_engine``)."""
+        return self.allocator.lookup_prefix(token_ids, salt=salt)
 
     # ---------------- request API ----------------
 

@@ -14,6 +14,19 @@ steps (port of ``dynamo_tpu/engine/model_runner.py``).
     back through pinned buffers with an event recorded after the copy
     (:class:`HostResult`), which the scheduler polls instead of blocking
   - nothing inside a window reads the device from the host
+  - penalties read and update the per-slot device state
+    ``slot_state["counts"]`` (output-token counts) and
+    ``slot_state["seen"]`` (token in prompt or output), [max_seqs + 1, V]
+    each, allocated on the first request that needs them
+    (``_ensure_penalty_state``; the warmup allocates them first) and reset
+    per request by ``seed_penalty_slot``; a ``min_tokens`` request bans
+    its EOS ids (up to ``MAX_EOS_IDS``) until its fed position reaches
+    ``eos_allowed_from``. Penalties and the EOS ban form ONE "extras"
+    variant of each step body (neutral inputs are no-ops), and logprobs
+    (the chosen token's and the top ``LOGPROBS_K`` of the raw logits) a
+    second flag: the plain variants carry neither the penalty arithmetic
+    nor the full-vocab log-softmax and top-k. Seeded streams need no
+    variant here (their noise is drawn on the host side of the call)
 
 Models with ``prefill_packed`` (Llama) take the packed path when
 ``prefill_lanes > 1``; the others (DeepSeek), and every model at
@@ -25,10 +38,12 @@ each distinct shape of a decode window and of a prefill call is captured
 once into a CUDA graph (``engine/graphs.py``) and replayed after that, its
 control arrays and noise copied into static inputs, the KV pools and
 ``slot_state["tokens"]`` written in place (the reference donates them);
-captures are counted by ``compile_monitor``. ``warmup_core`` /
-``warmup`` / ``warmup_extra_thunks`` capture the shapes serving reaches
-ahead of it, with every write on the trash page. On the CPU the bodies run
-eagerly. Penalties, logprobs, LoRA, spec, sp and the KV page export/import
+captures are counted by ``compile_monitor``. The penalty state is
+updated in place too (index writes into the same tensors, never a new
+entry), so a graph that reads it keeps reading the live state. ``warmup_core``
+/ ``warmup`` / ``warmup_extra_thunks`` capture the shapes serving reaches
+ahead of it, with every write on the trash page and the drop slot. On the
+CPU the bodies run eagerly. LoRA, spec, sp and the KV page export/import
 wait.
 """
 
@@ -44,7 +59,17 @@ import torch
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.graphs import CudaGraphs, GraphCache
-from dynamo_tpu_torch.engine.sampling import SamplingParams, fold_seed, sample_tokens, seeded_uniform
+from dynamo_tpu_torch.engine.sampling import (
+    LOGPROBS_K,
+    MAX_EOS_IDS,
+    SamplingParams,
+    apply_penalties,
+    ban_eos,
+    fold_seed,
+    sample_tokens,
+    sample_tokens_with_logprobs,
+    seeded_uniform,
+)
 from dynamo_tpu_torch.ops.attention import DECODE_KERNEL_ENV
 from dynamo_tpu_torch.utils import get_logger
 from dynamo_tpu_torch.utils.compile_monitor import CompileMonitor
@@ -53,27 +78,30 @@ log = get_logger("engine.runner")
 
 
 class HostResult:
-    """A device result on its way to the host: the copy into pinned memory
-    is enqueued at construction and an event is recorded after it. CPU
-    tensors are ready at once."""
+    """Device results on their way to the host: the copies into pinned
+    memory are enqueued at construction and one event is recorded after
+    them. CPU tensors are ready at once."""
 
-    def __init__(self, dev: torch.Tensor):
-        if dev.is_cuda:
-            self._host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-            self._host.copy_(dev, non_blocking=True)
+    def __init__(self, *devs: torch.Tensor):
+        if devs[0].is_cuda:
+            self._host = [torch.empty(d.shape, dtype=d.dtype, pin_memory=True) for d in devs]
+            for h, d in zip(self._host, devs):
+                h.copy_(d, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host = dev.clone()
+            self._host = [d.clone() for d in devs]
             self._event = None
 
     def is_ready(self) -> bool:
         return self._event is None or self._event.query()
 
-    def numpy(self) -> np.ndarray:
+    def numpy(self):
+        """The array (one result) or the tuple of arrays (several)."""
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        arrays = [h.numpy() for h in self._host]
+        return arrays[0] if len(arrays) == 1 else tuple(arrays)
 
 
 class ModelRunner:
@@ -84,7 +112,9 @@ class ModelRunner:
         self.kv_cache = model.init_kv_cache(config.num_pages, config.page_size)
         B = config.max_seqs
         # token feedback buffer; index B is the drop slot for lanes whose
-        # sampled token must not land anywhere (non-final or pad lanes)
+        # sampled token must not land anywhere (non-final or pad lanes).
+        # "counts" / "seen" join it on the first penalty or min_tokens
+        # request (_ensure_penalty_state), with the same drop row
         self.slot_state = {"tokens": torch.zeros(B + 1, dtype=torch.int32, device=self.device)}
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
@@ -154,20 +184,28 @@ class ModelRunner:
 
     # ---------------- step bodies (device work only) ----------------
 
-    def _prefill_impl(self, ints, flts, noise, bucket: int, mp: int, need_filter: bool):
-        """ints [N, bucket + mp + 4] = token buf, page table, (start_pos,
-        n_real, top_k, slot); flts [3, N] = (temperature, top_p, min_p).
-        Every lane's last-row logits are sampled; the token lands in
-        ``slot_state["tokens"][slot]`` (slot max_seqs = dropped). On the
-        packed path the lanes take ``model.prefill_packed``; off it N is 1
-        and the lane takes ``model.prefill``. Returns (tokens [N], logits
-        [N, V])."""
+    def _prefill_impl(self, ints, flts, noise, bucket: int, mp: int, need_filter: bool, want_lp: bool = False,
+                      extras: bool = False):
+        """ints [N, bucket + mp + 4 + MAX_EOS_IDS] = token buf, page table,
+        (start_pos, n_real, top_k, slot), then the lane's EOS ids
+        (V-padded); flts [6, N] = (temperature, top_p, min_p, presence,
+        frequency, repetition). Every lane's last-row logits are sampled;
+        the token lands in ``slot_state["tokens"][slot]`` (slot max_seqs =
+        dropped). On the packed path the lanes take
+        ``model.prefill_packed``; off it N is 1 and the lane takes
+        ``model.prefill``. ``extras``: the EOS ban (the first sampled token
+        is generation #1, so a lane's EOS ids are banned outright), then
+        the penalties against the slot's state, which takes the sampled
+        token (the drop row takes the others'). Returns (tokens [N],
+        logits [N, V]) and, with ``want_lp``, (chosen logprob [N], top ids
+        [N, K], top logprobs [N, K])."""
         tokens = ints[:, :bucket]
         page_tables = ints[:, bucket : bucket + mp]
         start_pos = ints[:, bucket + mp]
         n = ints[:, bucket + mp + 1]
         top_ks = ints[:, bucket + mp + 2]
         slots = ints[:, bucket + mp + 3]
+        eos_ids = ints[:, bucket + mp + 4 :]
         ar = torch.arange(bucket, dtype=torch.int32, device=ints.device)
         positions = (start_pos[:, None] + ar[None, :]).contiguous()
         valid = ar[None, :] < n[:, None]
@@ -181,42 +219,89 @@ class ModelRunner:
                 self.kv_cache, tokens[0], positions[0], page_tables[0].contiguous(), valid[0], last[0]
             )
             logits = logits[None]
-        toks = sample_tokens(
-            logits, flts[0], top_ks, flts[1], min_p=flts[2],
-            uniform=None if noise is None else noise[0], need_filter=need_filter,
-        )
-        self.slot_state["tokens"].index_put_((slots.long(),), toks)
-        return toks, logits
+        raw = logits
+        rows = slots.long()
+        if extras:
+            logits = ban_eos(logits, eos_ids, torch.full_like(flts[0], -1e30))
+            logits = apply_penalties(logits, self.slot_state["counts"][rows], self.slot_state["seen"][rows],
+                                     flts[3], flts[4], flts[5])
+        kwargs = dict(min_p=flts[2], uniform=None if noise is None else noise[0], need_filter=need_filter)
+        lp = ()
+        if want_lp:
+            toks, *lp = sample_tokens_with_logprobs(logits, flts[0], top_ks, flts[1], raw_logits=raw, **kwargs)
+        else:
+            toks = sample_tokens(logits, flts[0], top_ks, flts[1], **kwargs)
+        self.slot_state["tokens"].index_put_((rows,), toks)
+        if extras:
+            # flat (row, token) indices: index_add_ accumulates the drop
+            # row's repeats, and neither op syncs with the host (capturable)
+            flat = rows * logits.shape[-1] + toks.long()
+            self.slot_state["counts"].view(-1).index_add_(0, flat, torch.ones_like(toks))
+            self.slot_state["seen"].view(-1).index_fill_(0, flat, True)
+        return (toks, raw, *lp)
 
-    def _decode_window_impl(self, ints, flts, noise, num_steps: int, need_filter: bool):
+    def _decode_window_impl(self, ints, flts, noise, num_steps: int, need_filter: bool, want_lp: bool = False,
+                            extras: bool = False):
         """num_steps fused decode steps; the token feedback starts from the
-        device-resident ``slot_state["tokens"]``. ``ints`` [4 + W, B] =
-        positions, limits (max fed position), active, top_ks, then the
-        transposed page tables; ``flts`` [3, B] = temps, top_ps,
-        min_ps. A slot freezes once its fed position would pass its limit.
-        Returns (tokens [num_steps, B], the last step's logits [B, V])."""
+        device-resident ``slot_state["tokens"]``. ``ints`` [5 + MAX_EOS_IDS
+        + W, B] = positions, limits (max fed position), active, top_ks,
+        eos_allowed_from, the per-slot EOS id rows (V-padded), then the
+        transposed page tables; ``flts`` [6, B] = temps, top_ps, min_ps,
+        presence, frequency, repetition. A slot freezes once its fed
+        position would pass its limit. ``extras``: each step applies the
+        penalties against the slots' state, then bans a slot's EOS ids while
+        its fed position is below eos_allowed_from, and the active slots'
+        sampled tokens update counts and seen. Returns (tokens [num_steps,
+        B], the last step's raw logits [B, V]) and, with ``want_lp``,
+        (chosen logprobs [num_steps, B], top ids and top logprobs
+        [num_steps, B, K])."""
         B = ints.shape[1]
         positions = ints[0].contiguous()
         limits = ints[1]
         act = ints[2].bool()
         top_ks = ints[3]
-        page_tables = ints[4:].t().contiguous()
+        eos_from = ints[4]
+        eos_ids = ints[5 : 5 + MAX_EOS_IDS].t()
+        page_tables = ints[5 + MAX_EOS_IDS :].t().contiguous()
         temps, top_ps, min_ps = flts[0], flts[1], flts[2]
         tokens = self.slot_state["tokens"][:B].clone()
         out = torch.empty((num_steps, B), dtype=torch.int32, device=ints.device)
+        lp_out = None
+        if want_lp:
+            K = min(LOGPROBS_K, self.model.config.vocab_size)
+            lp_out = (torch.empty((num_steps, B), device=ints.device),
+                      torch.empty((num_steps, B, K), dtype=torch.int32, device=ints.device),
+                      torch.empty((num_steps, B, K), device=ints.device))
+        if extras:
+            counts, seen = self.slot_state["counts"], self.slot_state["seen"]
+            row_base = torch.arange(B, device=ints.device) * counts.shape[-1]
+            ban = torch.full((B,), -1e30, device=ints.device)
+            allow = torch.zeros_like(ban)
         logits = None
         for step in range(num_steps):
             logits, _ = self.model.decode(self.kv_cache, tokens, positions, page_tables, act)
-            toks = sample_tokens(
-                logits, temps, top_ks, top_ps, min_p=min_ps,
-                uniform=None if noise is None else noise[step], need_filter=need_filter,
-            )
+            masked = logits
+            if extras:
+                masked = apply_penalties(masked, counts[:B], seen[:B], flts[3], flts[4], flts[5])
+                masked = ban_eos(masked, eos_ids, torch.where(positions >= eos_from, allow, ban))
+            kwargs = dict(min_p=min_ps, uniform=None if noise is None else noise[step], need_filter=need_filter)
+            if want_lp:
+                toks, *lp = sample_tokens_with_logprobs(masked, temps, top_ks, top_ps, raw_logits=logits, **kwargs)
+                for dst, src in zip(lp_out, lp):
+                    dst[step] = src
+            else:
+                toks = sample_tokens(masked, temps, top_ks, top_ps, **kwargs)
             out[step] = toks
             tokens = torch.where(act, toks, tokens)
+            if extras:
+                # only the rows that emitted this step count (``seen`` stays exact)
+                flat = row_base + toks.long()
+                counts.view(-1).index_add_(0, flat, act.to(counts.dtype))
+                seen.view(-1)[flat] = seen.view(-1)[flat] | act
             positions = positions + act.to(positions.dtype)
             act = act & (positions <= limits)
         self.slot_state["tokens"][:B] = tokens
-        return out, logits
+        return (out, logits, *(lp_out or ()))
 
     # ---------------- host API (engine thread) ----------------
 
@@ -224,6 +309,33 @@ class ModelRunner:
         """Host-known tokens -> slot token feedback."""
         idx = self._to_device(np.asarray(slots, np.int64))
         self.slot_state["tokens"].index_put_((idx,), self._to_device(np.asarray(tokens, np.int32)))
+
+    def _ensure_penalty_state(self) -> None:
+        """Allocate ``slot_state["counts"]`` and ``["seen"]`` ([max_seqs +
+        1, V], row max_seqs the drop row) once: a graph that reads them
+        bakes in their addresses, so they are never reallocated."""
+        if "counts" not in self.slot_state:
+            V, B = self.model.config.vocab_size, self.config.max_seqs
+            self.slot_state["counts"] = torch.zeros((B + 1, V), dtype=torch.int32, device=self.device)
+            self.slot_state["seen"] = torch.zeros((B + 1, V), dtype=torch.bool, device=self.device)
+
+    def seed_penalty_slot(self, slot: int, token_ids, output_from: int | None = None) -> None:
+        """Reset a slot's penalty state: mark all of ``token_ids`` seen and
+        count the tail from ``output_from`` as output occurrences (a
+        re-admitted request's prompt that embeds its earlier output keeps
+        its presence / frequency penalties). In-place writes, on the stream
+        the slot's prefill is enqueued on after."""
+        self._ensure_penalty_state()
+        ids = np.asarray(token_ids, np.int64)
+        out_ids = ids[output_from:] if output_from is not None else ids[:0]
+        counts, seen = self.slot_state["counts"][slot], self.slot_state["seen"][slot]
+        counts.zero_()
+        seen.zero_()
+        if len(ids):
+            seen.index_fill_(0, self._to_device(ids), True)
+        if len(out_ids):
+            counts.index_add_(0, self._to_device(out_ids), torch.ones(len(out_ids), dtype=counts.dtype,
+                                                                       device=self.device))
 
     @property
     def packed_prefill_mode(self) -> bool:
@@ -235,19 +347,23 @@ class ModelRunner:
     def pack_prefill_lanes(self, lanes: list, N: int):
         """Build the packed int/float control arrays on the host.
         ``lanes``: [(tokens np[int32], start_pos, page_table, slot_or_-1,
-        sampling, is_final)]. Returns (ints, flts, mp, sampled, need_filter,
-        seeds, sample_pos)."""
+        sampling, eos_ids, is_final)]. Returns (ints, flts, mp, sampled,
+        need_filter, seeds, sample_pos, extras): ``extras`` when a final
+        lane has penalties or bans its EOS ids (``min_tokens`` >= 1)."""
+        V = self.model.config.vocab_size
         bucket = self.config.bucket_for(max(len(lane[0]) for lane in lanes))
         # the widest lane's ladder bucket; narrow lanes zero-pad into the
         # trash page
         mp = self.config.table_bucket_for(max(len(lane[2]) for lane in lanes))
-        ints = np.zeros((N, bucket + mp + 4), np.int32)
-        flts = np.zeros((3, N), np.float32)
+        ints = np.zeros((N, bucket + mp + 4 + MAX_EOS_IDS), np.int32)
+        ints[:, bucket + mp + 4 :] = V  # no EOS id to ban
+        flts = np.zeros((6, N), np.float32)
         flts[1] = 1.0  # top_p neutral
+        flts[5] = 1.0  # repetition neutral
         seeds = np.zeros(N, np.int32)
         sample_pos = np.zeros(N, np.int64)
-        sampled = need_filter = False
-        for j, (tokens, start_pos, page_table, slot, sampling, is_final) in enumerate(lanes):
+        sampled = need_filter = extras = False
+        for j, (tokens, start_pos, page_table, slot, sampling, eos_ids, is_final) in enumerate(lanes):
             n = len(tokens)
             ints[j, :n] = tokens
             ints[j, bucket : bucket + len(page_table[:mp])] = page_table[:mp]
@@ -255,7 +371,18 @@ class ModelRunner:
             ints[j, bucket + mp + 1] = n
             ints[j, bucket + mp + 2] = sampling.top_k
             ints[j, bucket + mp + 3] = slot if (is_final and slot >= 0) else self.config.max_seqs
-            flts[:, j] = (sampling.temperature, sampling.top_p, sampling.min_p)
+            # min_tokens >= 1: the first sampled token (generation #1) must
+            # not be EOS (vLLM: EOS is suppressed while generated < min_tokens)
+            want_eos = bool(is_final and eos_ids and sampling.min_tokens >= 1 and not sampling.ignore_eos)
+            if want_eos:
+                if len(eos_ids) > MAX_EOS_IDS:
+                    log.warning("min_tokens: %d EOS ids exceed the device limit %d; ids beyond the limit "
+                                "are not suppressed", len(eos_ids), MAX_EOS_IDS)
+                ids = np.asarray(eos_ids, np.int32)[:MAX_EOS_IDS]
+                ints[j, bucket + mp + 4 : bucket + mp + 4 + len(ids)] = ids
+            flts[:, j] = (sampling.temperature, sampling.top_p, sampling.min_p, sampling.presence_penalty,
+                          sampling.frequency_penalty, sampling.repetition_penalty)
+            extras = extras or want_eos or (is_final and sampling.needs_penalties)
             if is_final and sampling.temperature > 0:
                 sampled = True
                 need_filter = need_filter or sampling.needs_filter
@@ -264,22 +391,26 @@ class ModelRunner:
         # pad lanes: n=0, start 0, page table 0 (every read lands in the
         # in-bounds trash page), slot out of range so the feedback drops
         ints[len(lanes) :, bucket + mp + 3] = self.config.max_seqs
-        return ints, flts, mp, sampled, need_filter, seeds, sample_pos
+        return ints, flts, mp, sampled, need_filter, seeds, sample_pos, extras
 
     @torch.no_grad()
-    def prefill_chunk_batch(self, lanes: list, N: int) -> HostResult:
+    def prefill_chunk_batch(self, lanes: list, N: int, want_logprobs: bool = False) -> HostResult:
         """Dispatch ONE packed prefill covering chunks of up to N distinct
-        sequences. Returns the [N] sampled tokens on their way to the host —
-        callers read only final-chunk lanes."""
-        ints, flts, mp, sampled, need_filter, seeds, sample_pos = self.pack_prefill_lanes(lanes, N)
-        bucket = ints.shape[1] - mp - 4
+        sequences. Returns the [N] sampled tokens on their way to the host
+        (callers read only final-chunk lanes), with ``want_logprobs`` as
+        (tokens, chosen logprobs [N], top ids [N, K], top logprobs [N, K])."""
+        ints, flts, mp, sampled, need_filter, seeds, sample_pos, extras = self.pack_prefill_lanes(lanes, N)
+        if extras:
+            self._ensure_penalty_state()
+        bucket = ints.shape[1] - mp - 4 - MAX_EOS_IDS
         noise_args = (N, seeds if seeds.any() else None, sample_pos, 1) if sampled else None
         packed = self.packed_prefill_mode
         label = "prefill_packed" if packed else "prefill"
-        key = (label, N, bucket, mp, sampled, need_filter)
-        body = functools.partial(self._prefill_impl, bucket=bucket, mp=mp, need_filter=need_filter)
-        toks, self.last_logits = self._step(label, key, body, ints, flts, noise_args)
-        return HostResult(toks)
+        key = (label, N, bucket, mp, sampled, need_filter, want_logprobs, extras)
+        body = functools.partial(self._prefill_impl, bucket=bucket, mp=mp, need_filter=need_filter,
+                                 want_lp=want_logprobs, extras=extras)
+        toks, self.last_logits, *lp = self._step(label, key, body, ints, flts, noise_args)
+        return HostResult(toks, *lp)
 
     def prefill_chunk(
         self,
@@ -289,13 +420,17 @@ class ModelRunner:
         sample: bool,  # the sequence's final chunk: sample its first token
         sampling,  # SamplingParams
         slot: int = -1,  # decode slot to seed with the sampled token (device side)
+        eos_ids=(),  # the request's EOS ids (min_tokens bans them on the device)
+        want_logprobs: bool = False,  # only a sampling (final) chunk's are read
     ) -> HostResult:
         """The per-request path: dispatch ONE prefill chunk of one sequence
         (``model.prefill``). On the final chunk the sampled token also lands
         in ``slot_state["tokens"][slot]`` on the device. Returns the [1]
         sampled token on its way to the host (read it only when
-        ``sample``)."""
-        return self.prefill_chunk_batch([(tokens, start_pos, page_table, slot, sampling, sample)], N=1)
+        ``sample``), with ``want_logprobs`` as ``prefill_chunk_batch``
+        returns them."""
+        lane = (tokens, start_pos, page_table, slot, sampling, eos_ids, sample)
+        return self.prefill_chunk_batch([lane], N=1, want_logprobs=want_logprobs and sample)
 
     @torch.no_grad()
     def dispatch_decode_window(
@@ -310,9 +445,16 @@ class ModelRunner:
         num_steps: int,
         min_ps: np.ndarray | None = None,  # [B]
         seeds: np.ndarray | None = None,  # [B] int32 folded seeds (0 = unseeded)
+        want_logprobs: bool = False,
+        penalties: np.ndarray | None = None,  # [3, B] presence / frequency / repetition
+        eos_allowed_from: np.ndarray | None = None,  # [B] fed position where EOS unblocks (min_tokens)
+        eos_ids: np.ndarray | None = None,  # [B, MAX_EOS_IDS] V-padded
     ) -> HostResult:
         """Dispatch one fused decode window WITHOUT waiting for results.
-        Returns the [num_steps, B] tokens on their way to the host."""
+        Returns the [num_steps, B] tokens on their way to the host, with
+        ``want_logprobs`` as (tokens, chosen logprobs [num_steps, B], top
+        ids and top logprobs [num_steps, B, K]). Penalties and the EOS ban
+        take the one "extras" variant (their neutral inputs are no-ops)."""
         B = positions.shape[0]
         min_ps = np.zeros(B, np.float32) if min_ps is None else min_ps
         live = active & (temps > 0)
@@ -324,28 +466,37 @@ class ModelRunner:
             noise_args = (B, seeded, positions, num_steps)
         need_filter = bool(np.any(live & ((top_ks > 0) | (top_ps < 1.0) | (min_ps > 0))))
         return self._window(positions, page_tables, active, limits, temps, top_ks, top_ps, min_ps, num_steps,
-                            noise_args, need_filter)
+                            noise_args, need_filter, want_logprobs, penalties, eos_allowed_from, eos_ids)
 
     def _window(self, positions, page_tables, active, limits, temps, top_ks, top_ps, min_ps, num_steps: int,
-                noise_args, need_filter: bool) -> HostResult:
+                noise_args, need_filter: bool, want_logprobs: bool = False, penalties=None, eos_allowed_from=None,
+                eos_ids=None) -> HostResult:
         B = positions.shape[0]
-        ints = np.empty((4 + page_tables.shape[1], B), np.int32)
+        V = self.model.config.vocab_size
+        ints = np.empty((5 + MAX_EOS_IDS + page_tables.shape[1], B), np.int32)
         ints[0] = positions
         ints[1] = limits
         ints[2] = active
         ints[3] = top_ks
-        ints[4:] = page_tables.T
-        flts = np.empty((3, B), np.float32)
+        ints[4] = eos_allowed_from if eos_allowed_from is not None else 0
+        ints[5 : 5 + MAX_EOS_IDS] = eos_ids.T if eos_ids is not None else V
+        ints[5 + MAX_EOS_IDS :] = page_tables.T
+        flts = np.empty((6, B), np.float32)
         flts[0] = temps
         flts[1] = top_ps
         flts[2] = min_ps
+        flts[3:6] = penalties if penalties is not None else np.array([[0.0], [0.0], [1.0]], np.float32)
+        extras = penalties is not None or eos_ids is not None
+        if extras:
+            self._ensure_penalty_state()
         # the decode kernel is read at capture, as the reference's jit reads
         # it at trace time: a graph per choice
         key = ("decode_window", B, page_tables.shape[1], num_steps, noise_args is not None, need_filter,
-               os.environ.get(DECODE_KERNEL_ENV, "lookahead"))
-        body = functools.partial(self._decode_window_impl, num_steps=num_steps, need_filter=need_filter)
-        toks, self.last_logits = self._step("decode_window", key, body, ints, flts, noise_args)
-        return HostResult(toks)
+               os.environ.get(DECODE_KERNEL_ENV, "lookahead"), want_logprobs, extras)
+        body = functools.partial(self._decode_window_impl, num_steps=num_steps, need_filter=need_filter,
+                                 want_lp=want_logprobs, extras=extras)
+        toks, self.last_logits, *lp = self._step("decode_window", key, body, ints, flts, noise_args)
+        return HostResult(toks, *lp)
 
     # ---------------- warmup (captures ahead of serving) ----------------
 
@@ -360,33 +511,42 @@ class ModelRunner:
         finally:
             self._gen.set_state(state)
 
-    def _warmup_window(self, width: int, sampled: bool = False, need_filter: bool = False) -> None:
+    def _warmup_window(self, width: int, sampled: bool = False, need_filter: bool = False,
+                       want_logprobs: bool = False, extras: bool = False) -> None:
         """The default decode window at table width ``width``, every slot
-        inactive: its KV rows land on the trash page and the slot tokens
-        stay as they are. ``sampled`` draws noise as a sampling slot would
-        (so the sampled body is captured without a live slot)."""
+        inactive: its KV rows land on the trash page, and the slot tokens
+        and penalty state stay as they are. ``sampled`` draws noise as a
+        sampling slot would (so the sampled body is captured without a live
+        slot); ``want_logprobs`` / ``extras`` take those variants (neutral
+        penalties, no EOS id)."""
         B, K = self.config.max_seqs, self.config.decode_steps
         zeros = np.zeros(B, np.int32)
         temps = np.full(B, 1.0 if sampled else 0.0, np.float32)
         noise_args = (B, None, zeros, K) if sampled else None
+        penalties = np.tile(np.array([[0.0], [0.0], [1.0]], np.float32), (1, B)) if extras else None
         with self._keep_generator():
             self._window(zeros, np.zeros((B, width), np.int32), np.zeros(B, bool), zeros, temps,
                          np.full(B, 5 if need_filter else 0, np.int32), np.ones(B, np.float32),
-                         np.zeros(B, np.float32), K, noise_args, need_filter).numpy()
+                         np.zeros(B, np.float32), K, noise_args, need_filter, want_logprobs, penalties).numpy()
 
-    def _warmup_prefill(self, bucket: int, N: int, width: int, sampling: SamplingParams | None = None) -> None:
+    def _warmup_prefill(self, bucket: int, N: int, width: int, sampling: SamplingParams | None = None,
+                        want_logprobs: bool = False) -> None:
         """One prefill call of N lanes at ``bucket`` and table width
         ``width``: one lane of zeros at position 0 over an all-zero table
         (its KV rows land on the trash page), its token dropped (slot -1;
-        the pad lanes' too). ``sampling`` samples that token (a final
-        lane), else greedy."""
+        the pad lanes' too, and the drop row takes its penalty update).
+        ``sampling`` samples that token (a final lane, with EOS id 0 to ban
+        where it sets min_tokens), else greedy; ``want_logprobs`` takes the
+        logprobs variant (a final lane)."""
+        final = sampling is not None or want_logprobs
         lane = (np.zeros(bucket, np.int32), 0, np.zeros(width, np.int32), -1,
-                sampling or SamplingParams(temperature=0.0), sampling is not None)
+                sampling or SamplingParams(temperature=0.0), (0,) if sampling is not None else (), final)
         with self._keep_generator():
             if self.packed_prefill_mode:
-                self.prefill_chunk_batch([lane], N=N).numpy()
+                self.prefill_chunk_batch([lane], N=N, want_logprobs=want_logprobs).numpy()
             else:
-                self.prefill_chunk(*lane[:3], sample=lane[5], sampling=lane[4], slot=-1).numpy()
+                self.prefill_chunk(*lane[:3], sample=lane[6], sampling=lane[4], slot=-1, eos_ids=lane[5],
+                                   want_logprobs=want_logprobs).numpy()
 
     def _lane_counts(self, bucket: int) -> list[int]:
         """The N a prefill call at ``bucket`` takes: each power of two up to
@@ -401,8 +561,10 @@ class ModelRunner:
         """Capture what the first requests need, before serving: the
         default decode window at the first table width, and each prefill
         bucket at N = 1 and N = lanes_for(bucket) (per-request: N = 1)
-        there. Every call writes only the trash page."""
+        there. Every call writes only the trash page. The penalty state is
+        allocated first, so every graph is captured against it."""
         t0 = time.monotonic()
+        self._ensure_penalty_state()
         width = self.config.table_buckets[0]
         self._warmup_window(width)
         for b in self.config.prefill_buckets:
@@ -413,11 +575,15 @@ class ModelRunner:
     def warmup_extra_thunks(self) -> list:
         """Thunks capturing the other shapes serving reaches: the
         intermediate N at the first table width, every shape at the wider
-        widths, and the sampled variants (sampled, and sampled with a
-        top-k / top-p / min-p filter) of the default window and of each
-        bucket's N = 1 and largest N at the first width. Each runs against
-        the trash page; a serving engine runs them one by one between steps
-        (``run_on_engine``)."""
+        widths, the sampled variants (sampled, and sampled with a top-k /
+        top-p / min-p filter) of the default window and of each bucket's N =
+        1 and largest N at the first width, and the feature variants at the
+        first width (the reference's: windows with penalties, with
+        logprobs, and with both; prefill at every bucket and N with
+        logprobs, with extras, and with both; and, since sampling is a
+        graph flag here, the sampled window and prefill with both). Each
+        runs against the trash page and the drop slot; a serving engine
+        runs them one by one between steps (``run_on_engine``)."""
         buckets, widths = self.config.prefill_buckets, self.config.table_buckets
         thunks = []
         for b in buckets:
@@ -434,6 +600,15 @@ class ModelRunner:
             for b in buckets:
                 for n in sorted({1, self._lane_counts(b)[-1]}):
                     thunks.append(functools.partial(self._warmup_prefill, b, n, widths[0], sampling))
+        extras = SamplingParams(presence_penalty=0.1, min_tokens=1)
+        sampled_extras = SamplingParams(temperature=1.0, presence_penalty=0.1, min_tokens=1)
+        for sampled, want_lp, with_extras in ((False, False, True), (False, True, False), (False, True, True),
+                                              (True, True, True)):
+            thunks.append(functools.partial(self._warmup_window, widths[0], sampled, False, want_lp, with_extras))
+            sampling = (sampled_extras if sampled else extras) if with_extras else None
+            for b in buckets:
+                for n in self._lane_counts(b):
+                    thunks.append(functools.partial(self._warmup_prefill, b, n, widths[0], sampling, want_lp))
         return thunks
 
     def warmup(self) -> None:

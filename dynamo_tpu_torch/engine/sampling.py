@@ -12,7 +12,9 @@ in distribution, not token for token.
 
 Which branches run is decided on the host from the requests' parameters
 (``need_filter``, and noise only when some slot samples), so nothing here
-reads device values back. Not ported yet: penalties, logprobs,
+reads device values back. Penalties (:func:`apply_penalties`), the
+``min_tokens`` EOS ban (:func:`ban_eos`) and logprobs
+(:func:`sample_tokens_with_logprobs`) are the reference's. Not ported yet:
 ``accept_speculative``.
 """
 
@@ -25,6 +27,9 @@ import torch
 
 _NEG_INF = -1e30
 
+MAX_EOS_IDS = 8  # per-slot EOS ids carried on device for min_tokens masking
+LOGPROBS_K = 20  # top alternatives computed on device (= the OpenAI API max)
+
 
 def fold_seed(seed) -> int:
     """Any user seed (64-bit, negative, ...) -> nonzero int31 device seed;
@@ -36,8 +41,8 @@ def fold_seed(seed) -> int:
 
 @dataclass
 class SamplingParams:
-    """Per-request sampling options (same fields as the reference; the
-    scheduler rejects the ones this port does not implement yet)."""
+    """Per-request sampling options (the reference's fields; the scheduler
+    rejects none of them)."""
 
     temperature: float = 0.0  # 0 => greedy
     top_k: int = 0  # 0 => disabled
@@ -48,6 +53,8 @@ class SamplingParams:
     stop: Sequence[str] = ()
     seed: Optional[int] = None  # per-request deterministic sampling stream
     ignore_eos: bool = False
+    # vLLM-semantics penalties: presence/frequency over OUTPUT tokens,
+    # repetition over prompt + output
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
     repetition_penalty: float = 1.0
@@ -63,6 +70,37 @@ class SamplingParams:
     @property
     def needs_filter(self) -> bool:
         return self.top_k > 0 or self.top_p < 1.0 or self.min_p > 0.0
+
+
+def apply_penalties(
+    logits: torch.Tensor,  # [B, V] float32
+    counts: torch.Tensor,  # [B, V] int32 output-token counts
+    seen: torch.Tensor,  # [B, V] bool, token in prompt or output
+    presence: torch.Tensor,  # [B]
+    frequency: torch.Tensor,  # [B]
+    repetition: torch.Tensor,  # [B] (1.0 = off)
+) -> torch.Tensor:
+    """vLLM-semantics sampling penalties, in vLLM's order: repetition divides
+    positive / multiplies negative RAW logits of any seen token FIRST, then
+    frequency and presence subtract over output-token occurrences. Neutral
+    values (0, 0, 1) leave a row's logits bit for bit."""
+    rep = repetition[:, None]
+    penalized = torch.where(logits > 0, logits / rep, logits * rep)
+    logits = torch.where(seen, penalized, logits)
+    cf = counts.float()
+    logits = logits - frequency[:, None] * cf
+    return logits - presence[:, None] * (cf > 0).float()
+
+
+def ban_eos(logits: torch.Tensor, eos_ids: torch.Tensor, penalty: torch.Tensor) -> torch.Tensor:
+    """``logits`` [B, V] with ``penalty`` [B] (-1e30 bans, 0 allows) added at
+    each row's ``eos_ids`` [B, MAX_EOS_IDS], whose unused entries hold V.
+    The reference drops those with an out-of-range scatter; an out-of-range
+    index is a device fault here, so they are clamped into range and add 0."""
+    V = logits.shape[-1]
+    used = eos_ids < V
+    add = torch.where(used, penalty[:, None].expand_as(eos_ids), torch.zeros((), device=logits.device))
+    return logits.scatter_add(1, eos_ids.clamp(max=V - 1).long(), add.to(logits.dtype))
 
 
 def filter_keep_mask(
@@ -124,6 +162,27 @@ def sample_tokens(
     gumbel = -torch.log(-torch.log(uniform.clamp(1e-20, 1.0 - 1e-7)))
     sampled = (masked / temp + gumbel).argmax(dim=-1).to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy)
+
+
+def sample_tokens_with_logprobs(
+    logits: torch.Tensor,  # [B, V] float32, possibly penalized / EOS-banned
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    raw_logits: torch.Tensor | None = None,  # the model's logits before penalties and bans
+    **kwargs,  # min_p / uniform / need_filter, forwarded to sample_tokens
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """sample_tokens + OpenAI-style logprobs of the model distribution.
+
+    Returns (tokens [B], chosen_logprob [B], topk_ids [B, K], topk_logprobs
+    [B, K]), K = LOGPROBS_K. Logprobs are the log-softmax of the RAW model
+    logits (``raw_logits`` when sampling from penalized / masked ones): the
+    model's distribution, as the OpenAI API means it."""
+    tokens = sample_tokens(logits, temperature, top_k, top_p, **kwargs)
+    logprobs = torch.log_softmax(logits if raw_logits is None else raw_logits, dim=-1)
+    chosen = logprobs.gather(-1, tokens[:, None].long())[:, 0]
+    top_vals, top_ids = torch.topk(logprobs, min(LOGPROBS_K, logprobs.shape[-1]), dim=-1)
+    return tokens, chosen, top_ids.to(torch.int32), top_vals
 
 
 def seeded_uniform(seed: int, position: int, vocab_size: int, device) -> torch.Tensor:

@@ -2,7 +2,11 @@
 dispatch-ahead decode windows (port of ``dynamo_tpu/engine/scheduler.py``).
 
   - admit waiting requests whenever a decode slot and enough pages exist
-    (the watermark keeps headroom for decode growth)
+    (the watermark keeps headroom for decode growth; free pages include the
+    prefix cache's reclaimable ones). Admission allocates through the prefix
+    cache: a prompt's leading full blocks already cached are shared, and its
+    prefill starts at ``cached_len``, which the first output reports as
+    ``cached_tokens``
   - prefill chunks of distinct sequences pack into shared prefill calls
     (one weight pass each) when ``runner.packed_prefill_mode``; otherwise
     each call carries one sequence's chunk (the reference's per-request
@@ -20,19 +24,32 @@ window is dispatched (a ``prefill_packed`` / ``prefill_chunk`` /
 ``decode_window`` record, with its tokens and its roofline floor), the
 device wait and the reconcile where its results are read back.
 
+Prefix-cache registration follows the reference: a sequence's prompt
+blocks are committed (``allocator.commit_prefilled``) when its final prefill
+chunk is dispatched, and every materialized token goes through
+``allocator.append_token``, which registers a decode-written block one
+token after it fills.
+
+Penalties, ``min_tokens`` and logprobs are the reference's: a penalty
+request's slot state is seeded at admission (``runner.seed_penalty_slot``);
+prefill lanes carry each request's EOS ids, decode windows the per-slot
+penalties, EOS rows and ``eos_allowed_from``; a request with ``logprobs``
+gets its chosen-token logprob and its top ``logprobs`` alternatives in
+``StepOutput.logprob`` / ``top_logprobs``; EOS stops a stream only past
+``min_tokens`` tokens.
+
 Scheduled-vs-materialized positions: ``seq.sched_len`` counts tokens in the
 *scheduled* timeline (the prefill's first token + every window step), while
 ``seq.generated`` holds materialized tokens only.
 
 The request dataclasses keep the reference's field names; fields of features
 this port does not run yet stay at their defaults, and requests that ask for
-them (penalties, logprobs, min_tokens, images, LoRA) are rejected at
-admission. ``cancel`` takes the engine's submission number too, so an
-ended stream cannot cancel a later request that reuses its id (the
-reference cancels by id alone). Not ported yet: QoS, preemption (a sequence
-that cannot grow gets a shorter window, or finishes with "error" when it
-cannot advance), spec, LoRA, prefix fetch/migration, offload, metering and
-the stage/metric planes.
+them (images, LoRA) are rejected at admission. ``cancel`` takes the
+engine's submission number too, so an ended stream cannot cancel a later
+request that reuses its id (the reference cancels by id alone). Not ported
+yet: QoS, preemption (a sequence that cannot grow gets a shorter window, or
+finishes with "error" when it cannot advance), spec, LoRA, prefix
+fetch/migration, offload, metering and the stage/metric planes.
 """
 
 from __future__ import annotations
@@ -46,7 +63,7 @@ import numpy as np
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.page_table import PageAllocator
-from dynamo_tpu_torch.engine.sampling import SamplingParams, fold_seed
+from dynamo_tpu_torch.engine.sampling import MAX_EOS_IDS, SamplingParams, fold_seed
 from dynamo_tpu_torch.utils import get_logger
 from dynamo_tpu_torch.utils.step_anatomy import StepAnatomy, roofline_for_runner
 
@@ -90,8 +107,8 @@ class StepOutput:
     finished: bool = False
     finish_reason: Optional[str] = None  # stop | length | error
     cached_tokens: int = 0  # prefix-cache hit length (first output only)
-    logprob: Optional[float] = None
-    top_logprobs: Optional[list] = None
+    logprob: Optional[float] = None  # chosen-token logprob (when requested)
+    top_logprobs: Optional[list] = None  # [(token_id, logprob), ...]
 
 
 @dataclass
@@ -140,17 +157,13 @@ class _InFlight:
     # step-anatomy record of the dispatch: the reconcile's device wait and
     # emission time attribute back to it
     rec: object = None
+    # the result carries logprob arrays (dev.numpy() is then (tokens,
+    # chosen, top ids, top logprobs))
+    lp: bool = False
 
 
 def _unsupported(req: EngineRequest) -> Optional[str]:
     """Name of a requested feature this port does not run yet, or None."""
-    s = req.sampling
-    if s.needs_penalties:
-        return "penalties"
-    if s.min_tokens > 0:
-        return "min_tokens"
-    if req.logprobs is not None:
-        return "logprobs"
     if req.images:
         return "images"
     if req.lora_name:
@@ -174,6 +187,10 @@ class Scheduler:
 
     def add_request(self, req: EngineRequest) -> None:
         self.waiting.append(req)
+
+    @property
+    def num_running(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
 
     def has_work(self) -> bool:
         return bool(self.waiting) or bool(self.in_flight) or any(s is not None for s in self.slots)
@@ -273,6 +290,13 @@ class Scheduler:
     def _start_sequence(self, req: EngineRequest, slot: int) -> None:
         wait = max(0.0, time.monotonic() - req.enqueue_ts) if req.enqueue_ts else None
         cached_len, state = self.allocator.allocate_sequence(req.request_id, req.token_ids)
+        sam = req.sampling
+        if sam.min_tokens >= 1 and not sam.ignore_eos and len(req.eos_token_ids) > MAX_EOS_IDS:
+            log.warning("min_tokens: %d EOS ids exceed the device limit %d for %s; the excess are not "
+                        "suppressed on device", len(req.eos_token_ids), MAX_EOS_IDS, req.request_id)
+        if sam.needs_penalties:
+            # enqueued before the request's prefill, which reads the slot's state
+            self.runner.seed_penalty_slot(slot, req.token_ids, output_from=req.penalty_output_from)
         self.slots[slot] = RunningSeq(
             req=req,
             slot=slot,
@@ -334,6 +358,7 @@ class Scheduler:
                 chunks.append((s, s.prefill_pos, end))
                 bucket = cand
             lanes, finals = [], []
+            want_lp = False
             for j, (seq, start, end) in enumerate(chunks):
                 is_final = end == seq.prompt_len
                 lanes.append((
@@ -342,10 +367,12 @@ class Scheduler:
                     seq.page_table,
                     seq.slot,
                     seq.req.sampling,
+                    () if seq.req.sampling.ignore_eos else seq.req.eos_token_ids,
                     is_final,
                 ))
                 if is_final:
                     finals.append((seq, j, seq.cached_len))
+                    want_lp = want_lp or seq.req.logprobs is not None
             rows = sum(end - start for _, start, end in chunks)
             rec = self.anatomy.begin("prefill_packed" if packed else "prefill_chunk", ts=t_prep)
             t0 = time.monotonic()
@@ -354,11 +381,12 @@ class Scheduler:
                 if packed:
                     # N rounds up to a power of two (at most log2(lanes) shapes per bucket)
                     N = min(self.config.lanes_for(bucket), 1 << (len(chunks) - 1).bit_length())
-                    result = self.runner.prefill_chunk_batch(lanes, N=N)
+                    result = self.runner.prefill_chunk_batch(lanes, N=N, want_logprobs=want_lp)
                 else:
-                    tokens, start, table, slot, sampling, is_final = lanes[0]
+                    tokens, start, table, slot, sampling, eos_ids, is_final = lanes[0]
                     result = self.runner.prefill_chunk(
-                        tokens, start, table, sample=is_final, sampling=sampling, slot=slot
+                        tokens, start, table, sample=is_final, sampling=sampling, slot=slot, eos_ids=eos_ids,
+                        want_logprobs=want_lp,
                     )
             except Exception:
                 log.exception(
@@ -371,8 +399,17 @@ class Scheduler:
             self.anatomy.note_steps(rec, tokens=rows, participants=len(chunks))
             self.anatomy.note_prefill_floor(rec, rows)
             for seq, start, end in chunks:
-                seq.prefill_pos = None if end == seq.prompt_len else end
-            self.in_flight.append(_InFlight(kind="first_batch", dev=result, seqs=finals, rec=rec))
+                if end == seq.prompt_len:
+                    # the prompt's blocks join the prefix cache now, before
+                    # this call has run: a request admitted next may read
+                    # them in a prefill enqueued behind it. Sound because
+                    # every page write and read (graph replays included) is
+                    # on one CUDA stream, in dispatch order
+                    self.allocator.commit_prefilled(seq.req.request_id, seq.prompt_len)
+                    seq.prefill_pos = None
+                else:
+                    seq.prefill_pos = end
+            self.in_flight.append(_InFlight(kind="first_batch", dev=result, seqs=finals, rec=rec, lp=want_lp))
             count += 1
 
     # ---------------- decode windows ----------------
@@ -443,7 +480,11 @@ class Scheduler:
         top_ks = np.zeros(B, np.int32)
         top_ps = np.ones(B, np.float32)
         min_ps = np.zeros(B, np.float32)
+        penalties = np.tile(np.array([[0.0], [0.0], [1.0]], np.float32), (1, B))
         seeds = np.zeros(B, np.int32)
+        eos_allowed_from = np.zeros(B, np.int32)
+        eos_rows = np.full((B, MAX_EOS_IDS), self.runner.model.config.vocab_size, np.int32)
+        any_eos_mask = False
         snapshot = []
         for seq, steps in participants:
             i = seq.slot
@@ -456,9 +497,21 @@ class Scheduler:
             top_ks[i] = sam.top_k
             top_ps[i] = sam.top_p
             min_ps[i] = sam.min_p
+            penalties[:, i] = (sam.presence_penalty, sam.frequency_penalty, sam.repetition_penalty)
             seeds[i] = fold_seed(sam.seed)
+            if sam.min_tokens > 1 and seq.req.eos_token_ids and not sam.ignore_eos:
+                # the step sampling generation #k feeds position prompt_len
+                # + k - 2 (the prefill sampled #1); EOS stays banned while
+                # sampling #k for k <= min_tokens, so it unblocks at fed
+                # position prompt_len + min_tokens - 1
+                eos_allowed_from[i] = seq.prompt_len + sam.min_tokens - 1
+                ids = np.asarray(seq.req.eos_token_ids[:MAX_EOS_IDS], np.int32)
+                eos_rows[i, : len(ids)] = ids
+                any_eos_mask = True
             snapshot.append((seq, i, steps))
             seq.sched_len += steps
+        want_lp = any(seq.req.logprobs is not None for seq, _ in participants)
+        want_pen = any(seq.req.sampling.needs_penalties for seq, _ in participants)
         # every step reads the weights and each participant's KV pages: the
         # bytes-moved floor at this occupancy
         live_pages = sum(
@@ -470,14 +523,17 @@ class Scheduler:
         self.anatomy.add_phase(rec, "host_prep", t0 - t_prep)
         result = self.runner.dispatch_decode_window(
             positions, page_tables, active, limits, temps, top_ks, top_ps, K,
-            min_ps=min_ps, seeds=seeds if np.any(seeds) else None,
+            min_ps=min_ps, seeds=seeds if np.any(seeds) else None, want_logprobs=want_lp,
+            penalties=penalties if want_pen else None,
+            eos_allowed_from=eos_allowed_from if any_eos_mask else None,
+            eos_ids=eos_rows if any_eos_mask else None,
         )
         self.anatomy.add_phase(rec, "dispatch", time.monotonic() - t0)
         self.anatomy.note_steps(
             rec, steps=K, tokens=sum(steps for _, _, steps in snapshot), participants=len(snapshot),
             floor_bytes=self.anatomy.decode_floor_bytes(live_pages, K),
         )
-        self.in_flight.append(_InFlight(kind="window", dev=result, seqs=snapshot, rec=rec))
+        self.in_flight.append(_InFlight(kind="window", dev=result, seqs=snapshot, rec=rec, lp=want_lp))
         return True
 
     # ---------------- results ----------------
@@ -497,6 +553,9 @@ class Scheduler:
             self.in_flight.popleft()
             t0 = time.monotonic()
             data = entry.dev.numpy()
+            lp = None
+            if entry.lp:
+                data, *lp = data
             if not ready:  # the host blocked on the device
                 self.anatomy.add_phase(entry.rec, "device_wait", time.monotonic() - t0)
             t_rec = time.monotonic()
@@ -504,18 +563,21 @@ class Scheduler:
             if entry.kind == "first_batch":
                 for seq, lane, cached in entry.seqs:
                     if not seq.finished:
-                        outputs.extend(self._emit_token(seq, int(data[lane]), cached=cached))
+                        step_lp = None if lp is None else (lp[0][lane], lp[1][lane], lp[2][lane])
+                        outputs.extend(self._emit_token(seq, int(data[lane]), cached=cached, lp=step_lp))
             else:
                 for seq, slot_idx, steps in entry.seqs:
                     for j in range(min(steps, data.shape[0])):
                         if seq.finished:
                             break  # EOS/cancel discovered earlier; zombie tokens
-                        outputs.extend(self._emit_token(seq, int(data[j, slot_idx])))
+                        step_lp = None if lp is None else (lp[0][j, slot_idx], lp[1][j, slot_idx],
+                                                           lp[2][j, slot_idx])
+                        outputs.extend(self._emit_token(seq, int(data[j, slot_idx]), lp=step_lp))
             # emitting this entry's tokens attributes back to its dispatch
             self.anatomy.add_phase(entry.rec, "reconcile", time.monotonic() - t_rec)
         return outputs
 
-    def _emit_token(self, seq: RunningSeq, token: int, cached: int = 0) -> list[StepOutput]:
+    def _emit_token(self, seq: RunningSeq, token: int, cached: int = 0, lp=None) -> list[StepOutput]:
         if seq.finished:
             return []
         req = seq.req
@@ -527,6 +589,7 @@ class Scheduler:
             seq.itl_gaps.append(max(0.0, now - seq.last_token_wall))
         seq.last_token_wall = now
         seq.sched_len = max(seq.sched_len, len(seq.generated))
+        self.allocator.append_token(req.request_id, token)
         finish: Optional[str] = None
         if (
             not req.sampling.ignore_eos
@@ -540,6 +603,12 @@ class Scheduler:
         elif seq.pos >= self.config.max_model_len:
             finish = "length"
         out = StepOutput(req.request_id, token=token, cached_tokens=cached)
+        if lp is not None and req.logprobs is not None:
+            chosen, top_ids, top_vals = lp
+            out.logprob = float(chosen)
+            n = min(req.logprobs, len(top_ids))
+            if n > 0:
+                out.top_logprobs = [(int(top_ids[i]), float(top_vals[i])) for i in range(n)]
         if finish is not None:
             out.finished = True
             out.finish_reason = finish

@@ -93,64 +93,116 @@ def exact_pools(shape, kind: str, device, generator: torch.Generator | None = No
 
 
 def graph_against_eager(runner, prompts: list) -> dict:
-    """One prefill of ``prompts`` (one call of all of them on the packed
-    path, a call each off it; prompt i into slot i, in pages 1 + ...) and
-    one decode window of those slots, run twice from the same state:
-    replayed from the runner's graphs (``runner.warmup()`` captures their
-    shapes first, with trash-page writes, so these calls capture nothing)
-    and through its eager bodies. Returns {"graph": run, "eager": run},
-    each run {"first": prefill tokens [n], "window": tokens [K, n],
-    "pools": the KV pools without each layer's trash page, "logits": the
-    window's last-step logits [n, V]}, and "captures": the graph run's
-    captures (0 when it replayed). Greedy; plain (not int8) pools."""
-    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    """Prefill calls and decode windows over ``prompts`` (prompt i into slot
+    i, in pages 1 + ...; one packed call of all of them on the packed path,
+    a call each off it), run twice from the same state: replayed from the
+    runner's graphs (``runner.warmup()`` captures their shapes first, with
+    trash-page writes, so these calls capture nothing) and through its eager
+    bodies. The calls, in order:
+
+      1. a greedy prefill ("first": tokens [n]);
+      2. a greedy window from the prompts' ends ("window": tokens [K, n]);
+      3. the slots' penalty state seeded with their prompts, then the
+         prompts prefilled again with penalties (repetition 1.3, frequency
+         0.5, presence 0.5), min_tokens 2 with each prompt's first token as
+         its EOS id, and logprobs ("first_both": tokens, chosen logprobs,
+         top ids, top logprobs);
+      4. the extras window from the prompts' ends with those penalties and
+         EOS ids ("window_extras");
+      5. a logprobs window after it ("window_lp": tokens, chosen logprobs,
+         top ids, top logprobs).
+
+    Returns {"graph": run, "eager": run, "captures": the graph run's
+    captures (0 when it replayed)}, each run also holding "pools" (the KV
+    pools without each layer's trash page), "penalty" (the slots' counts
+    and seen rows) and "logits" (the last window's last-step logits [n,
+    V]). Plain (not int8) pools."""
+    from dynamo_tpu_torch.engine.sampling import MAX_EOS_IDS, SamplingParams
 
     cfg, n, ps, K = runner.config, len(prompts), runner.config.page_size, runner.config.decode_steps
+    V = runner.model.config.vocab_size
     greedy = SamplingParams()
+    both = SamplingParams(repetition_penalty=1.3, frequency_penalty=0.5, presence_penalty=0.5, min_tokens=2)
     tables, first_page = [], 1
     for p in prompts:
-        used = -(-(len(p) + K) // ps)
+        used = -(-(len(p) + 2 * K) // ps)
         table = np.zeros(cfg.table_bucket_for(used), np.int32)
         table[:used] = first_page + np.arange(used)
         first_page += used
         tables.append(table)
     W = max(len(t) for t in tables)
-    lanes = [(np.asarray(p, np.int32), 0, t, i, greedy, True) for i, (p, t) in enumerate(zip(prompts, tables))]
     B = cfg.max_seqs
     positions, limits = np.zeros(B, np.int32), np.zeros(B, np.int32)
     page_tables, active = np.zeros((B, W), np.int32), np.zeros(B, bool)
+    penalties = np.tile(np.array([[0.0], [0.0], [1.0]], np.float32), (1, B))
+    eos_rows, eos_from = np.full((B, MAX_EOS_IDS), V, np.int32), np.zeros(B, np.int32)
     for i, (p, t) in enumerate(zip(prompts, tables)):
         positions[i], limits[i], active[i] = len(p), len(p) + K - 1, True
         page_tables[i, : len(t)] = t
+        penalties[:, i] = (both.presence_penalty, both.frequency_penalty, both.repetition_penalty)
+        eos_rows[i, 0], eos_from[i] = p[0], len(p) + both.min_tokens - 1
+    greedy_window = (np.zeros(B, np.float32), np.zeros(B, np.int32), np.ones(B, np.float32), K)
     runner.warmup()
-    start = {name: t.clone() for name, t in runner.kv_cache.items()}, runner.slot_state["tokens"].clone()
+    state = {name: t.clone() for name, t in runner.kv_cache.items()}
+    slots = {name: t.clone() for name, t in runner.slot_state.items()}
     L = runner.model.config.num_layers
+
+    def prefill(sampling, want_lp: bool):
+        eos = [(p[0],) if sampling.min_tokens else () for p in prompts]
+        lanes = [(np.asarray(p, np.int32), 0, t, i, sampling, e, True)
+                 for i, (p, t, e) in enumerate(zip(prompts, tables, eos))]
+        if runner.packed_prefill_mode:
+            got = runner.prefill_chunk_batch(lanes, N=1 << (n - 1).bit_length(), want_logprobs=want_lp).numpy()
+            return tuple(a[:n] for a in got) if want_lp else got[:n]
+        got = [runner.prefill_chunk(*lane[:3], sample=True, sampling=sampling, slot=i, eos_ids=lane[5],
+                                    want_logprobs=want_lp).numpy() for i, lane in enumerate(lanes)]
+        return tuple(np.concatenate(a) for a in zip(*got)) if want_lp else np.concatenate(got)
 
     def run(eager: bool) -> dict:
         for name, t in runner.kv_cache.items():
-            t.copy_(start[0][name])
-        runner.slot_state["tokens"].copy_(start[1])
+            t.copy_(state[name])
+        for name, t in runner.slot_state.items():
+            t.copy_(slots[name])
         graphs, compiles = runner.graphs, runner.compile_monitor.compiles
         if eager:
             runner.graphs = None
         try:
-            if runner.packed_prefill_mode:
-                N = 1 << (n - 1).bit_length()
-                first = runner.prefill_chunk_batch(lanes, N=N).numpy()[:n]
-            else:
-                first = np.array([runner.prefill_chunk(*lane[:3], sample=True, sampling=greedy, slot=i).numpy()[0]
-                                  for i, lane in enumerate(lanes)])
-            window = runner.dispatch_decode_window(
-                positions, page_tables, active, limits, np.zeros(B, np.float32), np.zeros(B, np.int32),
-                np.ones(B, np.float32), K,
-            ).numpy()[:, :n]
-            logits = runner.last_logits[:n].float().clone()
+            out = {"first": prefill(greedy, False)}
+            out["window"] = runner.dispatch_decode_window(positions, page_tables, active, limits,
+                                                          *greedy_window).numpy()[:, :n]
+            for i, p in enumerate(prompts):
+                runner.seed_penalty_slot(i, p)
+            out["first_both"] = prefill(both, True)
+            out["window_extras"] = runner.dispatch_decode_window(
+                positions, page_tables, active, limits, *greedy_window, penalties=penalties,
+                eos_allowed_from=eos_from, eos_ids=eos_rows).numpy()[:, :n]
+            lp = runner.dispatch_decode_window(positions + K, page_tables, active, limits + K, *greedy_window,
+                                               want_logprobs=True).numpy()
+            out["window_lp"] = tuple(a[:, :n] for a in lp)
+            out["logits"] = runner.last_logits[:n].float().clone()
         finally:
             runner.graphs = graphs
-        pools = [t.reshape(L, cfg.num_pages, -1)[:, 1:].clone() for t in runner.kv_cache.values()]
-        return {"first": first, "window": window, "pools": pools, "logits": logits,
-                "captures": runner.compile_monitor.compiles - compiles}
+        out["pools"] = [t.reshape(L, cfg.num_pages, -1)[:, 1:].clone() for t in runner.kv_cache.values()]
+        out["penalty"] = [runner.slot_state[name][:n].clone() for name in ("counts", "seen")]
+        out["captures"] = runner.compile_monitor.compiles - compiles
+        return out
 
     graph = run(False)
     return {"graph": graph, "eager": run(True), "captures": graph.pop("captures")}
 
+
+def same_run(a: dict, b: dict) -> list:
+    """The keys of two ``graph_against_eager`` runs whose tokens, logprob
+    arrays, KV pools or penalty state differ (bit for bit); logits aside."""
+    differ = []
+    for key in ("first", "window", "first_both", "window_extras", "window_lp"):
+        x, y = a[key], b[key]
+        if isinstance(x, tuple):
+            if not all(np.array_equal(u, v) for u, v in zip(x, y)):
+                differ.append(key)
+        elif not np.array_equal(x, y):
+            differ.append(key)
+    for key in ("pools", "penalty"):
+        if not all(torch.equal(u, v) for u, v in zip(a[key], b[key])):
+            differ.append(key)
+    return differ

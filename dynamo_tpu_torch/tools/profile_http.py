@@ -30,7 +30,8 @@ out of the engine), the packed prefill calls
 the engine and, where the engine records it, the run's own step anatomy
 (``anatomy``: host fraction, prefill fixed ms, roofline fractions,
 dispatches). The engine's background warmup (where the tree has one) ends
-before the first run. Needs a card; prints one JSON line with the card's
+before the first run, and each run starts from a cold prefix cache (where
+the tree has one): the runs repeat the same prompts. Needs a card; prints one JSON line with the card's
 name and power limit, also written to ``--out``.
 """
 
@@ -134,6 +135,9 @@ def run_once(mode: str, engine, on_loop, port: int, requests, rec: dict) -> dict
     """One run of ``requests`` in ``mode``; every request must end with its
     max_tokens."""
     want = [r.sampling.max_tokens for r in requests]
+    reset = getattr(engine.allocator, "reset_prefix_cache", None)
+    if reset is not None:  # every run prefills its prompts: the prefix cache starts cold
+        on_loop(engine.run_on_engine(reset))
     rec["requests"].clear()
     rec["prefill_calls"] = 0
     anatomy = getattr(engine.scheduler, "anatomy", None)

@@ -7,7 +7,7 @@ Llama shape, B 64, page size 128, bf16, seeded random weights).
 
   1. Call-count differencing through the port's
      ``ModelRunner.prefill_chunk_batch`` (lanes ``(tokens, start, page_table,
-     slot, sampling, is_final)``): the walls of 2 and 8 back-to-back calls at
+     slot, sampling, eos_ids, is_final)``): the walls of 2 and 8 back-to-back calls at
      the 128- and 512-row buckets give each bucket's cost per call, and the
      two buckets fit cost(rows) = fixed + slope * rows.
   2. The fixed cost split at the 512-row bucket: host prep
@@ -186,7 +186,7 @@ def main(argv: list[str] | None = None) -> dict:
     def lane(rows):
         # the final chunk of a rows-long prompt: samples its first token
         # into slot 0
-        return (rng.integers(1, mc.vocab_size, size=rows, dtype=np.int32), 0, page_table, 0, greedy, True)
+        return (rng.integers(1, mc.vocab_size, size=rows, dtype=np.int32), 0, page_table, 0, greedy, (), True)
 
     lanes = {rows: [lane(rows)] for rows in (ROWS_A, ROWS_B)}
 

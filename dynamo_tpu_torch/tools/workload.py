@@ -14,6 +14,13 @@ of three geometries at full width and depth with seeded random weights:
 All draw the same prompt lengths from ``SEED``; token ids fall below each
 geometry's vocabulary.
 
+The prefix workload (``prefix_serve_config``, ``prefix_serve_requests``)
+serves 16 prompts that share one ``PREFIX_LEN``-token prefix, each with a
+distinct tail of ``MIN_TAIL``..``MAX_TAIL`` tokens, on Llama-3-8B geometry,
+with the request features mixed by ``i % 4``: greedy with logprobs 5,
+greedy with penalties, greedy with ``min_tokens`` 32 and Llama-3's two EOS
+ids, sampled and seeded with penalties and logprobs 3.
+
 ``BENCH_1_3B`` and ``bench_config`` copy the reference bench's headline
 engine (``bench.py json_model_id`` and ``bench_config``), which the kernel
 profilers (``tools/profile_attn.py``, ``tools/profile_prefill.py``) take
@@ -71,6 +78,10 @@ MIN_PROMPT, MAX_PROMPT = 64, 2048
 MAX_TOKENS = 64
 SEED = 0
 FOLDED_MAX_PROMPT = TINYLLAMA_MAX_POSITIONS - MAX_TOKENS
+PREFIX_LEN, MIN_TAIL, MAX_TAIL = 1024, 64, 960
+PENALTIES = dict(repetition_penalty=1.3, frequency_penalty=0.5, presence_penalty=0.5)
+LLAMA3_EOS_IDS = (128001, 128009)  # <|end_of_text|>, <|eot_id|>
+PREFIX_MIN_TOKENS = 32
 
 
 def serve_config(kv_cache_dtype: str | None = None) -> EngineConfig:
@@ -130,3 +141,42 @@ def bench_config(batch: int = HEADLINE[0], page_size: int = HEADLINE[1]) -> Engi
         num_pages=max(1024 * 16 // page_size, batch * 28 * 16 // page_size), max_seqs=batch,
         max_model_len=1024, prefill_buckets=(128, 256, 512), decode_steps=32, pipeline_depth=3,
     )
+
+
+def prefix_serve_config() -> EngineConfig:
+    """The prefix workload's engine: as ``serve_config``, with the context
+    of the longest prompt and its output."""
+    return EngineConfig(
+        model_id="tiny:" + json.dumps(LLAMA3_8B), device="cuda", page_size=16, num_pages=4096,
+        max_seqs=NUM_REQUESTS, max_model_len=PREFIX_LEN + MAX_TAIL + MAX_TOKENS,
+    )
+
+
+def prefix_serve_prompts(vocab_size: int = LLAMA3_8B["vocab_size"]) -> list[list[int]]:
+    """The 16 prompts: one shared prefix and distinct tails, drawn from
+    ``SEED``."""
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, vocab_size, PREFIX_LEN).tolist()
+    tails = rng.integers(MIN_TAIL, MAX_TAIL + 1, NUM_REQUESTS)
+    return [prefix + rng.integers(0, vocab_size, int(n)).tolist() for n in tails]
+
+
+def prefix_serve_requests(tag: str, indices=range(NUM_REQUESTS)) -> list[EngineRequest]:
+    """The prefix workload's requests ``indices`` (ids ``prefix-<tag>-<i>``),
+    each of MAX_TOKENS output tokens, features by ``i % 4``."""
+    prompts = prefix_serve_prompts()
+    out = []
+    for i in indices:
+        kind, extra = i % 4, {}
+        if kind == 0:
+            sampling, extra = SamplingParams(max_tokens=MAX_TOKENS), dict(logprobs=5)
+        elif kind == 1:
+            sampling = SamplingParams(max_tokens=MAX_TOKENS, **PENALTIES)
+        elif kind == 2:
+            sampling = SamplingParams(max_tokens=MAX_TOKENS, min_tokens=PREFIX_MIN_TOKENS)
+            extra = dict(eos_token_ids=LLAMA3_EOS_IDS)
+        else:
+            sampling = SamplingParams(max_tokens=MAX_TOKENS, temperature=0.8, seed=1000 + i, **PENALTIES)
+            extra = dict(logprobs=3)
+        out.append(EngineRequest(f"prefix-{tag}-{i}", prompts[i], sampling, **extra))
+    return out

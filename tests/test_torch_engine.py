@@ -155,15 +155,20 @@ def test_eos_stop_and_max_model_len(reference):
 
 
 def test_rejects_what_the_port_does_not_run(reference):
+    """Oversized prompts, images and LoRA finish with "error"; penalties,
+    min_tokens and logprobs, which the port runs, are served."""
     _, params = reference
     outs = run_port(params, [
         EngineRequest("big", list(range(70)), SamplingParams(max_tokens=2)),
-        EngineRequest("pen", [1, 2], SamplingParams(max_tokens=2, presence_penalty=0.5)),
+        EngineRequest("img", [1, 2], SamplingParams(max_tokens=2), images=[object()]),
+        EngineRequest("lora", [1, 2], SamplingParams(max_tokens=2), lora_name="adapter"),
+        EngineRequest("pen", [1, 2], SamplingParams(max_tokens=2, presence_penalty=0.5, min_tokens=1),
+                      eos_token_ids=(3,)),
         EngineRequest("lp", [1, 2], SamplingParams(max_tokens=2), logprobs=1),
         EngineRequest("ok", [1, 2], SamplingParams(max_tokens=2)),
     ])
-    assert [r for _, r in outs] == ["error", "error", "error", "length"]
-    assert [len(t) for t, _ in outs] == [0, 0, 0, 2]
+    assert [r for _, r in outs] == ["error", "error", "error", "length", "length", "length"]
+    assert [len(t) for t, _ in outs] == [0, 0, 0, 2, 2, 2]
 
 
 def test_sampling_seeded_streams_are_reproducible(reference):

@@ -52,12 +52,15 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
      into the K1 and K2 rows under "ps4"; K7a's rows also carry the bytes
      K2's blocks read (``block_bytes``), beside its bound's once-read rows;
      K8, the weight-only int8 linear (``check_int8_linear``): Llama-3-8B's
-     seven projections at T 16, 64, 512 and 2048, DeepSeek-V2-Lite's expert
-     banks at 3 and 96 rows an expert and a 1000-wide shape, bf16, against
-     its plain version, timed beside ``torch.matmul`` over the dequantized
-     bf16 weight (the library call that reads 2 bytes a weight) and its
-     bound; two launches of a split-K shape give the same bits, and its f32
-     activations hold the f32 limit
+     seven projections at T 16, 64, 512 and 2048, DeepSeek-V2-Lite's 2-D
+     products at T 16 and 512 and its expert banks at 3 and 96 rows an
+     expert, every one on the wgmma body, and a 1000-wide shape on the mma
+     body, bf16, against its plain version, timed beside
+     ``torch.matmul`` over the dequantized bf16 weight (the library call
+     that reads 2 bytes a weight) and its bound, at decode sizes also over
+     weights cold in L2; two launches of a split-K shape (T 16 and 512)
+     give the same bits, and its f32 activations (mma body) hold the f32
+     limit
   8. serve paths (tools/workload.py: 16 concurrent greedy requests of
      64-2048 prompt tokens and 64 output tokens, bf16, seeded random
      weights, full width and depth); every stream must finish with exactly
@@ -1024,18 +1027,28 @@ def phase_refusals(torch, dev) -> None:
 
 # Llama-3-8B's seven projections (in, out) at the serve path's row counts: a
 # 16-slot decode step, 64 rows, and packed prefill calls of 512 and 2048
-# rows; DeepSeek-V2-Lite's gate / up expert banks [64, C, 2048] x [64, 2048,
-# 1408] at a 16-slot decode step's capacity (3 rows an expert) and a
-# 512-row prefill chunk's (96); and one shape that is no multiple of the
-# 128-column tile nor of 16 (K8's 4-byte copies)
+# rows; DeepSeek-V2-Lite's 2-D int8_wo products (attention, the dense
+# layer's MLP, the shared experts) at a decode step and a 512-row prefill
+# chunk; its gate / up expert banks [64, C, 2048] x [64, 2048, 1408] at a
+# 16-slot decode step's capacity (3 rows an expert) and a 512-row prefill
+# chunk's (96); and one shape that is no multiple of the 128-column tile nor
+# of 16 (the mma body, 4-byte copies)
 K8_LLAMA = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
             "gate": (4096, 14336), "up": (4096, 14336), "down": (14336, 4096)}
 K8_ROWS = (16, 64, 512, 2048)
+K8_V2_LITE = {"w_q": (2048, 3072), "w_dkv": (2048, 576), "wo": (2048, 2048), "mlp gate": (2048, 10944),
+              "mlp down": (10944, 2048), "shared gate": (2048, 2816), "shared down": (2816, 2048)}
+K8_V2_ROWS = (16, 512)
 K8_EXPERTS = {"E64 C3": (64, 3, 2048, 1408), "E64 C96": (64, 96, 2048, 1408)}
 K8_ODD = (37, 1000, 1000)
 # the shapes whose numbers stand in the kernels line's rows: the decode
 # step's largest projection, and the decode step's expert bank
 K8_MAIN, K8_EXPERT_MAIN = "gate T16", "E64 C3"
+# a decode step reads each layer's weights once from HBM (32 layers of
+# Llama-3-8B int8 are 7 GB): at decode sizes K8 and torch.matmul are also
+# timed over copies of the weight that together exceed the 50 MB L2, one
+# copy a call
+L2_BYTES = 50 * 2**20
 
 
 def k8_inputs(torch, dev, lead, K: int, N: int):
@@ -1048,55 +1061,111 @@ def k8_inputs(torch, dev, lead, K: int, N: int):
     return h, qw.q, qw.s, dequantize_int8(qw, torch.bfloat16)
 
 
+def k8_plan(h, q):
+    """K8's plan for (h, q): its body ("wgmma" or "mma"), tile rows,
+    splits and K rows a split (``ops/kernels/int8_linear.py plan``)."""
+    from dynamo_tpu_torch.ops.kernels.int8_linear import plan
+
+    return plan(h.shape[-2], q.shape[-2], q.shape[-1], q.shape[0] if q.dim() == 3 else 1, h.dtype)
+
+
+def cold_copies(torch, t) -> list:
+    """``t`` and enough copies of it that together they exceed the L2."""
+    return [t] + [t.clone() for _ in range(L2_BYTES // (t.numel() * t.element_size()) + 1)]
+
+
 def k8_entry(torch, what: str, kernel, h, q, s, wb) -> dict:
     """K8 on (h, q, s) held to its plain version (bf16 limit), timed beside
     the plain version, the library call over the dequantized bf16 weight
     (``torch.matmul``, which reads 2 bytes a weight) and the bound: the int8
     weight, its scales, h and the output moved once, or 2 T in out
-    operations at the bf16 tensor rate."""
+    operations at the bf16 tensor rate. At decode sizes (T <= 64) both are
+    also timed cold (``cold_ms``, ``library_cold_ms``): each call reads
+    another copy of the weight, as a decode step reads each layer's."""
     from dynamo_tpu_torch.quant.int8 import qlinear_plain
+    from dynamo_tpu_torch.tools.timing import launch_times
 
+    p = k8_plan(h, q)
     got = kernel(h, q, s)
-    held = held_to_plain(f"K8 {what}", "bf16", got, qlinear_plain(h, q, s))
+    held = held_to_plain(f"K8 {what} ({p.body} body)", "bf16", got, qlinear_plain(h, q, s))
     kt = timed(lambda: kernel(h, q, s), 30)
     plain_ms = cuda_ms(lambda: qlinear_plain(h, q, s), 3)
     lt = timed(lambda: torch.matmul(h, wb), 30, "library_")
     nbytes = q.numel() + 4 * s.numel() + 2 * h.numel() + 2 * got.numel()
     b_ms, b_by = bound(nbytes, 2 * h.numel() * q.shape[-1], "bf16")
-    log(f"K8 {what}: kernel {kt['ms']:.4f} ms (back to back {kt['b2b_ms']:.4f}), plain {plain_ms:.4f} ms, "
-        f"torch.matmul over the bf16 weight {lt['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-        f"{nbytes / 1e6:.1f} MB), {b_ms / kt['ms']:.3f} of the bound")
-    return dict(**held, **kt, plain_ms=plain_ms, **lt, bound_ms=b_ms, bound_by=b_by)
+    cold = {}
+    if h.shape[-2] <= 64:
+        qs, ss, wbs = cold_copies(torch, q), cold_copies(torch, s), cold_copies(torch, wb)
+        n = min(len(qs), len(ss))
+        cold["cold_ms"] = launch_times(lambda i: kernel(h, qs[i % len(qs)], ss[i % n]), 30)[0] / 1e3
+        cold["library_cold_ms"] = launch_times(lambda i: torch.matmul(h, wbs[i % len(wbs)]), 30)[0] / 1e3
+        del qs, ss, wbs
+    log(f"K8 {what}: {p.body} body (tile rows {p.rows}, {p.splits} split(s) of {p.k_per_split}), kernel "
+        f"{kt['ms']:.4f} ms (back to back {kt['b2b_ms']:.4f}), plain {plain_ms:.4f} ms, torch.matmul over the bf16 "
+        f"weight {lt['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB), "
+        f"{b_ms / kt['ms']:.3f} of the bound"
+        + (f"; cold weights: kernel {cold['cold_ms']:.4f} ms, torch.matmul {cold['library_cold_ms']:.4f} ms"
+           if cold else ""))
+    return dict(**held, **kt, plain_ms=plain_ms, **lt, bound_ms=b_ms, bound_by=b_by, body=p.body,
+                plan=[p.rows, p.splits, p.k_per_split], **cold)
 
 
 def check_int8_linear(torch, dev) -> dict:
     """K8 in both forms at the shapes above, bf16 activations (the serve
-    paths'); its f32 activations (the parity phases': bf16 hi + lo products)
-    at Llama's wq, T 16, held to the f32 limit; two launches of a split-K
-    shape give the same bits. Returns {"K8": {shape: entry}, "K8 experts":
-    {shape: entry}}."""
+    paths': every served shape on the wgmma body); its f32 activations (the
+    parity phases': bf16 hi + lo products on the mma body) at Llama's
+    wq, T 16, held to the f32 limit; the 1000-wide shape on the mma body;
+    two launches of a split-K shape (a cluster's partials summed through
+    distributed shared memory) give the same bits. Returns {"K8": {shape:
+    entry}, "K8 experts": {shape: entry}}."""
     from dynamo_tpu_torch.ops.kernels.int8_linear import int8_linear_expert_kernel, int8_linear_kernel
     from dynamo_tpu_torch.quant.int8 import qlinear_plain
 
+    def body_is(h, q, want: str, what: str) -> None:
+        if k8_plan(h, q).body != want:
+            raise AssertionError(f"K8 {what}: the {k8_plan(h, q).body} body, not the {want} body")
+
+    # the plan's split rule assumes CLUSTER_BLOCKS blocks resident at once
+    # in clusters of each size: hold it to this card
+    import ctypes
+
+    from dynamo_tpu_torch.ops.kernels import _build
+    from dynamo_tpu_torch.ops.kernels.int8_linear import CLUSTER_BLOCKS
+
+    resident = _build.entry("int8_linear", "w8a16_wgmma_max_clusters", [ctypes.c_int, ctypes.c_int])
+    for bt in (16, 128):
+        blocks = {n: n * resident(bt, n) for n in CLUSTER_BLOCKS}
+        log(f"K8 blocks resident in clusters of 1-8, tile rows {bt}: {blocks} (the plan assumes {CLUSTER_BLOCKS})")
+        if any(blocks[n] < CLUSTER_BLOCKS[n] for n in CLUSTER_BLOCKS):
+            raise AssertionError(f"K8: this card holds fewer resident blocks than the plan assumes: {blocks}")
     out = {"K8": {}, "K8 experts": {}}
-    for name, (K, N) in K8_LLAMA.items():
-        for T in K8_ROWS:
-            h, q, s, wb = k8_inputs(torch, dev, (T,), K, N)
-            out["K8"][f"{name} T{T}"] = k8_entry(torch, f"Llama-3-8B {name} [{T}, {K}] x [{K}, {N}]",
-                                                 int8_linear_kernel, h, q, s, wb)
-            if (name, T) == ("wq", 16):
-                if not torch.equal(int8_linear_kernel(h, q, s), int8_linear_kernel(h, q, s)):
-                    raise AssertionError("K8: two launches of a split-K shape differ")
-                h32 = h.float()
-                held_to_plain("K8 Llama-3-8B wq T 16, f32 activations", "f32", int8_linear_kernel(h32, q, s),
-                              qlinear_plain(h32, q, s))
-            del h, q, s, wb
+    shapes = [("Llama-3-8B", name, "", K, N, T) for name, (K, N) in K8_LLAMA.items() for T in K8_ROWS]
+    shapes += [("DeepSeek-V2-Lite", name, "V2-Lite ", K, N, T) for name, (K, N) in K8_V2_LITE.items()
+               for T in K8_V2_ROWS]
+    for model, name, prefix, K, N, T in shapes:
+        h, q, s, wb = k8_inputs(torch, dev, (T,), K, N)
+        body_is(h, q, "wgmma", f"{model} {name} T {T}")
+        out["K8"][f"{prefix}{name} T{T}"] = k8_entry(torch, f"{model} {name} [{T}, {K}] x [{K}, {N}]",
+                                                     int8_linear_kernel, h, q, s, wb)
+        if (model, name, T) in (("Llama-3-8B", "wq", 16), ("Llama-3-8B", "wq", 512)):
+            if k8_plan(h, q).splits < 2:
+                raise AssertionError(f"K8: Llama-3-8B wq T {T} is not split")
+            if not torch.equal(int8_linear_kernel(h, q, s), int8_linear_kernel(h, q, s)):
+                raise AssertionError(f"K8: two launches of a split-K shape (wq T {T}) differ")
+        if (model, name, T) == ("Llama-3-8B", "wq", 16):
+            h32 = h.float()
+            body_is(h32, q, "mma", "f32 activations")
+            held_to_plain("K8 Llama-3-8B wq T 16, f32 activations (mma body)", "f32", int8_linear_kernel(h32, q, s),
+                          qlinear_plain(h32, q, s))
+        del h, q, s, wb
     T, K, N = K8_ODD
     h, q, s, wb = k8_inputs(torch, dev, (T,), K, N)
+    body_is(h, q, "mma", f"out {N}")
     out["K8"][f"odd T{T} in {K} out {N}"] = k8_entry(torch, f"[{T}, {K}] x [{K}, {N}]", int8_linear_kernel,
                                                     h, q, s, wb)
     for key, (E, C, K, N) in K8_EXPERTS.items():
         h, q, s, wb = k8_inputs(torch, dev, (E, C), K, N)
+        body_is(h, q, "wgmma", f"expert bank {key}")
         out["K8 experts"][key] = k8_entry(torch, f"DeepSeek-V2-Lite expert bank [{E}, {C}, {K}] x [{E}, {K}, {N}]",
                                           int8_linear_expert_kernel, h, q, s, wb)
     torch.cuda.empty_cache()

@@ -1,16 +1,17 @@
 """Where the serving time goes on the card: torch.profiler over the serve
 workloads of ``chip_smoke.py`` (``tools/workload.py``: 16 concurrent greedy
 requests on Llama-3-8B geometry, on DeepSeek-V2-Lite geometry, on
-TinyLlama-1.1B geometry with the int8 KV cache, and on Llama-3-8B geometry
-with ``DYNTPU_DECODE_KERNEL=grouped`` (K4b decode); bf16 weights, seeded
-random), each split at its last prefill-attention launch (K2, K6 or K3b)
-into a prefill window and a decode window.
+TinyLlama-1.1B geometry with the int8 KV cache, on Llama-3-8B geometry with
+``DYNTPU_DECODE_KERNEL=grouped`` (K4b decode), and on Llama-3-8B geometry
+with int8_wo weights (every linear through K8); seeded random weights,
+bf16 but for the last), each split at its last prefill-attention launch
+(K2, K6 or K3b) into a prefill window and a decode window.
 
-    python -m dynamo_tpu_torch.tools.profile_serve [--out profile_serve.json]
+    python -m dynamo_tpu_torch.tools.profile_serve [--out profile_serve.json] [--workloads llama,llama_int8_wo]
 
 For each workload and window it reports the wall time, the device's busy
 and idle share (union of kernel intervals), device time by kernel class
-(K1, K2, K3a, K3b, K4b, K5, K6, GEMM, other) and the top kernels; for the decode window
+(K1, K2, K3a, K3b, K4b, K5, K6, K8, GEMM, other) and the top kernels; for the decode window
 also the time per decode step; and, where the engine records it, the
 profiled serve's step anatomy (host fraction, roofline fractions, prefill
 fixed ms, decode dispatch gap) and its graph captures. The engine warms up
@@ -60,6 +61,7 @@ WORKLOADS = {
     "folded_int8": (lambda: folded_serve_config("int8"), folded_serve_requests,
                     TINYLLAMA_1_1B["num_layers"], None),
     "grouped": (serve_config, serve_requests, LLAMA3_8B["num_layers"], "grouped"),
+    "llama_int8_wo": (lambda: serve_config(quantize="int8_wo"), serve_requests, LLAMA3_8B["num_layers"], None),
 }
 # kernel class by a mark in its name; K1, K3a, K4b and K5 count all of their
 # launches (K1's bodies, paged_decode_tc (bf16 queries) or
@@ -68,14 +70,16 @@ WORKLOADS = {
 # and the same merge; K5's bodies, mla_decode_tc (bf16 pages) or
 # mla_decode_partial, and the same merge: a window where grouped_scores runs
 # gives merge_splits to K4b, one where a K5 body runs to K5, else K1 or K3a
-# take it as the workload's decode kernel). K2 and
+# take it as the workload's decode kernel). K8 is every launch of the
+# weight-only int8 linear's bodies (w8a16_wgmma, w8a16_kernel and
+# w8a16_reduce). K2 and
 # K3b share their kernel bodies (tc_prefill_kernel, fma_prefill_kernel), and
 # K1 and K3a share paged_decode_tc: a folded workload's prefill kernels are
 # K3b's launches and its decode kernels K3a's
 KERNEL_MARKS = (
     ("K1", "paged_decode_"), ("K2", "_prefill_kernel"),
     ("K3a", "folded_decode_"), ("K3a", "merge_splits"), ("K4b", "grouped_"), ("K5", "mla_decode_"),
-    ("K6", "mla_prefill"),
+    ("K6", "mla_prefill"), ("K8", "w8a16_"),
 )
 PREFILL_CLASSES = ("K2", "K3b", "K6")
 DECODE_STEP_KERNEL = {"K1": "paged_decode_", "K3a": "folded_decode_", "K4b": "grouped_scores",
@@ -258,12 +262,18 @@ def profile_workload(name: str, smi: str) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default="", help="write the summaries' JSON here too")
+    p.add_argument("--workloads", default=",".join(WORKLOADS),
+                   help=f"comma-separated, in order, of {', '.join(WORKLOADS)} (default: all)")
     args = p.parse_args(argv)
+    names = [n for n in args.workloads.split(",") if n]
+    unknown = [n for n in names if n not in WORKLOADS]
+    if unknown:
+        raise SystemExit(f"unknown workloads {unknown}; choose from {list(WORKLOADS)}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
     torch.cuda.set_device(0)
     smi = card()
-    summaries = {name: profile_workload(name, smi) for name in WORKLOADS}
+    summaries = {name: profile_workload(name, smi) for name in names}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(summaries, indent=1))

@@ -28,16 +28,28 @@ latent rows of 576 (d_c 512), two 512-row chunks of one sequence at
 prefixes 0 and 1536, f32 pre-scaled queries over bf16 pages, both chunks a
 call; SDPA takes the bf16 queries over the gathered context with the causal
 mask (its math backend: no fused one takes these shapes).
+K8, the weight-only int8 linear (``int8_linear_kernel``,
+``int8_linear_expert_kernel``): Llama-3-8B's seven products at T 16, 512
+and 2048 and DeepSeek-V2-Lite's expert bank [64, C, 2048] x [64, 2048,
+1408] at C 3 and 96 (chip_smoke.py's K8_LLAMA and K8_EXPERTS), bf16, each
+beside ``torch.matmul`` over the dequantized bf16 weight; at T 16 and C 3
+also cold (each call reads another copy of the weight, the copies together
+past the 50 MB L2, as a decode step reads each layer's weights).
+
+    python -m dynamo_tpu_torch.tools.time_decode k8    # the K8 cases alone
+
 To time another tree's launchers on the same inputs, copy this file and
 ``tools/timing.py`` into that tree's ``dynamo_tpu_torch/tools/`` and run it
 there: it calls the launchers by their public names, which are the same in
-every tree since K4b was ported. Prints one JSON line. Needs one CUDA device.
+every tree since K4b was ported (K8's since it was written). Prints one JSON line.
+Needs one CUDA device.
 """
 
 from __future__ import annotations
 
 import functools
 import json
+import sys
 
 import numpy as np
 import torch
@@ -47,7 +59,7 @@ from dynamo_tpu_torch.ops.kernels import paged_attention as pa
 from dynamo_tpu_torch.ops.kernels import mla_attention as mla
 from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_prefill_attention_kernel
 from dynamo_tpu_torch.quant.kv import QuantizedPages, dequantize_rows, quantize_kv_rows
-from dynamo_tpu_torch.tools.timing import card, launch_times
+from dynamo_tpu_torch.tools.timing import card, device_us, launch_times
 
 B, ROWS, ITERS = 64, 2048, 50
 K7C = functools.partial(pa.paged_decode_perseq_variant_kernel, cast_f32=False)
@@ -207,6 +219,49 @@ def mla_decode_inputs(rng, dev, pages_dtype, batch: int, rows: int, full: bool) 
                 mask=(torch.arange(rows, device=dev)[None, :] <= pos_t[:, None].long().clamp(min=0))[:, None, None, :])
 
 
+# K8's shapes, as chip_smoke.py's: Llama-3-8B's products (in, out), the
+# row counts of a 16-slot decode step and of 512- and 2048-row prefill
+# calls, and DeepSeek-V2-Lite's gate / up expert bank (E, C, in, out)
+K8_LLAMA = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
+            "gate": (4096, 14336), "up": (4096, 14336), "down": (14336, 4096)}
+K8_ROWS = (16, 512, 2048)
+K8_EXPERTS = {"E64 C3": (64, 3, 2048, 1408), "E64 C96": (64, 96, 2048, 1408)}
+L2_BYTES = 50 * 2**20
+
+
+def k8_cases(dev) -> dict:
+    """K8 and torch.matmul over the dequantized bf16 weight at K8's shapes,
+    inputs from a seeded generator (the same in every tree); at decode
+    sizes also cold: one copy of the weight a call, the copies past the
+    L2."""
+    from dynamo_tpu_torch.ops.kernels.int8_linear import int8_linear_expert_kernel, int8_linear_kernel
+    from dynamo_tpu_torch.quant.int8 import dequantize_int8, quantize_int8
+
+    shapes = [(f"K8 {name} T{T}", int8_linear_kernel, (T,), K, N) for name, (K, N) in K8_LLAMA.items()
+              for T in K8_ROWS]
+    shapes += [(f"K8 experts {key}", int8_linear_expert_kernel, (E, C), K, N)
+               for key, (E, C, K, N) in K8_EXPERTS.items()]
+    res = {}
+    for name, kernel, lead, K, N in shapes:
+        gen = torch.Generator(device=dev).manual_seed(K + N + lead[-1])
+        qw = quantize_int8(torch.randn((*lead[:-1], K, N), device=dev, generator=gen) / K**0.5)
+        h = torch.randn((*lead, K), device=dev, generator=gen).bfloat16()
+        wb = dequantize_int8(qw, torch.bfloat16)
+        q, s = qw.q, qw.s
+        row = {"kernel": times(lambda: kernel(h, q, s)), "matmul": times(lambda: torch.matmul(h, wb))}
+        if lead[-1] <= 16:
+            qs = [q] + [q.clone() for _ in range(L2_BYTES // q.numel() + 1)]
+            wbs = [wb] + [wb.clone() for _ in range(L2_BYTES // (2 * wb.numel()) + 1)]
+            row["kernel cold"] = {"ms": device_us(lambda i: kernel(h, qs[i % len(qs)], s), ITERS) / 1e3}
+            row["matmul cold"] = {"ms": device_us(lambda i: torch.matmul(h, wbs[i % len(wbs)]), ITERS) / 1e3}
+            del qs, wbs
+        res[name] = row
+        print(f"{name}: {row}", flush=True)
+        del qw, h, wb, q, s
+        torch.cuda.empty_cache()
+    return res
+
+
 def times(launch, iters: int = ITERS) -> dict:
     dev_us, b2b_us, host_us = launch_times(lambda i: launch(), iters)
     return {"ms": dev_us / 1e3, "b2b_ms": b2b_us / 1e3, "host_ms": host_us / 1e3}
@@ -218,6 +273,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {"device": card()}
+    res |= k8_cases(dev)
+    if sys.argv[1:2] == ["k8"]:
+        print(json.dumps(res), flush=True)
+        return 0
     for name, (launcher, Hq, Hkv, D, ps, pools, batch, rows, full) in CASES.items():
         x = case_inputs(np.random.default_rng(0), Hq, Hkv, D, ps, pools, dev, batch, rows, full)
         qs = x["q"][:, :, None, :]

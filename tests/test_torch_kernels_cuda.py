@@ -10,8 +10,9 @@ and 16), head_dim 256 to 1024 (past 512 on the runtime-D bodies), folded
 head dims 8, 24, 80, 96, 192, 264, 320, 520 and 1000, and 100 and 20 (no
 multiple of 8), and MLA at 4, 16 and 20 heads, at a latent row of d_c 1024
 + d_r 64 and at rows that start off 16 bytes (latent 36, d_c 30), and K8
-(the weight-only int8 linear, plain and expert-bank forms, bf16 and f32
-activations). K1 over
+(the weight-only int8 linear, plain and expert-bank forms, bf16 activations
+on its wgmma body, f32 activations and out % 16 != 0 on its mma.sync body).
+K1 over
 bf16 queries (its split tensor-core body and merge), K4a / K4b and K5 (both
 bodies) give the same bits twice; K7c's
 two toggles give K4b's and K1's bits on the same inputs. Marked ``cuda``: every test skips
@@ -994,3 +995,58 @@ def test_int8_linear_refuses_what_it_does_not_take(cuda):
         int8_linear_kernel(h[:, :60].contiguous(), q[:60].contiguous(), s)
     with pytest.raises(ValueError, match="CUDA tensors"):
         int8_linear_kernel(h.cpu(), q.cpu(), s.cpu())
+
+
+@pytest.mark.parametrize("T", [1, 8, 17, 600, 2048])
+@pytest.mark.parametrize("K,N", [(1408, 576), (10944, 1408), (1408, 10944)])
+def test_int8_linear_wgmma_body_matches_plain(cuda, T, K, N):
+    """K8's wgmma body (bf16 h, out % 16 == 0) against its plain version at
+    decode and prefill row counts (T tails at 1, 17 and 600; tiles of 8, 24
+    and 128 rows), out 576, 1408 and 10944, in 1408 and 10944 (split over
+    clusters where the tiles are few); two launches give the same bits."""
+    from dynamo_tpu_torch.ops.kernels.int8_linear import int8_linear_kernel, plan
+    from dynamo_tpu_torch.quant.int8 import qlinear_plain
+
+    assert plan(T, K, N).body == "wgmma"
+    h, q, s = _int8_inputs(np.random.default_rng(T + K + N), (T,), K, N, torch.bfloat16, cuda)
+    got = int8_linear_kernel(h, q, s)
+    again = int8_linear_kernel(h, q, s)
+    torch.cuda.synchronize()
+    assert got.shape == (T, N) and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), qlinear_plain(h, q, s).float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("C", [3, 96])
+@pytest.mark.parametrize("K,N", [(2048, 1408), (1408, 2048)])
+def test_int8_linear_expert_wgmma_body_matches_plain(cuda, C, K, N):
+    """The expert-bank form on the wgmma body: DeepSeek-V2-Lite's 64-expert
+    gate / up and down banks at a decode step's 3 rows an expert and a
+    prefill chunk's 96, one launch, the same bits twice."""
+    from dynamo_tpu_torch.ops.kernels.int8_linear import int8_linear_expert_kernel, plan
+    from dynamo_tpu_torch.quant.int8 import qlinear_plain
+
+    assert plan(C, K, N, 64).body == "wgmma"
+    h, q, s = _int8_inputs(np.random.default_rng(C + K), (64, C), K, N, torch.bfloat16, cuda)
+    got = int8_linear_expert_kernel(h, q, s)
+    again = int8_linear_expert_kernel(h, q, s)
+    torch.cuda.synchronize()
+    assert got.shape == (64, C, N) and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), qlinear_plain(h, q, s).float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype,T,K,N", [(torch.float32, 16, 4096, 4096), (torch.float32, 600, 1408, 576),
+                                         (torch.bfloat16, 37, 1000, 1000), (torch.bfloat16, 16, 4096, 1000)],
+                         ids=["f32-decode", "f32-prefill", "bf16-out1000", "bf16-out1000-split"])
+def test_int8_linear_mma_body_stays(cuda, dtype, T, K, N):
+    """f32 activations and widths that are no multiple of 16 stay on the
+    mma.sync body, within their limits, the same bits twice."""
+    from dynamo_tpu_torch.ops.kernels.int8_linear import int8_linear_kernel, plan
+    from dynamo_tpu_torch.quant.int8 import qlinear_plain
+
+    assert plan(T, K, N, 1, dtype).body == "mma"
+    h, q, s = _int8_inputs(np.random.default_rng(T + K + N), (T,), K, N, dtype, cuda)
+    got = int8_linear_kernel(h, q, s)
+    again = int8_linear_kernel(h, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), qlinear_plain(h, q, s).float(), **TOL[dtype])

@@ -199,6 +199,24 @@ def test_profile_serve_gives_k1_its_split_body_and_merge():
     assert DECODE_STEP_KERNEL["K1"] in body["name"] and DECODE_STEP_KERNEL["K1"] not in merge["name"]
 
 
+@pytest.mark.parametrize("body", ["w8a16_wgmma<16, true>", "w8a16_wgmma<128, false>",
+                                  "w8a16_kernel<__nv_bfloat16, 8>", "w8a16_reduce<float>"])
+def test_profile_serve_classes_k8(body):
+    """Every body of K8 (the wgmma body, the mma body and its reduce)
+    is K8's, not a GEMM's, in every workload; the int8_wo workload is
+    profiled by name and selectable on the command line."""
+    from dynamo_tpu_torch.tools.profile_serve import WORKLOADS, kernel_class, main, window_stats
+
+    name = f"void (anonymous namespace)::wg::{body}(CUtensorMap, CUtensorMap, (anonymous namespace)::wg::Call)"
+    assert kernel_class(name) == "K8" and kernel_class(name, folded=True) == "K8"
+    gemm = dict(name="nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", ts=12.0, dur=3.0)
+    assert window_stats([dict(name=name, ts=0.0, dur=10.0), gemm], 0.0, 20.0)["device_ms_by_class"] == {
+        "K8": 0.01, "gemm": 0.003}
+    assert "llama_int8_wo" in WORKLOADS
+    with pytest.raises(SystemExit, match="unknown workloads"):
+        main(["--workloads", "llama,nope"])
+
+
 def test_profile_http_runs_each_mode_on_the_cpu():
     """profile_http's run_modes on a tiny CPU engine behind the port's
     service (the tiny card's engine defaults): each mode serves every request

@@ -122,6 +122,26 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
        from the same tensors here (``hf_state``); then `run <TinyLlama dir>
        --in http --out torch` and the same with --quantize int8_wo serve the
        folded prompts over HTTP: K3a K3b (and K8) launch, nothing else
+     spec serve (``phase_spec_serve``): speculative decoding, k = 4. First
+       K2 and K5 at the verify pass's shapes, bf16 (``check_verify_shapes``:
+       K2 over 15 lanes of 5 rows at the workload's anchors and a pad lane;
+       K5 over 16 lanes x 5 rows, each row with its lane's table), held to
+       their plain versions and timed beside them and SDPA. (a) n-gram on
+       the serve engine (Llama-3-8B, 32 layers, bf16), the workload twice,
+       the second timed: acceptance, verify rounds, tok/s and TTFT beside
+       serve's, the share of streams equal to serve's (bf16: the verify pass
+       and the decode step round differently, so a stream may take the other
+       side of a near-tie), only K2 launches, with the K2 launches the verify
+       graphs replayed; (c) a TinyLlama-1.1B-geometry draft with Llama-3's
+       vocabulary for the same target (K3a / K3b in the draft): every stream
+       equals (a)'s; at Llama-3-8B width, 4 layers, f32: (a') n-gram, (b) the
+       target as its own draft (greedy acceptance exactly 1.0) and (c') a
+       4-layer f32 TinyLlama draft, every stream equal to the same engine's
+       without speculation; (e) seeded sampled requests (temperature 0.8) on
+       (a')'s and (b)'s engines reproduced token for token beside other
+       batch mates; (d) DeepSeek-V2-Lite width, 4 layers, f32, capacity
+       factor 11, n-gram: streams equal the engine's without speculation, K5
+       launched once a layer a verify round, K6 in prefill, nothing else
   9. refusals: an int8 cache on tiny-mla and on K4a, K3b over float16 and
      K4b at a folded head dim raise on the card; K1 at head_dim 640 and K3a
      at 520, which the launchers refused before, launch and hold their plain
@@ -175,6 +195,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -438,7 +459,7 @@ def check_prefill(torch, dev, rng, which: str, ps: int = 16, T: int = 512, start
     Hq, Hkv, D = GEOMETRY[which]
     starts = [*starts, 0]  # the last lane is a pad lane: n=0, all-zero table
     L = len(starts)
-    need = [(s + T) // ps for s in starts[:-1]]
+    need = [-(-(s + T) // ps) for s in starts[:-1]]
     P = 1 + sum(need)
     perm = 1 + rng.permutation(P - 1)
     pt = np.zeros((L, max_pages), np.int32)
@@ -1259,13 +1280,14 @@ def anatomy_line(anatomy) -> str:
 
 
 def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict,
-                forbidden: dict | None = None, after=None) -> dict:
+                forbidden: dict | None = None, after=None, record: dict | None = None) -> dict:
     """Serve ``requests`` on ``config``; every stream must end with exactly
     MAX_TOKENS tokens, each of ``kernels`` ({name: launcher}) must have
     launched and none of ``forbidden``; an int8 config must have served from
     int8 pools, an int8_wo one from int8 weights. ``after(engine)``, when
-    given, runs on the served engine once the counts are read. Returns
-    {name: launches in this run}."""
+    given, runs on the served engine once the counts are read; ``record``,
+    when given, takes the run's streams, wall and TTFTs under ``what``.
+    Returns {name: launches in this run}."""
     from dynamo_tpu_torch.quant.kv import QuantizedPages
     from dynamo_tpu_torch.tools.workload import MAX_TOKENS as max_tokens
 
@@ -1308,6 +1330,8 @@ def phase_serve(torch, gpu_name: str, what: str, config, requests, kernels: dict
         log(f"{what}: every K5 call ran mla_decode_tc (latent pool {pool.dtype}, width {pool.shape[-1]}, d_c {d_c})")
     n_out = sum(len(t) for t, _, _ in results.values())
     ttfts = sorted(t for _, _, t in results.values())
+    if record is not None:
+        record[what] = dict(results=results, wall=wall, n_out=n_out, ttfts=ttfts)
     log(f"{what}: {len(results)}/{len(requests)} streams finished with {max_tokens} tokens; prompts "
         f"{int(lens.min())}-{int(lens.max())} (sum {int(lens.sum())}); KV cache "
         f"{'int8' if quantized else 'bf16'}; launches " + " ".join(f"{k} {v}" for k, v in launches.items())
@@ -2442,6 +2466,315 @@ def phase_instruments(torch, twins: dict) -> dict:
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- speculative decoding
+
+SPEC_K = 4  # drafts a round: the verify pass feeds k + 1 rows a lane
+
+
+def verify_anchors(n: int) -> list[int]:
+    """Verify anchors at the serve workload's shapes: the first ``n``
+    prompts' lengths plus half the output (the middle of a stream)."""
+    from dynamo_tpu_torch.tools.workload import MAX_TOKENS, serve_requests
+
+    return [len(r.token_ids) + MAX_TOKENS // 2 for r in serve_requests()[:n]]
+
+
+def check_mla_verify(torch, dev, rng) -> dict:
+    """K5 at the MLA verify's call: 16 lanes of k + 1 = 5 query rows (80
+    rows, 16 heads, latent 576, d_c 512, bf16 pages, page size 16), each row
+    with its lane's table (the table repeated k + 1 times) and its own
+    position, at the serve workload's anchors; held to the plain version,
+    timed beside it and one SDPA call over the gathered context (a 5-row
+    causal mask a lane). The bound reads each lane's rows ONCE (K5 reads
+    them k + 1 times, once a query row) and counts the rows' operations."""
+    from dynamo_tpu_torch.ops import attention as plain
+    from dynamo_tpu_torch.ops.kernels.mla_attention import paged_mla_decode_attention_kernel as k5
+
+    B, T, H, L, dc, ps = 16, SPEC_K + 1, MLA_H, MLA_LATENT, MLA_DC, 16
+    anchors = np.array(verify_anchors(B))
+    max_pages = -(-int(anchors.max() + T) // ps)
+    pt, P = mla_tables(rng, anchors + T, ps, max_pages)
+    pos = (anchors[:, None] + np.arange(T)[None]).astype(np.int32)
+    pt_t = torch.from_numpy(np.repeat(pt, T, axis=0)).to(dev)
+    pos_t = torch.from_numpy(pos.reshape(B * T)).to(dev)
+    q = torch.randn((B * T, H, L), device=dev) / L**0.5
+    pages = torch.randn((P, ps, L), device=dev).to(torch.bfloat16)
+    got = k5(q, pages, pt_t, pos_t, dc)
+    ref = plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc)
+    held = held_to_plain(f"K5 MLA verify ({B} lanes x {T} rows)", "f32 q / bf16 pages", got, ref, tol="f32")
+    kt = timed(lambda: k5(q, pages, pt_t, pos_t, dc), 50)
+    plain_ms = cuda_ms(lambda: plain.paged_mla_decode_attention(q, pages, pt_t, pos_t, dc), 5)
+    S = max_pages * ps
+    lane_pt = torch.from_numpy(pt).to(dev)
+    ctx = plain.gather_pages(pages, lane_pt)[:, None]  # [B, 1, S, L]
+    vc = ctx[..., :dc].contiguous()
+    qs = q.to(pages.dtype).reshape(B, T, H, L).permute(0, 2, 1, 3)  # [B, H, T, L]
+    mask = (torch.arange(S, device=dev)[None, None, :] <= torch.from_numpy(pos).to(dev)[:, :, None].long())[:, None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qs, ctx, vc, attn_mask=mask, scale=1.0,
+                                                                enable_gqa=True)
+
+    lt = timed(sdpa, 20, "library_")
+    rows = int((anchors + T).sum())  # each lane's context rows, read once
+    pairs = int((pos + 1).sum())
+    nbytes = rows * L * pages.element_size() + q.numel() * 4 + B * T * H * dc * 4 + pt.nbytes + pos.nbytes
+    flops = 2 * H * (L + dc) * pairs
+    b_ms, b_by = bound(nbytes, flops, "bf16")
+    ms = kt["ms"]
+    log(f"K5 MLA verify ({B} lanes x {T} rows, anchors {int(anchors.min())}-{int(anchors.max())}) f32 q / bf16 "
+        f"pages: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lt['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {nbytes / 1e6:.1f} MB with each lane's rows read once, K5 reads them {T} times: "
+        f"{rows * L * pages.element_size() * T / 1e6:.1f} MB); {b_ms / ms:.3f} of the bound")
+    return dict(bf16=dict(**held, **kt, plain_ms=plain_ms, **lt, bound_ms=b_ms, bound_by=b_by))
+
+
+def check_verify_shapes(torch, dev, rng) -> dict:
+    """K2 and K5 at the verify pass's shapes, bf16: K2 over 15 lanes of k + 1
+    = 5 rows at the serve workload's anchors and a pad lane (16 lanes, Llama-3-8B
+    heads, page size 16, the serve engine's 132-page tables), K5 as
+    ``check_mla_verify``."""
+    return {
+        "K2": check_prefill(torch, dev, rng, "K2", ps=16, T=SPEC_K + 1, starts=tuple(verify_anchors(15)),
+                            max_pages=132, mixes=MIXES[1:2]),
+        "K5": check_mla_verify(torch, dev, rng),
+    }
+
+
+def spec_tally(engine, launcher) -> int:
+    """Launches of ``launcher`` the engine's verify graphs replayed (each
+    graph's capture tally times its replays)."""
+    return sum(dict(e.tally).get(launcher, 0) * e.replays
+               for key, e in engine.runner.graphs.entries.items() if key[0] == "verify")
+
+
+def spec_serve(torch, config, rounds: list, kernels: dict, forbidden: dict) -> dict:
+    """Serve each request list of ``rounds`` in turn on one engine with
+    ``config`` (step graphs captured on first use; the prefix cache emptied
+    between rounds, so each round prefills its prompts in full), the launch
+    counts set to 0 before the last round. Returns the streams
+    ({rid: (tokens, finish, ttft)}), wall and stage-counter deltas of every
+    round, {name: launches in the last round}, the K2
+    launches the verify graphs replayed over the engine's life, and the
+    graphs captured in all and in the last round. Raises when a kernel of
+    ``kernels`` did not launch in the last round, or one of ``forbidden``
+    did."""
+    from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+    from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_kernel as k2
+
+    async def run():
+        engine = AsyncTorchEngine(config)
+        await engine.start()
+        try:
+            outs, walls, stages = [], [], []
+            monitor = engine.runner.compile_monitor
+            for i, requests in enumerate(rounds):
+                if i:
+                    await engine.run_on_engine(engine.allocator.reset_prefix_cache)
+                if i == len(rounds) - 1:
+                    for fn in (*kernels.values(), *forbidden.values()):
+                        fn.launches = 0
+                    captures = monitor.compiles
+                before = dataclasses.asdict(engine.scheduler.stage)
+                results, wall = await serve_on(engine, requests)
+                after = dataclasses.asdict(engine.scheduler.stage)
+                outs.append(results)
+                walls.append(wall)
+                stages.append({k: after[k] - before[k] for k in after})
+            return dict(outs=outs, walls=walls, stages=stages,
+                        launches={name: fn.launches for name, fn in kernels.items()},
+                        stray={name: fn.launches for name, fn in forbidden.items() if fn.launches},
+                        k2_tally=spec_tally(engine, k2), captures=monitor.compiles - captures,
+                        graphs=monitor.compiles)
+        finally:
+            await engine.shutdown()
+
+    got = asyncio.run(run())
+    torch.cuda.empty_cache()
+    if min(got["launches"].values()) <= 0:
+        raise AssertionError(f"spec serve: main path skipped a kernel: launches {got['launches']}")
+    if got["stray"]:
+        raise AssertionError(f"spec serve: kernels off this path launched: {got['stray']}")
+    for rid, (toks, reason, _) in got["outs"][-1].items():
+        if reason not in ("length", "stop") or not toks:
+            raise AssertionError(f"spec serve {rid}: {len(toks)} tokens, finish {reason!r}")
+    return got
+
+
+def spec_line(what: str, gpu_name: str, run: dict, base: dict | None, i: int = -1) -> str:
+    """Acceptance, verify rounds, tok/s and TTFT of round ``i`` of a spec
+    run, beside its base."""
+    st, res, wall = run["stages"][i], run["outs"][i], run["walls"][i]
+    n_out = sum(len(t) for t, _, _ in res.values())
+    ttft = float(np.median([t for _, _, t in res.values()]))
+    rate = st["spec_accepted"] / st["spec_proposed"] if st["spec_proposed"] else float("nan")
+    line = (f"{what} [{gpu_name}]: proposed {st['spec_proposed']}, accepted {st['spec_accepted']} (acceptance "
+            f"{rate:.4f}), emitted {st['spec_emitted']} in {st['spec_rounds']} verify rounds "
+            f"({st['spec_emitted'] / max(1, st['spec_emitted'] - st['spec_accepted']):.3f} tokens a lane a "
+            f"round), draft steps {st['spec_draft_calls']}; {n_out / wall:.1f} output tok/s, TTFT p50 "
+            f"{ttft * 1e3:.1f} ms, wall {wall:.2f} s; launches in the last round {run['launches']}; graphs "
+            f"{run['graphs']} ({run['captures']} captured in the last round)")
+    if base is not None:
+        bttft = float(np.median(base["ttfts"]))
+        line += (f"; without speculation {base['n_out'] / base['wall']:.1f} output tok/s, TTFT p50 "
+                 f"{bttft * 1e3:.1f} ms, wall {base['wall']:.2f} s")
+    return line
+
+
+def stream_diffs(got: dict, want: dict) -> list:
+    """[(rid, first differing token)] of the streams of ``want`` whose
+    tokens or finish reason ``got`` does not repeat."""
+    out = []
+    for rid, (w, w_reason, *_) in want.items():
+        g, g_reason = got[rid][:2]
+        if (g, g_reason) != (w, w_reason):
+            out.append((rid, next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))))
+    return out
+
+
+def same_streams(what: str, got: dict, want: dict, against: str) -> None:
+    """Raise unless every stream's tokens and finish reason equal ``want``'s."""
+    differ = stream_diffs(got, want)
+    if differ:
+        raise AssertionError(f"{what}: {len(differ)}/{len(want)} streams differ from {against} (first "
+                             f"divergences {differ[:4]})")
+    log(f"{what}: all {len(want)} greedy streams equal {against}, token for token")
+
+
+def phase_spec_serve(torch, gpu_name: str, served: dict, kernels: dict) -> dict:
+    """Speculative decoding on the card (``kernels``: {name: launcher} of
+    every serving kernel). Greedy speculation is token-identical to the
+    engine without it in exact arithmetic; in bf16 the verify pass (K2 over
+    lanes of k + 1 rows, products of 16 (k + 1) rows) and the decode step
+    (K1, products of 16 rows) round differently, so a greedy stream may
+    take the other side of a near-tie. So the identities with the engine
+    without speculation are held in f32 at full width, 4 layers (f32 keeps
+    the two paths' argmaxes equal), and the bf16 runs at full depth are
+    held to each other: two proposers that accept different drafts must
+    emit the same streams. Returns {sub-phase: {name: launches in its timed
+    round}}:
+
+      (a) n-gram: Llama-3-8B geometry, 32 layers, bf16, ``serve_config()``,
+          speculative "ngram:4", the 16-request workload, served twice (the
+          second round timed): acceptance, verify rounds, tok/s and TTFT
+          beside the serve phase's (``served["serve"]``), and the share of
+          its streams that equal the serve phase's; K2 alone launches
+          (verify and prefill: a spec-mode stream never takes a decode
+          window), with the K2 launches the verify graphs replayed;
+      (c) a smaller draft: TinyLlama-1.1B geometry with Llama-3's
+          vocabulary drafting for the same 32-layer target (its decode
+          steps on K3a, its catch-up and prefill on K3b): every stream
+          equals (a)'s, token for token;
+      (a', c') the same two proposers at Llama-3-8B width, 4 layers, f32
+          (the draft TinyLlama-1.1B's width, 4 layers, f32): every stream
+          equals the same engine's without speculation;
+      (b) the target's own weights as its draft (Llama-3-8B width, 4
+          layers, f32, "draft:<the same model>:4"): greedy acceptance
+          exactly 1.0, the streams equal the engine's without speculation;
+      (d) MLA with n-gram: DeepSeek-V2-Lite width, 4 layers, f32, capacity
+          factor 11 (nothing drops, so the verify pass's 80 rows route as
+          the decode step's 16 do; the default 2.0 drops pairs by the batch
+          size), against the same engine without speculation: streams
+          equal, K5 (verify) and K6 (prefill) launch and nothing else;
+      (e) seeded sampled requests (temperature 0.8, distinct seeds) on the
+          n-gram and self-draft engines of (a') and (b): each stream
+          reproduced token for token beside other batch mates."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest
+    from dynamo_tpu_torch.tools.workload import (
+        DEEPSEEK_V2_LITE,
+        LLAMA3_8B,
+        TINYLLAMA_1_1B,
+        mla_serve_config,
+        serve_config,
+        serve_requests,
+    )
+
+    def only(*names):
+        return {n: kernels[n] for n in names}, {n: fn for n, fn in kernels.items() if n not in names}
+
+    def spec(config, model=None, speculative=None):
+        return dataclasses.replace(config, model_id=model or config.model_id, speculative=speculative)
+
+    out = {}
+    requests = serve_requests()
+    base = served["serve"]
+    ngram = f"ngram:{SPEC_K}"
+    tiny_draft = dict(TINYLLAMA_1_1B, vocab_size=LLAMA3_8B["vocab_size"])
+    t0 = time.monotonic()
+    # (a) n-gram at full width and depth, bf16
+    a = spec_serve(torch, spec(serve_config(), speculative=ngram), [requests, requests], *only("K2"))
+    log(spec_line("spec serve (a) n-gram, Llama-3-8B 32 layers bf16", gpu_name, a, base))
+    differ = stream_diffs(a["outs"][-1], base["results"])
+    log(f"spec serve (a): {len(requests) - len(differ)}/{len(requests)} greedy streams equal the serve phase's "
+        f"(bf16 rounding; first divergences {differ}); K2 launched {a['launches']['K2']} times in the timed "
+        f"round (verify and prefill), the verify graphs replayed {a['k2_tally']} K2 launches over both rounds")
+    same_streams("spec serve (a)", a["outs"][0], a["outs"][-1], "its first round")
+    out["spec ngram"] = a["launches"]
+    t0 = lap("spec serve (a)", t0)
+    # (c) a smaller draft for the 32-layer target, bf16
+    c = spec_serve(torch, spec(serve_config(), speculative=f"draft:tiny:{json.dumps(tiny_draft)}:{SPEC_K}"),
+                   [requests, requests], *only("K2", "K3a", "K3b"))
+    log(spec_line("spec serve (c) TinyLlama-1.1B draft for Llama-3-8B 32 layers bf16", gpu_name, c, base))
+    same_streams("spec serve (c) draft", c["outs"][-1], a["outs"][-1], "(a)'s (n-gram)")
+    out["spec draft"] = c["launches"]
+    t0 = lap("spec serve (c)", t0)
+
+    # f32 at full width, 4 layers: identity with the engine without speculation
+    small = "tiny:" + json.dumps(dict(LLAMA3_8B, num_layers=4, dtype="f32"))
+    tiny4 = "tiny:" + json.dumps(dict(tiny_draft, num_layers=4, dtype="f32"))
+
+    def sampled(tag: str, idx, seed_base: int):
+        return [EngineRequest(f"e{tag}-{i}", requests[i].token_ids[:256],
+                              SamplingParams(temperature=0.8, seed=seed_base + i, max_tokens=32)) for i in idx]
+
+    probe = sampled("p", range(4), 100)
+    mates_1 = [EngineRequest(f"m1-{i}", r.token_ids[:128], SamplingParams(max_tokens=32))
+               for i, r in enumerate(requests[4:8])]
+    mates_2 = sampled("q", range(8, 14), 900)
+    base4 = spec_serve(torch, spec(serve_config(), small), [requests], *only("K1", "K2"))["outs"][-1]
+    for what, speculative, names in (("(a') n-gram", ngram, ("K2",)),
+                                     ("(b) self-draft", f"draft:{small}:{SPEC_K}", ("K1", "K2")),
+                                     ("(c') TinyLlama draft", f"draft:{tiny4}:{SPEC_K}", ("K2", "K3a", "K3b"))):
+        e_rounds = [] if what.startswith("(c')") else [probe + mates_1, mates_2 + probe]
+        r = spec_serve(torch, spec(serve_config(), small, speculative), [requests, *e_rounds], *only(*names))
+        same_streams(f"spec serve {what}, Llama-3-8B width 4 layers f32", r["outs"][0], base4,
+                     "the engine's without speculation")
+        log(spec_line(f"spec serve {what}, Llama-3-8B width 4 layers f32, greedy round", gpu_name, r, None, 0))
+        st = r["stages"][0]
+        if what.startswith("(b)") and not 0 < st["spec_accepted"] == st["spec_proposed"]:
+            raise AssertionError(f"spec serve (b): a self-draft accepted {st['spec_accepted']} of "
+                                 f"{st['spec_proposed']} greedy drafts (want all)")
+        if e_rounds:
+            got1, got2 = r["outs"][1], r["outs"][2]
+            differ = [q.request_id for q in probe if got1[q.request_id][:2] != got2[q.request_id][:2]]
+            if differ or any(len(got1[q.request_id][0]) != 32 for q in probe):
+                raise AssertionError(f"spec serve (e) {what}: seeded streams {differ} changed with their batch mates")
+            log(f"spec serve (e) {what}: {len(probe)} seeded sampled streams (temperature 0.8) reproduced token for "
+                f"token beside other batch mates")
+        out[f"spec {what} f32"] = r["launches"]
+    t0 = lap("spec serve (a') (b) (c') (e)", t0)
+
+    # (d) MLA with n-gram against the same engine without speculation
+    mla4 = "tiny-mla:" + json.dumps(dict(DEEPSEEK_V2_LITE, num_layers=4, dtype="f32", moe_capacity_factor=11.0))
+    mla_requests = serve_requests(DEEPSEEK_V2_LITE["vocab_size"])
+    d0 = spec_serve(torch, spec(mla_serve_config(), mla4), [mla_requests], *only("K5", "K6"))
+    d = spec_serve(torch, spec(mla_serve_config(), mla4, ngram), [mla_requests], *only("K5", "K6"))
+    same_streams("spec serve (d) MLA n-gram, DeepSeek-V2-Lite width 4 layers f32", d["outs"][-1], d0["outs"][-1],
+                 "the engine's without speculation")
+    log(spec_line("spec serve (d) n-gram, DeepSeek-V2-Lite width 4 layers f32 (capacity factor 11)", gpu_name, d,
+                  None))
+    rounds = d["stages"][-1]["spec_rounds"]
+    if d["launches"]["K5"] != rounds * 4:
+        raise AssertionError(f"spec serve (d): K5 launched {d['launches']['K5']} times, not once a layer of each of "
+                             f"the {rounds} verify rounds")
+    log(f"spec serve (d): K5 launched {d['launches']['K5']} times = {rounds} verify rounds x 4 layers (no decode "
+        f"window ran)")
+    out["spec MLA ngram"] = d["launches"]
+    lap("spec serve (d)", t0)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2521,14 +2854,18 @@ def main() -> int:
                             max_pages=HTTP_MAX_MODEL_LEN // HTTP_PAGE_SIZE, mixes=MIXES[1:2]),
     }
     t0 = lap("page size 4 checks", t0)
+    # K2 and K5 at the verify pass's shapes (lanes of k + 1 rows)
+    verify_checks = check_verify_shapes(torch, dev, rng)
+    t0 = lap("verify shape checks", t0)
     # each serve path runs with the counts set to 0 just before it and read
     # just after it: {path: {kernel: launches}}
     paged, folded = {"K1": k1, "K2": k2}, {"K3a": k3a, "K3b": k3b}
     int8w, mla = {"K8": k8, "K8 experts": k8e}, {"K5": k5, "K6": k6}
     mla_requests = serve_requests(DEEPSEEK_V2_LITE["vocab_size"])
+    served = {}  # the serve phase's streams, which the spec phase's must equal
     runs = {
         "serve": phase_serve(torch, smi, "serve", serve_config(), serve_requests(), paged, folded | int8w,
-                             after=decode_step(torch, smi, "serve")),
+                             after=decode_step(torch, smi, "serve"), record=served),
         "int8_wo serve": phase_serve(torch, smi, "int8_wo serve", serve_config(quantize="int8_wo"),
                                      serve_requests(), {"K8": k8, **paged}, folded | mla | {"K8 experts": k8e},
                                      after=decode_step(torch, smi, "int8_wo serve")),
@@ -2552,6 +2889,9 @@ def main() -> int:
         if runs[what][name] != runs["serve"]["K1"]:
             raise AssertionError(f"{what}: {name} launched {runs[what][name]} times, K1 {runs['serve']['K1']} in serve")
     t0 = lap("serve paths", t0)
+    # speculative decoding: n-gram and draft-model verify rounds on K2 / K5
+    runs |= phase_spec_serve(torch, smi, served, {**paged, **folded, **mla, **int8w})
+    t0 = lap("spec serve", t0)
     # the HTTP edge: `run --in http --out torch` at Llama-3-8B width and depth
     runs["http serve"] = phase_http_serve(torch, smi, paged, {
         "K3a": k3a, "K3b": k3b, "K4a": k4a, "K4b": k4b, "K5": k5, "K6": k6, "K7a": k7a, "K7b": k7b, "K7c": k7c})
@@ -2626,6 +2966,9 @@ def main() -> int:
             entry["ps4"] = dict(launches=runs["http serve"][key], **ps4[key]["bf16"])
         if key in runs["prefix serve"]:  # the prefix serve's three rounds (prefill over cached prefixes)
             entry["prefix_serve_launches"] = runs["prefix serve"][key]
+        if key in verify_checks:  # the verify pass's shape: lanes of k + 1 rows, its launches in spec serve
+            path = "spec ngram" if key == "K2" else "spec MLA ngram"
+            entry["verify"] = dict(launches=runs[path][key], **verify_checks[key]["bf16"])
         if key in widened:  # {shape: {tol_share: largest over the mixes, ms: {mix: device ms}}}
             entry["widened"] = widened[key]
         if key in bench:

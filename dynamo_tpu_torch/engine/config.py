@@ -50,6 +50,18 @@ class EngineConfig:
     # weights, per-output-channel f32 scales, multiplied by kernel K8 on the
     # card: about half the weight bytes a decode step reads)
     quantize: str | None = None
+    # speculative decoding (dynamo_tpu_torch/spec/): verify k draft tokens
+    # plus one bonus token in ONE multi-query forward pass, advancing 1..k+1
+    # tokens a round with no quality change. Two proposer kinds:
+    #   "ngram:k"            - prompt-lookup over the sequence's own history
+    #   "draft:<model>:<k>"  - a second registry model drafts k tokens a
+    #                          round in one batched step with its own paged
+    #                          KV pool, loaded with this engine's quantize /
+    #                          kv_cache_dtype; its real probabilities make
+    #                          temperature > 0 acceptance the exact rule
+    # None = one-token decode windows. Requests with penalties, logprobs or
+    # min_tokens ride the decode windows (correct, not speculated)
+    speculative: str | None = None
     # capture the step graphs before serving (engine/graphs.py; on the CPU
     # the same calls run the bodies eagerly):
     #   False        - on first use (tests, short-lived engines)
@@ -76,6 +88,15 @@ class EngineConfig:
             raise ValueError(f"quantize must be None or one of {QUANT_MODES}; got {self.quantize!r}")
         if any(b <= 0 for b in self.page_table_buckets):
             raise ValueError(f"page_table_buckets must be positive; got {self.page_table_buckets}")
+        # a bad speculative spec must fail at config time, not mid-serving
+        self.spec  # noqa: B018 - parse_speculative raises on invalid input
+
+    @property
+    def spec(self):
+        """Parsed SpecConfig for ``speculative`` (None when disabled)."""
+        from dynamo_tpu_torch.spec import parse_speculative
+
+        return parse_speculative(self.speculative)
 
     @property
     def max_pages_per_seq(self) -> int:

@@ -43,8 +43,19 @@ updated in place too (index writes into the same tensors, never a new
 entry), so a graph that reads it keeps reading the live state. ``warmup_core``
 / ``warmup`` / ``warmup_extra_thunks`` capture the shapes serving reaches
 ahead of it, with every write on the trash page and the drop slot. On the
-CPU the bodies run eagerly. LoRA, spec, sp and the KV page export/import
-wait.
+CPU the bodies run eagerly.
+
+Speculative decoding (``config.speculative``): ``dispatch_verify`` feeds
+every spec-mode slot's anchor and up to k drafts at consecutive positions
+through ``model.verify`` (one weight pass, K2 for Llama, K5 for DeepSeek)
+and runs ``accept_speculative`` on the device, so only [B, k+1] tokens and
+[B] emit counts come back; a draft-model engine owns a
+:class:`~dynamo_tpu_torch.spec.draft.DraftModelRunner` (``self.draft``)
+whose k-token draft step writes its probability rows into
+``self.draft_q``, the static tensor the verify graphs read. Verify is
+captured once per (table width, sampled, filtered, draft probabilities
+read), the draft step once per (table width, sampled, filtered), and the
+warmup captures both. LoRA, sp and the KV page export/import wait.
 """
 
 from __future__ import annotations
@@ -62,7 +73,9 @@ from dynamo_tpu_torch.engine.graphs import CudaGraphs, GraphCache
 from dynamo_tpu_torch.engine.sampling import (
     LOGPROBS_K,
     MAX_EOS_IDS,
+    SPEC_STREAM,
     SamplingParams,
+    accept_speculative,
     apply_penalties,
     ban_eos,
     fold_seed,
@@ -129,6 +142,18 @@ class ModelRunner:
         # last step, [N, V] of a prefill call); a graph's static output, so
         # the next replay of that graph overwrites it
         self.last_logits = None
+        # draft-model speculation: a second model with its own paged KV pool
+        # and a batched k-token draft step (spec/draft.py), loaded through
+        # the registry with this engine's quantize / kv_cache_dtype. Its
+        # probability rows land in draft_q, which the verify graphs read
+        self.draft = None
+        self.draft_q = None
+        spec = config.spec
+        if spec is not None and spec.kind == "draft":
+            from dynamo_tpu_torch.spec.draft import DraftModelRunner
+
+            self.draft_q = torch.zeros((B, spec.k, model.config.vocab_size), device=self.device)
+            self.draft = DraftModelRunner(config, spec, self)
 
     # ---------------- host -> device ----------------
 
@@ -142,23 +167,31 @@ class ModelRunner:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return self._stage(a).to(self.device, non_blocking=True)
 
-    def _noise(self, B: int, seeds: np.ndarray | None, positions: np.ndarray, steps: int, out=None):
-        """[steps, B, V] uniforms (into ``out`` when given): the engine
-        generator for every slot, rows of seeded slots replaced by their
-        (seed, fed position) stream."""
-        V = self.model.config.vocab_size
-        u = torch.empty((steps, B, V), device=self.device) if out is None else out
+    def _noise_shape(self, noise_args) -> tuple:
+        """(steps, B, width) of ``noise_args`` (width V unless given)."""
+        B, _, _, steps, *rest = noise_args
+        return (steps, B, rest[0] if rest else self.model.config.vocab_size)
+
+    def _noise(self, B: int, seeds: np.ndarray | None, positions: np.ndarray, steps: int, width: int | None = None,
+               stream: int = 0, out=None):
+        """[steps, B, width] uniforms (width V unless given; into ``out``
+        when given): the engine generator for every slot, rows of seeded
+        slots replaced by their (seed, fed position + step, ``stream``)
+        stream."""
+        width = width or self.model.config.vocab_size
+        u = torch.empty((steps, B, width), device=self.device) if out is None else out
         u.uniform_(0.0, 1.0, generator=self._gen)
         if seeds is not None:
             for i in np.flatnonzero(seeds):
                 for j in range(steps):
-                    u[j, i] = seeded_uniform(int(seeds[i]), int(positions[i]) + j, V, self.device)
+                    u[j, i] = seeded_uniform(int(seeds[i]), int(positions[i]) + j, width, self.device, stream)
         return u
 
     def _step(self, label: str, key: tuple, body, ints: np.ndarray, flts: np.ndarray, noise_args) -> tuple:
         """Run ``body(ints, flts, noise) -> (tokens, logits)`` on this
         call's arrays: eagerly on the CPU, through the graph of ``key`` on
-        the card. ``noise_args`` (B, seeds, positions, steps) or None."""
+        the card. ``noise_args`` (B, seeds, positions, steps[, width,
+        stream]) or None."""
         if self.graphs is None:
             noise = None if noise_args is None else self._noise(*noise_args)
             return body(self._to_device(ints), self._to_device(flts), noise)
@@ -166,7 +199,7 @@ class ModelRunner:
         def make_inputs():
             noise = None
             if noise_args is not None:
-                shape = (noise_args[3], noise_args[0], self.model.config.vocab_size)
+                shape = self._noise_shape(noise_args)
                 noise = self._noise_bufs.get(shape)
                 if noise is None:
                     noise = self._noise_bufs[shape] = torch.empty(shape, device=self.device)
@@ -302,6 +335,31 @@ class ModelRunner:
             act = act & (positions <= limits)
         self.slot_state["tokens"][:B] = tokens
         return (out, logits, *(lp_out or ()))
+
+    def _verify_impl(self, ints, flts, noise, K1: int, need_filter: bool, draft_probs=None):
+        """Speculative verify step: every slot feeds its anchor token and up
+        to K drafts at consecutive positions through ``model.verify``, then
+        ``accept_speculative`` runs on the device. ``ints`` [4 + K1 + W, B]
+        = positions (anchor fed position), active, top_ks, n_drafts, the K1
+        fed-token rows, then the transposed page tables; ``flts`` [3, B] =
+        temps, top_ps, min_ps; ``noise`` [1, B, K + V] (None: no slot
+        samples). Rows past a slot's n_drafts scatter their KV to the trash
+        page. Returns (tokens [B, K1], n_emit [B], logits [B, K1, V])."""
+        positions = ints[0]
+        active = ints[1].bool()
+        top_ks = ints[2]
+        n_drafts = ints[3]
+        fed = ints[4 : 4 + K1].t().contiguous()
+        page_tables = ints[4 + K1 :].t().contiguous()
+        t_idx = torch.arange(K1, dtype=torch.int32, device=ints.device)
+        pos_mat = (positions[:, None] + t_idx[None, :]).contiguous()
+        row_valid = active[:, None] & (t_idx[None, :] <= n_drafts[:, None])
+        logits, _ = self.model.verify(self.kv_cache, fed, pos_mat, page_tables, row_valid)
+        out, n_emit = accept_speculative(
+            logits, fed[:, 1:], n_drafts, flts[0], top_ks, flts[1], min_p=flts[2], draft_probs=draft_probs,
+            uniform=None if noise is None else noise[0], need_filter=need_filter,
+        )
+        return out, torch.where(active, n_emit, torch.zeros_like(n_emit)), logits
 
     # ---------------- host API (engine thread) ----------------
 
@@ -498,6 +556,72 @@ class ModelRunner:
         toks, self.last_logits, *lp = self._step("decode_window", key, body, ints, flts, noise_args)
         return HostResult(toks, *lp)
 
+    @torch.no_grad()
+    def dispatch_verify(
+        self,
+        positions: np.ndarray,  # [B] anchor fed position per slot
+        page_tables: np.ndarray,  # [B, W]
+        active: np.ndarray,  # [B] bool
+        fed_tokens: np.ndarray,  # [B, K+1] anchor + (padded) draft tokens
+        n_drafts: np.ndarray,  # [B] real draft count per slot
+        temps: np.ndarray,
+        top_ks: np.ndarray,
+        top_ps: np.ndarray,
+        min_ps: np.ndarray | None = None,
+        seeds: np.ndarray | None = None,  # [B] int32 folded seeds (0 = unseeded)
+        draft_probs: torch.Tensor | None = None,  # [B, K, V] from dispatch_draft (stays on the device)
+    ) -> HostResult:
+        """Dispatch one speculative verify pass; returns (tokens [B, K+1],
+        n_emit [B]) on their way to the host. The caller reads both before
+        it proposes again (rounds are synchronous: the gain is k+1 tokens a
+        weight pass, not dispatch-ahead). ``draft_probs`` rides to the
+        acceptance on the device (draft-model rounds); None keeps the
+        one-hot (n-gram) rule."""
+        B = positions.shape[0]
+        min_ps = np.zeros(B, np.float32) if min_ps is None else min_ps
+        live = active & (temps > 0)
+        noise_args = None
+        if live.any():
+            seeded = seeds if seeds is not None and np.any(seeds[live]) else None
+            if seeded is not None:
+                seeded = np.where(live, seeded, 0)
+            K = fed_tokens.shape[1] - 1
+            noise_args = (B, seeded, positions, 1, K + self.model.config.vocab_size, SPEC_STREAM)
+        need_filter = bool(np.any(live & ((top_ks > 0) | (top_ps < 1.0) | (min_ps > 0))))
+        return self._verify(positions, page_tables, active, fed_tokens, n_drafts, temps, top_ks, top_ps, min_ps,
+                            noise_args, need_filter, draft_probs)
+
+    def _verify(self, positions, page_tables, active, fed_tokens, n_drafts, temps, top_ks, top_ps, min_ps,
+                noise_args, need_filter: bool, draft_probs=None) -> HostResult:
+        B, K1 = fed_tokens.shape
+        ints = np.empty((4 + K1 + page_tables.shape[1], B), np.int32)
+        ints[0] = positions
+        ints[1] = active
+        ints[2] = top_ks
+        ints[3] = n_drafts
+        ints[4 : 4 + K1] = fed_tokens.T
+        ints[4 + K1 :] = page_tables.T
+        flts = np.stack([temps, top_ps, min_ps]).astype(np.float32)
+        sampled = noise_args is not None
+        if not sampled:
+            draft_probs = None  # greedy acceptance never reads q
+        elif draft_probs is not None and draft_probs is not self.draft_q:
+            # the graphs read the one static tensor the draft step writes
+            raise ValueError("draft_probs must be the draft step's output (runner.draft_q)")
+        key = ("verify", B, K1, page_tables.shape[1], sampled, need_filter, draft_probs is not None)
+        body = functools.partial(self._verify_impl, K1=K1, need_filter=need_filter, draft_probs=draft_probs)
+        out, n_emit, self.last_logits = self._step("verify", key, body, ints, flts, noise_args)
+        return HostResult(out, n_emit)
+
+    def dispatch_draft(self, *args, **kwargs):
+        """One batched draft round across every spec-mode lane (draft-model
+        speculation only; see spec/draft.py DraftModelRunner.dispatch_draft).
+        Returns (draft tokens [B, K] on their way to the host, draft probs
+        [B, K, V] on the device)."""
+        if self.draft is None:
+            raise RuntimeError("dispatch_draft requires speculative='draft:...'")
+        return self.draft.dispatch_draft(*args, **kwargs)
+
     # ---------------- warmup (captures ahead of serving) ----------------
 
     @contextlib.contextmanager
@@ -548,6 +672,49 @@ class ModelRunner:
                 self.prefill_chunk(*lane[:3], sample=lane[6], sampling=lane[4], slot=-1, eos_ids=lane[5],
                                    want_logprobs=want_logprobs).numpy()
 
+    def _warmup_verify(self, width: int, sampled: bool = False, need_filter: bool = False,
+                       with_q: bool = False) -> None:
+        """The verify step at table width ``width``, every slot inactive
+        (its KV rows land on the trash page); ``sampled`` draws noise as a
+        sampling slot would, ``with_q`` reads the draft probabilities."""
+        B, K = self.config.max_seqs, self.config.spec.k
+        zeros = np.zeros(B, np.int32)
+        V = self.model.config.vocab_size
+        noise_args = (B, None, zeros, 1, K + V, SPEC_STREAM) if sampled else None
+        with self._keep_generator():
+            self._verify(zeros, np.zeros((B, width), np.int32), np.zeros(B, bool), np.zeros((B, K + 1), np.int32),
+                         zeros, np.full(B, 1.0 if sampled else 0.0, np.float32),
+                         np.full(B, 5 if need_filter else 0, np.int32), np.ones(B, np.float32),
+                         np.zeros(B, np.float32), noise_args, need_filter,
+                         self.draft_q if with_q else None).numpy()
+
+    def _spec_warmup_thunks(self) -> tuple[list, list]:
+        """(core, extra) thunks of the speculative steps: core the greedy
+        verify at the first table width and, in draft mode, the draft
+        step and the smallest draft prefill there; extra the greedy verify
+        and draft step at the wider widths, every draft prefill bucket at
+        every width, and the sampled variants (sampled, and filtered) at
+        the first width (with and without the draft probabilities)."""
+        spec = self.config.spec
+        if spec is None:
+            return [], []
+        widths, buckets = self.config.table_buckets, self.config.prefill_buckets
+        draft = self.draft
+        core = [functools.partial(self._warmup_verify, widths[0])]
+        extra = [functools.partial(self._warmup_verify, w) for w in widths[1:]]
+        for need_filter in (False, True):
+            extra.append(functools.partial(self._warmup_verify, widths[0], True, need_filter))
+            if draft is not None:
+                extra.append(functools.partial(self._warmup_verify, widths[0], True, need_filter, True))
+        if draft is not None:
+            core += [functools.partial(draft.warmup_step, widths[0]),
+                     functools.partial(draft.warmup_prefill, buckets[0], widths[0])]
+            extra += [functools.partial(draft.warmup_step, w) for w in widths[1:]]
+            extra += [functools.partial(draft.warmup_step, widths[0], True, f) for f in (False, True)]
+            extra += [functools.partial(draft.warmup_prefill, b, w) for w in widths for b in buckets
+                      if (b, w) != (buckets[0], widths[0])]
+        return core, extra
+
     def _lane_counts(self, bucket: int) -> list[int]:
         """The N a prefill call at ``bucket`` takes: each power of two up to
         lanes_for(bucket) on the packed path (the scheduler rounds up to
@@ -559,10 +726,12 @@ class ModelRunner:
 
     def warmup_core(self) -> None:
         """Capture what the first requests need, before serving: the
-        default decode window at the first table width, and each prefill
+        default decode window at the first table width, each prefill
         bucket at N = 1 and N = lanes_for(bucket) (per-request: N = 1)
-        there. Every call writes only the trash page. The penalty state is
-        allocated first, so every graph is captured against it."""
+        there, and with speculation the greedy verify (and the draft
+        model's step and smallest prefill) there. Every call writes only
+        the trash page. The penalty state is allocated first, so every
+        graph is captured against it."""
         t0 = time.monotonic()
         self._ensure_penalty_state()
         width = self.config.table_buckets[0]
@@ -570,6 +739,8 @@ class ModelRunner:
         for b in self.config.prefill_buckets:
             for n in sorted({1, self._lane_counts(b)[-1]}):
                 self._warmup_prefill(b, n, width)
+        for thunk in self._spec_warmup_thunks()[0]:
+            thunk()
         log.info("warmup(core): %d captures in %.1fs", self.compile_monitor.compiles, time.monotonic() - t0)
 
     def warmup_extra_thunks(self) -> list:
@@ -581,7 +752,8 @@ class ModelRunner:
         first width (the reference's: windows with penalties, with
         logprobs, and with both; prefill at every bucket and N with
         logprobs, with extras, and with both; and, since sampling is a
-        graph flag here, the sampled window and prefill with both). Each
+        graph flag here, the sampled window and prefill with both), then
+        the speculative steps' (``_spec_warmup_thunks``). Each
         runs against the trash page and the drop slot; a serving engine
         runs them one by one between steps (``run_on_engine``)."""
         buckets, widths = self.config.prefill_buckets, self.config.table_buckets
@@ -609,7 +781,7 @@ class ModelRunner:
             for b in buckets:
                 for n in self._lane_counts(b):
                     thunks.append(functools.partial(self._warmup_prefill, b, n, widths[0], sampling, want_lp))
-        return thunks
+        return thunks + self._spec_warmup_thunks()[1]
 
     def warmup(self) -> None:
         """Capture every shape synchronously (core + extras)."""

@@ -13,9 +13,14 @@ in distribution, not token for token.
 Which branches run is decided on the host from the requests' parameters
 (``need_filter``, and noise only when some slot samples), so nothing here
 reads device values back. Penalties (:func:`apply_penalties`), the
-``min_tokens`` EOS ban (:func:`ban_eos`) and logprobs
-(:func:`sample_tokens_with_logprobs`) are the reference's. Not ported yet:
-``accept_speculative``.
+``min_tokens`` EOS ban (:func:`ban_eos`), logprobs
+(:func:`sample_tokens_with_logprobs`) and the speculative acceptance rule
+(:func:`accept_speculative`: greedy argmax prefix, rejection sampling
+against a one-hot or a real draft distribution) are the reference's. A
+seeded stream is keyed by a stream constant besides (seed, position), so
+the acceptance draws (``SPEC_STREAM``) and the draft model's
+(``spec/draft.py DRAFT_STREAM``) differ from the window sampler's, as the
+reference's keys do.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ import torch
 _NEG_INF = -1e30
 
 MAX_EOS_IDS = 8  # per-slot EOS ids carried on device for min_tokens masking
+#: seeded stream of speculative acceptance (the reference's key base 0x5EC5);
+#: 0 is the window sampler's
+SPEC_STREAM = 0x5EC5
 LOGPROBS_K = 20  # top alternatives computed on device (= the OpenAI API max)
 
 
@@ -103,6 +111,12 @@ def ban_eos(logits: torch.Tensor, eos_ids: torch.Tensor, penalty: torch.Tensor) 
     return logits.scatter_add(1, eos_ids.clamp(max=V - 1).long(), add.to(logits.dtype))
 
 
+def gumbel(uniform: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise from uniforms in (0, 1): argmax(logits + gumbel) draws
+    from softmax(logits)."""
+    return -torch.log(-torch.log(uniform.clamp(1e-20, 1.0 - 1e-7)))
+
+
 def filter_keep_mask(
     logits: torch.Tensor,  # [B, V] float32
     temperature: torch.Tensor,  # [B]
@@ -159,8 +173,7 @@ def sample_tokens(
     if need_filter:
         keep = filter_keep_mask(logits, temperature, top_k, top_p, min_p=min_p)
         masked = torch.where(keep, logits, torch.full_like(logits, _NEG_INF))
-    gumbel = -torch.log(-torch.log(uniform.clamp(1e-20, 1.0 - 1e-7)))
-    sampled = (masked / temp + gumbel).argmax(dim=-1).to(torch.int32)
+    sampled = (masked / temp + gumbel(uniform)).argmax(dim=-1).to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy)
 
 
@@ -185,10 +198,111 @@ def sample_tokens_with_logprobs(
     return tokens, chosen, top_ids.to(torch.int32), top_vals
 
 
-def seeded_uniform(seed: int, position: int, vocab_size: int, device) -> torch.Tensor:
-    """[V] noise of a seeded request at one fed position: a generator keyed
-    by (folded seed, position), so the stream is the same whatever slot or
-    batch the request lands in."""
+def seeded_uniform(seed: int, position: int, vocab_size: int, device, stream: int = 0) -> torch.Tensor:
+    """[vocab_size] noise of a seeded request at one fed position: a
+    generator keyed by (folded seed, position, ``stream``), so the stream
+    is the same whatever slot or batch the request lands in. ``stream`` 0
+    is the window sampler's; another constant gives an independent
+    stream."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((int(seed) << 32) | (int(position) & 0xFFFFFFFF))
+    key = (int(seed) << 32) | (int(position) & 0xFFFFFFFF)
+    if stream:
+        key ^= (int(stream) * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    gen.manual_seed(key)
     return torch.rand(vocab_size, generator=gen, device=device)
+
+
+def accept_speculative(
+    logits: torch.Tensor,  # [B, K+1, V] float32; row i predicts position p+i+1
+    drafts: torch.Tensor,  # [B, K] int proposed tokens (pad entries arbitrary)
+    n_drafts: torch.Tensor,  # [B] int real drafts a slot (<= K)
+    temperature: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B] int (0 = off)
+    top_p: torch.Tensor,  # [B] (1.0 = off)
+    min_p: torch.Tensor | None = None,  # [B] (0 = off)
+    draft_probs: torch.Tensor | None = None,  # [B, K, V] real draft distributions q
+    uniform: torch.Tensor | None = None,  # [B, K + V] noise in (0, 1); None = all greedy
+    need_filter: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Speculative acceptance over one verify pass: (tokens [B, K+1] int32,
+    n_emit [B] int32); a slot emits ``tokens[:n_emit]``.
+
+    A slot's verify pass fed [t_p, d_1..d_K] at positions p..p+K, so
+    ``logits[:, i]`` is the target distribution of the token at p+i+1 given
+    a correct prefix through d_i. Greedy slots (temperature <= 0) accept
+    the leading drafts equal to the raw argmax and emit the argmax rows
+    (token-identical to the non-speculative engine). Sampling slots take
+    the exact rejection rule (Leviathan et al. / Chen et al.): without
+    ``draft_probs`` (one-hot q, the n-gram case) d_i is accepted with
+    probability p(d_i), and a rejection resamples from p with d_i removed;
+    with ``draft_probs`` d_i is accepted with probability min(1, p/q) and a
+    rejection resamples from max(0, p - q) renormalized; all accepted, the
+    bonus token samples from the last row. p is the filtered distribution
+    (``filter_keep_mask`` over all B * (K+1) rows, skipped when
+    ``need_filter`` is False: no slot filters). ``uniform[:, :K]`` are the
+    acceptance draws, ``uniform[:, K:]`` the final token's Gumbel noise;
+    the caller draws them (seeded slots from a (seed, anchor position,
+    ``SPEC_STREAM``) stream), so nothing here reads the device from the
+    host."""
+    B, K1, V = logits.shape
+    K = K1 - 1
+    dev = logits.device
+    greedy = logits.argmax(dim=-1).to(torch.int32)  # [B, K1] raw argmax
+    drafts = drafts.to(torch.int32)
+    draft_valid = torch.arange(K, device=dev)[None, :] < n_drafts[:, None]
+    g_match = (greedy[:, :K] == drafts) & draft_valid
+    g_acc = torch.cumprod(g_match.to(torch.int32), dim=1).sum(dim=1)
+    if uniform is None:
+        return greedy, (g_acc + 1).to(torch.int32)
+
+    flat = logits.reshape(B * K1, V)
+    temps_r = temperature.repeat_interleave(K1)
+    temp_r = torch.where(temps_r > 0, temps_r, torch.ones_like(temps_r))[:, None]
+    masked = flat
+    if need_filter:
+        keep = filter_keep_mask(flat, temps_r, top_k.repeat_interleave(K1), top_p.repeat_interleave(K1),
+                                min_p=None if min_p is None else min_p.repeat_interleave(K1))
+        masked = torch.where(keep, flat, torch.full_like(flat, _NEG_INF))
+    probs = torch.softmax(masked / temp_r, dim=-1).reshape(B, K1, V)
+    masked = masked.reshape(B, K1, V)
+    d_idx = drafts.long()[..., None]
+    p_draft = probs[:, :K].gather(-1, d_idx)[..., 0]  # [B, K]
+    u = uniform[:, :K]
+    if draft_probs is None:
+        s_match = (u < p_draft) & draft_valid
+    else:
+        # q > 0 wherever the draft sampled; the floor only guards pad rows
+        q_draft = draft_probs.gather(-1, d_idx)[..., 0]
+        s_match = (u * q_draft.clamp(min=1e-20) < p_draft) & draft_valid
+    s_acc = torch.cumprod(s_match.to(torch.int32), dim=1).sum(dim=1)
+    a = torch.where(temperature > 0, s_acc, g_acc)  # [B] accepted drafts
+
+    b_idx = torch.arange(B, device=dev)
+    rows = a.long()
+    rej_row = rows.clamp(0, max(K - 1, 0))
+    rejected = a < n_drafts
+    noise = gumbel(uniform[:, K:])
+    temp = torch.where(temperature > 0, temperature, torch.ones_like(temperature))[:, None]
+    if draft_probs is None:
+        # row a's filtered logits; on a rejection the rejected draft is
+        # removed (the residual max(0, p - q) for a one-hot q)
+        row = masked[b_idx, rows]
+        d_rej = drafts.gather(1, rej_row[:, None]).long()
+        ban = torch.where(rejected, torch.full_like(temperature, _NEG_INF), torch.zeros_like(temperature))
+        row = row.scatter_add(1, d_rej, ban[:, None])
+        final = (row / temp + noise).argmax(dim=-1)
+    else:
+        # in probability space (temperature is in p already): a rejection
+        # takes the residual, all accepted the bonus row's p; an empty
+        # residual (float cancellation where p == q) falls back to p
+        p_rows = probs[b_idx, rows]
+        res = (p_rows - draft_probs[b_idx, rej_row]).clamp(min=0.0)
+        use_res = rejected[:, None] & (res.sum(dim=-1, keepdim=True) > 0)
+        dist = torch.where(use_res, res, p_rows)
+        log_d = torch.where(dist > 0, torch.log(dist.clamp(min=1e-38)), torch.full_like(dist, _NEG_INF))
+        final = (log_d + noise).argmax(dim=-1)
+    drafts_pad = torch.cat([drafts, torch.zeros((B, 1), dtype=torch.int32, device=dev)], dim=1)
+    take_draft = torch.arange(K1, device=dev)[None, :] < a[:, None]
+    out_sampled = torch.where(take_draft, drafts_pad, final.to(torch.int32)[:, None])
+    out = torch.where(temperature[:, None] > 0, out_sampled, greedy)
+    return out, (a + 1).to(torch.int32)

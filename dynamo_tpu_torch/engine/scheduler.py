@@ -42,14 +42,26 @@ Scheduled-vs-materialized positions: ``seq.sched_len`` counts tokens in the
 *scheduled* timeline (the prefill's first token + every window step), while
 ``seq.generated`` holds materialized tokens only.
 
+Speculative decoding (``config.speculative``) is the reference's spec
+round: a request without penalties, logprobs or ``min_tokens`` is in spec
+mode from admission and never rides a decode window; each step proposes up
+to k drafts for every spec-mode sequence (its n-gram index, or one batched
+draft-model step, ``runner.dispatch_draft``), verifies them in ONE
+multi-query pass (``runner.dispatch_verify``) and emits the accepted prefix
+and the correction / bonus token. Rounds are synchronous. The counters keep
+the reference's names (``stage.spec_*``), and the step anatomy records
+``spec_draft`` and ``spec_verify`` dispatches, a verify round at the
+decode floor of one weight pass.
+
 The request dataclasses keep the reference's field names; fields of features
 this port does not run yet stay at their defaults, and requests that ask for
 them (images, LoRA) are rejected at admission. ``cancel`` takes the
 engine's submission number too, so an ended stream cannot cancel a later
 request that reuses its id (the reference cancels by id alone). Not ported
-yet: QoS, preemption (a sequence that cannot grow gets a shorter window, or
-finishes with "error" when it cannot advance), spec, LoRA, prefix
-fetch/migration, offload, metering and the stage/metric planes.
+yet: QoS, preemption (a sequence that cannot grow gets a shorter window or
+a shorter proposal, or finishes with "error" when it cannot advance), LoRA,
+prefix fetch/migration, offload, metering and the stage/metric planes
+(of the reference's ``StageStats`` only the spec counters).
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ import numpy as np
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.page_table import PageAllocator
 from dynamo_tpu_torch.engine.sampling import MAX_EOS_IDS, SamplingParams, fold_seed
+from dynamo_tpu_torch.spec import make_proposer
 from dynamo_tpu_torch.utils import get_logger
 from dynamo_tpu_torch.utils.step_anatomy import StepAnatomy, roofline_for_runner
 
@@ -162,6 +175,25 @@ class _InFlight:
     lp: bool = False
 
 
+@dataclass
+class StageStats:
+    """The reference's ``StageStats`` speculative counters (spec rounds are
+    synchronous verify passes, so dispatch and device wait land in one
+    number): draft tokens proposed, drafts accepted, tokens emitted
+    (accepted + each round's correction / bonus token), and the draft
+    model's batched steps and per-sequence draft prefills."""
+
+    spec_rounds: int = 0
+    spec_dispatch_s: float = 0.0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    spec_emitted: int = 0
+    spec_draft_calls: int = 0
+    spec_draft_s: float = 0.0
+    spec_draft_prefills: int = 0
+    spec_draft_prefill_s: float = 0.0
+
+
 def _unsupported(req: EngineRequest) -> Optional[str]:
     """Name of a requested feature this port does not run yet, or None."""
     if req.images:
@@ -182,6 +214,9 @@ class Scheduler:
         self._admit_counter = 0
         # per-dispatch host/device phases and the live roofline
         self.anatomy = StepAnatomy(roofline=roofline_for_runner(runner, config))
+        self.stage = StageStats()
+        self.spec = config.spec
+        self.proposer = make_proposer(self.spec) if self.spec is not None else None
 
     # ---------------- queue ----------------
 
@@ -219,6 +254,8 @@ class Scheduler:
         outputs.extend(self._reconcile(block=False))
         outputs.extend(self._admit())
         dispatched = self._dispatch_prefill_batches(outputs)
+        if self.spec is not None:
+            dispatched += self._dispatch_spec_round(outputs)
         dispatched += self._dispatch_windows(outputs)
         pipeline_full = self._windows_in_flight() >= max(1, self.config.pipeline_depth)
         if pipeline_full or (self.in_flight and not dispatched and not outputs):
@@ -306,6 +343,7 @@ class Scheduler:
             admitted_order=self._admit_counter,
             sched_len=1,  # the prefill's sampled token enters the timeline now
             prefill_pos=cached_len,
+            spec_mode=self._spec_eligible(req),
             queue_wait_s=wait,
         )
         self._admit_counter += 1
@@ -412,6 +450,258 @@ class Scheduler:
             self.in_flight.append(_InFlight(kind="first_batch", dev=result, seqs=finals, rec=rec, lp=want_lp))
             count += 1
 
+    # ---------------- speculative decode (spec rounds) ----------------
+
+    def _spec_eligible(self, req: EngineRequest) -> bool:
+        """Spec mode, fixed at admission: penalties and logprobs need the
+        window path's per-slot device state and min_tokens its EOS masking,
+        so those requests ride decode windows (correct, not speculated)."""
+        if self.spec is None:
+            return False
+        s = req.sampling
+        return not req.images and req.logprobs is None and not s.needs_penalties and s.min_tokens <= 0
+
+    def _propose_ngram(self, seq: RunningSeq, max_d: int) -> list[int]:
+        """Propose through the sequence's incremental suffix index, built
+        once from the prompt at the first round and extended with the
+        tokens emitted since."""
+        idx = seq.ngram
+        if idx is None:
+            idx = seq.ngram = self.proposer.index(seq.req.token_ids)
+        for t in seq.generated[len(idx) - seq.prompt_len :]:
+            idx.append(t)
+        return idx.propose(max_d)
+
+    def _free_draft(self, seq: RunningSeq) -> None:
+        if seq.draft_pos is not None:  # set in draft mode only
+            self.runner.draft.free_sequence(seq.req.request_id)
+        seq.draft_pos = None
+
+    def _drop_draft(self, seq: RunningSeq, why: str) -> None:
+        """The draft pool cannot serve this sequence: it goes on verifying
+        (one token a round, still exact) with no proposals for the rest of
+        its life."""
+        log.warning("draft cache dropped for %s (%s)", seq.req.request_id, why)
+        self._free_draft(seq)
+        seq.draft_dead = True
+
+    def _draft_sync(self, seq: RunningSeq, K: int) -> bool:
+        """Bring the draft model's KV up to the sequence's history: in the
+        steady state extend its capacity for this round's k draft rows; a
+        fresh (or fallen-behind) sequence chunk-prefills everything but the
+        newest token. Returns True when the lane can draft this round."""
+        if seq.draft_dead:
+            return False
+        draft = self.runner.draft
+        rid = seq.req.request_id
+        behind = None if seq.draft_pos is None else seq.pos - seq.draft_pos
+        if behind is not None and not 1 <= behind <= K + 1:
+            # a catch-up wider than the step's K+1 rows: rebuild
+            self._free_draft(seq)
+            behind = None
+        if behind is None:
+            hist = list(seq.req.token_ids) + seq.generated
+            t0 = time.monotonic()
+            if not draft.prefill_sequence(rid, hist[:-1]):
+                self._drop_draft(seq, "draft page pool exhausted at prefill")
+                return False
+            self.stage.spec_draft_prefills += 1
+            self.stage.spec_draft_prefill_s += time.monotonic() - t0
+            seq.draft_pos = len(hist) - 1
+            return True
+        # fed positions this round reach seq.pos + K - 1
+        if not draft.ensure_capacity(rid, seq.pos + K):
+            self._drop_draft(seq, "draft page pool exhausted")
+            return False
+        return True
+
+    def _dispatch_draft_phase(self, candidates: list, K: int):
+        """Batched drafting for a draft-model round: one
+        ``runner.dispatch_draft`` across every lane whose draft cache is
+        live. Fills each candidate's draft list in place (candidates are
+        [seq, p, drafts, max_d] records) and returns the [B, K, V] draft
+        probabilities for the verify pass (None when no lane drafted)."""
+        live = [cand for cand in candidates if cand[3] > 0 and self._draft_sync(cand[0], K)]
+        if not live:
+            return None
+        B = self.config.max_seqs
+        draft = self.runner.draft
+        tables = {s.req.request_id: draft.table_for(s.req.request_id) for s, _, _, _ in live}
+        W = self.config.table_bucket_for(max(len(t) for t in tables.values()))
+        positions = np.zeros(B, np.int32)
+        page_tables = np.zeros((B, W), np.int32)
+        active = np.zeros(B, bool)
+        fed = np.zeros((B, K + 1), np.int32)
+        n_feed = np.ones(B, np.int32)
+        temps = np.zeros(B, np.float32)
+        top_ks = np.zeros(B, np.int32)
+        top_ps = np.ones(B, np.float32)
+        min_ps = np.zeros(B, np.float32)
+        seeds = np.zeros(B, np.int32)
+        for seq, _, _, _ in live:
+            i = seq.slot
+            table = tables[seq.req.request_id]
+            positions[i] = seq.draft_pos
+            page_tables[i, : len(table)] = table
+            active[i] = True
+            pending = seq.generated[seq.draft_pos - seq.prompt_len :]
+            n_feed[i] = len(pending)
+            fed[i, : len(pending)] = pending
+            s = seq.req.sampling
+            temps[i], top_ks[i], top_ps[i], min_ps[i] = s.temperature, s.top_k, s.top_p, s.min_p
+            seeds[i] = fold_seed(s.seed)
+        t0 = time.monotonic()
+        toks_res, q = self.runner.dispatch_draft(
+            positions, page_tables, active, fed, n_feed, temps, top_ks, top_ps,
+            min_ps=min_ps, seeds=seeds if np.any(seeds) else None,
+        )
+        t_disp = time.monotonic()
+        toks = toks_res.numpy()
+        dt = time.monotonic() - t0
+        self.stage.spec_draft_calls += 1
+        self.stage.spec_draft_s += dt
+        self.anatomy.record(
+            "spec_draft", dispatch_s=t_disp - t0, device_wait_s=time.monotonic() - t_disp, steps=K,
+            tokens=int(sum(c[3] for c in live)), participants=len(live), ts=t0,
+        )
+        for cand in live:
+            cand[2] = toks[cand[0].slot, : cand[3]].tolist()
+        return q
+
+    def _dispatch_spec_round(self, outputs: list[StepOutput]) -> int:
+        """One speculative verify round over every spec-mode decode slot:
+        propose up to k drafts a slot (its n-gram index, or one batched
+        draft-model step shared by every lane), feed [anchor, drafts...] at
+        consecutive fed positions through ONE multi-query verify pass, and
+        emit the accepted prefix and the correction / bonus token (1..k+1
+        tokens). Rounds are synchronous (the next proposal needs this
+        round's tokens), so the host tracks materialized positions exactly;
+        KV written for rejected drafts (target and draft pools) is
+        overwritten by the next round at the advanced anchor. Returns 1
+        when a round ran."""
+        K = self.spec.k
+        draft_mode = self.spec.kind == "draft"
+        candidates = []  # mutable [seq, p, drafts, max_d] records
+        for seq in sorted((s for s in self.slots if s is not None), key=lambda s: s.admitted_order):
+            if seq.finished or not seq.spec_mode or seq.prefill_pos is not None or not seq.generated:
+                continue  # prefill pending, or its first token still in flight
+            budget = seq.req.sampling.max_tokens - len(seq.generated)
+            p = seq.prompt_len + len(seq.generated) - 1  # anchor fed position
+            if budget <= 0 or p >= self.config.max_model_len:
+                continue
+            max_d = max(0, min(K, budget - 1, self.config.max_model_len - 1 - p))
+            if draft_mode:
+                drafts = None  # filled by the batched draft step below
+            else:
+                drafts = self._propose_ngram(seq, max_d) if max_d > 0 else []
+                max_d = len(drafts)
+            # pages for the fed rows anchor..anchor+max_d, by the window
+            # path's ladder without preemption: drain the pipeline, then
+            # shrink the proposal to the allocated pages, then fail
+            need = p + max_d + 1
+            while self.slots[seq.slot] is seq and not self.allocator.ensure_capacity(seq.req.request_id, need):
+                if self.in_flight:
+                    outputs.extend(self._reconcile(block=True, drain=True))
+                    continue
+                cap = self._capacity(seq)
+                if cap > p:
+                    max_d = min(max_d, cap - 1 - p)
+                    if drafts is not None:
+                        drafts = drafts[:max_d]
+                    break
+                outputs.extend(self._finish(seq, "error"))
+                break
+            if self.slots[seq.slot] is not seq or seq.finished:
+                continue
+            self._refresh_table(seq)
+            candidates.append([seq, p, drafts, max_d])
+        # a drain above can finish an earlier candidate
+        candidates = [c for c in candidates if not c[0].finished and self.slots[c[0].slot] is c[0]]
+        if not candidates:
+            return 0
+
+        draft_probs = None
+        if draft_mode:
+            draft_probs = self._dispatch_draft_phase(candidates, K)
+            for c in candidates:
+                if c[2] is None:  # the lane did not draft (dead draft or no budget)
+                    c[2], c[3] = [], 0
+                else:
+                    c[3] = len(c[2])
+
+        t_prep = time.monotonic()
+        B = self.config.max_seqs
+        # the widest participant's ladder rung
+        W = self.config.table_bucket_for(max(len(s.page_table) for s, _, _, _ in candidates))
+        positions = np.zeros(B, np.int32)
+        page_tables = np.zeros((B, W), np.int32)
+        active = np.zeros(B, bool)
+        fed = np.zeros((B, K + 1), np.int32)
+        n_drafts = np.zeros(B, np.int32)
+        temps = np.zeros(B, np.float32)
+        top_ks = np.zeros(B, np.int32)
+        top_ps = np.ones(B, np.float32)
+        min_ps = np.zeros(B, np.float32)
+        seeds = np.zeros(B, np.int32)
+        snapshot = []
+        for seq, p, drafts, _ in candidates:
+            i = seq.slot
+            positions[i] = p
+            page_tables[i, : len(seq.page_table)] = seq.page_table
+            active[i] = True
+            fed[i, 0] = seq.generated[-1]
+            fed[i, 1 : 1 + len(drafts)] = drafts
+            n_drafts[i] = len(drafts)
+            s = seq.req.sampling
+            temps[i], top_ks[i], top_ps[i], min_ps[i] = s.temperature, s.top_k, s.top_p, s.min_p
+            seeds[i] = fold_seed(s.seed)
+            snapshot.append((seq, i, len(drafts), p))
+
+        t0 = time.monotonic()
+        result = self.runner.dispatch_verify(
+            positions, page_tables, active, fed, n_drafts, temps, top_ks, top_ps, min_ps=min_ps,
+            seeds=seeds if np.any(seeds) else None, draft_probs=draft_probs,
+        )
+        t_disp = time.monotonic()
+        tokens, n_emit = result.numpy()
+        dt = time.monotonic() - t0
+        st = self.stage
+        st.spec_rounds += 1
+        st.spec_dispatch_s += dt
+        # one verify round reads the weights and every participant's live
+        # pages once (a multi-query pass): the floor of one decode step
+        live_pages = sum(
+            self.allocator._seqs[s.req.request_id].num_pages
+            for s, _, _, _ in candidates if s.req.request_id in self.allocator._seqs
+        )
+        rec = self.anatomy.record(
+            "spec_verify", host_prep_s=t0 - t_prep, dispatch_s=t_disp - t0,
+            device_wait_s=time.monotonic() - t_disp, steps=1, participants=len(candidates),
+            floor_bytes=self.anatomy.decode_floor_bytes(live_pages, 1), ts=t_prep,
+        )
+        t_rec = time.monotonic()
+        round_emitted = 0
+        for seq, i, proposed, p in snapshot:
+            if seq.finished:
+                continue
+            emitted = int(n_emit[i])
+            accepted = max(0, emitted - 1)
+            st.spec_proposed += proposed
+            st.spec_accepted += accepted
+            st.spec_emitted += emitted
+            round_emitted += emitted
+            if draft_mode and seq.draft_pos is not None:
+                # accepted draft rows are already fed in the draft cache;
+                # the correction / bonus token is next round's catch-up
+                seq.draft_pos = p + 1 + accepted
+            for j in range(emitted):
+                outputs.extend(self._emit_token(seq, int(tokens[i, j])))
+                if seq.finished:
+                    break  # stop / length mid-chunk: the tail tokens are dead
+        self.anatomy.add_phase(rec, "reconcile", time.monotonic() - t_rec)
+        self.anatomy.note_steps(rec, tokens=round_emitted)
+        return 1
+
     # ---------------- decode windows ----------------
 
     def _dispatch_windows(self, outputs: list[StepOutput]) -> int:
@@ -426,6 +716,8 @@ class Scheduler:
         """Steps this window can run for `seq` before budget/length bounds."""
         if seq.prefill_pos is not None:
             return 0  # prefill chunks still pending; no sampled token yet
+        if seq.spec_mode:
+            return 0  # advances through speculative verify rounds, never windows
         budget = seq.req.sampling.max_tokens - seq.sched_len
         length = self.config.max_model_len - seq.next_fed_pos
         return max(0, min(K, budget, length))
@@ -622,5 +914,6 @@ class Scheduler:
     def _release(self, seq: RunningSeq) -> None:
         seq.finished = True
         self.allocator.free_sequence(seq.req.request_id)
+        self._free_draft(seq)
         if self.slots[seq.slot] is seq:
             self.slots[seq.slot] = None

@@ -9,9 +9,11 @@ launch/dynamo-run/src/output/echo_core.rs) and the port's engine
 Port of ``dynamo_tpu/launch/_run_impl.py``. Not ported yet, and refused with
 :class:`NotPorted`: ``--out pytok:`` and ``dyn://`` inputs and outputs (the
 distributed runtime), and the engine options whose features the port does not
-run (tp/pp, speculative decoding, LoRA, the long-context offload tiers, QoS,
-SLO targets). ``--quantize int8_wo`` and a checkpoint directory as the model
-run.
+run (tp/pp, LoRA, the long-context offload tiers, QoS, SLO targets).
+``--quantize int8_wo``, a checkpoint directory as the model, and speculative
+decoding (``--speculative ngram:k`` / ``draft:<model>:k``, or a
+``"speculative"`` key in a tiny model's JSON, popped before the registry
+reads the rest, as in the reference) run.
 """
 
 from __future__ import annotations
@@ -42,8 +44,7 @@ def run_command(args) -> int:
 
 def _refuse_unported(args) -> None:
     for flag, attr, off in (
-        ("--tp", "tp", (None, 1)), ("--pp", "pp", (None, 1)), ("--speculative", "speculative", (None,)),
-        ("--lora-adapters", "lora_adapters", (None,)), ("--slo-ttft-ms", "slo_ttft_ms", (None,)),
+        ("--tp", "tp", (None, 1)), ("--pp", "pp", (None, 1)), ("--lora-adapters", "lora_adapters", (None,)), ("--slo-ttft-ms", "slo_ttft_ms", (None,)),
         ("--slo-itl-ms", "slo_itl_ms", (None,)),
     ):
         if getattr(args, attr, None) not in off:
@@ -55,7 +56,8 @@ def engine_config_for(args):
     reference's defaults: a tiny model gets page size = the card's block
     size, 128 pages, 4 slots and prefill buckets (16, 32); a checkpoint
     directory (page size 16, its card's context length) 2048 pages and 16
-    slots. ``--quantize`` reaches both."""
+    slots. ``--quantize`` and ``--speculative`` reach both (a bad
+    speculative spec raises the reference's ValueError)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.frontends.pipeline import card_for_model
 
@@ -63,14 +65,22 @@ def engine_config_for(args):
     card = card_for_model(args.model, getattr(args, "max_model_len", None))
     is_tiny = card.model_path.startswith("tiny")
     model_path = card.model_path
+    speculative = getattr(args, "speculative", None)
     if is_tiny and ":" in model_path:
-        # engine-level keys may ride the tiny-override JSON in the
-        # reference; the port runs none of them
-        overrides = json.loads(model_path.split(":", 1)[1])
+        # engine-level keys may ride the tiny-override JSON (one model
+        # string configures a test engine end to end): pop them out before
+        # the registry reads the rest as the model's config
+        fam, js = model_path.split(":", 1)
+        try:
+            overrides = json.loads(js)
+        except ValueError:
+            overrides = None
         if isinstance(overrides, dict) and "speculative" in overrides:
-            raise NotPorted("speculative decoding")
+            speculative = speculative or overrides.pop("speculative")
+            model_path = fam + (":" + json.dumps(overrides) if overrides else "")
     common = dict(
         model_id=model_path,
+        speculative=speculative,
         device=getattr(args, "device", None) or "cuda",
         page_size=card.kv_block_size,
         max_model_len=card.context_length,

@@ -10,8 +10,9 @@ the reference's ``--out jax``, and ``--device {cuda,cpu}`` (default ``cuda``),
 the port's counterpart of the reference's ``JAX_PLATFORMS``; on ``cuda``
 without a card the engine raises, it never falls back to the CPU. The
 reference's options and subcommands that the port does not run yet
-(``serve``, ``build``, ``deploy``, ``dyn://``, ``pytok:``, tp/pp,
-speculative decoding, LoRA, SLO targets) raise ``NotPorted``. MODEL is a
+(``serve``, ``build``, ``deploy``, ``dyn://``, ``pytok:``, tp/pp, LoRA,
+SLO targets) raise ``NotPorted``; ``--speculative ngram:<k>`` and
+``draft:<model>:<k>`` run. MODEL is a
 tiny family (``tiny[:{json}]``, ``tiny-mla[:{json}]``) or a local HF
 checkpoint directory (Llama / Qwen2 / DeepSeek; its ``tokenizer.json``
 where present, else the byte tokenizer); ``--quantize int8_wo`` serves its
@@ -47,7 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="KV cache storage dtype: int8 stores pages as int8 + per-row "
              "scales — half the attention bytes, ~2x page capacity",
     )
-    run.add_argument("--speculative", default=None, metavar="KIND:...", help="speculative decoding (not ported)")
+    run.add_argument(
+        "--speculative", default=None, metavar="KIND:...",
+        help="speculative decoding: ngram:<k> proposes from the sequence's own history (prompt-lookup); "
+             "draft:<model>:<k> loads a second registry model that drafts k tokens a round in one batched "
+             "step (with --quantize / --kv-cache-dtype); both verify in one batched forward pass",
+    )
     run.add_argument("--lora-adapters", default=None, metavar="SPECS", help="LoRA adapters (not ported)")
     run.add_argument("--max-loras", type=int, default=None, help="device LoRA slots (not ported)")
     run.add_argument("--lora-rank", type=int, default=None, help="LoRA pool rank (not ported)")

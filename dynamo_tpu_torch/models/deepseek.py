@@ -30,8 +30,15 @@ shared experts, in PyTorch with a paged latent KV cache (port of
     ``qlinear_expert``: kernel K8 on the card. The k-up / v-up banks, the
     norms and the f32 router stay full precision.
 
-Not ported yet: ``verify``, tensor parallelism (``attn_mesh``), the wire
-export, yarn rope scaling (the reference raises on it too).
+  - ``verify`` (speculative decoding): the B * T rows of B lanes go through
+    K5 as decode queries, each row with its lane's page table and its own
+    position, so a row attends to context j <= its position (the
+    reference attends each lane through a plain absorbed path,
+    ``dynamo_tpu/models/deepseek.py:559-578``; K5 computes the same
+    function in one launch a layer).
+
+Not ported yet: tensor parallelism (``attn_mesh``), the wire export, yarn
+rope scaling (the reference raises on it too).
 """
 
 from __future__ import annotations
@@ -424,3 +431,38 @@ class DeepseekModel(nn.Module):
 
         hidden = self._forward(pool, hidden, positions, phys, offsets, page_tables, attend)
         return self._unembed(hidden), kv_cache
+
+    @torch.no_grad()
+    def verify(
+        self,
+        kv_cache: dict,
+        tokens: torch.Tensor,  # [B, T] anchor + draft tokens per slot
+        positions: torch.Tensor,  # [B, T] int32 consecutive fed positions per slot
+        page_tables: torch.Tensor,  # [B, max_pages] int32 logical page ids per slot
+        valid: torch.Tensor,  # [B, T] bool (invalid rows -> trash page)
+    ) -> tuple[torch.Tensor, dict]:
+        """Speculative verification (the ModelRunner contract, see
+        LlamaModel.verify): [B, T] anchor + draft tokens at consecutive
+        positions, one weight pass, logits at ALL rows. Latent rows of
+        invalid positions scatter to the trash page; the B * T rows attend
+        through K5, each with its lane's table and its own position.
+
+        Returns (logits [B, T, V], kv_cache)."""
+        c = self.config
+        pool = kv_cache["ckv"]
+        ps = pool.shape[1]
+        B, T = tokens.shape
+        mp = page_tables.shape[1]
+        pos = positions.long()
+        lane = torch.arange(B, device=tokens.device)[:, None]
+        phys = torch.where(valid, page_tables.long()[lane, (pos // ps).clamp(0, mp - 1)], 0).reshape(B * T)
+        offsets = torch.where(valid, pos % ps, 0).reshape(B * T)
+        pos_flat = positions.reshape(B * T).contiguous()
+        tables = page_tables.repeat_interleave(T, dim=0)  # [B * T, max_pages]: a row reads its lane's pages
+        hidden = self.embed[tokens.reshape(B * T).long()].to(c.dtype)
+
+        def attend(q_cat, pool, tables):
+            return dispatch_paged_mla_decode_attention(q_cat, pool, tables, pos_flat, c.kv_lora_rank)
+
+        hidden = self._forward(pool, hidden, pos_flat, phys, offsets, tables, attend)
+        return self._unembed(hidden).reshape(B, T, -1), kv_cache

@@ -22,7 +22,12 @@
     kernel K8 on the card, its plain version on the CPU. Embeddings, the
     lm_head, norms and biases stay in the model dtype.
 
-Not ported yet: LoRA, M-RoPE, sp/pp/tp, ``verify``.
+  - ``verify`` (speculative decoding): B lanes of T = k+1 rows at
+    consecutive positions through ``_packed_forward`` in one weight pass,
+    every row unembedded; attention is the packed prefill kernel K2 (K3b
+    for a folded head_dim), and invalid rows scatter to the trash page.
+
+Not ported yet: LoRA, M-RoPE, sp/pp/tp.
 """
 
 from __future__ import annotations
@@ -335,6 +340,28 @@ class LlamaModel(nn.Module):
 
             hidden = self._layer(lp, hidden, k_pool, v_pool, pos_flat, off + phys, offsets, attn_fn)
         return hidden, kv_cache
+
+    @torch.no_grad()
+    def verify(
+        self,
+        kv_cache: dict,  # {"k","v"} flat pools (updated in place)
+        tokens: torch.Tensor,  # [B, T] anchor + draft tokens per slot
+        positions: torch.Tensor,  # [B, T] int32 consecutive fed positions per slot
+        page_tables: torch.Tensor,  # [B, max_pages] int32 logical page ids per slot
+        valid: torch.Tensor,  # [B, T] bool (invalid rows -> trash page)
+    ) -> tuple[torch.Tensor, dict]:
+        """Speculative verification: every slot feeds T = k+1 tokens at
+        consecutive positions through its paged context in ONE weight pass
+        (the packed-prefill path with tiny chunks, so the causal mask
+        against the page table comes with it) and unembeds ALL rows.
+
+        Returns (logits [B, T, V], kv_cache): logits[:, i] is the next-token
+        distribution after the token fed at positions[:, i]. KV rows of
+        invalid positions land on the trash page; rejected rows are
+        overwritten by the next pass at the advanced anchor."""
+        B, T = tokens.shape
+        hidden, kv_cache = self._packed_forward(kv_cache, tokens, positions, page_tables, valid)
+        return self._unembed(hidden).reshape(B, T, -1), kv_cache
 
     @torch.no_grad()
     def decode(

@@ -12,6 +12,8 @@ multiple of 8), and MLA at 4, 16 and 20 heads, at a latent row of d_c 1024
 + d_r 64 and at rows that start off 16 bytes (latent 36, d_c 30), and K8
 (the weight-only int8 linear, plain and expert-bank forms, bf16 activations
 on its wgmma body, f32 activations and out % 16 != 0 on its mma.sync body).
+K2 and K5 also run at the speculative verify pass's shapes (16 lanes of
+k+1 = 5 rows; 80 MLA query rows, each over its lane's repeated table).
 K1 over
 bf16 queries (its split tensor-core body and merge), K4a / K4b and K5 (both
 bodies) give the same bits twice; K7c's
@@ -1050,3 +1052,46 @@ def test_int8_linear_mma_body_stays(cuda, dtype, T, K, N):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), qlinear_plain(h, q, s).float(), **TOL[dtype])
+
+
+# ---------------------------------------------------------------- the speculative verify pass's shapes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (16, 8)])
+def test_prefill_kernel_at_verify_lanes_matches_plain(cuda, dtype, Hq, Hkv):
+    """K2 as the verify pass calls it: 16 lanes of k+1 = 5 rows at ragged
+    anchors (a lane at position 0, one ending its table, an inactive lane on
+    the zero table)."""
+    rng = np.random.default_rng(Hq)
+    B, T, ps, mp, D = 16, 5, 16, 32, 128
+    P = B * mp + 1
+    k, v = _pools(rng, P, ps, Hkv, D, dtype, cuda)
+    q = torch.from_numpy(rng.standard_normal((B * T, Hq, D)).astype(np.float32)).to(cuda, dtype)
+    anchors = rng.integers(0, mp * ps - T, B)
+    anchors[:2] = (0, mp * ps - T)
+    tables = (1 + np.arange(B * mp).reshape(B, mp)).astype(np.int32)
+    tables[-1], anchors[-1] = 0, 0
+    pos = (anchors[:, None] + np.arange(T)[None]).astype(np.int32)
+    pt, pos_t = torch.from_numpy(tables).to(cuda), torch.from_numpy(pos).to(cuda)
+    got = paged_prefill_attention_kernel(q, k, v, pt, pos_t)
+    ref = tatt.paged_prefill_attention_lanes(q, k, v, pt, pos_t)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32-pages", "bf16-pages"])
+def test_mla_decode_kernel_at_verify_rows_matches_plain(cuda, dtype):
+    """K5 as the MLA verify pass calls it: B * (k+1) query rows, each with
+    its lane's table (the table repeated k+1 times) and its own position."""
+    rng = np.random.default_rng(7)
+    B, T, ps, mp = 16, 5, 16, 64
+    P = B * mp + 1
+    q, pages = _mla_inputs(rng, B * T, P, ps, dtype, cuda)
+    anchors = rng.integers(0, mp * ps - T, B)
+    tables = (1 + np.arange(B * mp).reshape(B, mp)).astype(np.int32)
+    pos = (anchors[:, None] + np.arange(T)[None]).astype(np.int32).reshape(B * T)
+    pt = torch.from_numpy(np.repeat(tables, T, axis=0)).to(cuda)
+    pos_t = torch.from_numpy(pos).to(cuda)
+    got = paged_mla_decode_attention_kernel(q, pages, pt, pos_t, MLA_DC)
+    ref = tatt.paged_mla_decode_attention(q, pages, pt, pos_t, MLA_DC)
+    torch.testing.assert_close(got, ref, **TOL[torch.float32])

@@ -142,6 +142,22 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
        batch mates; (d) DeepSeek-V2-Lite width, 4 layers, f32, capacity
        factor 11, n-gram: streams equal the engine's without speculation, K5
        launched once a layer a verify round, K6 in prefill, nothing else
+     preempt serve (``phase_preempt_serve``): page pressure, QoS and the
+       chunk planner, every engine warmed up first and no capture after.
+       (a) the serve workload on Llama-3-8B geometry, 32 layers, bf16, on
+       1100 pages, watermark 0 (the prompts fit, their outputs do not):
+       every stream ends "length" with 64 tokens, at least one preemption;
+       prints preemptions, pressure drains, re-admissions' cached tokens,
+       tok/s and TTFT beside serve's, K1 / K2 launches; (b) Llama-3-8B
+       width, 4 layers, f32, the same pool against 4096 pages: every greedy
+       stream equal; (c) 4 slots, the 16 prompts as batch class, two
+       critical requests once the slots are busy, QoS on then off: a shed,
+       no critical victim, critical TTFT p50 below the FIFO run's; (d)
+       n-gram (k = 4) on (b)'s tight pool: streams equal (b)'s; (e) a
+       16384-token prompt beside the four shortest prompts decoding
+       (max_model_len 16448) at the default prefill_flat_depth and at 2048:
+       each prefill call's rows as chunk_len_for plans them, each call's
+       device ms against its depth
   9. refusals: an int8 cache on tiny-mla and on K4a, K3b over float16 and
      K4b at a folded head dim raise on the card; K1 at head_dim 640 and K3a
      at 520, which the launchers refused before, launch and hold their plain
@@ -2775,6 +2791,325 @@ def phase_spec_serve(torch, gpu_name: str, served: dict, kernels: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- preempt serve
+
+PREEMPT_PAGES = 1100  # the serve prompts take 1073 pages of 16, with their outputs 1137
+QOS_SLOTS = 4
+PLANNER_PROMPT, PLANNER_MAX_LEN, PLANNER_FLAT = 16384, 16448, 2048
+
+
+async def stream_outputs(engine, req, firsts: set):
+    """(request id, {tokens, reason, ttft (s from the call)}); the id joins
+    ``firsts`` at its first token."""
+    t0 = time.monotonic()
+    got = dict(tokens=[], reason=None, ttft=None)
+    async for out in engine.generate(req):
+        if out.token is not None:
+            if got["ttft"] is None:
+                got["ttft"] = time.monotonic() - t0
+                firsts.add(req.request_id)
+            got["tokens"].append(out.token)
+        got["reason"] = out.finish_reason
+    return req.request_id, got
+
+
+class PreemptEngine:
+    """A started AsyncTorchEngine on a shared model, every step graph
+    captured first (warmup True); ``run`` serves a list of requests with the
+    launch counts of ``kernels`` and ``forbidden`` set to 0 just before and
+    read just after, and raises when a kernel of ``kernels`` did not launch,
+    one of ``forbidden`` did, or a graph was captured while serving. Every
+    admission's cached tokens are recorded (a preempted request's
+    re-admission among them)."""
+
+    def __init__(self, what: str, config, model, kernels: dict, forbidden: dict):
+        from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+
+        self.what, self.kernels, self.forbidden = what, kernels, forbidden
+        self.engine = AsyncTorchEngine(dataclasses.replace(config, warmup=True), model=model)
+        asyncio.run(self.engine.start())
+        self.sched = self.engine.scheduler
+        self.admissions = []  # (request id, cached tokens), on the engine thread
+        start = self.sched._start_sequence
+
+        def start_recorded(req, slot):
+            start(req, slot)
+            self.admissions.append((req.request_id, self.sched.slots[slot].cached_len))
+
+        self.sched._start_sequence = start_recorded
+
+    def on_engine(self, fn):
+        async def call():
+            return await self.engine.run_on_engine(fn)
+
+        return asyncio.run(call())
+
+    def run(self, requests, later=(), ready=None) -> dict:
+        """Serve ``requests`` concurrently, and ``later`` once ``ready(ids
+        of the streams that have their first token)`` holds; returns
+        {streams, wall, launches, resumed: {id: cached tokens of each
+        re-admission}, the scheduler's counter deltas}."""
+        engine, monitor = self.engine, self.engine.runner.compile_monitor
+        counters = ("preempt_count", "pressure_drain_count", "qos_sheds")
+        before = {k: getattr(self.sched, k) for k in counters} | {"qos_preempted": dict(self.sched.qos_preempted)}
+
+        async def serve_all():
+            t0, firsts = time.monotonic(), set()
+            tasks = [asyncio.ensure_future(stream_outputs(engine, r, firsts)) for r in requests]
+            if later:
+                while not ready(firsts):
+                    await asyncio.sleep(0.002)
+                tasks += [asyncio.ensure_future(stream_outputs(engine, r, firsts)) for r in later]
+            results = dict(await asyncio.gather(*tasks))
+            return results, time.monotonic() - t0
+
+        for fn in (*self.kernels.values(), *self.forbidden.values()):
+            fn.launches = 0
+        captures, admitted = monitor.compiles, len(self.admissions)
+        results, wall = asyncio.run(serve_all())
+        resumed, seen = {}, set()
+        for rid, cached in self.admissions[admitted:]:
+            if rid in seen:
+                resumed.setdefault(rid, []).append(cached)
+            seen.add(rid)
+        captured = monitor.compiles - captures
+        launches = {name: fn.launches for name, fn in self.kernels.items()}
+        stray = {name: fn.launches for name, fn in self.forbidden.items() if fn.launches}
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"{self.what}: main path skipped a kernel: launches {launches}")
+        if stray:
+            raise AssertionError(f"{self.what}: kernels off this path launched: {stray}")
+        if captured:
+            raise AssertionError(f"{self.what}: {captured} graph captures after the warmup")
+        delta = {k: getattr(self.sched, k) - before[k] for k in counters}
+        delta["qos_preempted"] = {c: n - before["qos_preempted"].get(c, 0)
+                                  for c, n in self.sched.qos_preempted.items()
+                                  if n - before["qos_preempted"].get(c, 0)}
+        return dict(streams=results, wall=wall, launches=launches, resumed=resumed, **delta)
+
+    def close(self) -> None:
+        import gc
+
+        asyncio.run(self.engine.shutdown())
+        self.engine = self.sched = None
+        gc.collect()
+
+
+def fresh(req, **changes):
+    """A copy of ``req`` never submitted (an engine stamps its submission
+    time and number on the request it is given)."""
+    return dataclasses.replace(req, enqueue_ts=0.0, submission=0, **changes)
+
+
+def all_length(what: str, streams: dict, n: int) -> None:
+    """Raise unless every stream ended with "length" and ``n`` tokens."""
+    bad = {rid: (len(s["tokens"]), s["reason"]) for rid, s in streams.items()
+           if len(s["tokens"]) != n or s["reason"] != "length"}
+    if bad:
+        raise AssertionError(f"{what}: streams not ending with {n} tokens and 'length': {bad}")
+
+
+def greedy_tokens(streams: dict) -> dict:
+    return {rid: (s["tokens"], s["reason"]) for rid, s in streams.items()}
+
+
+def phase_preempt_serve(torch, gpu_name: str, served: dict, kernels: dict) -> dict:
+    """Preemption under page pressure, the QoS scheduler and the chunk
+    planner on the card (``kernels``: {name: launcher} of every serving
+    kernel; each sub-phase's engine captures every step graph first, and
+    none is captured while it serves). Returns {sub-phase: {name: launches
+    in its run}}:
+
+      (a) Llama-3-8B geometry, 32 layers, bf16, the serve workload on
+          ``serve_config()`` with PREEMPT_PAGES pages and watermark 0 (the
+          prompts fit, their outputs do not): every stream ends "length"
+          with 64 tokens and the scheduler preempted; prints preemptions,
+          pressure drains, the resumed requests' cached tokens, tok/s and
+          TTFT p50 beside the serve phase's (``served["serve"]``), the share
+          of streams equal to the serve phase's (bf16: a resumed tail's KV is
+          a K2 product where it was a K1 product), K1 and K2 launches;
+      (b) Llama-3-8B width, 4 layers, f32, the same pool against 4096
+          pages: every greedy stream equal, stream for stream;
+      (c) bf16, 32 layers, ``max_seqs`` QOS_SLOTS: the 16 serve prompts as
+          batch class, then two critical requests (fresh 512-token prompts)
+          once every slot is busy, with ``qos`` True and then False on one
+          engine: with QoS the scheduler sheds (preempts a batch lane), no
+          critical stream is preempted, every stream ends with 64 tokens,
+          and the critical TTFT p50 is below the FIFO run's;
+      (d) n-gram speculation (k = SPEC_K) on (b)'s tight pool, f32: the
+          streams equal (b)'s, and the pressure ladder preempted;
+      (e) bf16, 32 layers, ``max_model_len`` PLANNER_MAX_LEN, page-table
+          rungs (128, 1028): one PLANNER_PROMPT-token prompt beside the four
+          shortest serve prompts decoding, at the default
+          ``prefill_flat_depth`` and at PLANNER_FLAT (one engine, the prefix
+          cache emptied between): each prefill call's rows (step anatomy)
+          equal ``chunk_len_for``'s plan, the stream ends "length"; prints
+          each call's device ms (CUDA events around the call) against its
+          depth."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest
+    from dynamo_tpu_torch.models.registry import load_model
+    from dynamo_tpu_torch.tools.workload import LLAMA3_8B, MAX_TOKENS, serve_config, serve_requests
+
+    def only(*names):
+        return {n: kernels[n] for n in names}, {n: fn for n, fn in kernels.items() if n not in names}
+
+    out = {}
+    requests = serve_requests()
+    base = served["serve"]
+    t0 = time.monotonic()
+    model = load_model(serve_config().model_id, device="cuda")
+    t0 = lap("preempt serve: the 32-layer bf16 model", t0)
+
+    # (a) the serve workload on a pool its outputs outgrow
+    tight = dataclasses.replace(serve_config(), num_pages=PREEMPT_PAGES, watermark=0.0)
+    eng = PreemptEngine("preempt serve (a)", tight, model, *only("K1", "K2"))
+    try:
+        a = eng.run([fresh(r) for r in requests])
+        graphs = graphs_line(eng.engine)
+    finally:
+        eng.close()
+    all_length("preempt serve (a)", a["streams"], MAX_TOKENS)
+    if a["preempt_count"] < 1:
+        raise AssertionError(f"preempt serve (a): no preemption on {PREEMPT_PAGES} pages")
+    ttfts = sorted(s["ttft"] for s in a["streams"].values())
+    n_out = sum(len(s["tokens"]) for s in a["streams"].values())
+    differ = stream_diffs(greedy_tokens(a["streams"]), {rid: r[:2] for rid, r in base["results"].items()})
+    log(f"preempt serve (a) [{gpu_name}]: {len(requests)} streams ended 'length' with {MAX_TOKENS} tokens on "
+        f"{PREEMPT_PAGES} pages, watermark 0: {a['preempt_count']} preemptions, {a['pressure_drain_count']} "
+        f"pressure drains; re-admissions' cached tokens {json.dumps(a['resumed'])}; {n_out / a['wall']:.1f} output "
+        f"tok/s, TTFT p50 {np.median(ttfts) * 1e3:.1f} ms, wall {a['wall']:.2f} s (serve on 4096 pages: "
+        f"{base['n_out'] / base['wall']:.1f} output tok/s, TTFT p50 {np.median(base['ttfts']) * 1e3:.1f} ms, wall "
+        f"{base['wall']:.2f} s); {len(requests) - len(differ)}/{len(requests)} streams equal the serve phase's "
+        f"(bf16; first divergences {differ[:4]}); launches K1 {a['launches']['K1']} K2 {a['launches']['K2']}")
+    log(f"preempt serve (a) graphs: {graphs}; no capture after the warmup")
+    out["preempt serve"] = a["launches"]
+    t0 = lap("preempt serve (a)", t0)
+
+    # (c) QoS: batch requests fill every slot, then two critical requests
+    rng = np.random.default_rng(16)
+    batch = [fresh(r, request_id=f"batch-{i}", priority="batch") for i, r in enumerate(requests)]
+    critical = [EngineRequest(f"critical-{i}", rng.integers(0, LLAMA3_8B["vocab_size"], 512).tolist(),
+                              SamplingParams(max_tokens=MAX_TOKENS), priority="critical") for i in range(2)]
+    eng = PreemptEngine("preempt serve (c)", dataclasses.replace(serve_config(), max_seqs=QOS_SLOTS), model,
+                        *only("K1", "K2"))
+    try:
+        runs_c = {}
+        for on in (True, False):
+            eng.on_engine(eng.engine.allocator.reset_prefix_cache)
+            eng.on_engine(lambda: setattr(eng.engine.config, "qos", on))
+            runs_c[on] = eng.run([fresh(r) for r in batch], [fresh(r) for r in critical],
+                                 ready=lambda _: eng.sched.num_running >= QOS_SLOTS)
+    finally:
+        eng.close()
+    crit_ttft = {}
+    for on, r in runs_c.items():
+        all_length(f"preempt serve (c) qos={on}", r["streams"], MAX_TOKENS)
+        crit_ttft[on] = float(np.median([r["streams"][q.request_id]["ttft"] for q in critical]))
+        batch_ttft = float(np.median([r["streams"][q.request_id]["ttft"] for q in batch]))
+        log(f"preempt serve (c) qos={on} [{gpu_name}]: critical TTFTs "
+            f"{[round(r['streams'][q.request_id]['ttft'] * 1e3, 1) for q in critical]} ms (p50 "
+            f"{crit_ttft[on] * 1e3:.1f}), batch TTFT p50 {batch_ttft * 1e3:.1f} ms, wall {r['wall']:.2f} s; "
+            f"sheds {r['qos_sheds']}, preemptions {r['preempt_count']} by class {r['qos_preempted']}; launches "
+            f"{r['launches']}")
+    if runs_c[True]["qos_sheds"] < 1 or runs_c[True]["qos_preempted"].get("critical", 0):
+        raise AssertionError(f"preempt serve (c): sheds {runs_c[True]['qos_sheds']}, preempted by class "
+                             f"{runs_c[True]['qos_preempted']} (want a shed and no critical victim)")
+    if not crit_ttft[True] < crit_ttft[False]:
+        raise AssertionError(f"preempt serve (c): critical TTFT p50 {crit_ttft[True] * 1e3:.1f} ms with QoS, "
+                             f"{crit_ttft[False] * 1e3:.1f} ms without")
+    out["preempt serve qos"] = runs_c[True]["launches"]
+    t0 = lap("preempt serve (c)", t0)
+
+    # (e) the chunk planner: a long prompt beside four decoding streams
+    shortest = sorted(requests, key=lambda r: len(r.token_ids))[:4]
+    long_req = EngineRequest("long", rng.integers(0, LLAMA3_8B["vocab_size"], PLANNER_PROMPT).tolist(),
+                             SamplingParams(max_tokens=PLANNER_MAX_LEN - PLANNER_PROMPT))
+    cfg_e = dataclasses.replace(serve_config(), max_seqs=5, max_model_len=PLANNER_MAX_LEN, page_table_buckets=(128,))
+    eng = PreemptEngine("preempt serve (e)", cfg_e, model, *only("K1", "K2"))
+    runner = eng.engine.runner
+    calls = []
+    plain_batch = runner.prefill_chunk_batch
+
+    def timed_batch(lanes, **kw):  # CUDA events around each prefill call, on the engine's stream
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = plain_batch(lanes, **kw)
+        end.record()
+        calls.append((lanes, start, end))
+        return result
+
+    runner.prefill_chunk_batch = timed_batch
+    try:
+        for flat in (cfg_e.prefill_flat_depth, PLANNER_FLAT):
+            eng.on_engine(eng.engine.allocator.reset_prefix_cache)
+            eng.on_engine(lambda: setattr(eng.engine.config, "prefill_flat_depth", flat))
+            cfg = eng.engine.config
+            plan, start = [], 0
+            while start < PLANNER_PROMPT:
+                plan.append(min(cfg.chunk_len_for(start, PLANNER_PROMPT - start), PLANNER_PROMPT - start))
+                start += plan[-1]
+            mark = max((rec.seq for rec in eng.sched.anatomy.ring), default=-1)
+            calls.clear()
+            # the long prompt goes in once the four short streams decode
+            e = eng.run([fresh(r) for r in shortest], [fresh(long_req)],
+                        ready=lambda firsts: len(firsts) >= len(shortest))
+            all_length(f"preempt serve (e) flat {flat}", {"long": e["streams"]["long"]},
+                       PLANNER_MAX_LEN - PLANNER_PROMPT)
+            torch.cuda.synchronize()
+            # one step-anatomy record a prefill call; the long prompt's
+            # calls are those with its table rung, wider than the short ones'
+            rows = [rec.tokens for rec in eng.sched.anatomy.ring if rec.seq > mark and rec.kind == "prefill_packed"]
+            wide = [any(len(lane[2]) > 128 for lane in lanes) for lanes, _, _ in calls]
+            if len(rows) != len(calls):
+                raise AssertionError(f"preempt serve (e): {len(rows)} prefill records, {len(calls)} prefill calls")
+            long_rows = [r for r, w in zip(rows, wide) if w]
+            timed = [(lanes[0][1], len(lanes[0][0]), s.elapsed_time(t)) for (lanes, s, t), w in zip(calls, wide) if w]
+            if long_rows != plan or [r for _, r, _ in timed] != plan:
+                raise AssertionError(f"preempt serve (e) flat {flat}: the long prompt's prefill rows {long_rows}, "
+                                     f"chunk_len_for's plan {plan}")
+            ms = [m for _, _, m in timed]
+            log(f"preempt serve (e) flat depth {flat} [{gpu_name}]: {len(plan)} prefill calls of rows "
+                f"{sorted(set(plan), reverse=True)} as chunk_len_for plans them, long stream 'length' with "
+                f"{len(e['streams']['long']['tokens'])} tokens, TTFT {e['streams']['long']['ttft'] * 1e3:.1f} ms, "
+                f"prefill device ms sum {sum(ms):.1f}, max {max(ms):.3f}; launches {e['launches']}; (depth, rows, "
+                f"device ms) a call: {json.dumps([(d, r, round(m, 3)) for d, r, m in timed])}")
+            out[f"preempt serve planner {flat}"] = e["launches"]
+    finally:
+        runner.prefill_chunk_batch = plain_batch
+        eng.close()
+    del model
+    torch.cuda.empty_cache()
+    t0 = lap("preempt serve (e)", t0)
+
+    # (b) and (d): f32 at Llama-3-8B width, 4 layers
+    small = load_model("tiny:" + json.dumps(dict(LLAMA3_8B, num_layers=4, dtype="f32")), device="cuda")
+    streams = {}
+    for what, pages, speculative in (("(b) roomy", 4096, None), ("(b) tight", PREEMPT_PAGES, None),
+                                     ("(d) n-gram tight", PREEMPT_PAGES, f"ngram:{SPEC_K}")):
+        cfg = dataclasses.replace(serve_config(), num_pages=pages, watermark=0.0, speculative=speculative)
+        eng = PreemptEngine(f"preempt serve {what}", cfg, small, *(only("K2") if speculative else only("K1", "K2")))
+        try:
+            r = eng.run([fresh(q) for q in requests])
+        finally:
+            eng.close()
+        all_length(f"preempt serve {what}", r["streams"], MAX_TOKENS)
+        streams[what] = greedy_tokens(r["streams"])
+        log(f"preempt serve {what}, Llama-3-8B width 4 layers f32, {pages} pages [{gpu_name}]: "
+            f"{r['preempt_count']} preemptions, {r['pressure_drain_count']} pressure drains, re-admissions' cached "
+            f"tokens {json.dumps(r['resumed'])}, wall {r['wall']:.2f} s, "
+            f"launches {r['launches']}")
+        if pages == PREEMPT_PAGES and r["preempt_count"] < 1:
+            raise AssertionError(f"preempt serve {what}: no preemption on {PREEMPT_PAGES} pages")
+        out[f"preempt serve {what} f32"] = r["launches"]
+    same_streams("preempt serve (b) f32", streams["(b) tight"], streams["(b) roomy"], "the roomy pool's")
+    same_streams("preempt serve (d) n-gram f32", streams["(d) n-gram tight"], streams["(b) tight"], "(b)'s")
+    del small
+    torch.cuda.empty_cache()
+    lap("preempt serve (b) (d)", t0)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2900,6 +3235,10 @@ def main() -> int:
     runs["prefix serve"] = phase_prefix_serve(torch, smi, paged, {
         "K3a": k3a, "K3b": k3b, "K4a": k4a, "K4b": k4b, "K5": k5, "K6": k6, "K7a": k7a, "K7b": k7b, "K7c": k7c})
     t0 = lap("prefix serve", t0)
+    # page pressure: preemption at full size and in f32, the QoS shed, spec
+    # rounds under pressure, and the depth-aware chunk planner
+    runs |= phase_preempt_serve(torch, smi, served, {**paged, **folded, **mla, **int8w})
+    t0 = lap("preempt serve", t0)
     # HF checkpoint directories through the port's writer, loader and `run`
     runs |= phase_checkpoint_serve(torch, smi, folded, {
         "K1": k1, "K2": k2, "K4a": k4a, "K4b": k4b, "K5": k5, "K6": k6, "K7a": k7a, "K7b": k7b, "K7c": k7c,
@@ -2966,6 +3305,8 @@ def main() -> int:
             entry["ps4"] = dict(launches=runs["http serve"][key], **ps4[key]["bf16"])
         if key in runs["prefix serve"]:  # the prefix serve's three rounds (prefill over cached prefixes)
             entry["prefix_serve_launches"] = runs["prefix serve"][key]
+        if key in runs["preempt serve"]:  # the serve workload on a pool its outputs outgrow
+            entry["preempt_serve_launches"] = runs["preempt serve"][key]
         if key in verify_checks:  # the verify pass's shape: lanes of k + 1 rows, its launches in spec serve
             path = "spec ngram" if key == "K2" else "spec MLA ngram"
             entry["verify"] = dict(launches=runs[path][key], **verify_checks[key]["bf16"])

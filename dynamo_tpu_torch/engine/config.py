@@ -24,6 +24,13 @@ class EngineConfig:
     # page-table width ladder (in PAGES); () = auto: min(128,
     # max_pages_per_seq) doubling up to max_pages_per_seq
     page_table_buckets: tuple = ()
+    # depth-aware chunked prefill: a chunk's attention work scales with
+    # chunk_len * context_depth, so the planner (chunk_len_for) shrinks the
+    # chunk bucket once depth * chunk would exceed max_prefill_chunk *
+    # prefill_flat_depth, floored at the smallest bucket. The default holds
+    # full-size chunks through the first ~8K of context. 0 disables (always
+    # max_prefill_chunk)
+    prefill_flat_depth: int = 8192
     # decode steps fused into one window with the sampled-token feedback
     # kept on the device
     decode_steps: int = 8
@@ -69,6 +76,15 @@ class EngineConfig:
     #   "background" - the shapes the first requests need blocking, the
     #                  rest between serving steps after start()
     warmup: bool | str = False
+    # multi-tenant QoS (utils/qos.py): admission order by priority class,
+    # priority weights composed with the prefill fairness cap, preemption
+    # victims lowest class first, and a waiting critical request may evict a
+    # lower-class lane. False = classes ignored: FIFO admission and
+    # recency-only victims
+    qos: bool = True
+    # how long a critical request must sit queued with no free slot before
+    # the scheduler evicts a lower-class lane for it (the anti-thrash gate)
+    qos_preempt_wait_ms: float = 250.0
 
     def __post_init__(self) -> None:
         if not isinstance(self.warmup, bool) and self.warmup != "background":
@@ -86,6 +102,8 @@ class EngineConfig:
             )
         if self.quantize is not None and self.quantize not in QUANT_MODES:
             raise ValueError(f"quantize must be None or one of {QUANT_MODES}; got {self.quantize!r}")
+        if self.qos_preempt_wait_ms < 0:
+            raise ValueError(f"qos_preempt_wait_ms must be >= 0; got {self.qos_preempt_wait_ms}")
         if any(b <= 0 for b in self.page_table_buckets):
             raise ValueError(f"page_table_buckets must be positive; got {self.page_table_buckets}")
         # a bad speculative spec must fail at config time, not mid-serving
@@ -130,6 +148,26 @@ class EngineConfig:
     @property
     def max_prefill_chunk(self) -> int:
         return max(self.prefill_buckets)
+
+    def chunk_len_for(self, depth: int, backlog_rows: int = 0) -> int:
+        """Depth-aware prefill chunk bucket for a chunk starting at context
+        ``depth``: the largest bucket b with b * (depth + b) within the
+        flat-depth work budget, floored at the smallest bucket, so per-chunk
+        work stays roughly flat as prefill advances into a long prompt.
+        ``backlog_rows`` (un-prefilled rows pending across sequences) of at
+        least two top chunks doubles the budget: fewer, larger calls while
+        the backlog dominates."""
+        top = self.max_prefill_chunk
+        if self.prefill_flat_depth <= 0:
+            return top
+        budget = top * max(self.prefill_flat_depth, top)
+        if backlog_rows >= 2 * top:
+            budget *= 2
+        best = min(self.prefill_buckets)
+        for b in self.prefill_buckets:
+            if b * (depth + b) <= budget:
+                best = max(best, b)
+        return best
 
     def lanes_for(self, bucket: int) -> int:
         """Packed-prefill lane count for a bucket: bounded by prefill_lanes

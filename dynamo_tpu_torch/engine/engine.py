@@ -21,8 +21,14 @@ The allocator's KV events (block ``stored`` / ``removed``) go to the
 reference's ``ForwardPassMetrics`` (slots, KV blocks, waiting requests,
 cache usage and the prefix-cache hit rate) for the KV router.
 
-Not ported yet: the SLO, goodput, events and health planes, the resource
-snapshot and the disaggregation/migration commands.
+QoS: every finished stream (errors included) feeds a
+``DrainRateEstimator``, and ``backpressure_snapshot()`` prices the wait a
+new request faces from it (the HTTP service's batch-class shed).
+``resource_snapshot()`` carries the preemption and QoS counters under the
+reference's keys.
+
+Not ported yet: the SLO, goodput, events and health planes, the rest of the
+resource snapshot and the disaggregation/migration commands.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from dynamo_tpu_torch.engine.page_table import PageAllocator
 from dynamo_tpu_torch.engine.scheduler import EngineRequest, Scheduler, StepOutput
 from dynamo_tpu_torch.llm.kv_events import KvCacheEvent
 from dynamo_tpu_torch.utils import get_logger
+from dynamo_tpu_torch.utils.qos import DrainRateEstimator
 
 log = get_logger("engine")
 
@@ -104,6 +111,9 @@ class AsyncTorchEngine:
         self.allocator: Optional[PageAllocator] = None
         self.runner = None
         self.model = None
+        # measured queue-drain rate: Retry-After and the shed check price
+        # from it
+        self.drain_estimator = DrainRateEstimator()
 
     # ---------------- lifecycle ----------------
 
@@ -225,6 +235,45 @@ class AsyncTorchEngine:
             gpu_prefix_cache_hit_rate=hit_rate,
         )
 
+    def resource_snapshot(self) -> dict:
+        """The preemption and QoS counters, under the reference's
+        ``resource_snapshot`` keys: preemptions, pressure drains, and per
+        class the running lanes and preemption victims, and the critical
+        sheds. {} before start."""
+        sched = self.scheduler
+        if sched is None:
+            return {}
+        running: dict = {}
+        for s in sched.slots:
+            if s is not None and not s.finished:
+                cls = s.req.priority or "standard"
+                running[cls] = running.get(cls, 0) + 1
+        return {
+            "preemptions": sched.preempt_count,
+            "pressure_drains": sched.pressure_drain_count,
+            "qos": {
+                "enabled": self.config.qos,
+                "running": running,
+                "preempted": dict(sched.qos_preempted),
+                "sheds": sched.qos_sheds,
+            },
+        }
+
+    def backpressure_snapshot(self) -> dict:
+        """Queue depth, measured drain rate and the estimated wait a NEW
+        request faces (the HTTP service sheds batch-class load when it
+        exceeds the budget). ``est_wait_s`` is None until anything has
+        finished: a cold engine must not shed on a made-up rate."""
+        sched = self.scheduler
+        depth = len(sched.waiting) if sched is not None else 0
+        rate = self.drain_estimator.rate_rps()
+        return {
+            "queue_depth": depth,
+            "drain_rps": round(rate, 4) if rate is not None else None,
+            "est_wait_s": round(depth / rate, 4) if rate and rate > 0 else None,
+            "retry_after_s": self.drain_estimator.retry_after_s(depth),
+        }
+
     def sync_lookup_prefix(self, token_ids: list[int], salt: int = 0) -> int:
         """Leading tokens of ``token_ids`` the prefix cache holds (call on
         the engine thread, e.g. through ``run_on_engine``)."""
@@ -333,10 +382,15 @@ class AsyncTorchEngine:
         return got
 
     def _post_grouped(self, outputs: list) -> None:
-        """One thread crossing per request per step, order preserved."""
+        """One thread crossing per request per step, order preserved. Every
+        finish (a cancel or a preemption has none) is a drain-rate sample."""
         by_rid: dict[str, list] = {}
+        finished = 0
         for out in outputs:
             by_rid.setdefault(out.request_id, []).append(out)
+            finished += out.finished
+        if finished:
+            self.drain_estimator.note_finish(finished)
         for rid, group in by_rid.items():
             self._post(rid, group if len(group) > 1 else group[0])
 

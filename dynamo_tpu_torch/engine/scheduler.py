@@ -1,5 +1,6 @@
-"""Continuous-batching scheduler: FIFO admission, packed chunked prefill,
-dispatch-ahead decode windows (port of ``dynamo_tpu/engine/scheduler.py``).
+"""Continuous-batching scheduler: priority-class admission, packed chunked
+prefill, dispatch-ahead decode windows, preemption under page pressure (port
+of ``dynamo_tpu/engine/scheduler.py``).
 
   - admit waiting requests whenever a decode slot and enough pages exist
     (the watermark keeps headroom for decode growth; free pages include the
@@ -11,7 +12,11 @@ dispatch-ahead decode windows (port of ``dynamo_tpu/engine/scheduler.py``).
     (one weight pass each) when ``runner.packed_prefill_mode``; otherwise
     each call carries one sequence's chunk (the reference's per-request
     ``run_prefill_chunks`` through ``runner.prefill_chunk``). Either way
-    calls dispatch ahead up to ``prefill_pipeline_depth``
+    calls dispatch ahead up to ``prefill_pipeline_depth``. Each chunk's
+    length comes from the depth-aware planner (``config.chunk_len_for``:
+    shorter chunks deep into a long prompt, longer ones under a deep
+    backlog on the packed path); it returns prefill buckets only, so it
+    asks for no graph shape the warmup did not capture
   - decode runs as fused K-step windows dispatched ahead of result
     materialization (``pipeline_depth`` windows in flight): the sampled-token
     feedback lives on the device, so the host never waits between windows.
@@ -53,19 +58,42 @@ the reference's names (``stage.spec_*``), and the step anatomy records
 ``spec_draft`` and ``spec_verify`` dispatches, a verify round at the
 decode floor of one weight pass.
 
+Page pressure follows the reference's ladder, in the window capacity pass
+and the spec round alike: drain the pipeline (EOS may free pages), then
+preempt a victim (``_pick_victim``: most recently admitted, or lowest
+priority class first under ``config.qos``), then run a shorter window (a
+truncated proposal), and finish with "error" only when no victim is left
+and the sequence cannot advance at all. Every caller of ``_preempt`` drains
+the pipeline first: a queued graph replay still writes the pages a
+sequence holds. ``_preempt`` requeues the request at the front of the
+waiting queue with prompt + generated tokens, the remaining ``max_tokens``
+and ``min_tokens``, the original ``enqueue_ts``, ``penalty_output_from``,
+its tenant, class, logprobs and submission number; its full blocks come
+back from the prefix cache and only the tail is prefilled again.
+
+Multi-tenant QoS (``config.qos``, ``utils/qos.py``): admission takes the
+first waiting request of the highest class present (FIFO within a class),
+a start consumes ``1 / priority_weight`` of the per-step fairness cap off
+the packed path, and a critical request that has waited
+``qos_preempt_wait_ms`` with no free slot preempts the lowest-class, most
+recent lane (``_shed_for_critical``; the reference's live-migration shed
+needs a peer, which the port does not have yet, so the shed always
+preempts).
+
 The request dataclasses keep the reference's field names; fields of features
 this port does not run yet stay at their defaults, and requests that ask for
-them (images, LoRA) are rejected at admission. ``cancel`` takes the
-engine's submission number too, so an ended stream cannot cancel a later
-request that reuses its id (the reference cancels by id alone). Not ported
-yet: QoS, preemption (a sequence that cannot grow gets a shorter window or
-a shorter proposal, or finishes with "error" when it cannot advance), LoRA,
-prefix fetch/migration, offload, metering and the stage/metric planes
-(of the reference's ``StageStats`` only the spec counters).
+them (images, LoRA) are rejected at admission, so there is no adapter to
+release on preemption. ``cancel`` takes the engine's submission number
+too, so an ended stream cannot cancel a later request that reuses its id
+(the reference cancels by id alone); a preempted request keeps its number.
+Not ported yet: LoRA, prefix fetch/migration, offload, metering, the events
+journal and the stage/metric planes (of the reference's ``StageStats`` only
+the spec counters).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -78,6 +106,7 @@ from dynamo_tpu_torch.engine.page_table import PageAllocator
 from dynamo_tpu_torch.engine.sampling import MAX_EOS_IDS, SamplingParams, fold_seed
 from dynamo_tpu_torch.spec import make_proposer
 from dynamo_tpu_torch.utils import get_logger
+from dynamo_tpu_torch.utils.qos import priority_rank, priority_weight
 from dynamo_tpu_torch.utils.step_anatomy import StepAnatomy, roofline_for_runner
 
 log = get_logger("engine.sched")
@@ -217,6 +246,12 @@ class Scheduler:
         self.stage = StageStats()
         self.spec = config.spec
         self.proposer = make_proposer(self.spec) if self.spec is not None else None
+        self.preempt_count = 0  # sequences bounced back to waiting (page pressure)
+        self.pressure_drain_count = 0  # pipeline drains forced by ensure_capacity misses
+        # multi-tenant QoS: preemption victims per class, and critical-
+        # triggered sheds (a waiting critical request evicting a lower lane)
+        self.qos_preempted: dict[str, int] = {}
+        self.qos_sheds = 0
 
     # ---------------- queue ----------------
 
@@ -293,14 +328,31 @@ class Scheduler:
         return None
 
     def _admit(self) -> list[StepOutput]:
-        """FIFO admission while a slot and pages (above the watermark) exist."""
+        """Admission in class order (``_next_waiting_index``) while a slot
+        and pages (above the watermark) exist. Off the packed path a start
+        counts against the per-step fairness cap like a packed call does
+        (weighted by its class under QoS), so a burst cannot queue all its
+        prefill ahead of running decode windows."""
         outputs = []
         watermark_pages = int(self.config.watermark * self.config.num_pages)
+        cap = self.config.prefill_batches_per_step
+        decode_running = any(
+            s is not None and not s.finished and s.prefill_pos is None for s in self.slots
+        )
+        packed = self.runner.packed_prefill_mode
+        started = 0.0
         while self.waiting:
             slot = self._free_slot()
             if slot is None:
-                break
-            req = self.waiting[0]
+                # a waiting critical request may evict a lower-class lane
+                if not self._shed_for_critical(outputs):
+                    break
+                slot = self._free_slot()
+                if slot is None:
+                    break
+            idx = self._next_waiting_index()
+            req = self.waiting[idx]
+            # rejections are host work only: they go before the fairness cap
             why = None
             if len(req.token_ids) > self.config.max_model_len:
                 why = "oversized prompt"
@@ -309,20 +361,74 @@ class Scheduler:
             else:
                 why = _unsupported(req)
             if why is not None:
-                self.waiting.popleft()
+                del self.waiting[idx]
                 log.warning("rejecting %s: %s", req.request_id, why)
                 outputs.append(StepOutput(req.request_id, finished=True, finish_reason="error"))
                 continue
+            if cap and decode_running and started >= cap and not packed:
+                break
             pages_needed = -(-len(req.token_ids) // self.config.page_size)
             if self.allocator.free_pages < pages_needed + watermark_pages:
                 break
-            self.waiting.popleft()
+            del self.waiting[idx]
             try:
                 self._start_sequence(req, slot)
+                # a start consumes 1 / weight cap units: a critical burst
+                # starts more per step than batch work at the same cap
+                started += 1.0 / priority_weight(req.priority) if self.config.qos else 1.0
             except MemoryError:
                 self.waiting.appendleft(req)
                 break
         return outputs
+
+    # ---------------- multi-tenant QoS (utils/qos.py) ----------------
+
+    def _next_waiting_index(self) -> int:
+        """The first waiting request of the highest class present (FIFO
+        within a class); plain FIFO with QoS off."""
+        if not self.config.qos or len(self.waiting) < 2:
+            return 0
+        best_i, best_rank = 0, priority_rank(self.waiting[0].priority)
+        for i, req in enumerate(self.waiting):
+            if i == 0:
+                continue
+            r = priority_rank(req.priority)
+            if r < best_rank:
+                best_i, best_rank = i, r
+                if r == 0:
+                    break
+        return best_i
+
+    def _shed_for_critical(self, outputs: list[StepOutput]) -> bool:
+        """A critical request waiting (no free slot) past the
+        ``qos_preempt_wait_ms`` gate preempts the lowest-class, most recent
+        running lane; never a critical one. Returns True when a slot was
+        freed."""
+        if not self.config.qos or not self.waiting:
+            return False
+        req = self.waiting[self._next_waiting_index()]
+        if priority_rank(req.priority) != 0:
+            return False
+        if req.enqueue_ts and time.monotonic() - req.enqueue_ts < self.config.qos_preempt_wait_ms / 1e3:
+            return False  # transient full house: don't thrash lanes
+        victims = [
+            s for s in self.slots
+            if s is not None and not s.finished and priority_rank(s.req.priority) > 0
+        ]
+        if not victims:
+            return False
+        victim = max(victims, key=lambda s: (priority_rank(s.req.priority), s.admitted_order))
+        self.qos_sheds += 1
+        # the preempt contract: drain, so victim.generated is complete and
+        # no queued replay writes its pages after they are freed
+        if self.in_flight:
+            outputs.extend(self._reconcile(block=True, drain=True))
+        if victim.finished or self.slots[victim.slot] is not victim:
+            return self._free_slot() is not None  # the drain finished it anyway
+        log.info("QoS shed: preempting %s (%s) for waiting critical %s",
+                 victim.req.request_id, victim.req.priority or "standard", req.request_id)
+        self._preempt(victim)
+        return True
 
     def _start_sequence(self, req: EngineRequest, slot: int) -> None:
         wait = max(0.0, time.monotonic() - req.enqueue_ts) if req.enqueue_ts else None
@@ -384,11 +490,15 @@ class Scheduler:
             if not pending:
                 return count
             # greedy bucket-aware packing in admission order: grow the lane
-            # set while every taken lane still fits the bucket's row budget
-            limit = self.config.max_prefill_chunk
+            # set while every taken lane still fits the bucket's row budget.
+            # Each lane's chunk is depth-aware (chunk_len_for); on the packed
+            # path a deep backlog promotes the bucket (the reference's
+            # per-request chain plans with no backlog)
+            backlog_rows = sum(s.prompt_len - s.prefill_pos for s in pending) if packed else 0
             chunks = []
             bucket = 0
             for s in pending:
+                limit = self.config.chunk_len_for(s.prefill_pos, backlog_rows=backlog_rows)
                 end = min(s.prefill_pos + limit, s.prompt_len)
                 cand = self.config.bucket_for(max(bucket, end - s.prefill_pos))
                 if chunks and (not packed or len(chunks) + 1 > self.config.lanes_for(cand)):
@@ -596,26 +706,31 @@ class Scheduler:
                 drafts = self._propose_ngram(seq, max_d) if max_d > 0 else []
                 max_d = len(drafts)
             # pages for the fed rows anchor..anchor+max_d, by the window
-            # path's ladder without preemption: drain the pipeline, then
-            # shrink the proposal to the allocated pages, then fail
+            # path's ladder: drain the pipeline, then preempt, then shrink
+            # the proposal to the allocated pages
             need = p + max_d + 1
             while self.slots[seq.slot] is seq and not self.allocator.ensure_capacity(seq.req.request_id, need):
                 if self.in_flight:
+                    self.pressure_drain_count += 1
                     outputs.extend(self._reconcile(block=True, drain=True))
                     continue
-                cap = self._capacity(seq)
-                if cap > p:
-                    max_d = min(max_d, cap - 1 - p)
-                    if drafts is not None:
-                        drafts = drafts[:max_d]
+                victim = self._pick_victim(exclude=seq)
+                if victim is None:
+                    cap = self._capacity(seq)
+                    if cap > p:
+                        # no victim left: the round runs at a truncated depth
+                        max_d = min(max_d, cap - 1 - p)
+                        if drafts is not None:
+                            drafts = drafts[:max_d]
+                        break
+                    outputs.extend(self._finish(seq, "error"))
                     break
-                outputs.extend(self._finish(seq, "error"))
-                break
+                self._preempt(victim)
             if self.slots[seq.slot] is not seq or seq.finished:
                 continue
             self._refresh_table(seq)
             candidates.append([seq, p, drafts, max_d])
-        # a drain above can finish an earlier candidate
+        # a drain or a preemption above can end an earlier candidate
         candidates = [c for c in candidates if not c[0].finished and self.slots[c[0].slot] is c[0]]
         if not candidates:
             return 0
@@ -740,14 +855,18 @@ class Scheduler:
             while self.slots[seq.slot] is seq and not self.allocator.ensure_capacity(
                 seq.req.request_id, need
             ):
+                # page pressure: drain the pipeline (EOS may free pages),
+                # then preempt the victim
                 if self.in_flight:
-                    # page pressure: drain the pipeline (EOS may free pages)
+                    self.pressure_drain_count += 1
                     outputs.extend(self._reconcile(block=True, drain=True))
                     continue
-                if self._capacity(seq) <= seq.next_fed_pos:
-                    # no preemption yet: a sequence that cannot advance fails
-                    outputs.extend(self._finish(seq, "error"))
-                break  # otherwise a shorter window; limits[] freezes at capacity
+                victim = self._pick_victim(exclude=seq)
+                if victim is None:
+                    if self._capacity(seq) <= seq.next_fed_pos:
+                        outputs.extend(self._finish(seq, "error"))
+                    break  # otherwise a shorter window; limits[] freezes at capacity
+                self._preempt(victim)
             if self.slots[seq.slot] is seq:
                 self._refresh_table(seq)
 
@@ -910,6 +1029,52 @@ class Scheduler:
     def _finish(self, seq: RunningSeq, reason: str) -> list[StepOutput]:
         self._release(seq)
         return [StepOutput(seq.req.request_id, finished=True, finish_reason=reason)]
+
+    def _pick_victim(self, exclude: RunningSeq) -> Optional[RunningSeq]:
+        """The lane to preempt: the most recently admitted, or under QoS the
+        lowest class first (most recent within it)."""
+        candidates = [s for s in self.slots if s is not None and s is not exclude]
+        if not candidates:
+            return None
+        if self.config.qos:
+            return max(candidates, key=lambda s: (priority_rank(s.req.priority), s.admitted_order))
+        return max(candidates, key=lambda s: s.admitted_order)
+
+    def _preempt(self, seq: RunningSeq) -> None:
+        """Return a sequence to the front of the waiting queue; it restarts
+        later from prompt + generated tokens (the prefix cache gives most of
+        them back). Callers must drain the pipeline first, so
+        ``seq.generated`` is complete and no queued dispatch writes the
+        pages freed here."""
+        log.info("preempting %s (page pressure)", seq.req.request_id)
+        self.preempt_count += 1
+        cls = seq.req.priority or "standard"
+        self.qos_preempted[cls] = self.qos_preempted.get(cls, 0) + 1
+        # frees the pages and the draft cache (rebuilt from the resume prompt
+        # at the first spec round after re-admission)
+        self._release(seq)
+        req = seq.req
+        self.waiting.appendleft(dataclasses.replace(
+            req,
+            token_ids=list(req.token_ids) + seq.generated,
+            # the original submission time: a resumed request never looks
+            # faster than an uninterrupted run
+            enqueue_ts=req.enqueue_ts or time.monotonic(),
+            # prior output starts where the ORIGINAL prompt ended
+            penalty_output_from=(
+                req.penalty_output_from if req.penalty_output_from is not None else seq.prompt_len
+            ),
+            # recomputed over the resume prompt at re-admission
+            mrope_pos=None,
+            mrope_delta=0,
+            # generated tokens count against max_tokens and min_tokens; every
+            # other sampling field (penalties, seed, ...) carries over
+            sampling=dataclasses.replace(
+                req.sampling,
+                max_tokens=max(1, req.sampling.max_tokens - len(seq.generated)),
+                min_tokens=max(0, req.sampling.min_tokens - len(seq.generated)),
+            ),
+        ))
 
     def _release(self, seq: RunningSeq) -> None:
         seq.finished = True

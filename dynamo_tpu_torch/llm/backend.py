@@ -7,14 +7,14 @@ DecodeStream, holds back ("jails") text that could be the start of a stop
 sequence, and truncates at the stop match.
 
 Port of ``dynamo_tpu/llm/backend.py`` over ``AsyncTorchEngine.generate_batched``.
-Left out with the engine's health plane (not ported): ``availability`` and
-``backpressure``, the probes behind the reference service's draining 503 and
-QoS shed.
+``backpressure`` feeds the HTTP service's QoS shed. Left out with the
+engine's health plane (not ported): ``availability``, the probe behind the
+reference service's draining 503.
 """
 
 from __future__ import annotations
 
-from typing import AsyncIterator
+from typing import AsyncIterator, Optional
 
 from dynamo_tpu_torch.engine.scheduler import EngineRequest
 from dynamo_tpu_torch.llm.protocols.common import BackendOutput, PreprocessedRequest
@@ -63,6 +63,19 @@ class Backend:
     def __init__(self, engine, tokenizer: Tokenizer):
         self.engine = engine
         self.tokenizer = tokenizer
+
+    def backpressure(self) -> Optional[dict]:
+        """Engine queue pressure for the HTTP service's QoS shed check:
+        queue depth x measured drain rate -> estimated wait for a NEW
+        request (utils/qos.py). None when the engine has no backpressure
+        surface."""
+        bp_fn = getattr(self.engine, "backpressure_snapshot", None)
+        if bp_fn is None:
+            return None
+        try:
+            return bp_fn()
+        except Exception:
+            return None
 
     def _token_repr(self, token_id: int) -> tuple[str, list[int]]:
         text = self.tokenizer.decode([token_id], skip_special_tokens=False)

@@ -17,10 +17,21 @@ protocol error, 404 ``model_not_found``, 400 ``context_length_exceeded``
 before any SSE byte. A client that disconnects mid-stream cancels its engine
 request.
 
-Left out with the planes they need (not ported): QoS admission and token
-budgets, the admission fault knob, the draining 503, readiness from the
-engine's health and the engine's metric families on ``/metrics``, SLO and
-goodput tracking, the events journal, ``/trace`` and ``/debug/*``.
+Multi-tenant QoS admission (``utils/qos.py``), before any SSE byte: the
+class comes from ``x-priority`` (strictly parsed: an unknown class is a 400
+``invalid_priority``) or else the policy's default for the ``x-tenant``
+tenant and the model's adapter; batch-class requests are shed with a 429
+``overloaded`` while the engine's estimated queue wait exceeds the policy's
+``shed_wait_s``; a tenant whose token budget cannot hold prompt +
+``max_tokens`` gets a 429 ``rate_limited``. Both 429s carry
+``Retry-After``. The class and tenant ride the preprocessed request to the
+engine, and ``/metrics`` renders the ``dynamo_qos_*`` families.
+
+Left out with the planes they need (not ported): the admission fault knob,
+the draining 503, readiness from the engine's health and the engine's
+metric families on ``/metrics``, SLO and goodput tracking (the shed budget
+is the policy's, not a TTFT target), the events journal, ``/trace`` and
+``/debug/*``.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from dynamo_tpu_torch.llm.protocols.openai import (
 from dynamo_tpu_torch.llm.tools import ToolCallError, ToolCallingMatcher
 from dynamo_tpu_torch.runtime.context import new_context, use_context
 from dynamo_tpu_torch.utils import get_logger
+from dynamo_tpu_torch.utils.qos import AdmissionController, QosPolicy, parse_priority
 
 log = get_logger("http")
 
@@ -114,14 +126,15 @@ class Request:
 class Response:
     """A complete (non-streamed) response."""
 
-    def __init__(self, status: int, body: bytes, content_type: str):
+    def __init__(self, status: int, body: bytes, content_type: str, headers: Optional[dict] = None):
         self.status = status
         self.body = body
         self.content_type = content_type
+        self.headers = headers or {}
 
 
-def json_response(payload, status: int = 200) -> Response:
-    return Response(status, json.dumps(payload).encode(), "application/json; charset=utf-8")
+def json_response(payload, status: int = 200, headers: Optional[dict] = None) -> Response:
+    return Response(status, json.dumps(payload).encode(), "application/json; charset=utf-8", headers)
 
 
 def text_response(text: str, status: int = 200) -> Response:
@@ -216,6 +229,7 @@ class Connection:
             f"Content-Length: {len(resp.body)}\r\n",
             f"Connection: {'keep-alive' if keep_alive else 'close'}\r\n",
         ]
+        head += [f"{name}: {value}\r\n" for name, value in resp.headers.items()]
         self.writer.write("".join(head).encode() + b"\r\n" + resp.body)
         await self.writer.drain()
 
@@ -263,11 +277,16 @@ class SseWriter:
 
 
 class HttpService:
-    def __init__(self, manager: Optional[ModelManager] = None, host: str = "0.0.0.0", port: int = 8080):
+    def __init__(self, manager: Optional[ModelManager] = None, host: str = "0.0.0.0", port: int = 8080,
+                 qos: Optional[AdmissionController] = None):
         self.manager = manager or ModelManager()
         self.host = host
         self.port = port
         self.metrics = Metrics()
+        # the QoS admission plane: budgets and class policy from the
+        # DYNTPU_QOS_BUDGETS / DYNTPU_QOS_PRIORITIES env specs; with neither
+        # set nothing throttles, but requests are still classified and counted
+        self.qos = qos if qos is not None else AdmissionController(QosPolicy.from_env())
         self._server: Optional[asyncio.base_events.Server] = None
         self._connections: set[asyncio.Task] = set()
         self.routes = {
@@ -370,13 +389,14 @@ class HttpService:
         )
 
     async def _metrics(self, request: Request, conn: Connection) -> Response:
-        return text_response(self.metrics.render())
+        return text_response(self.metrics.render() + self.qos.render_metrics())
 
-    def _error(self, status: int, message: str, code: str | None = None) -> Response:
+    def _error(self, status: int, message: str, code: str | None = None,
+               headers: Optional[dict] = None) -> Response:
         err = {"message": message, "type": "invalid_request_error"}
         if code:
             err["code"] = code  # e.g. context_length_exceeded
-        return json_response({"error": err}, status=status)
+        return json_response({"error": err}, status=status, headers=headers)
 
     async def _chat(self, request: Request, conn: Connection) -> Optional[Response]:
         return await self._handle(request, conn, kind="chat")
@@ -417,6 +437,34 @@ class HttpService:
 
         model = pipeline.name
         rtype = "stream" if req.stream else "unary"
+
+        # ---------- multi-tenant QoS admission (utils/qos.py) ----------
+        # the x-priority header wins (strict: an unknown class is a 400,
+        # not a silent downgrade), else the policy's tenant/adapter default
+        tenant = request.headers.get("x-tenant", "")
+        adapter = model.split(":", 1)[1] if ":" in model and "{" not in model else ""
+        try:
+            priority = parse_priority(request.headers.get("x-priority"))
+        except ValueError as e:
+            self.metrics.inc_request(model, endpoint, rtype, "400")
+            return self._error(400, str(e), code="invalid_priority")
+        if not request.headers.get("x-priority"):
+            priority = self.qos.policy.priority_for(tenant, adapter)
+        # engine backpressure: batch-class load sheds first, with a
+        # retriable 429, while the estimated queue wait exceeds the budget
+        if priority == "batch":
+            bp_fn = getattr(pipeline.backend, "backpressure", None)
+            bp = bp_fn() if bp_fn is not None else None
+            budget = self.qos.policy.shed_wait_s
+            if bp and bp.get("est_wait_s") is not None and bp["est_wait_s"] > budget:
+                self.qos.record_shed(tenant, priority)
+                self.metrics.inc_request(model, endpoint, rtype, "429")
+                return self._error(
+                    429,
+                    f"engine overloaded (estimated wait {bp['est_wait_s']:.1f}s exceeds the "
+                    f"{budget:.1f}s budget); batch-class load shed",
+                    code="overloaded", headers={"Retry-After": str(bp.get("retry_after_s", 10))},
+                )
         try:
             # off the event loop: chat-template render + encode are
             # CPU-bound; the dedicated small pool bounds thread-local
@@ -437,6 +485,17 @@ class HttpService:
             # before any stream response starts
             self.metrics.inc_request(model, endpoint, rtype, "400")
             return self._error(400, str(e), code=e.code)
+
+        # the tenant's token-rate budget pays prompt + output budget; an
+        # exhausted one answers when the bucket will hold this request
+        decision = self.qos.admit(tenant, priority, len(pre.token_ids) + max(0, pre.sampling.max_tokens),
+                                  request_id=pre.request_id)
+        if not decision.admitted:
+            self.metrics.inc_request(model, endpoint, rtype, "429")
+            return self._error(
+                429, decision.reason + "; retry later", code="rate_limited",
+                headers={"Retry-After": str(decision.retry_after_s)},
+            )
 
         tool_matcher = None
         if kind == "chat" and req.tool_choice not in (None, "none") and not req.tools:
@@ -467,6 +526,11 @@ class HttpService:
             meta["x-request-id"] = request.headers["x-request-id"]
         ctx = new_context(request_id=pre.request_id, metadata=meta)
         ctx.ensure_trace_id()
+        # the tags ride the preprocessed request: the scheduler serves it at
+        # the admitted class
+        pre.tenant = tenant
+        pre.scenario = request.headers.get("x-scenario", "")
+        pre.priority = priority
 
         self.metrics.inflight(model, 1)
         try:

@@ -32,9 +32,8 @@ A round's draft step does both phases on the device:
 
 On the card the step is the runner's captured graph (one per table width,
 sampled and filtered, ``ModelRunner._step``), and so is each draft prefill
-chunk (one per bucket and width). The reference sizes draft prefill chunks
-by its depth-aware planner (``chunk_len_for``, ROADMAP Queue 1 item 12);
-the port takes ``max_prefill_chunk`` rows a chunk.
+chunk (one per bucket and width). Draft prefill chunks are sized by the
+depth-aware planner (``EngineConfig.chunk_len_for``), as the reference's.
 """
 
 from __future__ import annotations
@@ -187,7 +186,7 @@ class DraftModelRunner:
         table = self.table_for(seq_id)
         start = 0
         while start < n:
-            end = min(start + self.config.max_prefill_chunk, n)
+            end = min(start + self.config.chunk_len_for(start), n)
             self._prefill_chunk(np.asarray(tokens[start:end], np.int32), start, table)
             start = end
         return True

@@ -340,14 +340,31 @@ def test_write_token_slots_feeds_the_next_window(reference):
 
 
 def test_page_exhaustion_finishes_instead_of_hanging(reference):
-    """Without preemption a sequence that cannot grow for lack of pages
-    finishes with "error" (after the pipeline drains); the others complete."""
+    """A pool too small for two growing sequences: the pressure ladder
+    drains the pipeline and preempts the most recent sequence back to the
+    waiting queue, and both requests end with "length" and the JAX
+    engine's tokens on the same pool (it preempts too)."""
     _, params = reference
-    outs = run_port(params, [
-        EngineRequest(f"p{i}", list(range(1 + i, 13 + i)), SamplingParams(max_tokens=30))
-        for i in range(2)
-    ], num_pages=15, watermark=0.0)  # 14 pages: one 42-token sequence fits (11), two do not
-    reasons = sorted(r for _, r in outs)
-    assert reasons == ["error", "length"]
-    done = next(t for t, r in outs if r == "length")
-    assert len(done) == 30
+    over = dict(num_pages=15, watermark=0.0)  # 14 pages: one 42-token sequence fits (11), two do not
+    prompts = [list(range(1 + i, 13 + i)) for i in range(2)]
+
+    async def jax_run():
+        engine = AsyncJaxEngine(JaxEngineConfig(model_id="tiny", tp=1, **dict(ENGINE, **over)))
+        await engine.start()
+        try:
+            outs = await asyncio.gather(*(
+                collect(engine, JaxEngineRequest(f"j{i}", p, JaxSamplingParams(max_tokens=30)))
+                for i, p in enumerate(prompts)
+            ))
+            return outs, engine.scheduler.preempt_count
+        finally:
+            await engine.shutdown()
+
+    ref_outs, ref_preempts = asyncio.run(jax_run())
+    outs, engine = run_port_engine(params, [
+        EngineRequest(f"p{i}", p, SamplingParams(max_tokens=30)) for i, p in enumerate(prompts)
+    ], **over)
+    assert ref_preempts >= 1 and engine.scheduler.preempt_count >= 1
+    for (toks, reason), (ref_toks, ref_reason) in zip(outs, ref_outs):
+        assert reason == ref_reason == "length"
+        assert toks == ref_toks and len(toks) == 30

@@ -84,9 +84,11 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
        K5 K6;
        folded serve / folded int8 serve: TinyLlama-1.1B geometry (head_dim
        64, prompts clipped to 1984), bf16 / int8 KV cache, K3a K3b;
-       chunked serve / grouped serve: Llama-3-8B geometry, bf16 KV, with
+       chunked serve / grouped serve: Llama-3-8B geometry at 8 of its 32
+       layers (a depth cut for the time limit), bf16 KV, with
        DYNTPU_DECODE_KERNEL=chunked / grouped: K4a / K4b decode (as many
-       launches as K1 in serve) and K2; no K1, K3 or other K4 launch;
+       launches as K1 in serve, scaled by the layers) and K2; no K1, K3 or
+       other K4 launch;
        http serve: the CLI's parse of `run 'tiny:{Llama-3-8B}' --in http
        --out torch --http-port 0 --max-model-len 2112 ...` (page size 4),
        its HTTP service on a background event loop, the 16 prompts as
@@ -224,6 +226,24 @@ or PATH). Phases, each of which raises on failure (exit code != 0):
        two engines behind WorkerServices on one broker: POST /admin/drain
        while 4 streams decode: all end at full length, migrated > 0, the
        drained worker leaves the kv router's index
+     lora serve (``phase_lora_serve``): multi-LoRA, adapters at rank 8 over
+       4 device slots, no new kernel (the delta is two torch matmuls a
+       module group over the slot-concatenated pool). (a) Llama-3-8B width,
+       2 layers, f32: 8 greedy streams of 32 tokens over four adapters and
+       the base in one batch equal each alone, their merged weights (W + s A
+       B) and, for the base, a LoRA-less engine, exactly; (b) 32 layers,
+       bf16, six adapters: 16 streams of 64 tokens end at 64, adapter
+       streams differ from the base model's, >= 2 evictions and 6 host
+       loads, the streams equal to their alone runs counted, one prompt
+       under two adapters: 0 cached tokens first, a hit on each repeat; (c)
+       int8_wo weights (K8) at 2 layers f32: mixed equals alone; (e) the
+       HTTP service on (b)'s engine: /v1/models lists the adapters, a
+       <model>:l1 stream's engine-side tokens equal the in-process run, an
+       unknown adapter is a 404 before any SSE byte; (d) a decode step's
+       and a 512-row prefill call's device ms with and without adapters,
+       in turns, graph pool bytes beside the adapter pool's, a slot load's
+       host ms and stream span; K1 / K2 / K8 replay tallies of the LoRA
+       engines
   9. refusals: an int8 cache on tiny-mla and on K4a, K3b over float16 and
      K4b at a folded head dim raise on the card; K1 at head_dim 640 and K3a
      at 520, which the launchers refused before, launch and hold their plain
@@ -2898,8 +2918,8 @@ class PreemptEngine:
         self.admissions = []  # (request id, cached tokens), on the engine thread
         start = self.sched._start_sequence
 
-        def start_recorded(req, slot):
-            start(req, slot)
+        def start_recorded(req, slot, **kw):
+            start(req, slot, **kw)
             self.admissions.append((req.request_id, self.sched.slots[slot].cached_len))
 
         self.sched._start_sequence = start_recorded
@@ -4797,6 +4817,375 @@ async def drain_workers(gpu_name: str, source, dest, vocab: int) -> None:
         await dest.shutdown()
 
 
+
+# ---------------- lora serve: multi-LoRA serving ----------------
+
+# the decode-kernel switch's serve phases run the Llama workload at this
+# depth (chunked serve, grouped serve)
+SWITCH_LAYERS = 8
+
+LORA_RANK, LORA_SLOTS = 8, 4
+LORA_SPECS = tuple(f"l{i}=random:{100 + i}" for i in range(1, 7))  # six synthetic adapters
+LORA_MAX_LEN = 1152  # prompts to 512 tokens and 64 out; the cost timings at context 1024 (72 pages, one width)
+LORA_CTX = 1024
+
+
+def lora_config(model_id: str, adapters=LORA_SPECS[:4], **over):
+    """An engine of the lora serve phase: page size 16, 16 slots, one
+    512-row prefill bucket at up to two lanes and one table width (few graph
+    shapes to capture), the adapters at rank 8 over 4 device slots."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+
+    return EngineConfig(**{**dict(model_id=model_id, device="cuda", page_size=16, num_pages=2048, max_seqs=16,
+                                  max_model_len=LORA_MAX_LEN, prefill_lanes=2, prefill_buckets=(512,),
+                                  lora_adapters=adapters, max_loras=LORA_SLOTS, lora_rank=LORA_RANK), **over})
+
+
+def lora_requests(rng, vocab: int, loras: list, lens: tuple, n: int, tag: str) -> list:
+    return [greedy(f"{tag}{i}", rng.integers(1, vocab, int(k)).tolist(), n, lora_name=lora)
+            for i, (k, lora) in enumerate(zip(rng.integers(lens[0], lens[1] + 1, len(loras)), loras))]
+
+
+def held_equal(what: str, got: dict, want: dict, rids) -> None:
+    """Raise unless every ``rid`` has the same tokens (and "length") in both."""
+    bad = [rid for rid in rids if got[rid][:2] != want[rid][:2] or got[rid][1] != "length"]
+    if bad:
+        raise AssertionError(f"{what}: streams differ: " + "; ".join(
+            f"{rid} {got[rid][0]} != {want[rid][0]}" for rid in bad[:3]))
+
+
+def lora_identity(torch, gpu_name: str, launchers: dict, quantize: str | None = None) -> dict:
+    """(a) f32, or (c) int8_wo weights over f32 activations: Llama-3-8B
+    width at 2 layers (a depth cut: identity), adapters l1-l4 at rank 8 and
+    the base, 8 greedy streams of 32 tokens in one mixed batch. Each stream
+    must equal the same request served alone on the engine (prefix cache
+    emptied), and, full precision, an adapter's streams the merged weights'
+    (W + scale A B on a LoRA-less engine, f32) and the base streams the
+    LoRA-less engine's, exactly. Returns the LoRA engine's replay tallies."""
+    from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+    from dynamo_tpu_torch.lora import load_adapter, merge_adapter_into_params
+    from dynamo_tpu_torch.models.registry import load_model
+    from dynamo_tpu_torch.tools.workload import LLAMA3_8B
+
+    what = f"lora serve ({'c' if quantize else 'a'})"
+    geometry = dict(LLAMA3_8B, num_layers=2, dtype="f32", **({"quantize": quantize} if quantize else {}))
+    model_id = "tiny:" + json.dumps(geometry)
+    cfg = lora_config(model_id, num_pages=512, max_seqs=8, quantize=quantize)
+    model = load_model(model_id, device="cuda")
+    merged = None if quantize else load_model(model_id, device="cuda")  # the same seed: the base weights
+    reqs = lora_requests(np.random.default_rng(31), LLAMA3_8B["vocab_size"], ["", "l1", "l2", "l3", "l4", "", "l1", "l3"],
+                         (64, 400), 32, "a")
+
+    async def body():
+        engine = AsyncTorchEngine(cfg, model=model)
+        plain = None if merged is None else AsyncTorchEngine(dataclasses.replace(cfg, lora_adapters=()), model=merged)
+        for e in (engine, plain):
+            if e is not None:
+                await e.start()
+        try:
+            mixed, _ = await serve_on(engine, reqs)
+            await engine.run_on_engine(engine.allocator.reset_prefix_cache)
+            alone = {}
+            for r in reqs:
+                alone |= (await serve_on(engine, [fresh(r)]))[0]
+            held_equal(f"{what} mixed against alone", mixed, alone, [r.request_id for r in reqs])
+            tally = replay_tally(engine, launchers)
+            if plain is None:
+                return mixed, tally
+            base = (await serve_on(plain, [fresh(r) for r in reqs if not r.lora_name]))[0]
+            held_equal(f"{what} base streams against the LoRA-less engine", mixed, base, list(base))
+            for name, source in engine.runner.lora_store.sources.items():
+                tree, scale = load_adapter(source, model.config, LORA_RANK)
+                sd = merge_adapter_into_params(model, tree, scale)
+                await plain.run_on_engine(lambda sd=sd: (merged.load_state_dict(sd, strict=False),
+                                                         plain.allocator.reset_prefix_cache()))
+                got = (await serve_on(plain, [fresh(r, lora_name="") for r in reqs if r.lora_name == name]))[0]
+                held_equal(f"{what} {name} against its merged weights", mixed, got, list(got))
+            return mixed, tally
+        finally:
+            for e in (engine, plain):
+                if e is not None:
+                    await e.shutdown()
+
+    mixed, tally = asyncio.run(body())
+    distinct = len({tuple(mixed[r.request_id][0]) for r in reqs if r.request_id in ("a0", "a1", "a2", "a3", "a4")})
+    log(f"{what} [{gpu_name}]: Llama-3-8B width, 2 layers, {quantize or 'f32'} weights, f32: 8 greedy streams of 32 "
+        f"tokens (adapters l1-l4 at rank {LORA_RANK} and the base) in one mixed batch equal each served alone"
+        + ("" if quantize else ", the adapter streams equal their merged weights (W + s A B) on a LoRA-less engine "
+           "and the base streams that engine's")
+        + f", exactly; {distinct} distinct streams of the base and four adapters; replay tallies "
+        + " ".join(f"{k} {v}" for k, v in tally.items()))
+    del model, merged
+    torch.cuda.empty_cache()
+    return tally
+
+
+def lora_window_step_ms(torch, runner, cfg, pairs: int = 5, steps=(8, 32)) -> list[float]:
+    """Device ms a decode step of the runner's window (every slot active at
+    LORA_CTX, greedy, the feedback on the device): CUDA events around one
+    window's dispatch and replay, (t(long) - t(short)) / span, per pair."""
+    B, ps = cfg.max_seqs, cfg.page_size
+    npp = -(-(LORA_CTX + steps[1] + 8) // ps)
+    tables = np.zeros((B, cfg.max_pages_per_seq), np.int32)
+    for i in range(B):
+        tables[i, :npp] = 1 + i * npp + np.arange(npp)
+    zeros = np.zeros(B, np.float32)
+
+    def timed(n) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = runner.dispatch_decode_window(np.full(B, LORA_CTX, np.int32), tables, np.ones(B, bool),
+                                            np.full(B, npp * ps - 1, np.int32), zeros, np.zeros(B, np.int32),
+                                            np.ones(B, np.float32), n)
+        end.record()
+        end.synchronize()
+        res.numpy()
+        return start.elapsed_time(end)
+
+    for n in steps:
+        timed(n)  # the capture, where the graph is new
+    span = steps[1] - steps[0]
+    return [(timed(steps[1]) - timed(steps[0])) / span for _ in range(pairs)]
+
+
+def lora_prefill_ms(torch, runner, lora_slot: int, vocab: int, reps: int = 5) -> list[float]:
+    """Device ms of one 512-row prefill call (one lane at position 0, its
+    token dropped) on the runner's captured graph: CUDA events around the
+    dispatch and replay."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+
+    table = np.zeros(runner.config.max_pages_per_seq, np.int32)
+    table[:32] = np.arange(1, 33)
+    lane = (np.random.default_rng(7).integers(1, vocab, 512).astype(np.int32), 0, table, -1,
+            SamplingParams(temperature=0.0), (), False, lora_slot)
+
+    def timed() -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = runner.prefill_chunk_batch([lane], N=1)
+        end.record()
+        end.synchronize()
+        res.numpy()
+        return start.elapsed_time(end)
+
+    timed()
+    return sorted(timed() for _ in range(reps))
+
+
+def phase_lora_serve(torch, gpu_name: str, kernels: dict) -> dict:
+    """Multi-LoRA serving (``dynamo_tpu_torch/lora/``; ``kernels``: {name:
+    launcher} of every serving kernel). Returns {K1, K2, K8: the LoRA
+    engines' replay tallies over the phase}.
+
+      (a) ``lora_identity`` in f32: mixed against alone, merged weights
+          and the LoRA-less base, exactly;
+      (b) bf16, Llama-3-8B at full depth (32 layers), adapters l1-l6 over 4
+          slots at rank 8: 16 greedy streams of 64 tokens (prompts of
+          200-500) over the adapters and the base in one batch: every stream
+          ends at 64, every adapter stream differs from the same prompt on
+          the base model, 2 or more evictions and 6 host loads; the streams
+          equal to their alone runs counted (bf16); the same 512-token
+          prompt under two adapters: 0 cached tokens on each first request,
+          a hit on each repeat;
+      (c) ``lora_identity`` with int8_wo weights: mixed against alone;
+      (e) the port's HTTP service (``frontends/http.build_service``) on
+          (b)'s engine: /v1/models lists the base and its six adapters, a
+          ``<model>:l1`` completion stream ends at 64 tokens and [DONE] and
+          its engine-side tokens equal the same request served in process,
+          and an unknown adapter is a 404 model_not_found before any SSE
+          byte, stream and unary;
+      (d) cost, after (b)'s engines stopped: a decode step's device ms
+          (CUDA events, 32- less 8-step windows, 16 slots at context 1024)
+          and a 512-row prefill call's on (b)'s engine and on a LoRA-less
+          engine of the same geometry on the same weights, in turns; each
+          engine's graph pool bytes beside the adapter pool's; a slot
+          load's host ms and its stream span from a pinned host copy."""
+    import threading
+    from argparse import Namespace
+
+    from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+    from dynamo_tpu_torch.frontends.http import build_service
+    from dynamo_tpu_torch.lora import load_adapter
+    from dynamo_tpu_torch.models.registry import load_model
+    from dynamo_tpu_torch.tools.profile_http import http_call, http_stream
+    from dynamo_tpu_torch.tools.workload import LLAMA3_8B
+
+    on_path = {n: kernels[n] for n in ("K1", "K2", "K8")}
+    stray = {n: fn for n, fn in kernels.items() if n not in on_path}
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    tallies = [lora_identity(torch, gpu_name, {n: kernels[n] for n in ("K1", "K2")})]
+    t0 = lap("lora serve (a)", t0)
+    tallies.append(lora_identity(torch, gpu_name, on_path, quantize="int8_wo"))
+    if tallies[-1]["K8"] <= 0:
+        raise AssertionError(f"lora serve (c): K8 never replayed: {tallies[-1]}")
+    t0 = lap("lora serve (c)", t0)
+
+    vocab = LLAMA3_8B["vocab_size"]
+    model_id = "tiny:" + json.dumps(LLAMA3_8B)
+    model = load_model(model_id, device="cuda")
+    # no warmup: each engine captures the shapes it serves on first use,
+    # the same set on both (an 8-step window, prefill calls of one and two
+    # lanes, (d)'s 32-step window), so their graph pools compare
+    engine = AsyncTorchEngine(lora_config(model_id, adapters=LORA_SPECS), model=model)
+    plain = AsyncTorchEngine(lora_config(model_id, adapters=()), model=model)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="lora-serve", daemon=True)
+    thread.start()
+
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(600)
+
+    names = [f"l{i}" for i in range(1, 7)]
+    rng = np.random.default_rng(33)
+    reqs = lora_requests(rng, vocab, (names + [""]) * 2 + ["l1", ""], (200, 500), 64, "b")
+    service = None
+    try:
+        on_loop(engine.start())
+        on_loop(plain.start())
+        mixed, wall = on_loop(serve_on(engine, reqs))
+        store = engine.runner.lora_store
+        bad = {rid: (len(t), f) for rid, (t, f, _) in mixed.items() if len(t) != 64 or f != "length"}
+        if bad:
+            raise AssertionError(f"lora serve (b): streams not ending with 64 tokens: {bad}")
+        if store.evictions < 2 or store.loads != 6:
+            raise AssertionError(f"lora serve (b): evictions {store.evictions}, loads {store.loads} (want >= 2, 6)")
+        adapter_reqs = [r for r in reqs if r.lora_name]
+        base = on_loop(serve_on(plain, [fresh(r, lora_name="") for r in adapter_reqs]))[0]
+        same_as_base = [r.request_id for r in adapter_reqs if base[r.request_id][0] == mixed[r.request_id][0]]
+        if same_as_base:
+            raise AssertionError(f"lora serve (b): adapter streams equal the base model's: {same_as_base}")
+        on_loop(engine.run_on_engine(engine.allocator.reset_prefix_cache))
+        alone = {}
+        for r in reqs:
+            alone |= on_loop(serve_on(engine, [fresh(r)]))[0]
+        equal_alone = sum(alone[rid][0] == mixed[rid][0] for rid in mixed)
+        prompt = rng.integers(1, vocab, 512).tolist()
+        cached = {}
+        for rid, lora in (("p1", "l1"), ("p2", "l2"), ("p3", "l1"), ("p4", "l2")):
+            cached[rid] = on_loop(one_stream(engine, greedy(rid, prompt, 4, lora_name=lora)))["cached"]
+        if cached["p1"] or cached["p2"] or not (cached["p3"] > 0 and cached["p4"] > 0):
+            raise AssertionError(f"lora serve (b): cached tokens under two adapters {cached}")
+        snap = engine.resource_snapshot()
+        log(f"lora serve (b) [{gpu_name}]: Llama-3-8B, 32 layers, bf16, adapters l1-l6 at rank {LORA_RANK} over "
+            f"{LORA_SLOTS} slots: 16 greedy streams of 64 tokens ({len(adapter_reqs)} on adapters, prompts "
+            f"{min(len(r.token_ids) for r in reqs)}-{max(len(r.token_ids) for r in reqs)}) ended at 64, every adapter "
+            f"stream differs from its prompt on the base model (wall {wall:.2f} s, graph captures on first use "
+            f"included); evictions {store.evictions}, host loads {store.loads} ({store.load_seconds:.3f} s on the "
+            f"load thread, {store.load_seconds / store.loads * 1e3:.1f} ms an adapter, its pinned staging "
+            f"included), slot loads {store.slot_loads} ({store.slot_load_seconds / store.slot_loads * 1e3:.2f} "
+            f"host ms each: enqueueing the copies); {equal_alone}/16 bf16 streams equal their alone run; one 512-token prompt under l1 then l2: "
+            f"cached {cached['p1']} and {cached['p2']}, repeated {cached['p3']} and {cached['p4']}; "
+            f"lora_requests {json.dumps(snap['lora_requests'])}")
+        log(f"lora serve (b) graphs: LoRA engine {graphs_line(engine)}; LoRA-less engine {graphs_line(plain)}")
+        t0 = lap("lora serve (b)", t0)
+
+        # (e) the HTTP edge on (b)'s engine
+        seen: dict = {}
+        inner = engine.generate_batched
+
+        async def tee(request):
+            async for batch in inner(request):
+                seen.setdefault(request.request_id, []).extend(o.token for o in batch if o.token is not None)
+                yield batch
+
+        engine.generate_batched = tee
+        service = build_service(engine, Namespace(model=model_id, http_port=0, max_model_len=LORA_MAX_LEN),
+                                host="127.0.0.1")
+        port = on_loop(service.start())
+        status, body = http_call(port, "GET", "/v1/models")
+        ids = {m["id"] for m in json.loads(body)["data"]}
+        if status != 200 or ids != {model_id} | {f"{model_id}:{n}" for n in names}:
+            raise AssertionError(f"lora serve (e): /v1/models answered {status} {sorted(ids)}")
+        r1 = next(r for r in reqs if r.lora_name == "l1")
+        on_loop(engine.run_on_engine(engine.allocator.reset_prefix_cache))
+        msgs, waited = http_stream(port, {"model": f"{model_id}:l1", "prompt": r1.token_ids, "stream": True,
+                                          "temperature": 0, "max_tokens": 64, "ext": {"ignore_eos": True}})
+        finish = msgs[-2].json() if len(msgs) >= 2 else {}
+        if not msgs[-1].is_done or finish.get("usage", {}).get("completion_tokens") != 64:
+            raise AssertionError(f"lora serve (e): the l1 stream ended {[m.data for m in msgs[-2:]]}")
+        http_toks = [t for rid, toks in seen.items() for t in toks]
+        if len(seen) != 1 or http_toks != alone[r1.request_id][0]:
+            raise AssertionError(f"lora serve (e): HTTP l1 stream {http_toks} != in process {alone[r1.request_id][0]}")
+        for path, body in (("/v1/completions", {"model": f"{model_id}:nope", "prompt": [1, 2, 3], "max_tokens": 4,
+                                                "stream": True}),
+                           ("/v1/chat/completions", {"model": f"{model_id}:nope", "max_tokens": 4,
+                                                     "messages": [{"role": "user", "content": "hi"}]})):
+            status, raw = http_call(port, "POST", path, body)
+            if status != 404 or raw.startswith(b"data:") or json.loads(raw)["error"].get("code") != "model_not_found":
+                raise AssertionError(f"lora serve (e): unknown adapter on {path} answered {status} {raw[:200]!r}")
+        log(f"lora serve (e) [{gpu_name}]: the HTTP service on (b)'s engine lists the base and l1-l6; a "
+            f"<model>:l1 completion stream ended at 64 tokens and [DONE] in {waited:.2f} s, its engine-side tokens "
+            f"equal the request served in process; an unknown adapter is a 404 model_not_found before any SSE byte "
+            f"(stream and unary)")
+        on_loop(service.stop())
+        service = None
+        engine.generate_batched = inner
+        t0 = lap("lora serve (e)", t0)
+    finally:
+        if service is not None:
+            on_loop(service.stop())
+        on_loop(engine.shutdown())
+        on_loop(plain.shutdown())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        loop.close()
+    tallies.append(replay_tally(engine, on_path))
+
+    # (d) the delta's cost: the two runners in turns, their engines stopped
+    lr, pr = engine.runner, plain.runner
+    for i in range(engine.config.max_seqs):
+        lr.set_slot_lora(i, 1 + i % LORA_SLOTS)  # a mixed batch; the delta's work does not depend on the ids
+    with torch.no_grad():
+        steps = {"LoRA-less": [], "LoRA": []}
+        prefill = {"LoRA-less": [], "LoRA": []}
+        for name, runner in (("LoRA-less", pr), ("LoRA", lr), ("LoRA", lr), ("LoRA-less", pr)):
+            steps[name] += lora_window_step_ms(torch, runner, runner.config)
+            prefill[name] += lora_prefill_ms(torch, runner, 1 if runner is lr else 0, vocab)
+        tree, scale = load_adapter(lr.lora_store.sources["l1"], model.config, LORA_RANK)
+        nbytes = sum(e["a"].nbytes + e["b"].nbytes for e in tree.values())
+        staged = lr.stage_lora_tree(tree)  # pinned, as the store's load thread stages a host copy
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t_host = time.monotonic()
+        lr.load_lora_slot(1, staged, scale)
+        t_host = time.monotonic() - t_host
+        end.record()
+        end.synchronize()
+        load_span = start.elapsed_time(end)
+
+    def med(v):
+        v = sorted(v)
+        return v[len(v) // 2]
+
+    pool = lr.lora.nbytes()
+    log(f"lora serve (d) [{gpu_name}] (16 slots at context {LORA_CTX}, in turns LoRA-less, LoRA, LoRA, LoRA-less): "
+        f"decode step device ms LoRA {med(steps['LoRA']):.4f} (range {min(steps['LoRA']):.4f}-{max(steps['LoRA']):.4f})"
+        f" against LoRA-less {med(steps['LoRA-less']):.4f} ({min(steps['LoRA-less']):.4f}-"
+        f"{max(steps['LoRA-less']):.4f}): +{med(steps['LoRA']) - med(steps['LoRA-less']):.4f} ms a step; 512-row "
+        f"prefill call device ms LoRA {med(prefill['LoRA']):.3f} against {med(prefill['LoRA-less']):.3f}; adapter "
+        f"pool {pool / 1e6:.1f} MB ({LORA_SLOTS + 1} slots, rank {LORA_RANK}; read once a step: "
+        f"{pool / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s); graph pool LoRA "
+        f"{(lr.graphs.pool_bytes() or 0) / 2**20:.1f} MiB, LoRA-less {(pr.graphs.pool_bytes() or 0) / 2**20:.1f} MiB "
+        f"({lr.compile_monitor.compiles} and {pr.compile_monitor.compiles} captures); a slot load (l1, "
+        f"{nbytes / 1e6:.1f} MB from its pinned host copy): {t_host * 1e3:.2f} host ms, {load_span:.2f} ms stream "
+        f"span ({nbytes / load_span / 1e6:.1f} GB/s)")
+    del engine, plain, lr, pr, model
+    torch.cuda.empty_cache()
+    stray_counts = {n: fn.launches for n, fn in stray.items() if fn.launches}
+    if stray_counts:
+        raise AssertionError(f"lora serve: kernels off this path launched: {stray_counts}")
+    total = {n: sum(t.get(n, 0) for t in tallies) for n in on_path}
+    if min(total.values()) <= 0:
+        raise AssertionError(f"lora serve: a kernel of the path never replayed: {total}")
+    log(f"lora serve: LoRA engines' replay tallies " + " ".join(f"{k} {v}" for k, v in total.items())
+        + " (none of " + ", ".join(stray) + ")")
+    lap("lora serve (d)", t0)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4902,14 +5291,19 @@ def main() -> int:
                                          folded_serve_requests(), folded, paged | int8w),
     }
     # the decode-kernel switch: K4a / K4b take every decode step of the
-    # Llama workload (as many launches as K1 had in serve), K2 its prefill
+    # Llama workload, K2 its prefill, at SWITCH_LAYERS of the 32 layers (a
+    # depth cut for the script's time limit: K1's launches in serve scaled
+    # by the layers)
+    switch_config = dataclasses.replace(
+        serve_config(), model_id="tiny:" + json.dumps(dict(LLAMA3_8B, num_layers=SWITCH_LAYERS)))
     for what, choice, k4, other in (("chunked serve", "chunked", k4a, k4b), ("grouped serve", "grouped", k4b, k4a)):
         name = "K4a" if k4 is k4a else "K4b"
         with decode_kernel_env(choice):
-            runs[what] = phase_serve(torch, smi, what, serve_config(), serve_requests(), {name: k4, "K2": k2},
+            runs[what] = phase_serve(torch, smi, what, switch_config, serve_requests(), {name: k4, "K2": k2},
                                      {"K1": k1, "K3a": k3a, "K3b": k3b, "K4a" if name == "K4b" else "K4b": other})
-        if runs[what][name] != runs["serve"]["K1"]:
-            raise AssertionError(f"{what}: {name} launched {runs[what][name]} times, K1 {runs['serve']['K1']} in serve")
+        if runs[what][name] * LLAMA3_8B["num_layers"] != runs["serve"]["K1"] * SWITCH_LAYERS:
+            raise AssertionError(f"{what}: {name} launched {runs[what][name]} times at {SWITCH_LAYERS} layers, K1 "
+                                 f"{runs['serve']['K1']} in serve at {LLAMA3_8B['num_layers']}")
     t0 = lap("serve paths", t0)
     # speculative decoding: n-gram and draft-model verify rounds on K2 / K5
     runs |= phase_spec_serve(torch, smi, served, {**paged, **folded, **mla, **int8w})
@@ -4947,6 +5341,10 @@ def main() -> int:
     del tier_model, tier_engine
     torch.cuda.empty_cache()
     t0 = lap("migrate serve", t0)
+    # multi-LoRA: the adapter pool through prefill, decode and verify's
+    # bodies, identities in f32, full depth bf16 with eviction, the HTTP edge
+    runs["lora serve"] = phase_lora_serve(torch, smi, {**paged, **folded, **mla, **int8w})
+    t0 = lap("lora serve", t0)
     # HF checkpoint directories through the port's writer, loader and `run`
     runs |= phase_checkpoint_serve(torch, smi, folded, {
         "K1": k1, "K2": k2, "K4a": k4a, "K4b": k4b, "K5": k5, "K6": k6, "K7a": k7a, "K7b": k7b, "K7c": k7c,
@@ -5020,7 +5418,7 @@ def main() -> int:
                 entry["disagg_serve_launches"] = runs[path][key]
         if key in runs["routed serve"]:  # KV-aware routing across two worker replicas, both workers
             entry["routed_serve_launches"] = runs["routed serve"][key]
-        for path in ("tiers serve", "migrate serve"):  # the KV tiers; live migration, both engines
+        for path in ("tiers serve", "migrate serve", "lora serve"):  # KV tiers; migration; LoRA engines' tallies
             if key in runs[path]:
                 entry[path.replace(" ", "_") + "_launches"] = runs[path][key]
         if key in verify_checks:  # the verify pass's shape: lanes of k + 1 rows, its launches in spec serve

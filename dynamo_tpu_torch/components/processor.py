@@ -7,9 +7,10 @@ routing, and relays the BackendOutput stream.
 Mirrors the reference Processor/Router pair (reference: examples/llm/
 components/{processor.py,kv_router.py}). Port of
 ``dynamo_tpu/components/processor.py``: the same endpoints and wire dicts, so
-it routes to the reference's workers as to the port's. Multi-LoRA is not
-ported: the routing salt stays 0, and a request that names ``lora_name`` is
-refused (its stream fails at setup). The reference's processor has no
+it routes to the reference's workers as to the port's. A request that names
+``lora_name`` routes with the adapter's uid as its salt (``lora_uid``, the
+reference's value), so it scores overlap only against that adapter's cached
+blocks, as the engines salt them. The reference's processor has no
 command line; neither has this one (start it from Python, README).
 """
 
@@ -70,11 +71,13 @@ class ProcessorService:
     async def _handle(self, request: dict):
         token_ids = request.get("token_ids", [])
         instance_id = None
-        # multi-LoRA (the adapter uid salting every routing hash) is not
-        # ported: base-model requests only
+        # multi-LoRA: the adapter uid salts every hash the routing decision
+        # uses, as the engines salt their block identity
         salt = 0
         if request.get("lora_name"):
-            raise ValueError(f"LoRA adapter {request['lora_name']!r}: LoRA is not ported to dynamo_tpu_torch yet")
+            from dynamo_tpu_torch.lora.adapter import lora_uid
+
+            salt = lora_uid(str(request["lora_name"]))
         if self.router is not None:
             try:
                 # routing-decision time is hop overhead a trace should see

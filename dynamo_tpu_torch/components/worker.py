@@ -25,9 +25,13 @@ HTTP service).
         --namespace dynamo --component backend --cplane 127.0.0.1:4222 \
         --host-cache-blocks 1024 --disk-cache-bytes 8000000000 --admin-port 0
 
+Multi-LoRA: with ``--lora-adapters`` every adapter registers as its own
+model ``<base>:<adapter>`` on the same endpoint (lease-tied like the base
+card), and a request naming such a model gets the adapter as its
+``lora_name`` (``resolve_adapter``).
+
 The engine runs on the card unless ``--device cpu``. Not ported, and refused
-with ``NotPorted`` by ``main``: ``--tp`` above 1, LoRA adapters and SLO
-targets.
+with ``NotPorted`` by ``main``: ``--tp`` above 1 and SLO targets.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.model_registry import ModelEntry, ModelRegistration
 from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
 from dynamo_tpu_torch.llm.tokenizer import get_tokenizer
+from dynamo_tpu_torch.lora.adapter import parse_adapter_specs
 from dynamo_tpu_torch.utils import get_logger
 
 log = get_logger("components.worker")
@@ -84,6 +89,8 @@ class WorkerService:
         self.backend: Optional[Backend] = None
         self._served = None
         self._registration = None
+        self._lora_registrations: list = []
+        self._adapters = parse_adapter_specs(getattr(engine_config, "lora_adapters", ()))  # {name: source}
         self._kv_publisher: Optional[KvEventPublisher] = None
         # fleet-wide prefix cache: peers pull OUR cached prefixes from this
         # export server; its address rides the stats broadcast so the KV
@@ -163,6 +170,14 @@ class WorkerService:
             self._registration = await ModelRegistration(
                 self.drt.cplane, entry, lease_id=self.drt.primary_lease.lease_id
             ).start()
+            # multi-LoRA: every adapter is a servable model <base>:<adapter>
+            # on the same endpoint and card; _handle maps the suffix back
+            for name in self._adapters:
+                a_entry = ModelEntry(name=f"{self.card.display_name}:{name}", endpoint=entry.endpoint,
+                                     model_type="chat", card=self.card)
+                self._lora_registrations.append(await ModelRegistration(
+                    self.drt.cplane, a_entry, lease_id=self.drt.primary_lease.lease_id
+                ).start())
         return self
 
     async def stop(self) -> None:
@@ -175,6 +190,8 @@ class WorkerService:
                 await self._migrate_served.stop()
             if self._migrate_client is not None:
                 await self._migrate_client.stop()
+            for reg in self._lora_registrations:
+                await reg.stop(unregister=False)
             if self._registration is not None:
                 # unregister=False: the card key is lease-tied, so OUR lease
                 # revoke (runtime shutdown) removes it if we were the owner,
@@ -245,6 +262,8 @@ class WorkerService:
 
     async def _handle(self, request: dict):
         pre = PreprocessedRequest.from_wire(request)
+        if not pre.lora_name:
+            pre.lora_name = resolve_adapter(pre.model, self.card.display_name, self._adapters)
         async for out in self.backend.generate(pre):
             yield output_wire(out)
 
@@ -382,17 +401,26 @@ def output_wire(out) -> dict:
     }
 
 
+def resolve_adapter(model, display_name: str, adapters) -> str:
+    """The adapter a request's model name ``<display_name>:<adapter>`` names,
+    when ``adapters`` holds it, else "" (an exact display-name prefix
+    match, so a tiny override JSON holding ':' does not misparse)."""
+    prefix = display_name + ":"
+    if model and str(model).startswith(prefix):
+        suffix = str(model)[len(prefix):]
+        if suffix in adapters:
+            return suffix
+    return ""
+
+
 def refuse_unported(args) -> None:
     """``NotPorted`` for the reference's worker options whose features the
-    port does not run: ``--tp`` above 1, LoRA and the SLO targets."""
+    port does not run: ``--tp`` above 1 and the SLO targets."""
     from dynamo_tpu_torch.launch._run_impl import NotPorted
 
     if args.tp not in (None, 1):
         raise NotPorted("--tp")
-    for flag, value in (
-        ("--lora-adapters", args.lora_adapters), ("--max-loras", args.max_loras), ("--lora-rank", args.lora_rank),
-        ("--slo-ttft-ms", args.slo_ttft_ms), ("--slo-itl-ms", args.slo_itl_ms),
-    ):
+    for flag, value in (("--slo-ttft-ms", args.slo_ttft_ms), ("--slo-itl-ms", args.slo_itl_ms)):
         if value is not None:
             raise NotPorted(flag)
 
@@ -426,6 +454,9 @@ def engine_config_for(args) -> EngineConfig:
         disk_cache_bytes=args.disk_cache_bytes,
         disk_cache_dir=args.disk_cache_dir,
         offload_watermark=args.offload_watermark,
+        lora_adapters=args.lora_adapters or (),
+        max_loras=args.max_loras,
+        lora_rank=args.lora_rank,
     )
     if args.prefill_buckets:
         kwargs["prefill_buckets"] = tuple(int(b) for b in args.prefill_buckets.split(",") if b)
@@ -536,10 +567,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="context depth past which prefill chunks shrink (0 disables)")
     p.add_argument("--prefill-pipeline-depth", type=int, default=None,
                    help="packed prefill calls dispatched ahead of result materialization")
+    p.add_argument("--lora-adapters", default="",
+                   help="comma-separated LoRA adapter specs served as <model>:<name> (name, name=<dir>, "
+                        "name=random:<seed>); a mixed-adapter batch decodes in one pass")
+    p.add_argument("--max-loras", type=int, default=4,
+                   help="device adapter slots; more adapters than slots evict LRU (host copy kept)")
+    p.add_argument("--lora-rank", type=int, default=8,
+                   help="adapter pool rank (smaller adapters zero-pad; larger ones are rejected)")
     # the reference's options whose features are not ported: NotPorted
-    for flag, kind in (("--lora-adapters", str), ("--max-loras", int), ("--lora-rank", int),
-                       ("--slo-ttft-ms", float), ("--slo-itl-ms", float)):
-        p.add_argument(flag, type=kind, default=None, help="not ported (raises NotPorted)")
+    for flag in ("--slo-ttft-ms", "--slo-itl-ms"):
+        p.add_argument(flag, type=float, default=None, help="not ported (raises NotPorted)")
     return p
 
 

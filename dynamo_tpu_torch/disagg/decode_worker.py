@@ -12,8 +12,9 @@ Flow (mirrors reference: examples/llm/components/worker.py:148-189):
      remote prefill's pages falls back here too, counted in
      ``local_prefill_fallbacks``
 
-LoRA requests prefill locally, as in the reference; the port's scheduler
-refuses them at admission until LoRA is ported.
+LoRA requests prefill locally, as in the reference, and the prefix-cache
+estimate of step 1 is salted with the adapter's uid (``lora_uid``): an
+adapter's cached blocks count only for that adapter.
 """
 
 from __future__ import annotations
@@ -156,8 +157,13 @@ class DisaggDecodeEngine:
         # engine.generate_batched, yet its queue-wait/TTFT/spans must exist
         self.engine._stamp_submission(request)
         prompt = list(request.token_ids)
+        salt = 0
+        if getattr(request, "lora_name", ""):
+            from dynamo_tpu_torch.lora.adapter import lora_uid
+
+            salt = lora_uid(request.lora_name)
         prefix_hit = await self.engine.run_on_engine(
-            lambda: self.engine.sync_lookup_prefix(prompt)
+            lambda: self.engine.sync_lookup_prefix(prompt, salt=salt)
         )
         try:
             queue_depth = await self.drt.cplane.queue_depth(self.queue_name)

@@ -24,7 +24,10 @@ Two halves:
     ``disagg/migrate.py``) names a live sequence and is served from its own
     pages (``sync_export_sequence``). A leading miss returns a clean
     ``gone`` frame, never a timeout: the requester must fall back to
-    recompute immediately.
+    recompute immediately. A LoRA request's hashes are salted with its
+    adapter's uid (the scheduler's ``_lora_salt``), so a holder's adapter
+    prefix answers a peer's request for the same adapter and never a base
+    request or another adapter's: those hashes are not on the holder.
 
   - ``PrefixFetchClient``: requester side, driven by the engine scheduler (a
     thread without an event loop): ``fetch()`` schedules the coroutine onto

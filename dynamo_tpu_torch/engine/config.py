@@ -1,5 +1,6 @@
 """Engine configuration (port of ``dynamo_tpu/engine/config.py``): the fields
-the port reads, plus ``device``."""
+the port reads, plus ``device``. The reference's ``pp`` gate on LoRA has no
+counterpart: the port runs no pipeline parallelism."""
 
 from __future__ import annotations
 
@@ -138,6 +139,21 @@ class EngineConfig:
     # offload_drain_batch (one gather each). >= 1.0 disables the drain
     offload_watermark: float = 0.90
     offload_drain_batch: int = 32
+    # multi-LoRA (dynamo_tpu_torch/lora/): adapter specs this engine serves
+    # as ``<base>:<name>`` model names. A spec is ``name`` (a deterministic
+    # synthetic adapter), ``name=<dir>`` (adapter_config.json +
+    # adapter_model.npz) or ``name=random:<seed>``; a comma string becomes
+    # a tuple. Adapters load into one device pool of max_loras + 1 slots
+    # (slot 0 the zero adapter for base lanes) and a mixed-adapter batch
+    # runs one pass. An adapter not resident loads asynchronously (its
+    # requests wait, the rest serve) and unpinned slots evict LRU, the host
+    # copy kept. () = LoRA off (no pool; the step bodies are unchanged)
+    lora_adapters: tuple = ()
+    # device adapter slots besides the zero slot: more adapters than slots
+    # multiplex through LRU eviction and hot-swap
+    max_loras: int = 4
+    # pool rank: an adapter of smaller r zero-pads (exact), a larger r raises
+    lora_rank: int = 8
 
     def __post_init__(self) -> None:
         if not isinstance(self.warmup, bool) and self.warmup != "background":
@@ -180,6 +196,19 @@ class EngineConfig:
             )
         if any(b <= 0 for b in self.page_table_buckets):
             raise ValueError(f"page_table_buckets must be positive; got {self.page_table_buckets}")
+        if self.lora_adapters:
+            if isinstance(self.lora_adapters, str):
+                # the CLI's comma form: every reader sees a tuple of specs
+                self.lora_adapters = tuple(s.strip() for s in self.lora_adapters.split(",") if s.strip())
+            else:
+                self.lora_adapters = tuple(self.lora_adapters)
+            if self.max_loras < 1:
+                raise ValueError(f"max_loras must be >= 1; got {self.max_loras}")
+            if self.lora_rank < 1:
+                raise ValueError(f"lora_rank must be >= 1; got {self.lora_rank}")
+            from dynamo_tpu_torch.lora.adapter import parse_adapter_specs
+
+            parse_adapter_specs(self.lora_adapters)  # bad specs fail here, not mid-serving
         # a bad speculative spec must fail at config time, not mid-serving
         self.spec  # noqa: B018 - parse_speculative raises on invalid input
 
@@ -189,6 +218,10 @@ class EngineConfig:
         from dynamo_tpu_torch.spec import parse_speculative
 
         return parse_speculative(self.speculative)
+
+    @property
+    def lora_enabled(self) -> bool:
+        return bool(self.lora_adapters)
 
     @property
     def max_pages_per_seq(self) -> int:

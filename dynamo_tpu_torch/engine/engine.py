@@ -58,6 +58,12 @@ local resume over the relayed tokens after it). ``sync_export_sequence``
 serves the ``seq_handoff`` pull from the live sequence's own pages.
 ``render_stage_metrics`` renders the tier and migration families.
 
+Multi-LoRA (``config.lora_adapters``): ``resource_snapshot`` carries the
+adapter store's ``lora_*`` keys (slots resident and capacity, evictions,
+host loads and their seconds, admissions per adapter, the hottest) and
+``render_stage_metrics`` the ``dynamo_lora_*`` families, the reference's
+names, types and help.
+
 The health plane (``utils/health.py``), wired as the reference wires it:
 ``health`` goes ``ready`` when the engine is initialized, ``draining`` at
 shutdown and ``dead`` when the loop has stopped; the step loop stamps a
@@ -316,6 +322,9 @@ class AsyncTorchEngine:
             # drain the disk tier's write queue and stop its thread (a store
             # that owns its directory also removes it)
             await asyncio.get_running_loop().run_in_executor(None, disk.close)
+        store = getattr(self.runner, "lora_store", None)
+        if store is not None:
+            store.close()  # the adapter host-load thread
         self.health.set_state("dead", "shutdown complete")
 
     # ---------------- metrics / events / prefix ----------------
@@ -374,6 +383,20 @@ class AsyncTorchEngine:
             },
             "offload_pressure_blocks": sched.offload_pressure_blocks,
         }
+        store = getattr(self.runner, "lora_store", None)
+        if store is not None:
+            # multi-LoRA: device slot occupancy, eviction and load churn, and
+            # per-adapter demand
+            ls = store.metrics_snapshot()
+            snap.update(
+                lora_resident=ls["resident"],
+                lora_capacity=ls["capacity"],
+                lora_evictions=ls["evictions"],
+                lora_loads=ls["loads"],
+                lora_load_seconds=ls["load_seconds"],
+                lora_requests=ls["requests"],
+                lora_hot=ls["hot"],
+            )
         offload = self.offload
         if offload is not None:
             snap.update(
@@ -405,7 +428,7 @@ class AsyncTorchEngine:
         return snap
 
     def render_stage_metrics(self) -> str:
-        """Prometheus text of the engine's KV tier and live-migration
+        """Prometheus text of the engine's KV tier, live-migration and LoRA
         families (the reference's names, types and help; the rest of its
         stage families are not ported). "" before start."""
         r = self.resource_snapshot()
@@ -484,6 +507,39 @@ class AsyncTorchEngine:
                 "verifying, and dequantizing restore runs (off the engine "
                 "loop — restores park in FETCHING_KV)",
                 [({}, r["disk_restore_s"])],
+            ))
+        if "lora_resident" in r:
+            # the adapter pool: slot occupancy, LRU eviction and host-load
+            # churn, and per-adapter demand
+            parts.append(render_family(
+                "dynamo_lora_slots", "gauge",
+                "LoRA adapter device slots (resident = adapters currently "
+                "holding a slot; capacity excludes the reserved zero slot)",
+                [({"state": "resident"}, r["lora_resident"]),
+                 ({"state": "capacity"}, r["lora_capacity"])],
+            ))
+            parts.append(render_family(
+                "dynamo_lora_evictions_total", "counter",
+                "adapters LRU-evicted from device slots (host copy kept; a "
+                "hot-swap back costs one scatter, not a reload)",
+                [({}, r["lora_evictions"])],
+            ))
+            parts.append(render_family(
+                "dynamo_lora_loads_total", "counter",
+                "adapter host-weight loads (async; requests wait without "
+                "blocking other traffic)",
+                [({}, r["lora_loads"])],
+            ))
+            parts.append(render_family(
+                "dynamo_lora_load_seconds_total", "counter",
+                "cumulative seconds spent loading adapter host weights",
+                [({}, round(r["lora_load_seconds"], 4))],
+            ))
+            parts.append(render_family(
+                "dynamo_lora_requests_total", "counter",
+                "sequences admitted per adapter (slot acquisitions)",
+                [({"adapter": name}, n) for name, n in sorted(r["lora_requests"].items())]
+                or [({"adapter": ""}, 0)],
             ))
         return "".join(parts)
 

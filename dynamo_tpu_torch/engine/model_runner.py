@@ -55,7 +55,27 @@ whose k-token draft step writes its probability rows into
 ``self.draft_q``, the static tensor the verify graphs read. Verify is
 captured once per (table width, sampled, filtered, draft probabilities
 read), the draft step once per (table width, sampled, filtered), and the
-warmup captures both. LoRA and sp wait.
+warmup captures both. sp waits.
+
+Multi-LoRA (``config.lora_adapters``, ``dynamo_tpu_torch/lora/``): the
+adapter pool (``self.lora``, a ``LoraPool`` of max_loras + 1 slots) is
+allocated once at start on the runner's device, and ``self.lora_store``
+maps adapter names to its slots. An adapter's host copy is staged once, on
+the store's load thread (``stage_lora_tree``: pinned tensors on the card's
+host), and ``load_lora_slot`` writes a slot's planes and scale IN PLACE
+(captured graphs read the pool's addresses), copied with
+``non_blocking=True`` from that pinned staging, which stays referenced
+until an event recorded after the copies has completed: a blocking copy
+would wait for every step queued on the stream. A decode slot's adapter slot lives in
+``slot_state["lora"]`` ([max_seqs + 1] int32, the drop row last), written
+by ``set_slot_lora`` at admission and read by every decode window on the
+device; each prefill lane's rides the prefill ``ints`` (the column after
+the lane's decode slot), each verify slot's an ``ints`` row. A LoRA
+engine's step bodies always apply the delta, base lanes on the zero slot,
+so the graphs are the same shapes and count as without adapters (the
+warmup captures the LoRA bodies); an engine without adapters runs the
+bodies unchanged. A model without ``SUPPORTS_LORA`` (DeepSeek) raises at
+init, as the reference's runner does.
 
 KV page export and import (disaggregation, the reference's
 ``extract_pages*`` / ``inject_pages*``): the model's ``gather_pages_wire``
@@ -100,6 +120,10 @@ from dynamo_tpu_torch.utils import get_logger
 from dynamo_tpu_torch.utils.compile_monitor import CompileMonitor
 
 log = get_logger("engine.runner")
+
+#: per-lane control columns of the prefill ``ints`` between the page table
+#: and the EOS ids: start_pos, n_real, top_k, decode slot, adapter slot
+PREFILL_COLS = 5
 
 
 class HostResult:
@@ -182,6 +206,19 @@ class ModelRunner:
 
             self.draft_q = torch.zeros((B, spec.k, model.config.vocab_size), device=self.device)
             self.draft = DraftModelRunner(config, spec, self)
+        # multi-LoRA: the adapter pool, the name -> slot store, and each
+        # decode slot's adapter slot next to the token feedback
+        self.lora = None
+        self.lora_store = None
+        self._lora_staging: list = []  # (event, pinned tensors) of slot loads in flight
+        if config.lora_adapters:
+            from dynamo_tpu_torch.lora import LoraStore, init_lora_pool
+
+            if not getattr(model, "SUPPORTS_LORA", False):
+                raise ValueError(f"model {type(model).__name__} does not support LoRA adapters")
+            self.lora = init_lora_pool(model, config.max_loras, config.lora_rank, device=self.device)
+            self.slot_state["lora"] = torch.zeros(B + 1, dtype=torch.int32, device=self.device)
+            self.lora_store = LoraStore(config, model, self.load_lora_slot, self.stage_lora_tree)
 
     # ---------------- host -> device ----------------
 
@@ -247,9 +284,9 @@ class ModelRunner:
 
     def _prefill_impl(self, ints, flts, noise, bucket: int, mp: int, need_filter: bool, want_lp: bool = False,
                       extras: bool = False):
-        """ints [N, bucket + mp + 4 + MAX_EOS_IDS] = token buf, page table,
-        (start_pos, n_real, top_k, slot), then the lane's EOS ids
-        (V-padded); flts [6, N] = (temperature, top_p, min_p, presence,
+        """ints [N, bucket + mp + PREFILL_COLS + MAX_EOS_IDS] = token buf, page
+        table, (start_pos, n_real, top_k, slot, adapter slot), then the
+        lane's EOS ids (V-padded); flts [6, N] = (temperature, top_p, min_p, presence,
         frequency, repetition). Every lane's last-row logits are sampled;
         the token lands in ``slot_state["tokens"][slot]`` (slot max_seqs =
         dropped). On the packed path the lanes take
@@ -257,7 +294,8 @@ class ModelRunner:
         ``model.prefill``. ``extras``: the EOS ban (the first sampled token
         is generation #1, so a lane's EOS ids are banned outright), then
         the penalties against the slot's state, which takes the sampled
-        token (the drop row takes the others'). Returns (tokens [N],
+        token (the drop row takes the others'). A LoRA runner applies each
+        lane's adapter slot (0 = base). Returns (tokens [N],
         logits [N, V]) and, with ``want_lp``, (chosen logprob [N], top ids
         [N, K], top logprobs [N, K])."""
         tokens = ints[:, :bucket]
@@ -266,18 +304,24 @@ class ModelRunner:
         n = ints[:, bucket + mp + 1]
         top_ks = ints[:, bucket + mp + 2]
         slots = ints[:, bucket + mp + 3]
-        eos_ids = ints[:, bucket + mp + 4 :]
+        lora_ids = ints[:, bucket + mp + 4]
+        eos_ids = ints[:, bucket + mp + PREFILL_COLS :]
         ar = torch.arange(bucket, dtype=torch.int32, device=ints.device)
         positions = (start_pos[:, None] + ar[None, :]).contiguous()
         valid = ar[None, :] < n[:, None]
         last = (n - 1).clamp(min=0)
+        lora = {} if self.lora is None else dict(lora=self.lora)
         if self.packed_prefill_mode:
+            if lora:
+                lora["lora_ids"] = lora_ids.contiguous()
             logits, _ = self.model.prefill_packed(
-                self.kv_cache, tokens, positions, page_tables.contiguous(), valid, last
+                self.kv_cache, tokens, positions, page_tables.contiguous(), valid, last, **lora
             )
         else:
+            if lora:
+                lora["lora_id"] = lora_ids[:1]
             logits, _ = self.model.prefill(
-                self.kv_cache, tokens[0], positions[0], page_tables[0].contiguous(), valid[0], last[0]
+                self.kv_cache, tokens[0], positions[0], page_tables[0].contiguous(), valid[0], last[0], **lora
             )
             logits = logits[None]
         raw = logits
@@ -312,8 +356,9 @@ class ModelRunner:
         position would pass its limit. ``extras``: each step applies the
         penalties against the slots' state, then bans a slot's EOS ids while
         its fed position is below eos_allowed_from, and the active slots'
-        sampled tokens update counts and seen. Returns (tokens [num_steps,
-        B], the last step's raw logits [B, V]) and, with ``want_lp``,
+        sampled tokens update counts and seen. A LoRA runner applies each
+        slot's adapter slot (``slot_state["lora"]``). Returns (tokens
+        [num_steps, B], the last step's raw logits [B, V]) and, with ``want_lp``,
         (chosen logprobs [num_steps, B], top ids and top logprobs
         [num_steps, B, K])."""
         B = ints.shape[1]
@@ -326,6 +371,7 @@ class ModelRunner:
         page_tables = ints[5 + MAX_EOS_IDS :].t().contiguous()
         temps, top_ps, min_ps = flts[0], flts[1], flts[2]
         tokens = self.slot_state["tokens"][:B].clone()
+        lora = {} if self.lora is None else dict(lora=self.lora, lora_ids=self.slot_state["lora"][:B])
         out = torch.empty((num_steps, B), dtype=torch.int32, device=ints.device)
         lp_out = None
         if want_lp:
@@ -340,7 +386,7 @@ class ModelRunner:
             allow = torch.zeros_like(ban)
         logits = None
         for step in range(num_steps):
-            logits, _ = self.model.decode(self.kv_cache, tokens, positions, page_tables, act)
+            logits, _ = self.model.decode(self.kv_cache, tokens, positions, page_tables, act, **lora)
             masked = logits
             if extras:
                 masked = apply_penalties(masked, counts[:B], seen[:B], flts[3], flts[4], flts[5])
@@ -367,9 +413,10 @@ class ModelRunner:
     def _verify_impl(self, ints, flts, noise, K1: int, need_filter: bool, draft_probs=None):
         """Speculative verify step: every slot feeds its anchor token and up
         to K drafts at consecutive positions through ``model.verify``, then
-        ``accept_speculative`` runs on the device. ``ints`` [4 + K1 + W, B]
-        = positions (anchor fed position), active, top_ks, n_drafts, the K1
-        fed-token rows, then the transposed page tables; ``flts`` [3, B] =
+        ``accept_speculative`` runs on the device. ``ints`` [5 + K1 + W, B]
+        = positions (anchor fed position), active, top_ks, n_drafts, adapter
+        slots (read by a LoRA runner), the K1 fed-token rows, then the
+        transposed page tables; ``flts`` [3, B] =
         temps, top_ps, min_ps; ``noise`` [1, B, K + V] (None: no slot
         samples). Rows past a slot's n_drafts scatter their KV to the trash
         page. Returns (tokens [B, K1], n_emit [B], logits [B, K1, V])."""
@@ -377,12 +424,13 @@ class ModelRunner:
         active = ints[1].bool()
         top_ks = ints[2]
         n_drafts = ints[3]
-        fed = ints[4 : 4 + K1].t().contiguous()
-        page_tables = ints[4 + K1 :].t().contiguous()
+        lora = {} if self.lora is None else dict(lora=self.lora, lora_ids=ints[4].contiguous())
+        fed = ints[5 : 5 + K1].t().contiguous()
+        page_tables = ints[5 + K1 :].t().contiguous()
         t_idx = torch.arange(K1, dtype=torch.int32, device=ints.device)
         pos_mat = (positions[:, None] + t_idx[None, :]).contiguous()
         row_valid = active[:, None] & (t_idx[None, :] <= n_drafts[:, None])
-        logits, _ = self.model.verify(self.kv_cache, fed, pos_mat, page_tables, row_valid)
+        logits, _ = self.model.verify(self.kv_cache, fed, pos_mat, page_tables, row_valid, **lora)
         out, n_emit = accept_speculative(
             logits, fed[:, 1:], n_drafts, flts[0], top_ks, flts[1], min_p=flts[2], draft_probs=draft_probs,
             uniform=None if noise is None else noise[0], need_filter=need_filter,
@@ -395,6 +443,45 @@ class ModelRunner:
         """Host-known tokens -> slot token feedback."""
         idx = self._to_device(np.asarray(slots, np.int64))
         self.slot_state["tokens"].index_put_((idx,), self._to_device(np.asarray(tokens, np.int32)))
+
+    # ---------------- multi-LoRA ----------------
+
+    def set_slot_lora(self, slot: int, lora_slot: int) -> None:
+        """Set decode slot ``slot``'s adapter slot in ``slot_state["lora"]``
+        (an in-place index write; a slot out of range lands on the drop
+        row). Written once at admission; decode windows read it on the
+        device. A no-op on a runner without adapters."""
+        if self.lora is None:
+            return
+        B = self.config.max_seqs
+        self.slot_state["lora"][slot if 0 <= slot < B else B] = int(lora_slot)
+
+    def stage_lora_tree(self, host_tree: dict) -> dict:
+        """An adapter's host tree (the reference's: {module: {"a" [L, in, r],
+        "b" [L, r, out]}}, numpy) as f32 tensors to copy from, pinned on the
+        card's host; the store runs this once an adapter, on its load
+        thread."""
+        return {m: {k: self._stage(np.asarray(v, np.float32)) for k, v in e.items()} for m, e in host_tree.items()}
+
+    @torch.no_grad()
+    def load_lora_slot(self, slot: int, host_tree: dict, scale: float) -> None:
+        """Write one adapter (a host tree at the pool rank, staged by
+        ``stage_lora_tree``) and its scale into pool slot ``slot``, in place.
+        The copies leave the pinned staging with ``non_blocking=True``, on
+        the engine thread's stream, so they land after every step already
+        enqueued and before any enqueued after; the staging stays referenced
+        until an event recorded after them has completed."""
+        pool = self.lora
+        for m, entry in host_tree.items():
+            group, cols = pool.a_columns(m, slot)
+            pool.a[group][:, :, cols].copy_(entry["a"], non_blocking=True)
+            pool.b[m][:, pool.b_rows(slot)].copy_(entry["b"], non_blocking=True)
+        pool.scales[slot] = float(scale)
+        if self.device.type == "cuda":
+            self._lora_staging = [(ev, keep) for ev, keep in self._lora_staging if not ev.query()]
+            done = torch.cuda.Event()
+            done.record()
+            self._lora_staging.append((done, host_tree))
 
     # ---------------- KV page export / import (disaggregation) ----------------
 
@@ -521,7 +608,7 @@ class ModelRunner:
     def pack_prefill_lanes(self, lanes: list, N: int):
         """Build the packed int/float control arrays on the host.
         ``lanes``: [(tokens np[int32], start_pos, page_table, slot_or_-1,
-        sampling, eos_ids, is_final)]. Returns (ints, flts, mp, sampled,
+        sampling, eos_ids, is_final[, adapter slot])]. Returns (ints, flts, mp, sampled,
         need_filter, seeds, sample_pos, extras): ``extras`` when a final
         lane has penalties or bans its EOS ids (``min_tokens`` >= 1)."""
         V = self.model.config.vocab_size
@@ -529,15 +616,15 @@ class ModelRunner:
         # the widest lane's ladder bucket; narrow lanes zero-pad into the
         # trash page
         mp = self.config.table_bucket_for(max(len(lane[2]) for lane in lanes))
-        ints = np.zeros((N, bucket + mp + 4 + MAX_EOS_IDS), np.int32)
-        ints[:, bucket + mp + 4 :] = V  # no EOS id to ban
+        ints = np.zeros((N, bucket + mp + PREFILL_COLS + MAX_EOS_IDS), np.int32)
+        ints[:, bucket + mp + PREFILL_COLS :] = V  # no EOS id to ban
         flts = np.zeros((6, N), np.float32)
         flts[1] = 1.0  # top_p neutral
         flts[5] = 1.0  # repetition neutral
         seeds = np.zeros(N, np.int32)
         sample_pos = np.zeros(N, np.int64)
         sampled = need_filter = extras = False
-        for j, (tokens, start_pos, page_table, slot, sampling, eos_ids, is_final) in enumerate(lanes):
+        for j, (tokens, start_pos, page_table, slot, sampling, eos_ids, is_final, *lora_slot) in enumerate(lanes):
             n = len(tokens)
             ints[j, :n] = tokens
             ints[j, bucket : bucket + len(page_table[:mp])] = page_table[:mp]
@@ -545,6 +632,7 @@ class ModelRunner:
             ints[j, bucket + mp + 1] = n
             ints[j, bucket + mp + 2] = sampling.top_k
             ints[j, bucket + mp + 3] = slot if (is_final and slot >= 0) else self.config.max_seqs
+            ints[j, bucket + mp + 4] = lora_slot[0] if lora_slot else 0
             # min_tokens >= 1: the first sampled token (generation #1) must
             # not be EOS (vLLM: EOS is suppressed while generated < min_tokens)
             want_eos = bool(is_final and eos_ids and sampling.min_tokens >= 1 and not sampling.ignore_eos)
@@ -553,7 +641,7 @@ class ModelRunner:
                     log.warning("min_tokens: %d EOS ids exceed the device limit %d; ids beyond the limit "
                                 "are not suppressed", len(eos_ids), MAX_EOS_IDS)
                 ids = np.asarray(eos_ids, np.int32)[:MAX_EOS_IDS]
-                ints[j, bucket + mp + 4 : bucket + mp + 4 + len(ids)] = ids
+                ints[j, bucket + mp + PREFILL_COLS : bucket + mp + PREFILL_COLS + len(ids)] = ids
             flts[:, j] = (sampling.temperature, sampling.top_p, sampling.min_p, sampling.presence_penalty,
                           sampling.frequency_penalty, sampling.repetition_penalty)
             extras = extras or want_eos or (is_final and sampling.needs_penalties)
@@ -563,7 +651,8 @@ class ModelRunner:
                 seeds[j] = fold_seed(sampling.seed)
                 sample_pos[j] = start_pos + n - 1
         # pad lanes: n=0, start 0, page table 0 (every read lands in the
-        # in-bounds trash page), slot out of range so the feedback drops
+        # in-bounds trash page), slot out of range so the feedback drops,
+        # adapter slot 0
         ints[len(lanes) :, bucket + mp + 3] = self.config.max_seqs
         return ints, flts, mp, sampled, need_filter, seeds, sample_pos, extras
 
@@ -576,7 +665,7 @@ class ModelRunner:
         ints, flts, mp, sampled, need_filter, seeds, sample_pos, extras = self.pack_prefill_lanes(lanes, N)
         if extras:
             self._ensure_penalty_state()
-        bucket = ints.shape[1] - mp - 4 - MAX_EOS_IDS
+        bucket = ints.shape[1] - mp - PREFILL_COLS - MAX_EOS_IDS
         noise_args = (N, seeds if seeds.any() else None, sample_pos, 1) if sampled else None
         packed = self.packed_prefill_mode
         label = "prefill_packed" if packed else "prefill"
@@ -596,6 +685,7 @@ class ModelRunner:
         slot: int = -1,  # decode slot to seed with the sampled token (device side)
         eos_ids=(),  # the request's EOS ids (min_tokens bans them on the device)
         want_logprobs: bool = False,  # only a sampling (final) chunk's are read
+        lora_slot: int = 0,  # the chunk's adapter slot (0 = base)
     ) -> HostResult:
         """The per-request path: dispatch ONE prefill chunk of one sequence
         (``model.prefill``). On the final chunk the sampled token also lands
@@ -603,7 +693,7 @@ class ModelRunner:
         sampled token on its way to the host (read it only when
         ``sample``), with ``want_logprobs`` as ``prefill_chunk_batch``
         returns them."""
-        lane = (tokens, start_pos, page_table, slot, sampling, eos_ids, sample)
+        lane = (tokens, start_pos, page_table, slot, sampling, eos_ids, sample, lora_slot)
         return self.prefill_chunk_batch([lane], N=1, want_logprobs=want_logprobs and sample)
 
     @torch.no_grad()
@@ -686,6 +776,7 @@ class ModelRunner:
         min_ps: np.ndarray | None = None,
         seeds: np.ndarray | None = None,  # [B] int32 folded seeds (0 = unseeded)
         draft_probs: torch.Tensor | None = None,  # [B, K, V] from dispatch_draft (stays on the device)
+        lora_slots: np.ndarray | None = None,  # [B] adapter slot per decode slot (None: all base)
     ) -> HostResult:
         """Dispatch one speculative verify pass; returns (tokens [B, K+1],
         n_emit [B]) on their way to the host. The caller reads both before
@@ -705,18 +796,19 @@ class ModelRunner:
             noise_args = (B, seeded, positions, 1, K + self.model.config.vocab_size, SPEC_STREAM)
         need_filter = bool(np.any(live & ((top_ks > 0) | (top_ps < 1.0) | (min_ps > 0))))
         return self._verify(positions, page_tables, active, fed_tokens, n_drafts, temps, top_ks, top_ps, min_ps,
-                            noise_args, need_filter, draft_probs)
+                            noise_args, need_filter, draft_probs, lora_slots)
 
     def _verify(self, positions, page_tables, active, fed_tokens, n_drafts, temps, top_ks, top_ps, min_ps,
-                noise_args, need_filter: bool, draft_probs=None) -> HostResult:
+                noise_args, need_filter: bool, draft_probs=None, lora_slots=None) -> HostResult:
         B, K1 = fed_tokens.shape
-        ints = np.empty((4 + K1 + page_tables.shape[1], B), np.int32)
+        ints = np.empty((5 + K1 + page_tables.shape[1], B), np.int32)
         ints[0] = positions
         ints[1] = active
         ints[2] = top_ks
         ints[3] = n_drafts
-        ints[4 : 4 + K1] = fed_tokens.T
-        ints[4 + K1 :] = page_tables.T
+        ints[4] = lora_slots if lora_slots is not None else 0
+        ints[5 : 5 + K1] = fed_tokens.T
+        ints[5 + K1 :] = page_tables.T
         flts = np.stack([temps, top_ps, min_ps]).astype(np.float32)
         sampled = noise_args is not None
         if not sampled:

@@ -80,10 +80,23 @@ recent lane (``_shed_for_critical``): through the hosting worker's
 ``migrate_shed`` hook (live migration to a peer) when one is wired, with a
 cooldown while that handoff is in flight, else by preemption.
 
+Multi-LoRA (the reference's, ``dynamo_tpu_torch/lora/``): a request that
+names ``lora_name`` pins its adapter's pool slot at admission
+(``runner.lora_store.acquire``). An adapter still loading, or whose slots
+are all pinned, defers the request without blocking the queue behind it
+(deferred requests go back to the queue's front, in order); an unknown
+adapter, a broken source or an engine without adapters fails that request
+with "error" and serves on. The adapter's uid salts the sequence's block
+hashes (``_lora_salt``), so its prefix never serves another adapter or the
+base model, locally, in the router or over the fleet and handoff pulls
+(their hashes are the sequence's own). The pin is released on finish,
+cancel and preemption (re-admission acquires again); adopted sequences
+acquire blocking; prefill lanes, verify rounds and (through
+``runner.set_slot_lora``) decode windows carry the slot.
+
 The request dataclasses keep the reference's field names; fields of features
 this port does not run yet stay at their defaults, and requests that ask for
-them (images, LoRA) are rejected at admission, so there is no adapter to
-release on preemption. ``cancel`` takes the engine's submission number
+them (images) are rejected at admission. ``cancel`` takes the engine's submission number
 too, so an ended stream cannot cancel a later request that reuses its id
 (the reference cancels by id alone); a preempted request keeps its number.
 Disaggregation (the reference's): ``run_prefill_chunks`` is the prefill
@@ -119,7 +132,7 @@ The KV tiers and live migration (the reference's):
     tier while page occupancy is above ``offload_watermark``
     (``_drain_cold_to_host``, ``offload_pressure_blocks``).
 
-Not ported yet: LoRA, metering, the events journal and the stage/metric
+Not ported yet: metering, the events journal and the stage/metric
 planes (of the reference's ``StageStats`` only the spec counters, and the
 prefix pull's counters and wait histogram).
 """
@@ -279,8 +292,6 @@ def _unsupported(req: EngineRequest) -> Optional[str]:
     """Name of a requested feature this port does not run yet, or None."""
     if req.images:
         return "images"
-    if req.lora_name:
-        return "lora"
     return None
 
 
@@ -295,6 +306,10 @@ class Scheduler:
         self._admit_counter = 0
         # per-dispatch host/device phases and the live roofline
         self.anatomy = StepAnatomy(roofline=roofline_for_runner(runner, config))
+        self.lora_store = getattr(runner, "lora_store", None)
+        self._lora_deferred = False  # the last admission deferred a request for its adapter
+        if self.lora_store is not None:
+            self.lora_store.anatomy = self.anatomy  # slot loads record as lora_slot_load dispatches
         self.stage = StageStats()
         self.spec = config.spec
         self.proposer = make_proposer(self.spec) if self.spec is not None else None
@@ -406,9 +421,11 @@ class Scheduler:
         pipeline_full = self._windows_in_flight() >= max(1, self.config.pipeline_depth)
         if pipeline_full or (self.in_flight and not dispatched and not outputs):
             outputs.extend(self._reconcile(block=True))
-        elif not outputs and not dispatched and not self.in_flight and (self._fetching() or self._migrating()):
-            # FETCHING_KV / MIGRATING_OUT is the only live work: both resolve
-            # on another thread's event loop, so don't hot-spin the engine loop
+        elif not outputs and not dispatched and not self.in_flight and (
+                self._fetching() or self._migrating() or self._lora_deferred):
+            # FETCHING_KV / MIGRATING_OUT / an adapter's host load is the only
+            # live work: each resolves on another thread, so don't hot-spin
+            # the engine loop
             time.sleep(0.001)
         return outputs
 
@@ -482,6 +499,7 @@ class Scheduler:
             seq.slot = slot
             self.slots[slot] = seq
             self.runner.write_token_slots(np.array([slot], np.int32), np.array([seq.generated[-1]], np.int32))
+            self.runner.set_slot_lora(slot, seq.lora_slot)
         watermark_pages = int(self.config.watermark * self.config.num_pages)
         cap = self.config.prefill_batches_per_step
         decode_running = any(
@@ -489,44 +507,69 @@ class Scheduler:
         )
         packed = self.runner.packed_prefill_mode
         started = 0.0
-        while self.waiting:
-            slot = self._free_slot()
-            if slot is None:
-                # a waiting critical request may evict a lower-class lane
-                if not self._shed_for_critical(outputs):
-                    break
+        # requests whose adapter is loading (or whose slots are all pinned)
+        # step aside without blocking the queue; they go back to its front
+        deferred: list[EngineRequest] = []
+        try:
+            while self.waiting:
                 slot = self._free_slot()
                 if slot is None:
+                    # a waiting critical request may evict a lower-class lane
+                    if not self._shed_for_critical(outputs):
+                        break
+                    slot = self._free_slot()
+                    if slot is None:
+                        break
+                idx = self._next_waiting_index()
+                req = self.waiting[idx]
+                # rejections are host work only: they go before the fairness cap
+                why = None
+                if len(req.token_ids) > self.config.max_model_len:
+                    why = "oversized prompt"
+                elif not req.token_ids:
+                    why = "empty prompt"
+                else:
+                    why = _unsupported(req)
+                if why is not None:
+                    del self.waiting[idx]
+                    log.warning("rejecting %s: %s", req.request_id, why)
+                    outputs.append(StepOutput(req.request_id, finished=True, finish_reason="error"))
+                    continue
+                if cap and decode_running and started >= cap and not packed:
                     break
-            idx = self._next_waiting_index()
-            req = self.waiting[idx]
-            # rejections are host work only: they go before the fairness cap
-            why = None
-            if len(req.token_ids) > self.config.max_model_len:
-                why = "oversized prompt"
-            elif not req.token_ids:
-                why = "empty prompt"
-            else:
-                why = _unsupported(req)
-            if why is not None:
+                pages_needed = -(-len(req.token_ids) // self.config.page_size)
+                if self.allocator.free_pages < pages_needed + watermark_pages:
+                    break
+                lora_slot = 0
+                if req.lora_name:
+                    try:
+                        if self.lora_store is None:
+                            raise KeyError("the engine has no LoRA adapters")
+                        lora_slot = self.lora_store.acquire(req.lora_name)
+                    except Exception as e:
+                        # unknown adapter or broken source: this request can
+                        # never serve; fail it, not the queue
+                        del self.waiting[idx]
+                        log.warning("rejecting %s: %s", req.request_id, e)
+                        outputs.append(StepOutput(req.request_id, finished=True, finish_reason="error"))
+                        continue
+                    if lora_slot is None:
+                        del self.waiting[idx]
+                        deferred.append(req)
+                        continue
                 del self.waiting[idx]
-                log.warning("rejecting %s: %s", req.request_id, why)
-                outputs.append(StepOutput(req.request_id, finished=True, finish_reason="error"))
-                continue
-            if cap and decode_running and started >= cap and not packed:
-                break
-            pages_needed = -(-len(req.token_ids) // self.config.page_size)
-            if self.allocator.free_pages < pages_needed + watermark_pages:
-                break
-            del self.waiting[idx]
-            try:
-                self._start_sequence(req, slot)
-                # a start consumes 1 / weight cap units: a critical burst
-                # starts more per step than batch work at the same cap
-                started += 1.0 / priority_weight(req.priority) if self.config.qos else 1.0
-            except MemoryError:
-                self.waiting.appendleft(req)
-                break
+                try:
+                    self._start_sequence(req, slot, lora_slot=lora_slot)
+                    # a start consumes 1 / weight cap units: a critical burst
+                    # starts more per step than batch work at the same cap
+                    started += 1.0 / priority_weight(req.priority) if self.config.qos else 1.0
+                except MemoryError:
+                    self._release_lora_name(req.lora_name, lora_slot)
+                    self.waiting.appendleft(req)
+                    break
+        finally:
+            self.waiting.extendleft(reversed(deferred))
+            self._lora_deferred = bool(deferred)
         return outputs
 
     # ---------------- multi-tenant QoS (utils/qos.py) ----------------
@@ -593,9 +636,30 @@ class Scheduler:
         self._preempt(victim)
         return True
 
-    def _start_sequence(self, req: EngineRequest, slot: int) -> None:
+    # ---------------- multi-LoRA ----------------
+
+    def _lora_salt(self, req: EngineRequest) -> int:
+        """The adapter's uid folded into the request's block identity (0 =
+        base): adapter prefixes never cross-hit, locally, in the router's
+        radix view or over the fleet pull."""
+        if not req.lora_name:
+            return 0
+        from dynamo_tpu_torch.lora.adapter import lora_uid
+
+        return lora_uid(req.lora_name)
+
+    def _release_lora_name(self, name: str, lora_slot) -> None:
+        if name and lora_slot and self.lora_store is not None:
+            self.lora_store.release(name)
+
+    def _release_lora(self, seq: RunningSeq) -> None:
+        self._release_lora_name(seq.req.lora_name, seq.lora_slot)
+        seq.lora_slot = 0
+
+    def _start_sequence(self, req: EngineRequest, slot: int, lora_slot: int = 0) -> None:
         wait = max(0.0, time.monotonic() - req.enqueue_ts) if req.enqueue_ts else None
-        cached_len, state = self.allocator.allocate_sequence(req.request_id, req.token_ids)
+        cached_len, state = self.allocator.allocate_sequence(req.request_id, req.token_ids,
+                                                             salt=self._lora_salt(req))
         sam = req.sampling
         if sam.min_tokens >= 1 and not sam.ignore_eos and len(req.eos_token_ids) > MAX_EOS_IDS:
             log.warning("min_tokens: %d EOS ids exceed the device limit %d for %s; the excess are not "
@@ -613,9 +677,12 @@ class Scheduler:
             sched_len=1,  # the prefill's sampled token enters the timeline now
             prefill_pos=cached_len,
             spec_mode=self._spec_eligible(req),
+            lora_slot=lora_slot,
             queue_wait_s=wait,
         )
         self._admit_counter += 1
+        # decode windows read each slot's adapter slot on the device
+        self.runner.set_slot_lora(slot, lora_slot)
         if req.kv_handoff_seq:
             self.migration_in += 1
         prompt_len = len(req.token_ids)
@@ -882,6 +949,7 @@ class Scheduler:
                     seq.req.sampling,
                     () if seq.req.sampling.ignore_eos else seq.req.eos_token_ids,
                     is_final,
+                    seq.lora_slot,
                 ))
                 if is_final:
                     finals.append((seq, j, seq.cached_len))
@@ -897,10 +965,10 @@ class Scheduler:
                     N = min(self.config.lanes_for(bucket), 1 << (len(chunks) - 1).bit_length())
                     result = self.runner.prefill_chunk_batch(lanes, N=N, want_logprobs=want_lp)
                 else:
-                    tokens, start, table, slot, sampling, eos_ids, is_final = lanes[0]
+                    tokens, start, table, slot, sampling, eos_ids, is_final, lora_slot = lanes[0]
                     result = self.runner.prefill_chunk(
                         tokens, start, table, sample=is_final, sampling=sampling, slot=slot, eos_ids=eos_ids,
-                        want_logprobs=want_lp,
+                        want_logprobs=want_lp, lora_slot=lora_slot,
                     )
             except Exception:
                 log.exception(
@@ -1125,10 +1193,12 @@ class Scheduler:
         top_ps = np.ones(B, np.float32)
         min_ps = np.zeros(B, np.float32)
         seeds = np.zeros(B, np.int32)
+        lora_slots = np.zeros(B, np.int32)
         snapshot = []
         for seq, p, drafts, _ in candidates:
             i = seq.slot
             positions[i] = p
+            lora_slots[i] = seq.lora_slot
             page_tables[i, : len(seq.page_table)] = seq.page_table
             active[i] = True
             fed[i, 0] = seq.generated[-1]
@@ -1143,6 +1213,7 @@ class Scheduler:
         result = self.runner.dispatch_verify(
             positions, page_tables, active, fed, n_drafts, temps, top_ks, top_ps, min_ps=min_ps,
             seeds=seeds if np.any(seeds) else None, draft_probs=draft_probs,
+            lora_slots=lora_slots if np.any(lora_slots) else None,
         )
         t_disp = time.monotonic()
         tokens, n_emit = result.numpy()
@@ -1422,8 +1493,9 @@ class Scheduler:
         self.preempt_count += 1
         cls = seq.req.priority or "standard"
         self.qos_preempted[cls] = self.qos_preempted.get(cls, 0) + 1
-        # frees the pages and the draft cache (rebuilt from the resume prompt
-        # at the first spec round after re-admission)
+        # frees the pages, the draft cache (rebuilt from the resume prompt at
+        # the first spec round after re-admission) and the adapter pin
+        # (re-admission acquires again; the host copy is cached)
         self._release(seq)
         req = seq.req
         self.waiting.appendleft(dataclasses.replace(
@@ -1449,9 +1521,13 @@ class Scheduler:
         ))
 
     def _release(self, seq: RunningSeq) -> None:
+        """Free everything a sequence holds: its pages, draft cache and
+        adapter pin (on finish, cancel, preemption and a committed
+        migration)."""
         seq.finished = True
         self.allocator.free_sequence(seq.req.request_id)
         self._free_draft(seq)
+        self._release_lora(seq)
         if seq.slot >= 0 and self.slots[seq.slot] is seq:
             self.slots[seq.slot] = None
         elif seq in self.adopted_waiting:
@@ -1503,6 +1579,16 @@ class Scheduler:
         queues it in ``adopted_waiting`` until one frees."""
         wait = max(0.0, time.monotonic() - req.enqueue_ts) if req.enqueue_ts else None
         state = self.allocator._seqs[req.request_id]
+        lora_slot = 0
+        if req.lora_name:
+            # the KV arrived computed: the adapter must be pinned before any
+            # decode window, and adoption has no retry loop
+            if self.lora_store is None:
+                raise RuntimeError(f"adopted request {req.request_id} names adapter {req.lora_name!r} but the "
+                                   "engine has no LoRA adapters")
+            lora_slot = self.lora_store.acquire_blocking(req.lora_name)
+            if lora_slot is None:
+                raise RuntimeError(f"no free LoRA slot for adopted request {req.request_id}")
         seq = RunningSeq(
             req=req,
             slot=-1,
@@ -1512,6 +1598,7 @@ class Scheduler:
             admitted_order=self._admit_counter,
             sched_len=1,
             spec_mode=self._spec_eligible(req),
+            lora_slot=lora_slot,
             queue_wait_s=wait,
         )
         self._admit_counter += 1
@@ -1520,6 +1607,7 @@ class Scheduler:
             seq.slot = slot
             self.slots[slot] = seq
             self.runner.write_token_slots(np.array([slot], np.int32), np.array([first_token], np.int32))
+            self.runner.set_slot_lora(slot, lora_slot)
         else:
             self.adopted_waiting.append(seq)
         return self._emit_token(seq, first_token, cached=cached_len)

@@ -11,9 +11,11 @@ serves the local engine (torch or echo) as a worker endpoint over the
 distributed runtime and ``--out dyn://ns.comp.ep`` drives a remote one
 (``launch/_remote.py``; the control plane is ``$DYNTPU_CPLANE``). Not ported
 yet, and refused with :class:`NotPorted`: ``--out pytok:`` and the engine
-options whose features the port does not run (tp/pp, LoRA, the long-context
+options whose features the port does not run (tp/pp, the long-context
 offload tiers, SLO targets).
-``--quantize int8_wo``, a checkpoint directory as the model, and speculative
+``--quantize int8_wo``, a checkpoint directory as the model, LoRA adapters
+(``--lora-adapters`` / ``--max-loras`` / ``--lora-rank``, as the
+reference passes them: each adapter serves as ``<base>:<name>``) and speculative
 decoding (``--speculative ngram:k`` / ``draft:<model>:k``, or a
 ``"speculative"`` key in a tiny model's JSON, popped before the registry
 reads the rest, as in the reference) run.
@@ -47,7 +49,7 @@ def run_command(args) -> int:
 
 def _refuse_unported(args) -> None:
     for flag, attr, off in (
-        ("--tp", "tp", (None, 1)), ("--pp", "pp", (None, 1)), ("--lora-adapters", "lora_adapters", (None,)), ("--slo-ttft-ms", "slo_ttft_ms", (None,)),
+        ("--tp", "tp", (None, 1)), ("--pp", "pp", (None, 1)), ("--slo-ttft-ms", "slo_ttft_ms", (None,)),
         ("--slo-itl-ms", "slo_itl_ms", (None,)),
     ):
         if getattr(args, attr, None) not in off:
@@ -59,8 +61,10 @@ def engine_config_for(args):
     reference's defaults: a tiny model gets page size = the card's block
     size, 128 pages, 4 slots and prefill buckets (16, 32); a checkpoint
     directory (page size 16, its card's context length) 2048 pages and 16
-    slots. ``--quantize`` and ``--speculative`` reach both (a bad
-    speculative spec raises the reference's ValueError)."""
+    slots. ``--quantize``, ``--speculative`` and the LoRA flags reach both
+    (a bad speculative or adapter spec raises the reference's ValueError;
+    the adapters arrive as the CLI's comma string or a list, and the
+    EngineConfig makes a tuple of either)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.frontends.pipeline import card_for_model
 
@@ -94,6 +98,13 @@ def engine_config_for(args):
         # the port's tiny card serves full-width models on the card too
         warmup="background",
     )
+    adapters = getattr(args, "lora_adapters", None)
+    if adapters:
+        common.update(
+            lora_adapters=adapters,
+            max_loras=getattr(args, "max_loras", None) or 4,
+            lora_rank=getattr(args, "lora_rank", None) or 8,
+        )
     if is_tiny:
         return EngineConfig(
             num_pages=getattr(args, "num_pages", None) or 128,

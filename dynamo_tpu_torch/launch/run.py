@@ -10,8 +10,9 @@ the reference's ``--out jax``, and ``--device {cuda,cpu}`` (default ``cuda``),
 the port's counterpart of the reference's ``JAX_PLATFORMS``; on ``cuda``
 without a card the engine raises, it never falls back to the CPU. The
 reference's options and subcommands that the port does not run yet
-(``serve``, ``build``, ``deploy``, ``pytok:``, tp/pp, LoRA, SLO targets)
-raise ``NotPorted``; ``--in dyn://`` serves the engine as a worker endpoint
+(``serve``, ``build``, ``deploy``, ``pytok:``, tp/pp, SLO targets)
+raise ``NotPorted``; LoRA adapters (``--lora-adapters a1,a2=<dir>,a3=random:7``)
+serve as model names ``<base>:<adapter>``; ``--in dyn://`` serves the engine as a worker endpoint
 and ``--out dyn://`` drives a remote one (the control plane is
 ``$DYNTPU_CPLANE``); ``--speculative ngram:<k>`` and
 ``draft:<model>:<k>`` run. MODEL is a
@@ -56,9 +57,13 @@ def build_parser() -> argparse.ArgumentParser:
              "draft:<model>:<k> loads a second registry model that drafts k tokens a round in one batched "
              "step (with --quantize / --kv-cache-dtype); both verify in one batched forward pass",
     )
-    run.add_argument("--lora-adapters", default=None, metavar="SPECS", help="LoRA adapters (not ported)")
-    run.add_argument("--max-loras", type=int, default=None, help="device LoRA slots (not ported)")
-    run.add_argument("--lora-rank", type=int, default=None, help="LoRA pool rank (not ported)")
+    run.add_argument("--lora-adapters", default=None, metavar="SPECS",
+                     help="comma-separated LoRA adapter specs served as <model>:<name> (name, name=<dir>, "
+                          "name=random:<seed>); a mixed-adapter batch decodes in one pass")
+    run.add_argument("--max-loras", type=int, default=None,
+                     help="device adapter slots (default 4); more adapters than slots evict LRU")
+    run.add_argument("--lora-rank", type=int, default=None,
+                     help="adapter pool rank (default 8); smaller adapters zero-pad, larger raise")
     run.add_argument("--max-tokens", type=int, default=None, help="batch mode default max_tokens")
     run.add_argument("--slo-ttft-ms", type=float, default=None, help="TTFT SLO target in ms (not ported)")
     run.add_argument("--slo-itl-ms", type=float, default=None, help="ITL SLO target in ms (not ported)")

@@ -22,6 +22,10 @@ module needs no JAX.
   - :func:`ckv_from_jax`: the reference latent pool ``[L*P, ps,
     latent_dim_padded]`` -> the port's ``[L*P, ps, latent_dim]`` (the TPU
     lane pad columns dropped).
+  - :func:`lora_pool_from_jax`: the reference's LoRA pool ``{"scales": [S],
+    "mods": {module: {"a": [L, S, in, r], "b": [L, S, r, out]}}}`` -> the
+    port's slot-concatenated :class:`~dynamo_tpu_torch.lora.store.LoraPool`
+    (values copied, f32).
 """
 
 from __future__ import annotations
@@ -138,3 +142,28 @@ def ckv_from_jax(np_pool, config: DeepseekConfig) -> torch.Tensor:
     if pool.ndim != 3 or pool.shape[2] not in (latent, padded):
         raise ValueError(f"latent pool {pool.shape}: want [L*P, ps, {latent} or {padded}]")
     return torch.from_numpy(np.ascontiguousarray(pool[:, :, :latent])).to(config.dtype)
+
+
+def lora_pool_from_jax(np_pool: dict, device="cpu"):
+    """The reference's stacked LoRA pool (numpy leaves) -> the port's
+    ``LoraPool`` on ``device``: module m's A planes go to its group's
+    columns ``(j * S + s) * r``, its B planes to rows ``s * r``."""
+    from dynamo_tpu_torch.lora.adapter import LORA_GROUPS
+    from dynamo_tpu_torch.lora.store import LoraPool
+
+    mods = np_pool["mods"]
+    scales = np.asarray(np_pool["scales"], np.float32)
+    L, S, _, r = np.asarray(mods["wq"]["a"]).shape
+    if S != scales.shape[0]:
+        raise ValueError(f"pool has {S} slots, scales {scales.shape[0]}")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+
+    a = {}
+    for group, names in LORA_GROUPS:
+        # [L, S, in, r] -> [L, in, S * r] per module, side by side
+        a[group] = t(np.concatenate(
+            [np.asarray(mods[m]["a"]).transpose(0, 2, 1, 3).reshape(L, -1, S * r) for m in names], axis=2))
+    b = {m: t(np.asarray(mods[m]["b"]).reshape(L, S * r, -1)) for _, names in LORA_GROUPS for m in names}
+    return LoraPool(a=a, b=b, scales=t(scales), rank=int(r))

@@ -30,7 +30,23 @@
   - ``gather_pages_wire`` / ``scatter_pages_wire``: the disaggregation
     wire (pages of every layer as one block), see their docstrings.
 
-Not ported yet: LoRA, M-RoPE, sp/pp/tp.
+  - Multi-LoRA (``SUPPORTS_LORA``, ``dynamo_tpu_torch/lora/``): every
+    forward takes ``lora`` (the slot-concatenated ``LoraPool``) and the
+    rows' adapter slots (``lora_ids``: per lane, per slot, or one
+    ``lora_id`` for a single-sequence prefill). ``lora_delta`` adds
+    ``scale[id] * (x @ A[id]) @ B[id]`` at the reference's places: on q, k
+    and v before the attention bias (so cached K/V rows are adapter-specific,
+    which the salted block hashes encode), on wo's output, on gate and up,
+    on down's output. It never gathers per token: x multiplies every slot's
+    A at once, a per-row mask keeps the row's own slot block (times its
+    scale) and zeroes the others (exact zeros), and that multiplies the
+    stacked B. Each plane is read once a call whatever the batch, and
+    nothing in it depends on the data's values, so it captures into a CUDA
+    graph. The delta is f32 (TF32 must stay off for f32 parity) and is
+    added in the activations' dtype; int8_wo weights compose (the delta
+    rides on qlinear's output).
+
+Not ported yet: M-RoPE, sp/pp/tp.
 """
 
 from __future__ import annotations
@@ -41,6 +57,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from dynamo_tpu_torch.lora.adapter import LORA_GROUPS
 from dynamo_tpu_torch.ops.attention import (
     dispatch_paged_decode_attention,
     dispatch_paged_prefill_attention,
@@ -59,6 +76,54 @@ _DTYPES = {
     "f32": torch.float32,
     "float32": torch.float32,
 }
+
+
+_GROUP_MODULES = dict(LORA_GROUPS)
+
+
+def lora_mask(ids: torch.Tensor, scales: torch.Tensor, rank: int) -> torch.Tensor:
+    """[T, S * rank] f32: row t holds ``scales[ids[t]]`` in its slot's
+    ``rank`` columns and 0 in every other slot's."""
+    ids = ids.long()
+    col_slot = torch.arange(scales.shape[0] * rank, device=ids.device) // rank
+    return torch.where(col_slot[None, :] == ids[:, None], scales[ids][:, None], 0.0)
+
+
+def lora_group_delta(x: torch.Tensor, a: torch.Tensor, bs, mask: torch.Tensor) -> list:
+    """The deltas of one module group: ``x`` [T, in], ``a`` [in, n * S * r]
+    (the group's n A planes side by side, each slot-concatenated), ``bs`` the
+    n B planes [S * r, out_j], ``mask`` from :func:`lora_mask`. Returns the n
+    deltas [T, out_j] in x's dtype."""
+    xa = (x.float() @ a).view(x.shape[0], len(bs), -1) * mask[:, None, :]
+    return [(xa[:, j] @ b).to(x.dtype) for j, b in enumerate(bs)]
+
+
+def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, ids, scales: torch.Tensor) -> torch.Tensor:
+    """The reference's ``lora_delta`` on the port's layout: ``scale[ids] *
+    (x @ A[ids]) @ B[ids]`` for one module, ``a`` [in, S * r] and ``b`` [S *
+    r, out] slot-concatenated (slot s in columns / rows s * r to + r),
+    ``ids`` a per-row [T] vector (a mixed batch) or a scalar (a whole
+    single-sequence chunk), slot 0 the zero adapter. f32 arithmetic, the
+    result in x's dtype."""
+    ids = torch.as_tensor(ids, device=x.device).reshape(-1).expand(x.shape[0])
+    rank = b.shape[0] // scales.shape[0]
+    return lora_group_delta(x, a, [b], lora_mask(ids, scales, rank))[0]
+
+
+class LoraInputs:
+    """One forward's LoRA inputs: the pool and the rows' slot mask (built
+    once, read by every layer)."""
+
+    __slots__ = ("pool", "mask")
+
+    def __init__(self, pool, ids: torch.Tensor):
+        self.pool = pool
+        self.mask = lora_mask(ids, pool.scales, pool.rank)
+
+    def delta(self, layer: int, group: str, x: torch.Tensor) -> list:
+        pool = self.pool
+        return lora_group_delta(x, pool.a[group][layer], [pool.b[m][layer] for m in _GROUP_MODULES[group]],
+                                self.mask)
 
 
 def parse_dtype(value) -> Any:
@@ -207,6 +272,8 @@ class LlamaModel(nn.Module):
 
     #: Llama pools take the int8 KV cache (the MLA latent cache does not)
     SUPPORTS_KV_INT8 = True
+    #: llama-family layers take the LoRA pass (dynamo_tpu_torch/lora/)
+    SUPPORTS_LORA = True
 
     def init_kv_cache(self, num_pages: int, page_size: int) -> dict:
         shape = self.kv_cache_shape(num_pages, page_size)
@@ -306,15 +373,26 @@ class LlamaModel(nn.Module):
         flat_phys: torch.Tensor,  # [T] flat page per token (layer trash for invalid)
         offsets: torch.Tensor,  # [T]
         attn_fn,
+        lora: LoraInputs | None = None,
+        layer_idx: int = 0,
     ) -> torch.Tensor:
         """One transformer layer; scatters the new K/V rows into the pools
-        in place, then attends through ``attn_fn(q, k_pool, v_pool)``."""
+        in place, then attends through ``attn_fn(q, k_pool, v_pool)``.
+        ``lora``: the forward's LoRA inputs, whose layer ``layer_idx`` deltas
+        ride on the projections (the reference's places)."""
         c = self.config
         T = hidden.shape[0]
         h = rms_norm(hidden, lp.input_norm, c.rms_norm_eps)
         q_flat = qlinear(h, lp.wq)
         k_flat = qlinear(h, lp.wk)
         v_flat = qlinear(h, lp.wv)
+        if lora is not None:
+            # before rope and the pool scatter: cached K/V rows are
+            # adapter-specific, which the salted block identity encodes
+            dq, dk, dv = lora.delta(layer_idx, "qkv", h)
+            q_flat = q_flat + dq
+            k_flat = k_flat + dk
+            v_flat = v_flat + dv
         if c.attention_bias:
             q_flat = q_flat + lp.bq
             k_flat = k_flat + lp.bk
@@ -325,11 +403,19 @@ class LlamaModel(nn.Module):
         q = apply_rope(q, positions, c.rope_theta)
         k = apply_rope(k, positions, c.rope_theta)
         scatter_kv(k_pool, v_pool, k, v, flat_phys, offsets)
-        attn = attn_fn(q, k_pool, v_pool)
-        hidden = hidden + qlinear(attn.reshape(T, -1), lp.wo)
+        attn = attn_fn(q, k_pool, v_pool).reshape(T, -1)
+        # without adapters the expressions are the plain layer's, so no
+        # intermediate lives longer (a captured graph's pool holds the peak)
+        if lora is None:
+            hidden = hidden + qlinear(attn, lp.wo)
+            h = rms_norm(hidden, lp.post_norm, c.rms_norm_eps)
+            prod = torch.nn.functional.silu(qlinear(h, lp.gate)) * qlinear(h, lp.up)
+            return hidden + qlinear(prod, lp.down)
+        hidden = hidden + (qlinear(attn, lp.wo) + lora.delta(layer_idx, "wo", attn)[0])
         h = rms_norm(hidden, lp.post_norm, c.rms_norm_eps)
-        prod = torch.nn.functional.silu(qlinear(h, lp.gate)) * qlinear(h, lp.up)
-        return hidden + qlinear(prod, lp.down)
+        dg, du = lora.delta(layer_idx, "gu", h)
+        prod = torch.nn.functional.silu(qlinear(h, lp.gate) + dg) * (qlinear(h, lp.up) + du)
+        return hidden + (qlinear(prod, lp.down) + lora.delta(layer_idx, "down", prod)[0])
 
     def _num_pages(self, kv_cache: dict) -> int:
         return kv_cache["k"].shape[0] // self.config.num_layers
@@ -343,12 +429,17 @@ class LlamaModel(nn.Module):
         page_table: torch.Tensor,  # [max_pages] int32 logical (per-layer) page ids
         valid: torch.Tensor,  # [T] bool
         last_idx,  # index of the final real token in chunk (int or 0-d tensor)
+        lora=None,  # the adapter pool (lora/store.py LoraPool)
+        lora_id=None,  # this chunk's adapter slot (int or 0-d tensor; 0 = base)
     ) -> tuple[torch.Tensor, dict]:
         """One (possibly chunked) prefill pass for a single sequence.
         Returns (logits[V] at last_idx, kv_cache)."""
+        lora_ids = None
+        if lora is not None:
+            lora_ids = torch.as_tensor(0 if lora_id is None else lora_id, device=tokens.device).reshape(1)
         logits, kv_cache = self.prefill_packed(
             kv_cache, tokens[None], positions[None], page_table[None], valid[None],
-            torch.as_tensor(last_idx, device=tokens.device).reshape(1),
+            torch.as_tensor(last_idx, device=tokens.device).reshape(1), lora=lora, lora_ids=lora_ids,
         )
         return logits[0], kv_cache
 
@@ -361,19 +452,32 @@ class LlamaModel(nn.Module):
         page_tables: torch.Tensor,  # [N, max_pages] int32 logical page ids per lane
         valid: torch.Tensor,  # [N, T] bool
         last_idx: torch.Tensor,  # [N] index of each lane's final real token
+        lora=None,  # the adapter pool
+        lora_ids: torch.Tensor | None = None,  # [N] per-lane adapter slots
     ) -> tuple[torch.Tensor, dict]:
         """Cross-request packed prefill: N lanes (chunks of N DIFFERENT
-        sequences) in one [N*T] token stream, one weight pass.
+        sequences) in one [N*T] token stream, one weight pass; a
+        mixed-adapter pack takes each lane's slot over its rows.
         Returns (logits [N, V] at each lane's last_idx, kv_cache)."""
         N, T = tokens.shape
-        hidden, kv_cache = self._packed_forward(kv_cache, tokens, positions, page_tables, valid)
+        hidden, kv_cache = self._packed_forward(kv_cache, tokens, positions, page_tables, valid, lora, lora_ids)
         rows = hidden[torch.arange(N, device=hidden.device) * T + last_idx.long()]
         return self._unembed(rows), kv_cache
 
-    def _packed_forward(self, kv_cache, tokens, positions, page_tables, valid):
+    def _lora_inputs(self, lora, lora_ids, rows: int, per: int, device) -> LoraInputs | None:
+        """The forward's LoRA inputs: ``lora_ids`` [rows // per] (None: all
+        base) repeated over each lane's ``per`` rows."""
+        if lora is None:
+            return None
+        if lora_ids is None:
+            lora_ids = torch.zeros(rows // per, dtype=torch.int32, device=device)
+        return LoraInputs(lora, lora_ids[:, None].expand(-1, per).reshape(rows))
+
+    def _packed_forward(self, kv_cache, tokens, positions, page_tables, valid, lora=None, lora_ids=None):
         """Shared N-lane layer stack: one weight pass over the flattened
         [N*T] token stream; paged prefill attention for all lanes in one
-        kernel launch per layer. Returns (hidden [N*T, D], kv_cache)."""
+        kernel launch per layer; ``lora_ids`` [N] broadcast over each lane's
+        rows. Returns (hidden [N*T, D], kv_cache)."""
         c = self.config
         k_pool, v_pool = kv_cache["k"], kv_cache["v"]
         page_size = k_pool.shape[1]
@@ -387,6 +491,7 @@ class LlamaModel(nn.Module):
         pos_flat = positions.reshape(N * T)
         num_pages = self._num_pages(kv_cache)
         hidden = self.embed[tokens.reshape(N * T).long()].to(c.dtype)
+        lora_in = self._lora_inputs(lora, lora_ids, N * T, T, tokens.device)
         for layer_idx, lp in enumerate(self.layers):
             off = layer_idx * num_pages
             tables = page_tables + off
@@ -394,7 +499,8 @@ class LlamaModel(nn.Module):
             def attn_fn(q, kp, vp, tables=tables):
                 return dispatch_paged_prefill_attention(q, kp, vp, tables, positions)
 
-            hidden = self._layer(lp, hidden, k_pool, v_pool, pos_flat, off + phys, offsets, attn_fn)
+            hidden = self._layer(lp, hidden, k_pool, v_pool, pos_flat, off + phys, offsets, attn_fn, lora_in,
+                                 layer_idx)
         return hidden, kv_cache
 
     @torch.no_grad()
@@ -405,6 +511,8 @@ class LlamaModel(nn.Module):
         positions: torch.Tensor,  # [B, T] int32 consecutive fed positions per slot
         page_tables: torch.Tensor,  # [B, max_pages] int32 logical page ids per slot
         valid: torch.Tensor,  # [B, T] bool (invalid rows -> trash page)
+        lora=None,  # the adapter pool
+        lora_ids: torch.Tensor | None = None,  # [B] per-slot adapter slots
     ) -> tuple[torch.Tensor, dict]:
         """Speculative verification: every slot feeds T = k+1 tokens at
         consecutive positions through its paged context in ONE weight pass
@@ -416,7 +524,7 @@ class LlamaModel(nn.Module):
         invalid positions land on the trash page; rejected rows are
         overwritten by the next pass at the advanced anchor."""
         B, T = tokens.shape
-        hidden, kv_cache = self._packed_forward(kv_cache, tokens, positions, page_tables, valid)
+        hidden, kv_cache = self._packed_forward(kv_cache, tokens, positions, page_tables, valid, lora, lora_ids)
         return self._unembed(hidden).reshape(B, T, -1), kv_cache
 
     @torch.no_grad()
@@ -427,6 +535,8 @@ class LlamaModel(nn.Module):
         positions: torch.Tensor,  # [B] int32 its absolute position
         page_tables: torch.Tensor,  # [B, max_pages] int32 logical (per-layer) page ids
         active: torch.Tensor,  # [B] bool
+        lora=None,  # the adapter pool
+        lora_ids: torch.Tensor | None = None,  # [B] per-slot adapter slots
     ) -> tuple[torch.Tensor, dict]:
         """One decode step for the whole batch. Returns (logits[B, V], kv_cache)."""
         c = self.config
@@ -442,6 +552,7 @@ class LlamaModel(nn.Module):
         offsets = torch.where(active, pos % page_size, 0)
         num_pages = self._num_pages(kv_cache)
         hidden = self.embed[tokens.long()].to(c.dtype)
+        lora_in = self._lora_inputs(lora, lora_ids, B, 1, tokens.device)
         for layer_idx, lp in enumerate(self.layers):
             off = layer_idx * num_pages
             tables = page_tables + off
@@ -449,5 +560,6 @@ class LlamaModel(nn.Module):
             def attn_fn(q, kp, vp, tables=tables):
                 return dispatch_paged_decode_attention(q, kp, vp, tables, positions)
 
-            hidden = self._layer(lp, hidden, k_pool, v_pool, positions, off + phys, offsets, attn_fn)
+            hidden = self._layer(lp, hidden, k_pool, v_pool, positions, off + phys, offsets, attn_fn, lora_in,
+                                 layer_idx)
         return self._unembed(hidden), kv_cache

@@ -327,7 +327,7 @@ def test_qos_shed_migrates_the_victim(reference):
     outs, params = reference
 
     async def body():
-        src = port_engine(params, max_seqs=2, qos_preempt_wait_ms=50.0)
+        src = port_engine(params, max_seqs=2, qos_preempt_wait_ms=10.0)
         dst = port_engine(params)
         await src.start()
         await dst.start()

@@ -441,19 +441,35 @@ def test_processors_route_across_packages(loop, reference):
 
 
 def test_lora_request_is_refused_by_the_processor(loop, reference):
-    _, _, params = reference
+    """Since the port serves LoRA, the processor routes a request naming an
+    adapter with the adapter's uid as the routing salt (the reference's
+    value), and a worker whose engine has no adapters refuses it: the
+    stream ends with finish "error" and the worker serves on."""
+    from dynamo_tpu.lora.adapter import lora_uid as ref_lora_uid
+
+    _, outs, params = reference
 
     async def body():
         g = await Graph().start_broker()
         try:
             await g.worker(params, register=False)
             proc = await g.processor()
+            salts = []
+            schedule = proc.router.schedule_with_overlap
+
+            async def recording(token_ids, salt=0):
+                salts.append(salt)
+                return await schedule(token_ids, salt=salt)
+
+            proc.router.schedule_with_overlap = recording
             client = await proc.drt.client("g", "processor", "generate")
             await client.wait_for_instances(5)
             pre = PreprocessedRequest("l", FIRST[0], SamplingParams(max_tokens=2), lora_name="adapter")
-            with pytest.raises(Exception, match="LoRA"):
-                async for _ in await client.random(pre.to_wire()):
-                    pass
+            items = [item async for item in await client.random(pre.to_wire())]
+            assert items[-1]["finish_reason"] == "error" and not any(i.get("token_ids") for i in items)
+            assert salts == [ref_lora_uid("adapter")]
+            toks, _, finish = await through(client, "b", FIRST[0])
+            assert finish == "length" and toks == outs[tuple(FIRST[0])]
         finally:
             await g.close()
 
@@ -461,8 +477,7 @@ def test_lora_request_is_refused_by_the_processor(loop, reference):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--tp", "2"], ["--lora-adapters", "a"], ["--max-loras", "2"], ["--lora-rank", "4"], ["--slo-ttft-ms", "100"],
-    ["--slo-itl-ms", "20"],
+    ["--tp", "2"], ["--slo-ttft-ms", "100"], ["--slo-itl-ms", "20"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_worker_refuses_what_is_not_ported(flag):
     with pytest.raises(NotPorted, match="not ported"):
